@@ -3,8 +3,12 @@
 The port keeps the JAX package's parameter trees (nested dictionaries,
 same keys, same shapes and layouts), so a tree of numpy arrays taken from
 `magi_tpu` becomes the port's parameters leaf by leaf.  bfloat16 leaves
-(numpy's `bfloat16` from ml_dtypes) convert exactly through float32.
-Tests use this to run both packages on the same weights.
+(numpy's `bfloat16` from ml_dtypes) convert exactly through float32;
+every other leaf keeps its dtype, so an int8-quantized tree (`weight_q`
+int8 [L, in, out] in the JAX layout, `weight_scale` f32, the bf16
+`blocks_edge` side tree) and the int8 KV cache dict ({kv: int8, scale:
+f32}) carry over unchanged.  Tests use this to run both packages on the
+same weights and caches.
 """
 
 from __future__ import annotations
@@ -29,6 +33,12 @@ def _tree(tree, device):
 def dit_params_from_jax(tree: dict, device="cpu") -> dict:
     """The JAX package's DiT parameter tree (numpy leaves) as the port's."""
     return _tree(tree, torch.device(device))
+
+
+def kv_cache_from_jax(cache, device="cpu"):
+    """A KV cache of the JAX package (an array, or the int8 dict) as the
+    port's."""
+    return _tree(cache, torch.device(device))
 
 
 def vae_params_from_jax(tree: dict, device="cpu") -> dict:

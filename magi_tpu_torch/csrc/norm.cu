@@ -1,50 +1,58 @@
 // Row-wise normalisation kernels for Hopper (sm_90a).
 //
 // magi_kv_norm_rope_pack replaces magi_tpu/ops/attention.py
-//   kv_norm_rope_pack (_kv_epilogue_kernel, the bf16 variant): per token
+//   kv_norm_rope_pack (_kv_epilogue_kernel, the bf16 variant, K3): per token
 //   and kv head, fp32 LayerNorm of k with (w, b), GPT-NeoX rotary on the
 //   first 2*rot dims, bf16 cast; v passes through.  Both are written into
 //   the cache / attention layout [2, hk*rep, S, hd] (output head g reads
 //   input head g / rep).
+// magi_kv_norm_rope_pack_q8 replaces the int8 branch of the same kernel
+//   (kv_norm_rope_pack(quantize=True), K3q): the same k row, then per-token
+//   symmetric int8 of k from the fp32 normed, roped row (not its bf16
+//   round) and of v, scale max(amax, 1e-8) / 127 and quotient x * (1 /
+//   scale), as the Pallas kernel computes them.  Writes int8 [2, hk*rep,
+//   S, hd] and f32 scales [2, hk*rep, S]: the int8-stored KV cache's layout.
 // magi_gate_norm_residual replaces magi_tpu/ops/fused_norm.py
 //   gate_norm_residual (_kernel):
 //   out = bf16(LN_fp32(gate[seg] * x) * (w (+1)) + b + residual).
 //
-// What bounds them on the H100.  Both are one-pass reductions with a few
+// What bounds them on the H100.  All are one-pass reductions with a few
 // flops per element: the bytes bound them (3.35 TB/s).  Per DiT layer and
-// forward, K3 moves 2*S*hk*hd bf16 in and out; K4 reads x and residual and
-// writes one [S, 3072] bf16 row per token.
+// forward, K3 moves 2*S*hk*hd bf16 in and out (K3q writes half of that in
+// int8, plus 2*S*hk f32 scales); K4 reads x and residual and writes one
+// [S, 3072] bf16 row per token.
 //
 // Design.  Every input element is read once and every output element
 // written once; the fp32 intermediates stay in registers or shared memory,
-// never in device memory.  K3 gives one warp to each (token, head) row of
-// hd elements: a warp-shuffle reduction, and a per-warp row in shared
-// memory so each lane finds its rotary partner.  K4 gives one block to
-// each row of D: the gated row is staged in shared memory in fp32, and the
-// mean and variance are two block reductions over it (two-pass variance,
-// as the Pallas kernel computes it).
+// never in device memory.  K3 and K3q give one warp to each (token, head)
+// row of hd elements: warp-shuffle reductions (sum for the LayerNorm, max
+// for the int8 scales), and a per-warp row in shared memory so each lane
+// finds its rotary partner.  K4 gives one block to each row of D: the
+// gated row is staged in shared memory in fp32, and the mean and variance
+// are two block reductions over it (two-pass variance, as the Pallas
+// kernel computes it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
+
 namespace {
+
+using namespace magi;
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kMaxHd = 256;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// one warp per (token, output head) row; EPT = hd / 32 elements per lane
-template <int EPT>
+// one warp per (token, output head) row; EPT = hd / 32 elements per lane.
+// OutT is __nv_bfloat16 (K3) or int8_t (K3q, which also writes `scale`).
+template <int EPT, typename OutT>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock) kv_norm_rope_pack_kernel(
     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v, const float* __restrict__ kw,
     const float* __restrict__ kb, const float* __restrict__ sin, const float* __restrict__ cos,
-    __nv_bfloat16* __restrict__ out, long long S, int hk, int rep, int rot, float eps) {
+    OutT* __restrict__ out, float* __restrict__ scale, long long S, int hk, int rep, int rot, float eps) {
+  constexpr bool kQuant = sizeof(OutT) == 1;
   constexpr int HD = 32 * EPT;
   __shared__ float rows[kWarpsPerBlock][HD];
   const int warp = threadIdx.x >> 5;
@@ -58,8 +66,8 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) kv_norm_rope_pack_kernel(
 
   const __nv_bfloat16* kr = k + (s * hk + ig) * HD;
   const __nv_bfloat16* vr = v + (s * hk + ig) * HD;
-  __nv_bfloat16* ok = out + ((long long)og * S + s) * HD;
-  __nv_bfloat16* ov = out + ((long long)(G + og) * S + s) * HD;
+  OutT* ok = out + ((long long)og * S + s) * HD;
+  OutT* ov = out + ((long long)(G + og) * S + s) * HD;
 
   float x[EPT];
 #pragma unroll
@@ -94,10 +102,34 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) kv_norm_rope_pack_kernel(
       }
     }
   }
+  if constexpr (kQuant) {
+    // per-token scales: max(amax, 1e-8) * (1/127); quotient x * (1/scale)
+    float vf[EPT];
+    float ak = 0.f, av = 0.f;
 #pragma unroll
-  for (int i = 0; i < EPT; ++i) {
-    ok[lane + 32 * i] = __float2bfloat16(x[i]);
-    ov[lane + 32 * i] = vr[lane + 32 * i];
+    for (int i = 0; i < EPT; ++i) {
+      vf[i] = __bfloat162float(vr[lane + 32 * i]);
+      ak = fmaxf(ak, fabsf(x[i]));
+      av = fmaxf(av, fabsf(vf[i]));
+    }
+    const float sk = __fmul_rn(fmaxf(warp_max(ak), 1e-8f), 1.f / 127.f);
+    const float sv = __fmul_rn(fmaxf(warp_max(av), 1e-8f), 1.f / 127.f);
+    const float rk = __fdiv_rn(1.f, sk), rv = __fdiv_rn(1.f, sv);
+#pragma unroll
+    for (int i = 0; i < EPT; ++i) {
+      ok[lane + 32 * i] = (int8_t)quant_mul(x[i], rk);
+      ov[lane + 32 * i] = (int8_t)quant_mul(vf[i], rv);
+    }
+    if (lane == 0) {
+      scale[(long long)og * S + s] = sk;
+      scale[(long long)(G + og) * S + s] = sv;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < EPT; ++i) {
+      ok[lane + 32 * i] = __float2bfloat16(x[i]);
+      ov[lane + 32 * i] = vr[lane + 32 * i];
+    }
   }
 }
 
@@ -169,6 +201,35 @@ __global__ void __launch_bounds__(256) gate_norm_residual_kernel(
   }
 }
 
+template <typename OutT>
+cudaError_t launch_kv_pack(const void* k, const void* v, const float* kw, const float* kb, const float* sin,
+                           const float* cos, OutT* out, float* scale, long long S, int hk, int hd, int rep, int rot,
+                           float eps, cudaStream_t st) {
+  if (S == 0) return cudaSuccess;
+  if (hd % 32 || hd > kMaxHd || 2 * rot > hd) return cudaErrorInvalidValue;
+  const long long rows = S * hk * rep;
+  const unsigned blocks = (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const auto* kk = static_cast<const __nv_bfloat16*>(k);
+  const auto* vv = static_cast<const __nv_bfloat16*>(v);
+  switch (hd / 32) {
+    case 2:
+      kv_norm_rope_pack_kernel<2, OutT><<<blocks, 32 * kWarpsPerBlock, 0, st>>>(kk, vv, kw, kb, sin, cos, out, scale,
+                                                                              S, hk, rep, rot, eps);
+      break;
+    case 4:
+      kv_norm_rope_pack_kernel<4, OutT><<<blocks, 32 * kWarpsPerBlock, 0, st>>>(kk, vv, kw, kb, sin, cos, out, scale,
+                                                                              S, hk, rep, rot, eps);
+      break;
+    case 8:
+      kv_norm_rope_pack_kernel<8, OutT><<<blocks, 32 * kWarpsPerBlock, 0, st>>>(kk, vv, kw, kb, sin, cos, out, scale,
+                                                                              S, hk, rep, rot, eps);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -178,31 +239,17 @@ extern "C" {
 int magi_kv_norm_rope_pack(const void* k, const void* v, const float* kw, const float* kb, const float* sin,
                            const float* cos, void* out, long long S, int hk, int hd, int rep, int rot, float eps,
                            void* stream) {
-  if (S == 0) return 0;
-  if (hd % 32 || hd > kMaxHd || 2 * rot > hd) return (int)cudaErrorInvalidValue;
-  const long long rows = S * hk * rep;
-  const unsigned blocks = (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const auto* kk = static_cast<const __nv_bfloat16*>(k);
-  const auto* vv = static_cast<const __nv_bfloat16*>(v);
-  auto* oo = static_cast<__nv_bfloat16*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd / 32) {
-    case 2:
-      kv_norm_rope_pack_kernel<2><<<blocks, 32 * kWarpsPerBlock, 0, st>>>(kk, vv, kw, kb, sin, cos, oo, S, hk, rep,
-                                                                        rot, eps);
-      break;
-    case 4:
-      kv_norm_rope_pack_kernel<4><<<blocks, 32 * kWarpsPerBlock, 0, st>>>(kk, vv, kw, kb, sin, cos, oo, S, hk, rep,
-                                                                        rot, eps);
-      break;
-    case 8:
-      kv_norm_rope_pack_kernel<8><<<blocks, 32 * kWarpsPerBlock, 0, st>>>(kk, vv, kw, kb, sin, cos, oo, S, hk, rep,
-                                                                        rot, eps);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return (int)launch_kv_pack(k, v, kw, kb, sin, cos, static_cast<__nv_bfloat16*>(out), nullptr, S, hk, hd, rep, rot,
+                             eps, static_cast<cudaStream_t>(stream));
+}
+
+// as magi_kv_norm_rope_pack, but out: [2, hk*rep, S, hd] int8 and
+// scale: [2, hk*rep, S] f32 (per-token symmetric int8)
+int magi_kv_norm_rope_pack_q8(const void* k, const void* v, const float* kw, const float* kb, const float* sin,
+                              const float* cos, void* out, float* scale, long long S, int hk, int hd, int rep,
+                              int rot, float eps, void* stream) {
+  return (int)launch_kv_pack(k, v, kw, kb, sin, cos, static_cast<int8_t*>(out), scale, S, hk, hd, rep, rot, eps,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // x, residual, out: [S, D] bf16; gate: [n_seg, D] f32; w, b: [D] f32

@@ -1,5 +1,4 @@
-"""VideoDiT forward on one device in bf16 (the port of
-`magi_tpu.models.dit.model`).
+"""VideoDiT forward on one device (the port of `magi_tpu.models.dit.model`).
 
 * Parameters are the JAX package's tree of plain dictionaries, with the
   layers stacked on a leading [num_layers] axis; a Python loop over the
@@ -7,12 +6,25 @@
 * The token axis packs the batch into `n_segments` equal chunks of
   `seg_len` tokens; the unconditional CFG branch is just other kv ranges.
 * fp32 islands as in the JAX package: embedders, QK LayerNorms, gating
-  and post norms, final LayerNorm and linear.  Dense linears are plain
-  `torch.matmul` in the parameter dtype.
+  and post norms, final LayerNorm and linear.  Dense bf16 linears are
+  plain `torch.matmul` in the parameter dtype.
+* Quantized execution (a tree from `ops.quant.quantize_params_int8`):
+  middle layers quantize each linear group's input per row to int8 and run
+  int8 x int8 GEMMs; layers 0 and L-1 run bf16 through the tree's
+  `blocks_edge` side tree.  The row quantization runs fused with its
+  producer (the pre-LayerNorm) in K8 (`ops.act_quant.rowquant_fused`) and
+  the GEMMs in K6 (`ops.quant.quantized_matmul_i8`), always: the JAX
+  package's switches between its Pallas kernels and XLA
+  (`MAGI_QMM_IMPL`, `MAGI_FUSED_ACT_QUANT`) are not read here.
 * The KV cache is one [num_layers, 2, hk, tokens, hd] buffer in the
   attention kernel's layout, updated in place: a forward that writes the
   cache writes the slice of its current chunks and reads only earlier
-  tokens, so reads and writes never overlap.
+  tokens, so reads and writes never overlap.  With int8 attention
+  (`engine_config.attn_int8` or `MAGI_ATTN_INT8=1`) it is the dict
+  {kv: int8 [L, 2, hk, tokens, hd], scale: f32 [L, 2, hk, tokens]}
+  written by K3q (`MAGI_ATTN_INT8_STORE=0` keeps a bf16 cache that is
+  quantized every forward), and attention runs K5
+  (`ops.attention_q8`).
 * Attention, the k-side norm+rope+pack and the gated post norms go
   through `magi_tpu_torch.ops` (CUDA kernels on the card, their plain
   versions on the CPU).
@@ -20,6 +32,7 @@
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -36,12 +49,36 @@ from magi_tpu_torch.models.dit.embedders import (
     y_embedder_forward,
 )
 from magi_tpu_torch.models.dit.rope import default_bands, rope_3d_segments
+from magi_tpu_torch.ops.act_quant import rowquant_fused
 from magi_tpu_torch.ops.attention import (
+    apply_q_prologue,
     kv_norm_rope_pack,
     segmented_attention_two_source,
     segmented_attention_v2,
 )
+from magi_tpu_torch.ops.attention_q8 import (
+    quantize_kv_per_token,
+    segmented_attention_two_source_q8,
+    segmented_attention_two_source_q8_reference,
+)
 from magi_tpu_torch.ops.fused_norm import gate_norm_residual
+from magi_tpu_torch.ops.quant import quantized_matmul, quantized_matmul_i8
+
+
+def attn_int8(config: MagiConfig) -> bool:
+    """int8 attention over an int8 KV cache: `engine_config.attn_int8` or
+    `MAGI_ATTN_INT8=1` (the JAX package's switch)."""
+    return bool(config.engine_config.attn_int8) or os.environ.get("MAGI_ATTN_INT8", "0") == "1"
+
+
+def attn_int8_store(config: MagiConfig) -> bool:
+    """int8 attention with the KV cache stored int8 (the default when int8
+    attention is on); `MAGI_ATTN_INT8_STORE=0` keeps a bf16 cache that is
+    quantized every forward.  On the CPU the two modes give the same
+    numbers; on the card the store mode quantizes k from its f32 normed row
+    (K3q) and the other from the bf16 cache, so k may differ by one int8
+    step."""
+    return attn_int8(config) and os.environ.get("MAGI_ATTN_INT8_STORE", "1") == "1"
 
 
 def layer_norm(x, params, eps: float, zero_centered: bool = False):
@@ -65,11 +102,83 @@ def _dot(x, w, high_precision: bool = False):
     return x @ w
 
 
+def _apply_pre(x, pre, eps):
+    """The unfused producer of a linear group's input: None, ("ln", params)
+    a shared pre-LayerNorm, or ("swiglu",) on a gated fc1 output."""
+    if pre is None:
+        return x
+    if pre[0] == "ln":
+        return layer_norm(x, pre[1], eps)
+    d = x.shape[-1] // 2
+    return F.silu(x[..., :d].float()).to(x.dtype) * x[..., d:]
+
+
+def _linears_shared(x, plist, act_ok: bool, high_precision: bool = False, pre=None, eps: float = 1e-6):
+    """Several linears on one shared input, the single dispatch of every
+    DiT linear (the JAX package's single-device branches): bf16 `weight`,
+    or int8 `weight_q` + per-channel `weight_scale`.  With int8 weights and
+    `act_ok` the input is quantized once per row for the whole group and
+    each linear is an int8 x int8 GEMM; without `act_ok` (a quantized tree
+    without `blocks_edge`, edge layers) each is the bf16 x int8 dequant
+    GEMM.  `pre` is the group input's producer (see `_apply_pre`); the
+    int8 branch runs it fused with the row quantization (K8), and each
+    GEMM is K6: the kernels on CUDA tensors, their plain versions on CPU
+    tensors."""
+    if "weight_q4" in plist[0]:
+        raise NotImplementedError("int4 weights (weight_q4) are ROADMAP queue 1 item 11, the 24B w4a8 slice")
+    if "weight_q" not in plist[0]:
+        x = _apply_pre(x, pre, eps)
+        return tuple(_dot(x, pp["weight"], high_precision) for pp in plist)
+    if "act_smooth" in plist[0]:
+        raise NotImplementedError("smooth-quant (act_smooth) linears are ROADMAP queue 1 item 11")
+    if not act_ok:
+        x = _apply_pre(x, pre, eps)
+        return tuple(quantized_matmul(x, pp["weight_q"], pp["weight_scale"]).to(x.dtype) for pp in plist)
+
+    mode = "plain" if pre is None else pre[0]
+    lnp = pre[1] if mode == "ln" else None
+    xq, rs = rowquant_fused(
+        x, mode, None if lnp is None else lnp["weight"], None if lnp is None else lnp["bias"], eps=eps
+    )
+    return tuple(quantized_matmul_i8(xq, rs, pp["weight_q"], pp["weight_scale"], out_dtype=x.dtype) for pp in plist)
+
+
+def _merge_edge(blk: dict, edge: dict) -> dict:
+    """A quantized layer tree with each {weight_q, weight_scale} node
+    replaced by the bf16 {weight} of the `blocks_edge` side tree."""
+    out = {}
+    for k, v in blk.items():
+        if isinstance(v, dict):
+            if "weight_q" in v or "weight_q4" in v:
+                out[k] = {"weight": edge[k]["weight"]}
+            else:
+                out[k] = _merge_edge(v, edge.get(k, {}))
+        else:
+            out[k] = v
+    return out
+
+
 def _bias_modulate_add(x, residual, gate, post_norm_params, eps, zero_centered, n_seg):
     """fp32(gate[seg] * x) -> post norm -> + residual, in one kernel pass."""
     return gate_norm_residual(
         x, residual, gate.contiguous(), post_norm_params["weight"], post_norm_params["bias"],
         eps=eps, zero_centered=zero_centered, n_seg=n_seg,
+    )
+
+
+def _q8_attention(q, kv1, kv2, r1s, r1e, r2s, r2e, *, seg_len, q_pro):
+    """int8 two-source attention; each source is an {kv, scale} dict or a
+    bf16 [2, hk, tok, hd] tensor quantized per token here.  K5 with the
+    fused q prologue on the card; on the CPU the JAX package's CPU path
+    (q normed and roped first, the dequant reference)."""
+    kv1_8, sc1 = (kv1["kv"], kv1["scale"]) if isinstance(kv1, dict) else quantize_kv_per_token(kv1)
+    kv2_8, sc2 = (kv2["kv"], kv2["scale"]) if isinstance(kv2, dict) else quantize_kv_per_token(kv2)
+    if q.device.type == "cuda":
+        return segmented_attention_two_source_q8(
+            q, kv1_8, sc1, kv2_8, sc2, r1s, r1e, r2s, r2e, seg_len=seg_len, q_prologue=q_pro
+        )
+    return segmented_attention_two_source_q8_reference(
+        apply_q_prologue(q, q_pro), kv1_8, sc1, kv2_8, sc2, r1s, r1e, r2s, r2e, seg_len=seg_len
     )
 
 
@@ -80,11 +189,16 @@ def attention_forward(
     y_xattn: torch.Tensor,  # [n_seg, L, xattn_hidden] fp32
     sin: torch.Tensor,
     cos: torch.Tensor,
-    cache_l: Optional[torch.Tensor],  # [2, hk, max_tok, hd], updated in place
+    cache_l,  # [2, hk, max_tok, hd] or the int8 {kv, scale} dict; updated in place
     meta: ForwardMeta,
+    act_quant_ok: bool = False,
+    int8_attn: bool = False,
+    int8_store: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Self-attention (cache + current window) and caption cross-attention.
-    Returns (core_attn_out [S, hq*hd], xattn_out [S, hq*hd])."""
+    Returns (core_attn_out [S, hq*hd], xattn_out [S, hq*hd]).  `int8_attn`
+    runs both through int8 attention; `int8_store` (the cache is the int8
+    dict) packs the current kv to int8 with K3q on the card."""
     S, D = x.shape
     hd = cfg.kv_channels
     hq = cfg.num_attention_heads
@@ -92,19 +206,28 @@ def attention_forward(
     eps = cfg.layernorm_epsilon
     one = 1.0 if cfg.apply_layernorm_1p else 0.0
     n_seg, ctn = meta.n_segments, meta.seg_len
+    on_card = x.device.type == "cuda"
 
-    xin = layer_norm(x, p["linear_qkv"]["layer_norm"], eps)
+    # q/qx/k/v share the pre-LN output: one row quantization covers all four
     lq = p["linear_qkv"]
-    q, qx, k, v = (_dot(xin, lq[n]["weight"]) for n in ("q", "qx", "k", "v"))
+    q, qx, k, v = _linears_shared(
+        x, [lq["q"], lq["qx"], lq["k"], lq["v"]], act_quant_ok, pre=("ln", lq["layer_norm"]), eps=eps
+    )
 
     # q-side fp32 QK-norm + rope run in the attention kernel's prologue
     q_pro = (p["q_layernorm"]["weight"].float() + one, p["q_layernorm"]["bias"].float(), sin, cos, eps)
     q = q.reshape(S, hq, hd)
 
-    # k side: fp32 norm + rope + cast, packed into the cache layout
+    # k side: fp32 norm + rope + cast, packed into the cache layout (on the
+    # card with an int8-stored cache, quantized per token in the same pass)
     kw = (p["k_layernorm"]["weight"].float() + one).contiguous()
     kb = p["k_layernorm"]["bias"].float().contiguous()
-    kv = kv_norm_rope_pack(k.reshape(S, hk, hd), v.reshape(S, hk, hd), kw, kb, sin, cos, eps=eps, out_dtype=x.dtype)
+    k, v = k.reshape(S, hk, hd), v.reshape(S, hk, hd)
+    if on_card and int8_store:
+        kv8, sc = kv_norm_rope_pack(k, v, kw, kb, sin, cos, eps=eps, quantize=True)
+        kv = {"kv": kv8, "scale": sc}
+    else:
+        kv = kv_norm_rope_pack(k, v, kw, kb, sin, cos, eps=eps, out_dtype=x.dtype)
 
     gs = meta.self_attn.kv_start
     ge = meta.self_attn.kv_end
@@ -116,22 +239,40 @@ def attention_forward(
         if meta.update_kv_cache:
             # the distill ride-along chunk is not written
             clip = S - ctn if meta.distill_nearly_clean_chunk else S
-            if start_tok + clip > cache_l.shape[2]:
-                raise ValueError(f"cache write [{start_tok}, {start_tok + clip}) overflows {cache_l.shape[2]} tokens")
-            cache_l[:, :, start_tok : start_tok + clip] = kv[:, :, :clip].to(cache_l.dtype)
+            cache_tokens = (cache_l["kv"] if isinstance(cache_l, dict) else cache_l).shape[2]
+            if start_tok + clip > cache_tokens:
+                raise ValueError(f"cache write [{start_tok}, {start_tok + clip}) overflows {cache_tokens} tokens")
+            if isinstance(cache_l, dict):
+                # int8-stored cache: only the written slice is quantized
+                if isinstance(kv, dict):
+                    kv8_w, sc_w = kv["kv"][:, :, :clip], kv["scale"][:, :, :clip]
+                else:
+                    kv8_w, sc_w = quantize_kv_per_token(kv[:, :, :clip])
+                cache_l["kv"][:, :, start_tok : start_tok + clip] = kv8_w
+                cache_l["scale"][:, :, start_tok : start_tok + clip] = sc_w
+            else:
+                cache_l[:, :, start_tok : start_tok + clip] = kv[:, :, :clip].to(cache_l.dtype)
         r1s = torch.clamp(gs, max=start_tok)
         r1e = torch.clamp(ge, max=start_tok)
         r2s = torch.clamp(gs - start_tok, min=0)
         r2e = torch.clamp(ge - start_tok, min=0)
-        core = segmented_attention_two_source(
-            q, cache_l.to(x.dtype), kv, r1s, r1e, r2s, r2e, seg_len=ctn, q_prologue=q_pro
-        )
+        cache_in = cache_l if isinstance(cache_l, dict) else cache_l.to(x.dtype)
+        if int8_attn:
+            core = _q8_attention(q, cache_in, kv, r1s, r1e, r2s, r2e, seg_len=ctn, q_pro=q_pro)
+        else:
+            core = segmented_attention_two_source(q, cache_in, kv, r1s, r1e, r2s, r2e, seg_len=ctn, q_prologue=q_pro)
     else:
         # no-cache forwards (the uncond CFG branch): the same two-source
         # kernel with an empty first source
-        empty = torch.zeros((2, kv.shape[1], 0, hd), dtype=kv.dtype, device=kv.device)
         z = torch.zeros_like(gs)
-        core = segmented_attention_two_source(q, empty, kv, z, z, gs, ge, seg_len=ctn, q_prologue=q_pro)
+        if isinstance(kv, dict):
+            empty = {"kv": kv["kv"][:, :, :0], "scale": kv["scale"][:, :, :0]}
+        else:
+            empty = torch.zeros((2, kv.shape[1], 0, hd), dtype=kv.dtype, device=kv.device)
+        if int8_attn:
+            core = _q8_attention(q, empty, kv, z, z, gs, ge, seg_len=ctn, q_pro=q_pro)
+        else:
+            core = segmented_attention_two_source(q, empty, kv, z, z, gs, ge, seg_len=ctn, q_prologue=q_pro)
     core = core.reshape(S, hq * hd)
 
     # caption cross-attention: norm-only q prologue, no rope
@@ -141,12 +282,22 @@ def attention_forward(
     qx = qx.reshape(S, hq, hd)
     L = y_xattn.shape[1]
     y_flat = y_xattn.reshape(n_seg * L, -1).to(x.dtype)
-    kv_x = _dot(y_flat, p["linear_kv_xattn"]["weight"]).reshape(n_seg * L, hk, 2 * hd)
+    (kv_x,) = _linears_shared(y_flat, [p["linear_kv_xattn"]], act_quant_ok)
+    kv_x = kv_x.reshape(n_seg * L, hk, 2 * hd)
     k_x = layer_norm(kv_x[..., :hd], p["k_layernorm_xattn"], eps, cfg.apply_layernorm_1p).contiguous()
     v_x = kv_x[..., hd:].contiguous()
     x_starts = torch.arange(n_seg, dtype=torch.int32, device=x.device) * L
     x_ends = x_starts + meta.y_lens.to(device=x.device, dtype=torch.int32)
-    xattn = segmented_attention_v2(qx, k_x, v_x, x_starts, x_ends, seg_len=ctn, q_prologue=qx_pro)
+    if int8_attn and (hd % 128 == 0 or not on_card):
+        # int8 cross-attention: the caption kv is source 1 of the int8
+        # two-source kernel, source 2 is empty
+        kv_cap = torch.stack([k_x.transpose(0, 1), v_x.transpose(0, 1)])
+        kv8, sc = quantize_kv_per_token(kv_cap.to(x.dtype))
+        empty = {"kv": kv8[:, :, :0], "scale": sc[:, :, :0]}
+        z = torch.zeros_like(x_starts)
+        xattn = _q8_attention(qx, {"kv": kv8, "scale": sc}, empty, x_starts, x_ends, z, z, seg_len=ctn, q_pro=qx_pro)
+    else:
+        xattn = segmented_attention_v2(qx, k_x, v_x, x_starts, x_ends, seg_len=ctn, q_prologue=qx_pro)
     return core, xattn.reshape(S, hq * hd)
 
 
@@ -158,30 +309,38 @@ def layer_forward(
     y_xattn: torch.Tensor,
     sin: torch.Tensor,
     cos: torch.Tensor,
-    cache_l: Optional[torch.Tensor],
+    cache_l,
     meta: ForwardMeta,
     high_precision: bool = False,
+    act_quant_ok: bool = False,
+    int8_attn: bool = False,
+    int8_store: bool = False,
 ) -> torch.Tensor:
     """One parallel-attention transformer layer."""
     eps = cfg.layernorm_epsilon
     zc = cfg.apply_layernorm_1p
     residual = x
-    core, xattn = attention_forward(p["self_attention"], cfg, x, y_xattn, sin, cos, cache_l, meta)
+    core, xattn = attention_forward(
+        p["self_attention"], cfg, x, y_xattn, sin, cos, cache_l, meta, act_quant_ok, int8_attn, int8_store
+    )
     attn_out = torch.cat([core, xattn], dim=-1)  # [S, 2*hq*hd]
-    attn_out = _dot(attn_out, p["self_attention"]["linear_proj"]["weight"], high_precision).to(x.dtype)
+    (attn_out,) = _linears_shared(
+        attn_out, [p["self_attention"]["linear_proj"]], act_quant_ok, high_precision=high_precision
+    )
+    attn_out = attn_out.to(x.dtype)
 
     gate = softcap(ada_modulate_forward(p["ada_modulate_layer"], condition), 1.0)
     gate_msa, gate_mlp = gate.chunk(2, dim=-1)
     x = _bias_modulate_add(attn_out, residual, gate_msa, p["self_attn_post_norm"], eps, zc, meta.n_segments)
 
     residual = x
-    h = _dot(layer_norm(x, p["mlp"]["layer_norm"], eps), p["mlp"]["linear_fc1"]["weight"])
+    # the LayerNorm (and SwiGLU) ride into their consumer linears as `pre`
+    (h,) = _linears_shared(x, [p["mlp"]["linear_fc1"]], act_quant_ok, pre=("ln", p["mlp"]["layer_norm"]), eps=eps)
     if cfg.gated_linear_unit:
-        d = h.shape[-1] // 2
-        h = F.silu(h[..., :d].float()).to(h.dtype) * h[..., d:]
+        (h,) = _linears_shared(h, [p["mlp"]["linear_fc2"]], act_quant_ok, pre=("swiglu",), eps=eps)
     else:
         h = F.gelu(h, approximate="none")
-    h = _dot(h, p["mlp"]["linear_fc2"]["weight"])
+        (h,) = _linears_shared(h, [p["mlp"]["linear_fc2"]], act_quant_ok)
     return _bias_modulate_add(h, residual, gate_mlp, p["mlp_post_norm"], eps, zc, meta.n_segments)
 
 
@@ -202,11 +361,12 @@ def unpatchify(x: torch.Tensor, cfg: ModelConfig, T_patch: int, H: int, W: int) 
     return x.reshape(C, T_patch * tp, H * p, W * p)
 
 
-def dit_prologue(params: dict, config: MagiConfig, x, t, y, caption_dropout, meta: ForwardMeta, t_offsets):
-    """Embedding stage in fp32.  Returns (h [S, D], condition, y_xattn, sin, cos)."""
+def dit_prologue(params: dict, config: MagiConfig, x, t, y, caption_dropout, meta: ForwardMeta, t_offsets,
+                 distill_factor: Optional[float] = None):
+    """Embedding stage in fp32.  Returns (h [S, D], condition, y_xattn, sin,
+    cos).  A distilled model (`engine_config.distill`) adds the timestep
+    embedding of its step size `distill_factor` to the condition."""
     mc = config.model_config
-    if config.engine_config.distill:
-        raise NotImplementedError("distill forwards are ROADMAP queue 1 item 10 (not in this slice)")
     x = x.float() * mc.x_rescale_factor
     if mc.half_channel_vae:
         x = torch.cat([x, x], dim=0)
@@ -217,6 +377,11 @@ def dit_prologue(params: dict, config: MagiConfig, x, t, y, caption_dropout, met
 
     sin, cos = rope_3d_segments(params["rope"]["bands"], t_offsets, Tp // meta.n_segments, Hp, Wp)
     t_emb = t_embedder_forward(params["t_embedder"], t)
+    if config.engine_config.distill:
+        if distill_factor is None:
+            raise ValueError("a distill model's forward needs distill_factor")
+        dt = torch.full(t.shape, float(distill_factor), dtype=torch.float32, device=t.device)
+        t_emb = t_emb + t_embedder_forward(params["t_embedder"], dt)
     y_xattn, y_adaln = y_embedder_forward(params["y_embedder"], y, caption_dropout)
     if y_adaln.ndim == 1:
         y_adaln = y_adaln[None, :]
@@ -239,6 +404,22 @@ def layer_params(blocks: dict, idx: int) -> dict:
     return {k: layer_params(v, idx) if isinstance(v, dict) else v[idx] for k, v in blocks.items()}
 
 
+def _apply_layer_routed(blk, edge, config: MagiConfig, idx: int, *args, **kwargs):
+    """Layer `idx` with the quantized tree's routing: middle layers run
+    int8 weights and int8 activations; layers 0 and L-1 run bf16 through
+    the `blocks_edge` side tree (the reference's first/last-layer policy).
+    A quantized tree without `blocks_edge` runs its edge layers with bf16
+    activations on the int8 weights (the dequant GEMM).  bf16 trees ignore
+    the routing."""
+    L = config.model_config.num_layers
+    if edge is None:
+        return layer_forward(blk, config.model_config, *args, act_quant_ok=0 < idx < L - 1, **kwargs)
+    if idx in (0, L - 1):
+        ew = edge["first"] if idx == 0 else edge["last"]
+        return layer_forward(_merge_edge(blk, ew), config.model_config, *args, act_quant_ok=False, **kwargs)
+    return layer_forward(blk, config.model_config, *args, act_quant_ok=True, **kwargs)
+
+
 def dit_forward(
     params: dict,
     config: MagiConfig,
@@ -246,10 +427,11 @@ def dit_forward(
     t: torch.Tensor,  # [n_seg] timesteps
     y: torch.Tensor,  # [n_seg, L, caption_channels]
     caption_dropout,  # bool, or bool [n_seg]
-    kv_cache: Optional[torch.Tensor],  # [num_layers, 2, hk, max_tok, hd]; None when unused
+    kv_cache,  # [num_layers, 2, hk, max_tok, hd] or the int8 dict; None when unused
     meta: ForwardMeta,
     t_offsets: torch.Tensor,  # int [n_seg] temporal patch-grid offsets
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    distill_factor: Optional[float] = None,
+):
     """Full DiT forward.  Returns (velocity [C_out, T, H, W], kv_cache); a
     forward with `meta.update_kv_cache` has written its slice of the cache
     in place."""
@@ -257,14 +439,26 @@ def dit_forward(
     C, T, H, W = x.shape
     Hp, Wp = H // mc.patch_size, W // mc.patch_size
     Tp = T // mc.t_patch_size
-    h, condition, y_xattn, sin, cos = dit_prologue(params, config, x, t, y, caption_dropout, meta, t_offsets)
+    h, condition, y_xattn, sin, cos = dit_prologue(
+        params, config, x, t, y, caption_dropout, meta, t_offsets, distill_factor
+    )
     if meta.use_kv_cache and kv_cache is None:
         raise ValueError("a forward that reads the KV cache needs one")
-    hp = config.engine_config.high_precision_matmul
+    int8_attn = attn_int8(config)
+    int8_store = attn_int8_store(config)
+    if meta.use_kv_cache and isinstance(kv_cache, dict) != int8_store:
+        raise ValueError("the KV cache's form (int8 dict or bf16 tensor) does not match the int8 attention switches")
+    edge = params.get("blocks_edge")
     for idx in range(mc.num_layers):
-        cache_l = kv_cache[idx] if meta.use_kv_cache else None
-        h = layer_forward(
-            layer_params(params["blocks"], idx), mc, h, condition, y_xattn, sin, cos, cache_l, meta, hp
+        if not meta.use_kv_cache:
+            cache_l = None
+        elif isinstance(kv_cache, dict):
+            cache_l = {"kv": kv_cache["kv"][idx], "scale": kv_cache["scale"][idx]}
+        else:
+            cache_l = kv_cache[idx]
+        h = _apply_layer_routed(
+            layer_params(params["blocks"], idx), edge, config, idx, h, condition, y_xattn, sin, cos, cache_l, meta,
+            high_precision=config.engine_config.high_precision_matmul, int8_attn=int8_attn, int8_store=int8_store,
         )
     return dit_epilogue(params, config, h, Tp, Hp, Wp), kv_cache
 
@@ -349,6 +543,17 @@ def kv_cache_shape(config: MagiConfig, max_tokens: int) -> tuple:
     return (mc.num_layers, 2, mc.num_query_groups, max_tokens, mc.kv_channels)
 
 
-def init_kv_cache(config: MagiConfig, max_tokens: int, device, dtype=None) -> torch.Tensor:
-    return torch.zeros(kv_cache_shape(config, max_tokens), dtype=dtype or config.model_config.params_dtype,
-                       device=device)
+def init_kv_cache(config: MagiConfig, max_tokens: int, device, dtype=None, int8: Optional[bool] = None):
+    """A zero KV cache: the int8 dict {kv: int8 [L, 2, hk, tok, hd], scale:
+    f32 [L, 2, hk, tok]} when the cache is stored int8 (`int8`, by default
+    `attn_int8_store(config)`), else one [L, 2, hk, tok, hd] tensor in
+    `dtype` (the parameter dtype by default)."""
+    shape = kv_cache_shape(config, max_tokens)
+    if int8 is None:
+        int8 = attn_int8_store(config)
+    if int8:
+        return {
+            "kv": torch.zeros(shape, dtype=torch.int8, device=device),
+            "scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        }
+    return torch.zeros(shape, dtype=dtype or config.model_config.params_dtype, device=device)

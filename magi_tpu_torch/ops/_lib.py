@@ -4,7 +4,9 @@ The sources under `csrc/` have a plain C interface.  At first use each is
 compiled by `nvcc` for `sm_90a` (all sources at once, one process each),
 linked into one shared library under `build/magi_tpu_torch/` at the root
 of the checkout, and loaded with `ctypes`.  A library newer than every
-source is reused.  There is no fallback: without `nvcc` or a CUDA device
+source and header is reused.  No `--use_fast_math`: the int8 kernels are
+held bit-exact against their plain versions, which needs IEEE division,
+square root and round-to-nearest-even.  There is no fallback: without `nvcc` or a CUDA device
 the build raises.
 """
 
@@ -20,7 +22,8 @@ from typing import Optional
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "magi_tpu_torch")
-SOURCES = ("attention.cu", "norm.cu")
+SOURCES = ("attention.cu", "attention_q8.cu", "norm.cu", "quant.cu")
+HEADERS = ("ptx.cuh",)
 LIB_NAME = "libmagi_tpu_torch.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -37,7 +40,12 @@ _SIGNATURES = {
     "magi_seg_attn_two_source": [_P, _P, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "magi_seg_attn": [_P, _P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    "magi_seg_attn_two_source_q8": [_P, _P, _P, _P, _LL, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "magi_kv_norm_rope_pack": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
+    "magi_kv_norm_rope_pack_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
+    "magi_qmm_i8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "magi_rowquant": [_P, _P, _P, _P, _P, _LL, _I, _F, _P],
     "magi_gate_norm_residual": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _P],
 }
 
@@ -53,7 +61,7 @@ def _stale(lib_path: str) -> bool:
     if not os.path.exists(lib_path):
         return True
     t = os.path.getmtime(lib_path)
-    return any(os.path.getmtime(os.path.join(CSRC_DIR, s)) > t for s in SOURCES)
+    return any(os.path.getmtime(os.path.join(CSRC_DIR, s)) > t for s in SOURCES + HEADERS)
 
 
 def build() -> str:

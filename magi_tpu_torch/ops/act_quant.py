@@ -1,0 +1,101 @@
+"""Fused producer + per-row int8 quantization of a linear group's input
+(K8, the port of `magi_tpu.ops.act_quant`).
+
+Modes, as in the JAX package:
+
+  * "plain":  q8(x)                        (proj, fc2 after GELU, kv_xattn inputs)
+  * "ln":     q8(bf16(LayerNorm(x)))       (the shared pre-LN -> q/qx/k/v, mlp LN -> fc1)
+  * "swiglu": q8(bf16(silu(x_gate)) * x_up), a gated MLP's fc2 input: the
+              next slice (ROADMAP queue 2 K8s); it raises here.
+
+q8 is `act_quant_rowwise`: scale amax / 127 per row (1 for a zero row),
+value round(x / scale) half to even, clipped to [-127, 127].
+
+`rowquant_fused` launches the CUDA kernel (`csrc/quant.cu`) on CUDA tensors
+(bf16) and runs `rowquant_fused_reference` on CPU tensors, where the "ln"
+output is rounded to x's dtype (bf16, as the kernel does, or f32 for an
+f32 model, as the unfused chain does).  The LayerNorm's mean and variance
+are taken in float64 by both: the sum of a row of bf16 inputs is then
+exact in any order, so the kernel gives the plain version's bits.  The
+JAX package takes them in f32; the two differ by an f32 ulp or so of the
+statistics, which can move an element across a bf16 rounding edge.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from magi_tpu_torch.ops import _lib
+from magi_tpu_torch.ops.quant import act_quant_rowwise
+
+MODES = ("plain", "ln", "swiglu")
+_SWIGLU = "rowquant_fused mode 'swiglu' (K8s, a gated MLP's fc2 input) is ROADMAP queue 2 K8s, the 24B slice"
+
+
+def _layer_norm_f64_stats(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """f32 LayerNorm ((x - mean) * rstd) * w + b of the rows of x, with the
+    mean and variance (two passes) and rstd = 1 / sqrt(var + eps) in
+    float64, eps taken at its f32 value."""
+    n = x.shape[-1]
+    xd = x.double()
+    mean = xd.sum(-1, keepdim=True) / n
+    var = (xd - mean).square().sum(-1, keepdim=True) / n
+    rstd = (1.0 / torch.sqrt(var + float(np.float32(eps)))).float()
+    return (x.float() - mean.float()) * rstd * w.float() + b.float()
+
+
+def rowquant_fused_reference(x, mode: str = "plain", ln_w=None, ln_b=None, *, eps: float = 1e-6):
+    """The plain op chain of each mode."""
+    if mode == "swiglu":
+        raise NotImplementedError(_SWIGLU)
+    if mode == "ln":
+        x = _layer_norm_f64_stats(x, ln_w, ln_b, eps).to(x.dtype)
+    elif mode != "plain":
+        raise ValueError(f"rowquant_fused mode must be one of {MODES}, got {mode!r}")
+    return act_quant_rowwise(x)
+
+
+def rowquant_fused(
+    x: torch.Tensor,  # [S, K] bf16
+    mode: str = "plain",
+    ln_w: Optional[torch.Tensor] = None,  # [K] (zero-centered +1 already applied)
+    ln_b: Optional[torch.Tensor] = None,
+    *,
+    eps: float = 1e-6,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (int8 [S, K], f32 row scales [S])."""
+    if x.device.type == "cpu":
+        return rowquant_fused_reference(x, mode, ln_w, ln_b, eps=eps)
+    fn = "rowquant_fused"
+    if mode == "swiglu":
+        raise NotImplementedError(_SWIGLU)
+    if mode not in ("plain", "ln"):
+        raise ValueError(f"{fn}: mode must be one of {MODES}, got {mode!r}")
+    S, K = x.shape
+    if x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError(f"{fn}: x must be a contiguous bf16 tensor, got {x.dtype} (contiguous={x.is_contiguous()})")
+    if K % 4:
+        raise ValueError(f"{fn}: width {K} must be a multiple of 4")
+    w = b = None
+    if mode == "ln":
+        w = ln_w.to(device=x.device, dtype=torch.float32).contiguous()
+        b = ln_b.to(device=x.device, dtype=torch.float32).contiguous()
+        if w.shape != (K,) or b.shape != (K,):
+            raise ValueError(f"{fn}: ln_w and ln_b must have shape ({K},), got {tuple(w.shape)}, {tuple(b.shape)}")
+    q = torch.empty((S, K), dtype=torch.int8, device=x.device)
+    scale = torch.empty((S,), dtype=torch.float32, device=x.device)
+    if S == 0:
+        return q, scale
+    err = _lib.lib().magi_rowquant(
+        x.data_ptr(), _lib.ptr(w), _lib.ptr(b), q.data_ptr(), scale.data_ptr(), S, K, float(eps),
+        _lib.stream(x.device),
+    )
+    _lib.check(err, fn)
+    rowquant_fused.launches += 1
+    return q, scale
+
+
+rowquant_fused.launches = 0

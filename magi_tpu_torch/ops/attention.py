@@ -12,7 +12,9 @@ GQA: q head h reads kv head h // (hq // hk).
 Each public function launches a CUDA kernel (`csrc/attention.cu`,
 `csrc/norm.cu`) when its tensors are on a CUDA device and runs the plain
 PyTorch version beside it when they are on the CPU.  Each keeps a count
-of its kernel launches in its `launches` attribute.
+of its kernel launches in its `launches` attribute.  The int8 attention
+over an int8 KV cache is in `ops/attention_q8.py`; its cache writer is
+`kv_norm_rope_pack(..., quantize=True)` here.
 
 `q_prologue = (qw, qb, sin, cos, eps)` asks for the fused q-side
 LayerNorm (weight `qw` with any +1 already applied) and GPT-NeoX rotary
@@ -39,20 +41,26 @@ LOG2E = 1.4426950408889634
 # ---------------------------------------------------------------------------
 
 
-def apply_q_prologue(q: torch.Tensor, q_prologue) -> torch.Tensor:
-    """fp32 LayerNorm (+ NeoX rotary) of q, cast back to q's dtype."""
-    qw, qb, sin, cos, eps = q_prologue
-    qf = q.float()
-    mean = qf.mean(-1, keepdim=True)
-    var = (qf - mean).square().mean(-1, keepdim=True)
-    qn = (qf - mean) * torch.rsqrt(var + eps) * qw.float() + qb.float()
+def norm_rope_f32(x: torch.Tensor, w, b, sin, cos, eps: float) -> torch.Tensor:
+    """fp32 LayerNorm of the rows of x [S, h, hd] with (w, b), then GPT-NeoX
+    rotary on the first 2*rot dims (`sin`/`cos` [S, rot], or None)."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    xn = (xf - mean) * torch.rsqrt(var + eps) * w.float() + b.float()
     if sin is not None:
         rot = sin.shape[-1]
         s_ = sin.float()[:, None, :]
         c_ = cos.float()[:, None, :]
-        x1, x2, tail = qn[..., :rot], qn[..., rot : 2 * rot], qn[..., 2 * rot :]
-        qn = torch.cat([x1 * c_ - x2 * s_, x1 * s_ + x2 * c_, tail], dim=-1)
-    return qn.to(q.dtype)
+        x1, x2, tail = xn[..., :rot], xn[..., rot : 2 * rot], xn[..., 2 * rot :]
+        xn = torch.cat([x1 * c_ - x2 * s_, x1 * s_ + x2 * c_, tail], dim=-1)
+    return xn
+
+
+def apply_q_prologue(q: torch.Tensor, q_prologue) -> torch.Tensor:
+    """fp32 LayerNorm (+ NeoX rotary) of q, cast back to q's dtype."""
+    qw, qb, sin, cos, eps = q_prologue
+    return norm_rope_f32(q, qw, qb, sin, cos, eps).to(q.dtype)
 
 
 def _masked_softmax_attention(q, k, v, valid, *, seg_len, sm_scale):
@@ -100,20 +108,30 @@ def segmented_attention_two_source_reference(
 def kv_norm_rope_pack_reference(k, v, kw, kb, sin, cos, *, eps: float, rep: int = 1, out_dtype=None):
     """Plain version of `kv_norm_rope_pack`."""
     out_dtype = out_dtype or k.dtype
-    kf = k.float()
-    mean = kf.mean(-1, keepdim=True)
-    var = (kf - mean).square().mean(-1, keepdim=True)
-    kn = (kf - mean) * torch.rsqrt(var + eps) * kw.float() + kb.float()
-    if sin is not None:
-        rot = sin.shape[-1]
-        s_ = sin.float()[:, None, :]
-        c_ = cos.float()[:, None, :]
-        x1, x2, tail = kn[..., :rot], kn[..., rot : 2 * rot], kn[..., 2 * rot :]
-        kn = torch.cat([x1 * c_ - x2 * s_, x1 * s_ + x2 * c_, tail], dim=-1)
+    kn = norm_rope_f32(k, kw, kb, sin, cos, eps)
     kv = torch.stack([kn.to(out_dtype), v.to(out_dtype)], dim=0).transpose(1, 2)  # [2, hk, S, hd]
     if rep > 1:
         kv = kv.repeat_interleave(rep, dim=1)
     return kv.contiguous()
+
+
+def _quantize_rows_mul(x: torch.Tensor):
+    """Per-row symmetric int8 of x [..., hd] as the Pallas kernels take it:
+    scale max(amax, 1e-8) * (1/127), value round(x * (1 / scale))."""
+    scale = torch.clamp(x.abs().amax(-1, keepdim=True), min=1e-8) * (1.0 / 127.0)
+    return torch.round(x * (1.0 / scale)).clamp(-127, 127).to(torch.int8), scale[..., 0]
+
+
+def kv_norm_rope_pack_q8_reference(k, v, kw, kb, sin, cos, *, eps: float, rep: int = 1):
+    """Plain version of `kv_norm_rope_pack(quantize=True)`: k quantized
+    per token from its f32 normed, roped values (not their bf16 round), v
+    from its own values; returns (int8 [2, hk*rep, S, hd], f32 [2, hk*rep, S])."""
+    kn = norm_rope_f32(k, kw, kb, sin, cos, eps)
+    kv = torch.stack([kn, v.float()], dim=0).transpose(1, 2)  # [2, hk, S, hd]
+    if rep > 1:
+        kv = kv.repeat_interleave(rep, dim=1)
+    q8, scale = _quantize_rows_mul(kv)
+    return q8.contiguous(), scale.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -302,6 +320,25 @@ def segmented_attention_v2(
 segmented_attention_v2.launches = 0
 
 
+def _kv_pack_rot(fn: str, k, v, kw, kb, sin, cos) -> int:
+    """Check the kv pack kernels' operands; returns the rotary width."""
+    S, hk, hd = k.shape
+    if hd % 32 or hd > 256:
+        raise ValueError(f"{fn}: head_dim {hd} must be a multiple of 32 and at most 256")
+    _require(f"{fn}: k", k, k.device, torch.bfloat16, (S, hk, hd))
+    _require(f"{fn}: v", v, k.device, torch.bfloat16, (S, hk, hd))
+    _require(f"{fn}: kw", kw, k.device, torch.float32, (hd,))
+    _require(f"{fn}: kb", kb, k.device, torch.float32, (hd,))
+    if sin is None:
+        return 0
+    rot = sin.shape[-1]
+    if 2 * rot > hd:
+        raise ValueError(f"{fn}: rotary width 2*{rot} exceeds head_dim {hd}")
+    _require(f"{fn}: sin", sin, k.device, torch.float32, (S, rot))
+    _require(f"{fn}: cos", cos, k.device, torch.float32, (S, rot))
+    return rot
+
+
 def kv_norm_rope_pack(
     k: torch.Tensor,  # [S, hk, hd] raw (pre-norm, pre-rope)
     v: torch.Tensor,  # [S, hk, hd]
@@ -313,28 +350,20 @@ def kv_norm_rope_pack(
     eps: float,
     rep: int = 1,
     out_dtype=None,
-) -> torch.Tensor:
+    quantize: bool = False,
+):
     """fp32 k-LayerNorm + rotary + cast, packed with v into the cache /
-    kernel layout [2, hk*rep, S, hd] (bf16 on the card)."""
+    kernel layout [2, hk*rep, S, hd] (bf16 on the card).  `quantize=True`
+    is `kv_norm_rope_pack_q8`: (int8 kv, f32 per-token scales)."""
+    if quantize:
+        return kv_norm_rope_pack_q8(k, v, kw, kb, sin, cos, eps=eps, rep=rep)
     if k.device.type == "cpu":
         return kv_norm_rope_pack_reference(k, v, kw, kb, sin, cos, eps=eps, rep=rep, out_dtype=out_dtype)
     fn = "kv_norm_rope_pack"
     S, hk, hd = k.shape
     if (out_dtype or k.dtype) != torch.bfloat16:
         raise ValueError(f"{fn}: the kernel writes bf16, got out_dtype {out_dtype}")
-    if hd % 32 or hd > 256:
-        raise ValueError(f"{fn}: head_dim {hd} must be a multiple of 32 and at most 256")
-    _require(f"{fn}: k", k, k.device, torch.bfloat16, (S, hk, hd))
-    _require(f"{fn}: v", v, k.device, torch.bfloat16, (S, hk, hd))
-    _require(f"{fn}: kw", kw, k.device, torch.float32, (hd,))
-    _require(f"{fn}: kb", kb, k.device, torch.float32, (hd,))
-    rot = 0
-    if sin is not None:
-        rot = sin.shape[-1]
-        if 2 * rot > hd:
-            raise ValueError(f"{fn}: rotary width 2*{rot} exceeds head_dim {hd}")
-        _require(f"{fn}: sin", sin, k.device, torch.float32, (S, rot))
-        _require(f"{fn}: cos", cos, k.device, torch.float32, (S, rot))
+    rot = _kv_pack_rot(fn, k, v, kw, kb, sin, cos)
     out = torch.empty((2, hk * rep, S, hd), dtype=torch.bfloat16, device=k.device)
     if S == 0:
         return out
@@ -348,3 +377,30 @@ def kv_norm_rope_pack(
 
 
 kv_norm_rope_pack.launches = 0
+
+
+def kv_norm_rope_pack_q8(k, v, kw, kb, sin, cos, *, eps: float, rep: int = 1):
+    """K3q: the k-side pack of the int8-stored KV cache.  Returns (int8
+    [2, hk*rep, S, hd], f32 per-token scales [2, hk*rep, S]); k is quantized
+    from its f32 normed, roped values.  The kernel's LayerNorm sums in
+    another order than the plain version's, so an element whose quotient
+    sits on a rounding edge may differ by one int8 step."""
+    if k.device.type == "cpu":
+        return kv_norm_rope_pack_q8_reference(k, v, kw, kb, sin, cos, eps=eps, rep=rep)
+    fn = "kv_norm_rope_pack_q8"
+    S, hk, hd = k.shape
+    rot = _kv_pack_rot(fn, k, v, kw, kb, sin, cos)
+    out = torch.empty((2, hk * rep, S, hd), dtype=torch.int8, device=k.device)
+    scale = torch.empty((2, hk * rep, S), dtype=torch.float32, device=k.device)
+    if S == 0:
+        return out, scale
+    err = _lib.lib().magi_kv_norm_rope_pack_q8(
+        k.data_ptr(), v.data_ptr(), kw.data_ptr(), kb.data_ptr(), _lib.ptr(sin), _lib.ptr(cos), out.data_ptr(),
+        scale.data_ptr(), S, hk, hd, rep, rot, float(eps), _lib.stream(k.device),
+    )
+    _lib.check(err, fn)
+    kv_norm_rope_pack_q8.launches += 1
+    return out, scale
+
+
+kv_norm_rope_pack_q8.launches = 0

@@ -1,8 +1,11 @@
 """User-facing pipeline: MagiPipeline.run_text_to_video(prompt, output_path).
 
-This slice runs the bf16 single-device text-to-video path with random
-weights (SKIP_LOAD_MODEL=1).  What it does not cover yet raises
-`NotImplementedError` naming its ROADMAP item.
+This port runs the single-device text-to-video path with random weights
+(SKIP_LOAD_MODEL=1): the bf16 base model (3-branch CFG) and the distill /
+int8-quantized model (single-branch CFG, `fp8_quant` or `MAGI_INT8=1`),
+with int8 attention when `engine_config.attn_int8` or `MAGI_ATTN_INT8=1`
+is set.  What it does not cover yet raises `NotImplementedError` naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -23,25 +26,29 @@ from magi_tpu_torch.sampling.transport import ArdfSampler
 
 
 def get_dit(config: MagiConfig, device: torch.device, generator: torch.Generator) -> dict:
-    """The DiT parameters: random weights under SKIP_LOAD_MODEL=1."""
+    """The DiT parameters: random weights under SKIP_LOAD_MODEL=1, then
+    quantized to int8 (first/last layers kept bf16) when `fp8_quant` or
+    `MAGI_INT8=1` is set."""
     from magi_tpu_torch.models.dit.model import init_dit_params
+    from magi_tpu_torch.ops.quant import quantize_params_int8
 
     if not env_is_true("SKIP_LOAD_MODEL"):
         raise NotImplementedError("loading a DiT checkpoint (checkpoint/loader.py) is ROADMAP queue 1 item 6")
-    if config.engine_config.fp8_quant or env_is_true("MAGI_INT8") or env_is_true("MAGI_INT4"):
-        raise NotImplementedError("quantized execution is ROADMAP queue 1 item 11")
     print_rank_0("SKIP_LOAD_MODEL set: using random weights")
-    return init_dit_params(config, device, generator)
+    params = init_dit_params(config, device, generator)
+    if config.engine_config.fp8_quant or env_is_true("MAGI_INT8") or env_is_true("MAGI_INT4"):
+        if config.engine_config.quant_bits == 4 or env_is_true("MAGI_INT4"):
+            raise NotImplementedError("int4 weights (w4a8) are ROADMAP queue 1 item 11, the 24B w4a8 slice")
+        params = quantize_params_int8(params)
+        print_rank_0("Quantized DiT linears to int8 (first and last layers bf16)")
+    return params
 
 
 def _check_supported(config: MagiConfig) -> None:
-    """Engine settings the model would otherwise ignore (the sampler and
-    get_dit refuse the rest)."""
-    ec = config.engine_config
-    if ec.world_size > 1:
+    """Engine settings the model would otherwise ignore (the sampler, the
+    model and get_dit refuse the rest)."""
+    if config.engine_config.world_size > 1:
         raise NotImplementedError("multi-GPU parallelism is ROADMAP queue 1 item 14")
-    if ec.attn_int8:
-        raise NotImplementedError("int8 attention is ROADMAP queue 1 item 12")
 
 
 class MagiPipeline:

@@ -6,11 +6,13 @@ ranges, CFG scales: small numpy); each denoise step runs the three CFG
 forwards of the DiT eagerly on the device, combines them, Euler-integrates
 and writes the window back into the latent state in place.
 
-This slice covers the 3-branch CFG walk without packing
-(`pack_uncond = False`), with the KV cache in device memory, including
-the sliding cache window that `kv_offload` selects under noise2clean kv
-ranges.  Prefix video (i2v/v2v), the single-branch distill/quant step and
-host KV offload are later slices and raise `NotImplementedError`.
+This port covers the 3-branch CFG walk without packing
+(`pack_uncond = False`) and the single-branch (distill / quantized) walk
+with its nearly-clean ride-along chunk, with the KV cache in device
+memory (the bf16 tensor, or the int8 {kv, scale} dict of int8 attention),
+including the sliding cache window that `kv_offload` selects under
+noise2clean kv ranges.  Prefix video (i2v/v2v) and host KV offload are
+later slices and raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -82,8 +84,8 @@ class ArdfSampler:
         self.inp = inp
         self.device = resolve_device(device)
         mc, rc, ec = config.model_config, config.runtime_config, config.engine_config
-        if rc.cfg_number != 3:
-            raise NotImplementedError("the single-branch (distill/quant) walk is ROADMAP queue 1 item 10")
+        if rc.cfg_number not in (1, 3):
+            raise NotImplementedError(f"cfg_number={rc.cfg_number}")
         if ec.pack_uncond:
             raise NotImplementedError("pack_uncond (2-forward CFG) is not ported; this slice runs 3 forwards")
         if inp.prefix_video is not None:
@@ -102,6 +104,7 @@ class ArdfSampler:
         self.L = inp.caption_embs.shape[1]
 
         self.t_total = sched.init_t(inp.num_steps, shortcut_mode=ec.shortcut_mode)
+        self.interval = sched.init_interval(inp.num_steps, shortcut_mode=ec.shortcut_mode)
 
         if noise is not None:
             if tuple(noise.shape) != tuple(inp.latent_size):
@@ -174,7 +177,7 @@ class ArdfSampler:
 
     def _plan(self, step: int) -> dict:
         """Pure host arithmetic for one step: schedule, ranges, flags."""
-        rc = self.config.runtime_config
+        rc, ec = self.config.runtime_config, self.config.engine_config
         dpss, didx, c_start, c_end, t_start, t_end = self._status(step)
         n_den = c_end - c_start
         extra = bool(c_start > self.chunk_offset and didx == 0)
@@ -191,9 +194,13 @@ class ArdfSampler:
         t_before = sched.get_timestep(self.t_total, dpss, t_start, t_end, didx)
         t_after = sched.get_timestep(self.t_total, dpss, t_start, t_end, didx + 1)
         dt = (t_after - t_before).astype(np.float32)
+        # single-branch walk: the first denoised chunk, once nearly clean,
+        # rides along as a text-only copy
+        distill_nearly = rc.cfg_number == 1 and float(tvec[int(extra)]) > ec.distill_nearly_clean_chunk_threshold
         return dict(
             didx=didx, c_start=c_start, c_end=c_end, n_den=n_den, extra=extra, sp=sp, n_seg=n_seg,
             tvec=tvec, kv_start=kv_start, kv_end=kv_end, dt=dt, y_lens_win=self._lens_eff[c_start:c_end],
+            distill_nearly=distill_nearly,
         )
 
     def do_step(self, step: int) -> Optional[Tuple[int, torch.Tensor]]:
@@ -206,8 +213,12 @@ class ArdfSampler:
         # slide the cache window forward if this step would overflow it
         new_base = max(0, sp + n_seg - self.cache_chunks)
         if new_base > self.cache_base:
-            shift = new_base - self.cache_base
-            self.cache = torch.roll(self.cache, -shift * self.ctn, dims=3)
+            # the token axis is 3 in both leaves of the int8 dict too
+            shift = (new_base - self.cache_base) * self.ctn
+            if isinstance(self.cache, dict):
+                self.cache = {k: torch.roll(c, -shift, dims=3) for k, c in self.cache.items()}
+            else:
+                self.cache = torch.roll(self.cache, -shift, dims=3)
             self.cache_base = new_base
         kv_start_r = p["kv_start"] - self.cache_base * self.ctn
         kv_end_r = p["kv_end"] - self.cache_base * self.ctn
@@ -216,12 +227,21 @@ class ArdfSampler:
                 f"kv range {p['kv_start'].min()} fell behind the sliding cache window (base {self.cache_base})"
             )
 
-        ps, ts_ = self._cfg_scales(p["tvec"][-n_den:])
-        self.xs, self.cache = _cfg3_step(
-            self.config, self.params, self.xs, self.cache, sp, sp - self.cache_base, self._text_embs,
-            p["y_lens_win"], self._null_emb, self.inp.null_len, p["tvec"], kv_start_r, kv_end_r, p["dt"],
-            ps, ts_, n_den=n_den, extra=extra,
-        )
+        if self.config.runtime_config.cfg_number == 3:
+            ps, ts_ = self._cfg_scales(p["tvec"][-n_den:])
+            self.xs, self.cache = _cfg3_step(
+                self.config, self.params, self.xs, self.cache, sp, sp - self.cache_base, self._text_embs,
+                p["y_lens_win"], self._null_emb, self.inp.null_len, p["tvec"], kv_start_r, kv_end_r, p["dt"],
+                ps, ts_, n_den=n_den, extra=extra,
+            )
+        else:
+            ec = self.config.engine_config
+            dfac = sched.distill_dt_factor(self.num_steps, float(self.interval[p["didx"]])) if ec.distill else None
+            self.xs, self.cache = _cfg1_step(
+                self.config, self.params, self.xs, self.cache, sp, sp - self.cache_base, self._text_embs,
+                p["y_lens_win"], self._null_emb, self.inp.null_len, p["tvec"], kv_start_r, kv_end_r, p["dt"],
+                dfac, self.inp.prev_chunks_scale, n_den=n_den, extra=extra, distill_nearly=p["distill_nearly"],
+            )
 
         for ci in range(c_start, c_end):
             self.counts[ci] += 1
@@ -313,4 +333,57 @@ def _cfg3_step(config, params, xs, cache, sp, cache_sp, caption_embs, y_lens_win
     velocity = velocity.reshape(velocity.shape[0], dw, *velocity.shape[3:])
     dt_t = torch.as_tensor(dt, dtype=torch.float32, device=dev)
     xs = _integrate_and_store(xs, x_chunk[:, -dw:], velocity, dt_t, sp + int(extra), cw, n_den)
+    return xs, cache
+
+
+def _cfg1_step(config, params, xs, cache, sp, cache_sp, caption_embs, y_lens_win, null_emb, null_len, tvec,
+               kv_start, kv_end, dt, distill_factor, prev_chunks_scale, *, n_den: int, extra: bool,
+               distill_nearly: bool):
+    """One denoise step with single-branch CFG (the distill and quantized
+    models): one forward on text + previous chunks, which writes the cache.
+    With `distill_nearly`, a copy of the first denoised chunk rides along as
+    one more segment that attends only itself (text-only, never written to
+    the cache), and that chunk's velocity is the blend
+    prev_chunks_scale * (with previous chunks) + (1 - prev_chunks_scale) *
+    (text only)."""
+    mc, rc = config.model_config, config.runtime_config
+    dev = xs.device
+    cw = rc.chunk_width
+    n_seg = n_den + int(extra)
+    HP = xs.shape[2] // mc.patch_size
+    WP = xs.shape[3] // mc.patch_size
+    chunk_patches = cw // mc.t_patch_size
+    ctn = chunk_patches * HP * WP
+
+    x_chunk = _slice_window(xs, sp, n_seg, cw)
+    y_text, lens_text = _build_y(caption_embs, null_emb, null_len, y_lens_win, sp, extra, n_den)
+    t_off = (sp + torch.arange(n_seg, dtype=torch.int32, device=dev)) * chunk_patches
+
+    if distill_nearly:
+        ss = int(extra)
+        x_in = torch.cat([x_chunk, x_chunk[:, ss * cw : (ss + 1) * cw]], dim=1)
+        vmax = (cache_sp + n_seg) * ctn
+        ks = np.concatenate([kv_start, [vmax]]).astype(np.int32)
+        ke = np.concatenate([kv_end, [vmax + ctn]]).astype(np.int32)
+        t_in = np.concatenate([tvec, tvec[ss : ss + 1]])
+        y_in = torch.cat([y_text, y_text[ss : ss + 1]], dim=0)
+        lens = np.concatenate([lens_text, lens_text[ss : ss + 1]])
+        t_off = torch.cat([t_off, torch.tensor([(sp + n_seg) * chunk_patches], dtype=torch.int32, device=dev)])
+        n_fwd = n_seg + 1
+    else:
+        x_in, ks, ke, t_in, y_in, lens, n_fwd = x_chunk, kv_start, kv_end, tvec, y_text, lens_text, n_seg
+
+    meta = _meta(n_fwd, ctn, HP, WP, cache_sp, ks, ke, lens, update=True, use_cache=True, device=dev,
+                 extra=extra, distill_nearly=distill_nearly)
+    out, cache = dit_forward(params, config, x_in, torch.as_tensor(t_in, dtype=torch.float32, device=dev), y_in,
+                             False, cache, meta, t_off, distill_factor=distill_factor)
+    if distill_nearly:
+        near_pre_text = out[:, ss * cw : (ss + 1) * cw]
+        near_text = out[:, -cw:]
+        blended = near_pre_text * prev_chunks_scale + near_text * (1 - prev_chunks_scale)
+        out = torch.cat([out[:, : ss * cw], blended, out[:, (ss + 1) * cw : n_seg * cw]], dim=1)
+
+    dw = n_den * cw
+    dt_t = torch.as_tensor(dt, dtype=torch.float32, device=dev)
+    xs = _integrate_and_store(xs, x_chunk[:, -dw:], out[:, -dw:], dt_t, sp + int(extra), cw, n_den)
     return xs, cache

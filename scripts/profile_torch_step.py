@@ -3,16 +3,19 @@
 
     python3 scripts/profile_torch_step.py
 
-Builds the 4.5B base config (example/4.5B/4.5B_base_config.json) at full
-width and depth with random weights, then for each video size runs one
-denoise step of the given ARDF stage (stage 3 is the first step with the
-full window of 4 chunks) twice: once timed on the host clock with a
-device synchronise (after one warm-up step), once under torch.profiler.
-It prints the device time summed by kernel group (the port's hand-written
-kernels one by one, cuBLAS GEMMs, the rest), the device-busy and idle
-share of the step, and the attention FLOPs of the step's K1 launches with
-the rate they reached.  Then one VAE decode of a chunk, the same way.
-The KV cache holds zeros: timing does not depend on its values.
+Builds the 4.5B models at full width and depth with random weights: the
+base config (example/4.5B/4.5B_base_config.json, bf16, 3-branch CFG) and
+the distill + int8 config (4.5B_distill_quant_config.json with int8
+attention: single-branch CFG, the same weights quantized to int8).  For each and each video size
+it runs one denoise step of the given ARDF stage (stage 3 is the first
+step with the full window of 4 chunks) twice: once timed on the host
+clock with a device synchronise (after one warm-up step), once under
+torch.profiler.  It prints the device time summed by kernel group (the
+port's hand-written kernels one by one, cuBLAS GEMMs, the rest), the
+device-busy and idle share of the step, and the self-attention FLOPs of
+the step with the rate its attention kernel reached.  Then, for the base
+config, one VAE decode of a chunk, the same way.  The KV cache holds
+zeros: timing does not depend on its values.
 """
 
 from __future__ import annotations
@@ -37,11 +40,23 @@ STEPS = 64  # the config's schedule
 K1 = "K1 segmented_attention_two_source (seg_attn_two_source_kernel)"
 K2 = "K2 segmented_attention_v2 (seg_attn_v2_kernel, caption)"
 K2G = "K2g segmented_attention (seg_attn_grid_kernel, VAE)"
-K3 = "kv_norm_rope_pack"
-K4 = "gate_norm_residual"
+K3 = "K3 kv_norm_rope_pack"
+K3Q = "K3q kv_norm_rope_pack (int8)"
+K4 = "K4 gate_norm_residual"
+K5 = "K5 segmented_attention_two_source_q8 (seg_attn_q8_kernel)"
+K6 = "K6 quantized_matmul_i8 (qmm_i8_kernel)"
+K8 = "K8 rowquant_fused (rowquant_kernel)"
 
 
 def group_of(name: str) -> str:
+    if "seg_attn_q8_kernel" in name:
+        return K5
+    if "qmm_i8_kernel" in name:
+        return K6
+    if "rowquant_kernel" in name:
+        return K8
+    if "kv_norm_rope_pack_kernel" in name and ("signed char" in name or "int8" in name):
+        return K3Q
     if "seg_attn_two_source_kernel" in name:
         return K1
     if "seg_attn_v2_kernel" in name:
@@ -81,14 +96,18 @@ def profile(fn):
     return groups, counts, wall
 
 
-def k1_flops(sampler, step: int) -> float:
-    """FLOPs of the step's self-attention launches (QK^T and PV, 2 flops per
-    MAC): two cache-reading forwards over the plan's ranges, one uncond
-    forward over self-only ranges, each on every layer."""
+def attention_flops(sampler, step: int) -> float:
+    """FLOPs (or int8 operations) of the step's self-attention launches
+    (QK^T and PV, 2 per multiply-add).  3-branch CFG: two cache-reading
+    forwards over the plan's ranges and one uncond forward over self-only
+    ranges; single-branch: one forward over the plan's ranges, plus the
+    ride-along segment attending itself.  Each on every layer."""
     mc = sampler.config.model_config
     p = sampler._plan(step)
     per_layer = 4 * sampler.ctn * mc.kv_channels * mc.num_attention_heads
     cond = float(np.sum(p["kv_end"] - p["kv_start"])) * per_layer
+    if sampler.config.runtime_config.cfg_number == 1:
+        return (cond + (sampler.ctn * per_layer if p["distill_nearly"] else 0.0)) * mc.num_layers
     uncond = p["n_den"] * sampler.ctn * per_layer
     return (2 * cond + uncond) * mc.num_layers
 
@@ -108,59 +127,73 @@ def main() -> int:
     from magi_tpu_torch.pipeline.video_process import post_chunk_process
     from magi_tpu_torch.sampling.transport import ArdfSampler
 
+    from magi_tpu_torch.ops.quant import quantize_params_int8
+
     dev = torch.device("cuda", 0)
-    with open(os.path.join(HERE, "example", "4.5B", "4.5B_base_config.json")) as f:
-        base = json.load(f)
+    configs = []
+    for name, file, engine in (("base", "4.5B_base_config.json", {}),
+                               ("distill+int8", "4.5B_distill_quant_config.json", {"attn_int8": True})):
+        with open(os.path.join(HERE, "example", "4.5B", file)) as f:
+            d = json.load(f)
+        d["engine_config"].update(engine)
+        configs.append((name, d))
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    cfg0 = MagiConfig.from_dict(base)
-    params = init_dit_params(cfg0, dev, gen)
+    params = init_dit_params(MagiConfig.from_dict(configs[0][1]), dev, gen)
+    qparams = quantize_params_int8(params)
     null = params["y_embedder"]["null_caption_embedding"].float().cpu().numpy()
     results = {}
-    for size in SIZES:
-        d = json.loads(json.dumps(base))
-        d["runtime_config"].update(video_size_h=size, video_size_w=size, num_steps=STEPS)
-        cfg = MagiConfig.from_dict(d)
-        emb, mask = get_txt_embeddings("a red cube on a table", cfg)
-        inp = build_inference_input(cfg, null, emb, mask, dev)
-        sampler = ArdfSampler(cfg, params, inp, gen, device=dev)
-        dpss = cfg.runtime_config.num_steps // cfg.runtime_config.window_size
-        step = STAGE * dpss
-        p = sampler._plan(step)
-        sampler.do_step(step)  # warm-up (cuBLAS heuristics, allocator)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sampler.do_step(step + 1)
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3
-        groups, counts, wall = profile(lambda: sampler.do_step(step + 2))
-        busy = sum(groups.values())
-        flops = k1_flops(sampler, step + 2)
-        k1_ms = groups.get(K1, 0.0)
-        print(f"== {size}x{size}: stage {STAGE} step (n_seg {p['n_seg']}, seg_len {sampler.ctn} tokens, "
-              f"{cfg.model_config.num_layers} layers, 3 forwards)")
-        print(f"  step wall {step_ms:.1f} ms (host clock, synchronised, no profiler); under the profiler "
-              f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}")
-        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-            print(f"  {ms:10.2f} ms  {100 * ms / busy:5.1f}%  {counts[g]:6d} launches  {g}")
-        print(f"  self-attention FLOPs of the step {flops:.3e}; K1 device time {k1_ms:.1f} ms "
-              f"-> {flops / (k1_ms * 1e-3) / 1e12:.1f} TFLOP/s")
-        # one VAE decode of a chunk
-        chunk = torch.randn((16, 6, size // 8, size // 8), generator=gen, device=dev)
-        post_chunk_process(chunk, cfg, dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        post_chunk_process(chunk, cfg, dev)
-        dec_ms = (time.perf_counter() - t0) * 1e3
-        vgroups, vcounts, vwall = profile(lambda: post_chunk_process(chunk, cfg, dev))
-        vbusy = sum(vgroups.values())
-        print(f"  VAE decode of one chunk: {dec_ms:.1f} ms wall (incl. copy to host and uint8 conversion); "
-              f"device busy {vbusy:.1f} ms of {vwall:.1f} ms profiled")
-        for g, ms in sorted(vgroups.items(), key=lambda kv: -kv[1]):
-            print(f"  {ms:10.2f} ms  {100 * ms / vbusy:5.1f}%  {vcounts[g]:6d} launches  {g}")
-        results[size] = dict(step_ms=step_ms, busy_ms=busy, profiled_ms=wall, groups=groups, decode_ms=dec_ms)
-        del sampler
-        torch.cuda.empty_cache()
+    for name, base in configs:
+        for size in SIZES:
+            d = json.loads(json.dumps(base))
+            d["runtime_config"].update(video_size_h=size, video_size_w=size)
+            if name == "base":
+                d["runtime_config"]["num_steps"] = STEPS
+            cfg = MagiConfig.from_dict(d)
+            emb, mask = get_txt_embeddings("a red cube on a table", cfg)
+            inp = build_inference_input(cfg, null, emb, mask, dev)
+            sampler = ArdfSampler(cfg, params if name == "base" else qparams, inp, gen, device=dev)
+            dpss = cfg.runtime_config.num_steps // cfg.runtime_config.window_size
+            step = STAGE * dpss
+            sampler.do_step(step)  # warm-up (cuBLAS heuristics, allocator)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sampler.do_step(step + 1)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            p = sampler._plan(step + 2)
+            groups, counts, wall = profile(lambda: sampler.do_step(step + 2))
+            busy = sum(groups.values())
+            flops = attention_flops(sampler, step + 2)
+            attn_ms = groups.get(K1 if name == "base" else K5, 0.0)
+            n_fwd = 3 if cfg.runtime_config.cfg_number == 3 else 1
+            print(f"== {name} {size}x{size}: stage {STAGE} step of {cfg.runtime_config.num_steps} (n_seg {p['n_seg']}"
+                  f"{' + the ride-along' if p['distill_nearly'] else ''}, seg_len {sampler.ctn} tokens, "
+                  f"{cfg.model_config.num_layers} layers, {n_fwd} forward{'s' if n_fwd > 1 else ''})")
+            print(f"  step wall {step_ms:.1f} ms (host clock, synchronised, no profiler); under the profiler "
+                  f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}")
+            for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+                print(f"  {ms:10.2f} ms  {100 * ms / busy:5.1f}%  {counts[g]:6d} launches  {g}")
+            print(f"  self-attention operations of the step {flops:.3e}; attention kernel device time {attn_ms:.1f} ms "
+                  f"-> {flops / (attn_ms * 1e-3) / 1e12:.1f} T/s")
+            results[f"{name} {size}"] = dict(step_ms=step_ms, busy_ms=busy, profiled_ms=wall, groups=groups)
+            if name == "base":
+                # one VAE decode of a chunk
+                chunk = torch.randn((16, 6, size // 8, size // 8), generator=gen, device=dev)
+                post_chunk_process(chunk, cfg, dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                post_chunk_process(chunk, cfg, dev)
+                dec_ms = (time.perf_counter() - t0) * 1e3
+                vgroups, vcounts, vwall = profile(lambda: post_chunk_process(chunk, cfg, dev))
+                vbusy = sum(vgroups.values())
+                print(f"  VAE decode of one chunk: {dec_ms:.1f} ms wall (incl. copy to host and uint8 conversion); "
+                      f"device busy {vbusy:.1f} ms of {vwall:.1f} ms profiled")
+                for g, ms in sorted(vgroups.items(), key=lambda kv: -kv[1]):
+                    print(f"  {ms:10.2f} ms  {100 * ms / vbusy:5.1f}%  {vcounts[g]:6d} launches  {g}")
+                results[f"{name} {size}"]["decode_ms"] = dec_ms
+            del sampler
+            torch.cuda.empty_cache()
     import subprocess
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

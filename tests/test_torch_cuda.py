@@ -11,13 +11,26 @@ outputs of ~n**-0.5 for spans of n keys (q is rounded to bf16 after the
 sm_scale*log2e fold in the kernel and before it in the plain version, and
 P is rounded to bf16 for the PV product).  A segment of a dozen keys has
 outputs near 1 and takes 2e-2 absolute + relative, one or two bf16 ulps
-there, as `chip_smoke.py` does for its short captions."""
+there, as `chip_smoke.py` does for its short captions.
+
+The int8 kernels: K6 (int8 GEMM) and K8 (row quantization) are bit-equal
+to their plain versions.  K3q's int8 values are equal except one step on
+under 1e-3 of them (its LayerNorm sums in another order than the plain
+version's, which moves a quotient sitting on a rounding edge) and its
+scales agree to 1e-6 relative.  K5 (int8 attention, qk8) is held to the
+attention tolerance against its step-by-step plain version, and against
+the dequant reference (which does not quantize q) by the JAX package's
+own criterion for its q8 kernel: mean |error| under 4% of mean |output|."""
 
 import pytest
 import torch
 
+from magi_tpu_torch.models.dit import model as M
+from magi_tpu_torch.ops import act_quant as AQ
 from magi_tpu_torch.ops import attention as A
+from magi_tpu_torch.ops import attention_q8 as A8
 from magi_tpu_torch.ops import fused_norm as FN
+from magi_tpu_torch.ops import quant as Q
 
 pytestmark = pytest.mark.cuda
 
@@ -139,3 +152,133 @@ def test_ranges_clip_to_sources(dev):
     for wrapper in (A.segmented_attention, A.segmented_attention_v2):
         out = wrapper(q, k, v, r2s, r2e, seg_len=seg)
         _close(out, A.segmented_attention_reference(q, k, v, r2s, r2e, seg_len=seg), **ATTN_TOL)
+
+
+def test_kv_norm_rope_pack_q8_kernel(dev):
+    g = _gen(dev)
+    S, hk, hd, rot = 300, 8, 128, 48
+    k, v = _randn(g, dev, S, hk, hd), _randn(g, dev, S, hk, hd)
+    kw, kb = _ln_affine(g, dev, hd)
+    sin, cos = (_randn(g, dev, S, rot, dtype=torch.float32) for _ in range(2))
+    for rep in (1, 2):
+        before = A.kv_norm_rope_pack_q8.launches
+        q8, sc = A.kv_norm_rope_pack(k, v, kw, kb, sin, cos, eps=1e-6, rep=rep, quantize=True)
+        assert A.kv_norm_rope_pack_q8.launches == before + 1
+        ref8, ref_sc = A.kv_norm_rope_pack_q8_reference(k, v, kw, kb, sin, cos, eps=1e-6, rep=rep)
+        torch.cuda.synchronize()
+        assert q8.dtype == torch.int8 and q8.shape == ref8.shape == (2, hk * rep, S, hd)
+        torch.testing.assert_close(sc, ref_sc, atol=0, rtol=1e-6)
+        dq = (q8.int() - ref8.int()).abs()
+        assert int(dq.max()) <= 1 and float((dq > 0).float().mean()) < 1e-3
+
+
+def _q8_inputs(g, dev, hk, L, hd):
+    kv, sc = A8.quantize_kv_per_token(_randn(g, dev, 2, hk, L, hd))
+    return kv, sc
+
+
+@pytest.mark.parametrize("L1", [0, 200])
+def test_two_source_q8_kernel(dev, L1):
+    g = _gen(dev)
+    n_seg, seg, hq, hk, hd, rot = 3, 130, 24, 8, 128, 48
+    S = n_seg * seg
+    q = _randn(g, dev, S, hq, hd)
+    kv1, sc1 = _q8_inputs(g, dev, hk, L1, hd)
+    kv2, sc2 = _q8_inputs(g, dev, hk, S, hd)
+    i32 = dict(dtype=torch.int32, device=dev)
+    r1s = torch.tensor([0, 50, 0], **i32).clamp(max=L1)
+    r1e = torch.tensor([L1, L1, 0], **i32)
+    r2s, r2e = torch.tensor([0, 0, 7], **i32), torch.tensor([seg, 2 * seg, 7], **i32)
+    qw, qb = _ln_affine(g, dev, hd)
+    pro = (qw, qb, torch.sin(_randn(g, dev, S, rot, dtype=torch.float32)),
+           torch.cos(_randn(g, dev, S, rot, dtype=torch.float32)), 1e-6)
+    args = (q, kv1, sc1, kv2, sc2, r1s, r1e, r2s, r2e)
+    before = A8.segmented_attention_two_source_q8.launches
+    out = A8.segmented_attention_two_source_q8(*args, seg_len=seg, q_prologue=pro)
+    assert A8.segmented_attention_two_source_q8.launches == before + 1
+    _close(out, A8.segmented_attention_two_source_q8_qk8_reference(*args, seg_len=seg, q_prologue=pro), **ATTN_TOL)
+    deq = A8.segmented_attention_two_source_q8_reference(A.apply_q_prologue(q, pro), *args[1:], seg_len=seg).float()
+    attended = slice(0, 2 * seg) if L1 == 0 else slice(0, S)  # L1 == 0: the third segment attends nothing
+    err = (out.float() - deq)[attended].abs().mean() / deq[attended].abs().mean()
+    assert float(err) < 0.04, float(err)
+    if L1 == 0:
+        assert (out[2 * seg :].float() == 0).all()
+
+
+def test_two_source_q8_kernel_captions(dev):
+    """The int8 cross-attention: caption kv as source 1, an empty source 2,
+    the norm-only prologue, head_dim 128."""
+    g = _gen(dev)
+    n_seg, seg, L, hq, hk, hd = 2, 97, 80, 24, 8, 128
+    q = _randn(g, dev, n_seg * seg, hq, hd)
+    kv1, sc1 = _q8_inputs(g, dev, hk, n_seg * L, hd)
+    kv2, sc2 = kv1[:, :, :0], sc1[:, :, :0]
+    st = torch.arange(n_seg, dtype=torch.int32, device=dev) * L
+    en = st + torch.tensor([L, 13], dtype=torch.int32, device=dev)
+    z = torch.zeros_like(st)
+    pro = (*_ln_affine(g, dev, hd), None, None, 1e-6)
+    args = (q, kv1, sc1, kv2, sc2, st, en, z, z)
+    out = A8.segmented_attention_two_source_q8(*args, seg_len=seg, q_prologue=pro)
+    ref = A8.segmented_attention_two_source_q8_qk8_reference(*args, seg_len=seg, q_prologue=pro)
+    _close(out[:seg], ref[:seg], **ATTN_TOL)  # 80 keys
+    _close(out[seg:], ref[seg:], **SHORT_SPAN_TOL)  # 13 keys
+
+
+def test_q8_schemes_not_ported_raise(dev, monkeypatch):
+    monkeypatch.setenv("MAGI_ATTN_Q8_SCHEME", "sage")
+    z = torch.zeros(1, dtype=torch.int32, device=dev)
+    kv, sc = torch.zeros((2, 1, 0, 128), dtype=torch.int8, device=dev), torch.zeros((2, 1, 0), device=dev)
+    with pytest.raises(NotImplementedError, match="K5"):
+        A8.segmented_attention_two_source_q8(torch.zeros((4, 1, 128), dtype=torch.bfloat16, device=dev),
+                                             kv, sc, kv, sc, z, z, z, z, seg_len=4)
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 256, 384), (1, 16, 16), (129, 3072, 1024)])
+def test_quantized_matmul_i8_kernel(dev, m, k, n):
+    g = _gen(dev)
+    xq, rs = Q.act_quant_rowwise(_randn(g, dev, m, k))
+    wq, ws = Q.quantize_int8(_randn(g, dev, k, n))
+    before = Q.quantized_matmul_i8.launches
+    out = Q.quantized_matmul_i8(xq, rs, wq, ws)
+    assert Q.quantized_matmul_i8.launches == before + 1
+    ref = Q.quantized_matmul_i8_reference(xq, rs, wq, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("mode,k", [("plain", 6144), ("plain", 260), ("ln", 3072), ("ln", 12288)])
+def test_rowquant_fused_kernel(dev, mode, k):
+    g = _gen(dev)
+    x = (3 * torch.randn((300, k), generator=g, device=dev)).to(torch.bfloat16)
+    x[7] = 0  # a zero row: scale 1, values 0
+    w, b = (_ln_affine(g, dev, k) if mode == "ln" else (None, None))
+    before = AQ.rowquant_fused.launches
+    q8, sc = AQ.rowquant_fused(x, mode, w, b, eps=1e-6)
+    assert AQ.rowquant_fused.launches == before + 1
+    ref8, ref_sc = AQ.rowquant_fused_reference(x, mode, w, b, eps=1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(q8, ref8) and torch.equal(sc, ref_sc)
+    if mode == "plain":
+        assert float(sc[7]) == 1.0 and int(q8[7].abs().max()) == 0
+
+
+@pytest.mark.parametrize("pre", ["ln", None])
+def test_linears_shared_int8_runs_the_kernels(dev, pre, monkeypatch):
+    """The model's int8 linear group on the card: one K8 row quantization
+    and one K6 GEMM per linear, whatever the JAX package's Pallas/XLA
+    switches say, bit-equal to the plain versions."""
+    for var in ("MAGI_QMM_IMPL", "MAGI_FUSED_ACT_QUANT"):
+        monkeypatch.delenv(var, raising=False)
+    g = _gen(dev)
+    x = _randn(g, dev, 200, 256)
+    w, b = _ln_affine(g, dev, 256)
+    lnp = {"weight": w.to(torch.bfloat16), "bias": b.to(torch.bfloat16)}
+    plist = [dict(zip(("weight_q", "weight_scale"), Q.quantize_int8(_randn(g, dev, 256, n)))) for n in (128, 64)]
+    k6, k8 = Q.quantized_matmul_i8.launches, AQ.rowquant_fused.launches
+    out = M._linears_shared(x, plist, True, pre=None if pre is None else ("ln", lnp), eps=1e-6)
+    assert (Q.quantized_matmul_i8.launches - k6, AQ.rowquant_fused.launches - k8) == (2, 1)
+    xq, rs = AQ.rowquant_fused_reference(x, pre or "plain", lnp["weight"], lnp["bias"], eps=1e-6)
+    torch.cuda.synchronize()
+    for o, pp in zip(out, plist):
+        assert o.dtype == torch.bfloat16
+        assert torch.equal(o, Q.quantized_matmul_i8_reference(xq, rs, pp["weight_q"], pp["weight_scale"]))

@@ -1,0 +1,183 @@
+"""magi_tpu_torch.ops.quant and ops.act_quant (int8 weights, row
+quantization, the plain versions of K6 and K8) against magi_tpu.ops.quant
+and ops.act_quant, Pallas kernels in interpret mode with blocks of 128, on
+the CPU.
+
+Tolerances: the int8 trees, the row quantization and the int8 GEMM are
+exact against the JAX package's plain versions (the same f32 operations in
+the same order: int8 values equal, scales equal to 1e-6 relative, GEMM
+outputs equal).  Against the Pallas row-quantization kernel in interpret
+mode, which XLA may compute as x * (1 / scale), an int8 value may differ by
+one on under 1e-3 of the elements (quotients on a rounding tie), the
+criterion of the JAX package's own test of that kernel.  K8's "ln" mode takes
+its LayerNorm statistics in float64 (so the CUDA kernel matches it bit for
+bit in any summation order) where the JAX package takes them in f32: an
+element whose LayerNorm output sits on a bf16 rounding edge can move by
+one bf16 step, so its int8 value may differ by one on under 1e-3 of the
+elements; a row's scale is equal to 1e-6 relative unless its bf16 maximum
+moved, and then that maximum is one bf16 step away (on these inputs none
+moved).  The JAX package's own test of that kernel allows the same
+one-step differences.  `_linears_shared` on int8 weights matches within
+1e-5 (the LayerNorm in another summation order can flip an int8 value at
+a rounding edge; none does on these inputs)."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from magi_tpu.models.dit import model as JM
+from magi_tpu.ops import act_quant as JA
+from magi_tpu.ops import quant as JQ
+from magi_tpu_torch.checkpoint.from_jax import dit_params_from_jax
+from magi_tpu_torch.models.dit import model as TM
+from magi_tpu_torch.ops import act_quant as TA
+from magi_tpu_torch.ops import quant as TQ
+from tests.tiny import tiny_config
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _flat(tree):
+    return {jax.tree_util.keystr(k): v for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_params_int8_tree_matches(dtype):
+    cfg = tiny_config(model=dict(num_layers=3, params_dtype=jnp.dtype(dtype)))
+    jparams = JM.init_dit_params(jax.random.PRNGKey(0), cfg)
+    want = _flat(jax.tree.map(np.asarray, JQ.quantize_params_int8(jparams)))
+    got = _flat(TQ.quantize_params_int8(dit_params_from_jax(jax.tree.map(np.asarray, jparams))))
+    assert sorted(got) == sorted(want)
+    assert any("weight_q" in k for k in want) and any("blocks_edge" in k for k in want)
+    for k, w in want.items():
+        g = got[k]
+        assert tuple(g.shape) == w.shape, k
+        assert str(g.dtype).replace("torch.", "") == str(w.dtype), k
+        if "weight_scale" in k:
+            np.testing.assert_allclose(g.numpy(), w, rtol=1e-6, atol=0, err_msg=k)
+        else:
+            np.testing.assert_array_equal(g.float().numpy(), w.astype(np.float32), err_msg=k)
+
+
+def test_act_quant_rowwise_matches():
+    rng = np.random.default_rng(3)
+    x = (rng.normal(size=(64, 96)) * rng.uniform(0.1, 10, size=(64, 1))).astype(np.float32)
+    x[5] = 0.0
+    xq, rs = TQ.act_quant_rowwise(_t(x))
+    jq, jrs = JQ.act_quant_rowwise(jnp.asarray(x))
+    np.testing.assert_array_equal(xq.numpy(), np.asarray(jq))
+    np.testing.assert_allclose(rs.numpy(), np.asarray(jrs), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_quantized_matmul_i8_plain_matches_pallas(out):
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(130, 256)).astype(np.float32)
+    w = rng.normal(size=(256, 200)).astype(np.float32)
+    wq, ws = JQ.quantize_int8(jnp.asarray(w))
+    xq, rs = JQ.act_quant_rowwise(jnp.asarray(x))
+    jdt, tdt = jnp.dtype(out), getattr(torch, out)
+    pallas = JQ.quantized_matmul_i8(xq, rs, wq, ws, out_dtype=jdt, interpret=True, block_m=128, block_k=128,
+                                    block_n=128)
+    ref = JQ.quantized_matmul_i8_reference(xq, rs, wq, ws, out_dtype=jdt)
+    args = [_t(a) for a in (xq, rs, wq, ws)]
+    # the wrapper takes its plain version on CPU tensors
+    for fn in (TQ.quantized_matmul_i8_reference, TQ.quantized_matmul_i8):
+        got = fn(*args, out_dtype=tdt).float().numpy()
+        np.testing.assert_array_equal(got, np.asarray(pallas, np.float32))
+        np.testing.assert_array_equal(got, np.asarray(ref, np.float32))
+
+
+def _rowquant_cases(rng):
+    x = (rng.normal(size=(300, 256)) * 3).astype(np.float32)
+    x[7] = 0.0
+    w = (rng.normal(size=(256,)) * 0.2 + 1.0).astype(np.float32)
+    b = (rng.normal(size=(256,)) * 0.1).astype(np.float32)
+    return jnp.asarray(x, jnp.bfloat16), w, b
+
+
+@pytest.mark.parametrize("mode", ["plain", "ln"])
+def test_rowquant_fused_plain_matches_pallas(mode):
+    x, w, b = _rowquant_cases(np.random.default_rng(0))
+    lw, lb = (w, b) if mode == "ln" else (None, None)
+    jargs = (None if lw is None else jnp.asarray(lw), None if lb is None else jnp.asarray(lb))
+    pallas = JA.rowquant_fused(x, mode, *jargs, eps=1e-6, block_s=128, interpret=True)
+    ref = JA.rowquant_fused_reference(x, mode, *jargs, eps=1e-6)
+    xt = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+    targs = (None if lw is None else _t(lw), None if lb is None else _t(lb))
+    if mode == "ln":
+        # each row's bf16 LayerNorm maximum from the port's float64 statistics
+        amax_t = TA._layer_norm_f64_stats(xt, *targs, 1e-6).to(torch.bfloat16).float().abs().amax(-1).numpy()
+    for got in (TA.rowquant_fused_reference(xt, mode, *targs, eps=1e-6), TA.rowquant_fused(xt, mode, *targs, eps=1e-6)):
+        q, s = got[0].numpy().astype(np.int32), got[1].numpy()
+        for wq, ws in (pallas, ref):
+            dq = q - np.asarray(wq, np.int32)
+            if mode == "plain":
+                np.testing.assert_allclose(s, np.asarray(ws), rtol=1e-6, atol=0)
+                if wq is ref[0]:
+                    assert not dq.any()
+                else:
+                    assert np.abs(dq).max() <= 1 and (dq != 0).mean() < 1e-3, (dq != 0).mean()
+            else:
+                assert np.abs(dq).max() <= 1 and (dq != 0).mean() < 1e-3, (np.abs(dq).max(), (dq != 0).mean())
+                # a scale moves only with its row's bf16 maximum (JAX's from
+                # its scale: amax / 127 recovers amax to a bf16 rounding), by
+                # one bf16 step
+                ws = np.asarray(ws)
+                amax_j = np.asarray(jnp.asarray(ws * 127).astype(jnp.bfloat16), np.float32)
+                bf16_step = 2.0 ** (np.floor(np.log2(np.minimum(amax_t, amax_j))) - 7)
+                same = amax_t == amax_j
+                np.testing.assert_allclose(s[same], ws[same], rtol=1e-6, atol=0)
+                np.testing.assert_array_equal(np.abs(amax_t - amax_j)[~same], bf16_step[~same])
+                np.testing.assert_allclose(s[~same], ws[~same], rtol=2 ** -7, atol=0)
+                assert same.mean() > 0.95, same.mean()
+    if mode == "plain":  # a zero row: scale 1, values 0
+        assert float(got[1][7]) == 1.0 and not got[0][7].any()
+
+
+@pytest.mark.parametrize("act_ok", [True, False])
+def test_linears_shared_int8_matches(act_ok):
+    """The int8 (act_ok) and dequant branches of `_linears_shared`, with the
+    shared pre-LayerNorm riding in as `pre`."""
+    rng = np.random.default_rng(5)
+    D, N, S = 128, 64, 40
+    x = rng.normal(size=(S, D)).astype(np.float32)
+    lnp = {"weight": (rng.normal(size=(D,)) * 0.1 + 1.0).astype(np.float32), "bias": np.zeros((D,), np.float32)}
+    plist = []
+    for _ in range(2):
+        q8, sc = JQ.quantize_int8(jnp.asarray(rng.normal(size=(D, N)).astype(np.float32) * 0.1))
+        plist.append({"weight_q": np.asarray(q8), "weight_scale": np.asarray(sc)})
+    jax_out = JM._linears_shared(jnp.asarray(x), jax.tree.map(jnp.asarray, plist), act_ok,
+                                 pre=("ln", jax.tree.map(jnp.asarray, lnp)), eps=1e-6)
+    got = TM._linears_shared(_t(x), [dit_params_from_jax(pp) for pp in plist], act_ok,
+                             pre=("ln", dit_params_from_jax(lnp)), eps=1e-6)
+    for g, j in zip(got, jax_out):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=1e-5, rtol=1e-5)
+
+
+def test_paths_not_ported_raise():
+    w = torch.zeros((1, 16, 16))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        TQ.quantize_params_int4({"blocks": {"mlp": {"linear_fc1": {"weight": w}}}})
+    with pytest.raises(NotImplementedError, match="item 11"):
+        TQ.unpack_int4(torch.zeros((8, 16), dtype=torch.uint8))
+    smooth = {"blocks": {"mlp": {"linear_fc1": {"weight": w, "act_smooth": torch.ones((1, 16))}}}}
+    with pytest.raises(NotImplementedError, match="act_smooth"):
+        TQ.quantize_params_int8(smooth)
+    with pytest.raises(NotImplementedError, match="K8s"):
+        TA.rowquant_fused(torch.zeros((4, 4096), dtype=torch.bfloat16), "swiglu")
+    # a gated MLP's int8 fc2 needs K8s
+    q8, sc = TQ.quantize_int8(torch.ones((16, 16)))
+    with pytest.raises(NotImplementedError, match="K8s"):
+        TM._linears_shared(torch.ones((4, 32)), [{"weight_q": q8, "weight_scale": sc}], True, pre=("swiglu",))
+    # the dequant GEMM off the CPU needs K7, which is not ported: it raises
+    # rather than running its plain version
+    meta = functools.partial(torch.zeros, device="meta")
+    with pytest.raises(NotImplementedError, match="K7"):
+        TQ.quantized_matmul(meta((4, 16)), meta((16, 16), dtype=torch.int8), meta((16,)))

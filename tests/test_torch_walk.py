@@ -5,7 +5,14 @@ kv_offload under noise2clean), the prompt assembly is the same, and
 MagiPipeline.run_text_to_video(device="cpu") writes a video.
 
 Tolerance for the walk: 1e-4 absolute and relative (8 steps of 3 fp32
-forwards each, in another summation order)."""
+forwards each, in another summation order).
+
+The distill walk on an int8 tree with int8 attention (single-branch CFG,
+the ride-along chunk, the int8 KV cache and its sliding window) follows the JAX package's step by step, but an int8 value on a
+rounding edge can take the other value when the fp32 sums come out in
+another order (see `test_torch_dit.py`), and the walk carries such steps
+on.  Each emitted chunk is held to a relative L2 error of 1e-3 against the
+JAX package's (3.8e-5 seen at most)."""
 
 import json
 import os
@@ -16,6 +23,7 @@ import pytest
 import torch
 
 from magi_tpu.models.dit.model import init_dit_params
+from magi_tpu.ops.quant import quantize_params_int8
 from magi_tpu.pipeline import prompt_process as jpp
 from magi_tpu.sampling.transport import ArdfSampler as JaxSampler
 from magi_tpu.sampling.transport import InferenceInput as JaxInput
@@ -68,14 +76,61 @@ def test_walk_emits_same_chunks(case):
     assert len(tsampler.step_seconds) == tsampler.total_forward_steps()
 
 
-def _tiny_json(tmp_path):
-    with open(os.path.join(REPO, "example", "4.5B", "4.5B_base_config.json")) as f:
+DISTILL_WALKS = {
+    # a cache window of 1 + 2 + 1 = 4 chunks for 5: the int8 dict rolls
+    "distill_int8_sliding": ({"runtime": {"noise2clean_kvrange": [1, 1], "clean_chunk_kvrange": 1},
+                              "engine": {"kv_offload": True}}, 5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DISTILL_WALKS))
+def test_distill_int8_walk_emits_same_chunks(case, monkeypatch):
+    monkeypatch.setenv("MAGI_ATTN_INT8", "1")
+    overrides, chunk_num = DISTILL_WALKS[case]
+    engine = dict(distill=True, fp8_quant=True, **overrides.get("engine", {}))
+    cfg = tiny_config(model={"num_layers": 3}, runtime={"cfg_number": 1, **overrides.get("runtime", {})},
+                      engine=engine)
+    mc, rc = cfg.model_config, cfg.runtime_config
+    rng = np.random.default_rng(1)
+    L = mc.caption_max_length
+    cap = rng.normal(size=(chunk_num, L, mc.caption_channels)).astype(np.float32)
+    null = rng.normal(size=(L, mc.caption_channels)).astype(np.float32)
+    lens = np.array([L // 2, 3, L, 7, 9][:chunk_num], np.int32)
+    latent = (mc.in_channels, chunk_num * rc.chunk_width, H, W)
+    params = quantize_params_int8(init_dit_params(jax.random.PRNGKey(0), cfg))
+
+    jinp = JaxInput(caption_embs=jax.numpy.asarray(cap), caption_lens=lens, null_emb=jax.numpy.asarray(null),
+                    null_len=8, latent_size=latent, num_steps=rc.num_steps, chunk_num=chunk_num, has_text=True)
+    jsampler = JaxSampler(cfg, params, jinp, jax.random.PRNGKey(7))
+    noise = np.array(jsampler.xs)
+    want = list(jsampler.walk())
+
+    tinp = InferenceInput(caption_embs=torch.from_numpy(cap), caption_lens=lens, null_emb=torch.from_numpy(null),
+                          null_len=8, latent_size=latent, num_steps=rc.num_steps, chunk_num=chunk_num, has_text=True)
+    tsampler = ArdfSampler(torch_config(cfg), dit_params_from_jax(jax.tree.map(np.asarray, params)), tinp,
+                           noise=torch.from_numpy(noise), device="cpu")
+    plans = [tsampler._plan(s) for s in range(tsampler.total_forward_steps())]
+    assert any(p["distill_nearly"] for p in plans) and not all(p["distill_nearly"] for p in plans)
+    assert isinstance(tsampler.cache, dict) and tsampler.cache["kv"].dtype == torch.int8
+    got = list(tsampler.walk())
+    assert [i for i, _ in got] == [i for i, _ in want] == list(range(chunk_num))
+    for (_, a), (_, b) in zip(got, want):
+        b = np.asarray(b)
+        assert np.linalg.norm(a.numpy() - b) / np.linalg.norm(b) < 1e-3
+    assert tsampler.cache_base == jsampler.cache_base
+    if case.endswith("sliding"):
+        assert tsampler.cache_base > 0
+
+
+def _tiny_json(tmp_path, name="4.5B_base_config.json", **engine):
+    with open(os.path.join(REPO, "example", "4.5B", name)) as f:
         d = json.load(f)
     d["model_config"].update(num_layers=2, hidden_size=64, ffn_hidden_size=128, num_attention_heads=4,
                              num_query_groups=2, kv_channels=16, params_dtype="float32", caption_channels=32,
                              caption_max_length=32, in_channels=16, out_channels=16)
     d["runtime_config"].update(num_frames=48, video_size_h=64, video_size_w=64, num_steps=4, window_size=2,
                                noise2clean_kvrange=[2, 1])
+    d["engine_config"].update(engine)
     path = tmp_path / "tiny.json"
     path.write_text(json.dumps(d))
     return str(path)
@@ -116,3 +171,20 @@ def test_pipeline_writes_a_video_on_the_cpu(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry.main(["--config_file", _tiny_json(tmp_path), "--mode", "t2v", "--prompt", "x"])
+
+
+def test_quant_pipeline_writes_a_video_on_the_cpu(tmp_path, monkeypatch):
+    """The distill + int8 config with int8 attention through the CLI entry
+    on the CPU (plain versions): int8 tree, int8 KV cache, single-branch
+    CFG.  int4 weights are the next slice and raise."""
+    monkeypatch.setenv("SKIP_LOAD_MODEL", "1")
+    from magi_tpu_torch.pipeline import entry
+
+    path = _tiny_json(tmp_path, "4.5B_distill_quant_config.json", attn_int8=True)
+    stats = entry.main(["--config_file", path, "--mode", "t2v", "--prompt", "a red cube",
+                        "--output_path", str(tmp_path / "q.mp4"), "--device", "cpu"])
+    assert stats["frames"] == 48 and stats["latents_finite"] and stats["video_std"] > 0
+    assert len(stats["step_seconds"]) == 2 * (2 + 2 - 1)
+    monkeypatch.setenv("MAGI_INT4", "1")
+    with pytest.raises(NotImplementedError, match="int4"):
+        entry.main(["--config_file", path, "--mode", "t2v", "--prompt", "x", "--device", "cpu"])
