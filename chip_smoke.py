@@ -9,8 +9,9 @@ Phases, each printed on its own line; any failure exits non-zero:
      shapes the t2v runs below give it, with the stated tolerance, and time
      kernel, plain version and a PyTorch library yardstick (CUDA events);
   3. tiny walks with the kernels against the same walks on the CPU in fp32
-     (plain versions), same weights and noise: the 3-branch bf16 walk, and
-     the single-branch distill walk of an int8 tree with int8 attention;
+     (plain versions), same weights and noise: the 3-branch bf16 walk, the
+     single-branch distill walk of an int8 tree with int8 attention, and
+     the same walk of a gated int4 tree without blocks_edge (K7 and K8s);
   4. the 4.5B base config at full width and depth (34 layers, 3072 wide,
      24/8 heads, caption 800 x 4096) through the port's CLI entry with
      random weights (SKIP_LOAD_MODEL=1) and 3-branch CFG, noise2clean kv
@@ -21,10 +22,25 @@ Phases, each printed on its own line; any failure exits non-zero:
      activations in the middle layers, the int8 KV cache, single-branch CFG with the
      nearly-clean ride-along chunk, the config's 16 steps; only the video
      is cut (256x256, 96 frames).  Every kernel of this path must launch in
-     this run.
+     this run;
+  6. the 24B distill config (example/24B/24B_distill_quant_config.json,
+     48 layers, 6144 wide, 48/8 heads, gated MLP of 16384) on one device
+     (cp_size 1) with quant_bits 4 and attn_int8, through the CLI entry:
+     nibble-packed int4 weights (bf16 edge layers) unpacked to int8 per
+     layer, int8 activations through K8 / K8s and K6, int8 attention; only
+     the video is cut (720x1280 -> 256x256, 96 frames, the config's 16
+     steps).  Every kernel of this path must launch in this run;
+  7. the same 24B tree without blocks_edge (the JAX package's single-chip
+     24B benchmark tree: edge layers on the dequant GEMM K7), walked by
+     ArdfSampler.walk for 2 chunks at 256x256; K7 must launch and every
+     chunk must be finite.
+Phase 2 also checks K7 and K8s at phase 6-7's shapes, K8 at the 24B's
+widths and K5 at its 48/8 heads.  Phase 6 holds a quantization peak of
+about 57 GiB (the bf16 tree alive while it is packed), so each main path
+starts from an emptied allocator cache.
 Then the card's name and power limit, one JSON line of per-kernel results
-(`launches_by_path` holds each main path's count, read just after its run;
-`launches` is their sum), and a last line
+(`launches_by_path` holds each main path's count, phases 4-7, read just
+after its run; `launches` is their sum), and a last line
 `{"ok": true, "device": {...}}`.
 
 TF32 is off for matmuls and convolutions (the VAE's final Conv3d would
@@ -43,6 +59,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(HERE, "example", "4.5B", "4.5B_base_config.json")
 QUANT_CONFIG = os.path.join(HERE, "example", "4.5B", "4.5B_distill_quant_config.json")
+CONFIG_24B = os.path.join(HERE, "example", "24B", "24B_distill_quant_config.json")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
@@ -543,6 +560,149 @@ def int8_kernel_checks(dev):
     return results
 
 
+# K7 against its plain version: the kernel sums x * w_q in f32 and scales
+# the sum; the plain version scales the weight first (the JAX package's
+# reference).  The two sums differ by f32 rounding, far below the output's
+# bf16 step, so they round to the same bf16 value or to neighbours: one bf16
+# step is at most 2**-7 of |ref|, plus 1e-3 absolute for outputs near 0.
+K7_TOL = (1e-3, 2**-7)
+
+
+def w4a8_kernel_checks(dev):
+    """K7 and K8s at the shapes of phases 6 and 7, the 24B's widest step
+    at 256x256 (4 denoised segments of 1536 tokens and the ride-along
+    copy, S = 7680; captions 5 x 800), and K5 and K8 at the 24B's widths."""
+    import torch
+    import torch.nn.functional as F
+
+    from magi_tpu_torch.ops import act_quant as AQ
+    from magi_tpu_torch.ops import attention as A
+    from magi_tpu_torch.ops import attention_q8 as A8
+    from magi_tpu_torch.ops import quant as Q
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    hq, hk, hd, D, rot, L, ffn = 48, 8, 128, 6144, 48, 800, 16384
+    ctn, n_seg = 6 * 16 * 16, 5
+    S = n_seg * ctn
+    results = []
+
+    # ---- K7 quantized_matmul: an edge layer's 8 GEMMs without blocks_edge --
+    # (rows, k, n, launches per layer): q, qx / k, v / kv_xattn / proj / fc1 / fc2
+    gemms = [(S, D, hq * hd, 2), (S, D, hk * hd, 2), (n_seg * L, D, 2 * hk * hd, 1), (S, 2 * hq * hd, D, 1),
+             (S, D, 2 * ffn, 1), (S, ffn, D, 1)]
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_s=0.0, bytes_s=0.0)
+    n_launch = sum(c for *_, c in gemms)
+    err = 0.0
+    for m, k, n, count in gemms:
+        x = randn(m, k)
+        # the weights the path gives K7: int4, unpacked to int8
+        q4, ws = Q.quantize_int4(0.02 * randn(k, n, dtype=torch.float32))
+        wq = Q.unpack_int4(q4)
+        del q4
+        out = Q.quantized_matmul(x, wq, ws)
+        ref = Q.quantized_matmul_reference(x, wq, ws)
+        err = max(err, check_close(f"quantized_matmul [{m}x{k}] @ [{k}x{n}]", out, ref, *K7_TOL))
+        del out, ref
+        t = cuda_ms(lambda: Q.quantized_matmul(x, wq, ws), 10)
+        tp = cuda_ms(lambda: Q.quantized_matmul_reference(x, wq, ws), 2)
+        tl = cuda_ms(lambda: ((x @ wq.to(torch.bfloat16)).float() * ws).to(torch.bfloat16), 10)
+        ops = 2 * m * n * k
+        nbytes = 2 * m * k + k * n + 4 * n + 2 * m * n
+        bms = max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        print(f"  quantized_matmul [{m}x{k}] @ [{k}x{n}]: {t:.4f} ms ({ops / t / 1e9:.1f} TFLOP/s), plain {tp:.4f} ms, "
+              f"cuBLAS bf16 + epilogue {tl:.4f} ms, bound {bms:.4f} ms")
+        tot["ms"] += count * t
+        tot["plain_ms"] += count * tp
+        tot["library_ms"] += count * tl
+        tot["ops_s"] += count * ops / PEAK_BF16_FLOPS
+        tot["bytes_s"] += count * nbytes / PEAK_BYTES
+        del x, wq, ws
+    results.append(dict(name="quantized_matmul", route="cuda", source="magi_tpu_torch/csrc/quant.cu",
+                        replaces="magi_tpu/ops/quant.py:106", max_abs_err=err, ms=tot["ms"] / n_launch,
+                        plain_ms=tot["plain_ms"] / n_launch, library_ms=tot["library_ms"] / n_launch,
+                        bound_ms=max(tot["ops_s"], tot["bytes_s"]) * 1e3 / n_launch,
+                        bound_by="operations" if tot["ops_s"] >= tot["bytes_s"] else "bytes"))
+    print(f"  quantized_matmul, per launch over one edge layer's {n_launch}: within the tolerance everywhere")
+
+    # ---- K8s rowquant_fused(mode="swiglu"): a gated MLP's fc2 input --------
+    x = (3 * torch.randn((S, 2 * ffn), generator=g, device=dev)).to(torch.bfloat16)
+    x[7] = 0  # a zero row: scale 1, values 0
+    call = lambda: AQ.rowquant_fused(x, "swiglu")
+    q8, sc = call()
+    ref8, ref_sc = AQ.rowquant_fused_reference(x, "swiglu")
+    torch.cuda.synchronize()
+    if not (torch.equal(q8, ref8) and torch.equal(sc, ref_sc)):
+        fail(f"rowquant_fused swiglu [{S}x{2 * ffn}] is not bit-equal to its plain version")
+    print(f"  rowquant_fused swiglu [{S}x{2 * ffn}] -> [{S}x{ffn}]: bit-equal")
+
+    def lib_k8s():
+        # nearly the plain version's chain: F.silu, the bf16 product, then
+        # amax, scale, round and cast in a few calls
+        p_ = (F.silu(x[:, :ffn].float()).bfloat16() * x[:, ffn:]).float()
+        scale = p_.abs().amax(-1, keepdim=True).clamp(min=1e-8) / 127.0
+        return torch.round(p_ / scale).clamp_(-127, 127).to(torch.int8), scale
+
+    t, tp, tl = cuda_ms(call, 50), cuda_ms(lambda: AQ.rowquant_fused_reference(x, "swiglu"), 5), cuda_ms(lib_k8s, 10)
+    nbytes = S * 2 * ffn * 2 + S * ffn + 4 * S
+    results.append(dict(name="rowquant_swiglu", route="cuda", source="magi_tpu_torch/csrc/quant.cu",
+                        replaces="magi_tpu/ops/act_quant.py:186", max_abs_err=0.0, ms=t, plain_ms=tp, library_ms=tl,
+                        bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes"))
+    del x, q8, sc, ref8, ref_sc
+
+    # ---- K8 at the 24B's widths: dynamic shared memory past 48 KB ----------
+    for mode, m, width in (("ln", S, D), ("plain", S, 2 * hq * hd)):
+        x = (3 * torch.randn((m, width), generator=g, device=dev)).to(torch.bfloat16)
+        w, b = (1.0 + 0.1 * randn(width, dtype=torch.float32), 0.1 * randn(width, dtype=torch.float32))
+        if mode == "plain":
+            w = b = None
+        q8, sc = AQ.rowquant_fused(x, mode, w, b)
+        ref8, ref_sc = AQ.rowquant_fused_reference(x, mode, w, b)
+        torch.cuda.synchronize()
+        if not (torch.equal(q8, ref8) and torch.equal(sc, ref_sc)):
+            fail(f"rowquant_fused {mode} [{m}x{width}] is not bit-equal to its plain version")
+        print(f"  rowquant_fused {mode} [{m}x{width}] ({width * 4} bytes of shared memory a row): bit-equal, "
+              f"{cuda_ms(lambda: AQ.rowquant_fused(x, mode, w, b), SHORT_ITERS):.4f} ms")
+
+    # ---- K5 at the 24B's 48 / 8 heads (6 q heads per kv head) --------------
+    q = randn(S, hq, hd)
+    L1 = 4 * ctn
+    eps = 1e-6
+    cache8 = torch.zeros((2, hk, L1, hd), dtype=torch.int8, device=dev)
+    cache_sc = torch.zeros((2, hk, L1), device=dev)
+    cache8[:, :, : 2 * ctn], cache_sc[:, :, : 2 * ctn] = A8.quantize_kv_per_token(randn(2, hk, 2 * ctn, hd))
+    kw = 1.0 + 0.1 * randn(hd, dtype=torch.float32)
+    kb = 0.1 * randn(hd, dtype=torch.float32)
+    ang = torch.rand((S, rot), generator=g, device=dev) * 6.28
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    kv8, kv_sc = A.kv_norm_rope_pack(randn(S, hk, hd), randn(S, hk, hd), kw, kb, sin, cos, eps=eps, quantize=True)
+    i32 = dict(dtype=torch.int32, device=dev)
+    sp = 2
+    ge = torch.tensor([(sp + j + 1) * ctn for j in range(4)] + [(sp + 5) * ctn], **i32)
+    gs = torch.clamp(ge - torch.tensor([1, 2, 3, 5, 1], **i32) * ctn, min=0)
+    st = sp * ctn
+    r1s, r1e = torch.clamp(gs, max=st), torch.clamp(ge, max=st)
+    r2s, r2e = torch.clamp(gs - st, min=0), torch.clamp(ge - st, min=0)
+    pro = (1.0 + 0.1 * randn(hd, dtype=torch.float32), 0.1 * randn(hd, dtype=torch.float32), sin, cos, eps)
+    args = (q, cache8, cache_sc, kv8, kv_sc, r1s, r1e, r2s, r2e)
+    call = lambda: A8.segmented_attention_two_source_q8(*args, seg_len=ctn, q_prologue=pro)
+    check_close("segmented_attention_two_source_q8 at 48 / 8 heads", call(),
+                A8.segmented_attention_two_source_q8_qk8_reference(*args, seg_len=ctn, q_prologue=pro), *ATTN_TOL)
+    attended = int(((r1e - r1s) + (r2e - r2s)).sum())
+    ms = cuda_ms(call, 10)
+    work = 2 * ctn * attended * hd * hq
+    print(f"  segmented_attention_two_source_q8 at 48 / 8 heads (S {S}): {ms:.4f} ms, "
+          f"{2 * work / ms / 1e9:.1f} T/s")
+    for r in results:
+        print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
+              f"bound {r['bound_ms']:.4f} by {r['bound_by']})")
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phase 3: tiny walks on the card against the CPU fp32 walks
 # ---------------------------------------------------------------------------
@@ -552,17 +712,18 @@ TINY_MODEL = dict(num_layers=2, hidden_size=768, ffn_hidden_size=1536, num_atten
 TINY_RUNTIME = dict(num_steps=8, window_size=2, chunk_width=2, noise2clean_kvrange=[3, 2], clean_chunk_kvrange=1)
 
 
-def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quantize=False):
+def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quantize=None, wrappers=(), kernels=()):
     """A model at head_dim 128 (so every kernel runs) walks 3 chunks on the
     card in bf16 and on the CPU in fp32 with the same weights and noise;
     the emitted latents must agree to `tol` relative L2 error.  `quantize`
-    quantizes the (bf16) weights to int8 first, for both."""
+    (a tree function of `ops.quant`) quantizes the (bf16) weights first,
+    for both.  Each of `kernels` (names in `wrappers`) must launch in the
+    card's walk."""
     import numpy as np
     import torch
 
     from magi_tpu_torch.core.config import MagiConfig
     from magi_tpu_torch.models.dit.model import init_dit_params
-    from magi_tpu_torch.ops.quant import quantize_params_int8
     from magi_tpu_torch.sampling.transport import ArdfSampler, InferenceInput
 
     with open(config_path) as f:
@@ -579,7 +740,7 @@ def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quanti
     gen.manual_seed(1)
     p_bf = init_dit_params(cfg_gpu, "cpu", gen)  # bf16 values are exact in fp32
     if quantize:
-        p_bf = quantize_params_int8(p_bf)
+        p_bf = quantize(p_bf)
     p_gpu = _map(p_bf, lambda t: t.to(dev))
     p_cpu = _map(p_bf, lambda t: t.float() if t.dtype == torch.bfloat16 else t)
     rng = np.random.default_rng(0)
@@ -594,7 +755,11 @@ def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quanti
             has_text=True)
         return torch.cat([c.cpu() for _, c in ArdfSampler(cfg, params, inp, noise=noise, device=device).walk()], 1)
 
+    before = {n: wrappers[n].launches for n in kernels}
     a = walk(cfg_gpu, p_gpu, dev)
+    idle = [n for n in kernels if wrappers[n].launches == before[n]]
+    if idle:
+        fail(f"{name}: the card's walk launched no {idle}")
     b = walk(cfg_cpu, p_cpu, "cpu")
     rel = float((a - b).norm() / b.norm())
     ok = bool(torch.isfinite(a).all()) and a.shape == b.shape and rel < tol
@@ -605,13 +770,14 @@ def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quanti
     return rel
 
 
-# The single-branch int8 walk against its fp32 CPU twin.  Beyond phase 3's
-# bf16 rounding, the card quantizes q to int8 inside K5 (the CPU's dequant
-# reference keeps q), K8 rounds the LayerNorm output to bf16 before its
-# row quantization, and every int8 rounding of activations and kv that
-# these move across a step edge carries on through the walk.  Seen:
-# 3.842e-03 relative L2 (H100 80GB HBM3, 700 W); the limit keeps phase 3's
-# 2e-2, five times that.
+# The single-branch int8 walks against their fp32 CPU twins.  Beyond phase
+# 3's bf16 rounding, the card quantizes q to int8 inside K5 (the CPU's
+# dequant reference keeps q), K8 and K8s round their producer to bf16
+# before the row quantization, and every int8 rounding of activations and
+# kv that these move across a step edge carries on through the walk.
+# Seen: 3.842e-03 relative L2 for the int8 walk (H100 80GB HBM3, 700 W);
+# the limit keeps phase 3's 2e-2, five times that, for the int8 and the
+# gated int4 walks.
 TINY_QUANT_TOL = 2e-2
 
 
@@ -630,6 +796,7 @@ def run_main_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: li
 
     with open(stem + ".json", "w") as f:
         json.dump(config, f)
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
     torch.cuda.reset_peak_memory_stats(dev)
     for w in wrappers.values():
         w.launches = 0
@@ -656,6 +823,63 @@ def run_main_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: li
     if missing:
         fail(f"the main path launched no {missing}")
     return launches
+
+
+def run_noedge_walk(dev, config: dict, wrappers: dict, path_kernels: list) -> dict:
+    """The 24B w4a8 tree without `blocks_edge`, as the JAX package's
+    single-chip 24B benchmark builds it (`quantize_params_int4(
+    keep_edge_bf16=False)`: layers 0 and L-1 run bf16 activations on the
+    dequantized int4 weights), walked by `ArdfSampler.walk` with every
+    launch count set to 0 just before and read just after.  Checks that
+    every chunk comes out finite and that every kernel of the path
+    launched.  Returns the launch counts."""
+    import torch
+
+    from magi_tpu_torch.core.config import MagiConfig
+    from magi_tpu_torch.models.dit.model import init_dit_params
+    from magi_tpu_torch.ops.quant import quantize_params_int4
+    from magi_tpu_torch.pipeline.prompt_process import build_inference_input, get_txt_embeddings
+    from magi_tpu_torch.sampling.transport import ArdfSampler
+
+    cfg = MagiConfig.from_dict(config)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.runtime_config.seed)
+    t0 = time.perf_counter()
+    params = quantize_params_int4(init_dit_params(cfg, dev, gen), keep_edge_bf16=False)
+    torch.cuda.synchronize()
+    print(f"  int4 tree without blocks_edge in {time.perf_counter() - t0:.1f} s, "
+          f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30:.2f} GiB")
+    emb, mask = get_txt_embeddings("a red cube on a table", cfg)
+    inp = build_inference_input(cfg, params["y_embedder"]["null_caption_embedding"].float().cpu().numpy(), emb, mask,
+                                dev)
+    sampler = ArdfSampler(cfg, params, inp, gen, device=dev)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    chunks = [(i, bool(torch.isfinite(c).all()), tuple(c.shape)) for i, c in sampler.walk()]
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    steps = sampler.step_seconds
+    print(f"  chunks emitted (index, finite, shape): {chunks}")
+    print(f"  denoise steps: {len(steps)}, seconds per step: mean {sum(steps) / len(steps):.4f}, first "
+          f"{steps[0]:.4f}, last {steps[-1]:.4f}; walk wall {wall:.1f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    print(f"  launches in this run: {json.dumps(launches)}")
+    print(f"  launches per denoise step: "
+          f"{json.dumps({n: round(launches[n] / len(steps), 2) for n in path_kernels})}")
+    if len(chunks) != inp.chunk_num or not all(ok for _, ok, _ in chunks):
+        fail(f"the walk without blocks_edge emitted {chunks}, expected {inp.chunk_num} finite chunks")
+    missing = [n for n in path_kernels if launches[n] == 0]
+    if missing:
+        fail(f"the walk without blocks_edge launched no {missing}")
+    return launches
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else [v])
 
 
 def main() -> int:
@@ -697,12 +921,7 @@ def main() -> int:
 
     print("phase 2: kernels against their plain versions (CUDA events)", flush=True)
     warm_card(dev)
-    results = kernel_checks(dev) + int8_kernel_checks(dev)
-
-    print("phase 3: tiny walks, card against CPU", flush=True)
-    tiny_walk_check(dev, "tiny 3-CFG walk", CONFIG, 2e-2)
-    tiny_walk_check(dev, "tiny distill int8 1-CFG walk with int8 attention", QUANT_CONFIG, TINY_QUANT_TOL,
-                    model=dict(num_layers=3), engine=dict(attn_int8=True), quantize=True)
+    results = kernel_checks(dev) + int8_kernel_checks(dev) + w4a8_kernel_checks(dev)
 
     wrappers = {
         "segmented_attention_two_source": A.segmented_attention_two_source,
@@ -714,7 +933,19 @@ def main() -> int:
         "segmented_attention_two_source_q8": A8.segmented_attention_two_source_q8,
         "quantized_matmul_i8": Q.quantized_matmul_i8,
         "rowquant_fused": AQ.rowquant_fused,
+        "quantized_matmul": Q.quantized_matmul,
+        "rowquant_swiglu": AQ.rowquant_swiglu,
     }
+
+    print("phase 3: tiny walks, card against CPU", flush=True)
+    tiny_walk_check(dev, "tiny 3-CFG walk", CONFIG, 2e-2)
+    tiny_walk_check(dev, "tiny distill int8 1-CFG walk with int8 attention", QUANT_CONFIG, TINY_QUANT_TOL,
+                    model=dict(num_layers=3), engine=dict(attn_int8=True), quantize=Q.quantize_params_int8)
+    tiny_walk_check(dev, "tiny distill gated int4 1-CFG walk without blocks_edge, int8 attention", QUANT_CONFIG,
+                    TINY_QUANT_TOL, model=dict(num_layers=3, gated_linear_unit=True), engine=dict(attn_int8=True),
+                    quantize=lambda p: Q.quantize_params_int4(p, keep_edge_bf16=False), wrappers=wrappers,
+                    kernels=["quantized_matmul", "rowquant_swiglu", "quantized_matmul_i8", "rowquant_fused"])
+
     out_dir = os.path.join(_lib.BUILD_DIR, "smoke")
     os.makedirs(out_dir, exist_ok=True)
     os.environ["SKIP_LOAD_MODEL"] = "1"
@@ -736,8 +967,26 @@ def main() -> int:
     launches5 = run_main_path(dev, d, os.path.join(out_dir, "4.5B_distill_quant_256"), wrappers, [
         "kv_norm_rope_pack_q8", "segmented_attention_two_source_q8", "quantized_matmul_i8", "rowquant_fused",
         "gate_norm_residual", "segmented_attention"])
+
+    # the 24B distill config on one device: cp_size 1 (the config's 8 is its
+    # multi-GPU layout), int4 weights, int8 attention
+    with open(CONFIG_24B) as f:
+        d = json.load(f)
+    d["runtime_config"].update(video_size_h=256, video_size_w=256, num_frames=96)
+    d["engine_config"].update(attn_int8=True, quant_bits=4, cp_size=1)
+    w4a8_kernels = ["kv_norm_rope_pack_q8", "segmented_attention_two_source_q8", "quantized_matmul_i8",
+                    "rowquant_fused", "rowquant_swiglu", "gate_norm_residual"]
+    print("phase 6: 24B distill w4a8 t2v with int8 attention through the CLI entry (48 layers, 6144 wide, "
+          "256x256, 96 frames, the config's 16 steps)", flush=True)
+    launches6 = run_main_path(dev, d, os.path.join(out_dir, "24B_distill_w4a8_256"), wrappers,
+                              w4a8_kernels + ["segmented_attention"])
+    print("phase 7: the 24B w4a8 tree without blocks_edge, ArdfSampler.walk of 2 chunks (256x256)", flush=True)
+    d["runtime_config"]["num_frames"] = 48
+    launches7 = run_noedge_walk(dev, d, wrappers, w4a8_kernels + ["quantized_matmul"])
+
     for r in results:
-        r["launches_by_path"] = {"base": launches4[r["name"]], "distill_int8": launches5[r["name"]]}
+        r["launches_by_path"] = {"base": launches4[r["name"]], "distill_int8": launches5[r["name"]],
+                                 "24b_w4a8": launches6[r["name"]], "24b_w4a8_noedge": launches7[r["name"]]}
         r["launches"] = sum(r["launches_by_path"].values())
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

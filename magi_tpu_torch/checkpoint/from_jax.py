@@ -6,9 +6,10 @@ same keys, same shapes and layouts), so a tree of numpy arrays taken from
 (numpy's `bfloat16` from ml_dtypes) convert exactly through float32;
 every other leaf keeps its dtype, so an int8-quantized tree (`weight_q`
 int8 [L, in, out] in the JAX layout, `weight_scale` f32, the bf16
-`blocks_edge` side tree) and the int8 KV cache dict ({kv: int8, scale:
-f32}) carry over unchanged.  Tests use this to run both packages on the
-same weights and caches.
+`blocks_edge` side tree), an int4 tree (`weight_q4` uint8 [L, in/2, out],
+nibble-packed as `ops.quant.quantize_int4` packs it) and the int8 KV
+cache dict ({kv: int8, scale: f32}) carry over unchanged.  Tests use
+this to run both packages on the same weights and caches.
 """
 
 from __future__ import annotations

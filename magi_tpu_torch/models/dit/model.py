@@ -8,14 +8,19 @@
 * fp32 islands as in the JAX package: embedders, QK LayerNorms, gating
   and post norms, final LayerNorm and linear.  Dense bf16 linears are
   plain `torch.matmul` in the parameter dtype.
-* Quantized execution (a tree from `ops.quant.quantize_params_int8`):
-  middle layers quantize each linear group's input per row to int8 and run
-  int8 x int8 GEMMs; layers 0 and L-1 run bf16 through the tree's
-  `blocks_edge` side tree.  The row quantization runs fused with its
-  producer (the pre-LayerNorm) in K8 (`ops.act_quant.rowquant_fused`) and
-  the GEMMs in K6 (`ops.quant.quantized_matmul_i8`), always: the JAX
-  package's switches between its Pallas kernels and XLA
-  (`MAGI_QMM_IMPL`, `MAGI_FUSED_ACT_QUANT`) are not read here.
+* Quantized execution (a tree from `ops.quant.quantize_params_int8`, or
+  the nibble-packed int4 tree of `quantize_params_int4`, whose weights are
+  unpacked to int8 one layer at a time per forward): middle layers
+  quantize each linear group's input per row to int8 and run int8 x int8
+  GEMMs; layers 0 and L-1 run bf16 through the tree's `blocks_edge` side
+  tree, or, in a tree without it, bf16 activations on the dequantized
+  weights.  The row quantization runs fused with its producer (the
+  pre-LayerNorm, or a gated MLP's SwiGLU) in K8 / K8s
+  (`ops.act_quant.rowquant_fused`), the int8 GEMMs in K6
+  (`ops.quant.quantized_matmul_i8`) and the dequant GEMMs in K7
+  (`ops.quant.quantized_matmul`), always: the JAX package's switches
+  between its Pallas kernels and XLA (`MAGI_QMM_IMPL`,
+  `MAGI_FUSED_ACT_QUANT`) are not read here.
 * The KV cache is one [num_layers, 2, hk, tokens, hd] buffer in the
   attention kernel's layout, updated in place: a forward that writes the
   cache writes the slice of its current chunks and reads only earlier
@@ -62,7 +67,7 @@ from magi_tpu_torch.ops.attention_q8 import (
     segmented_attention_two_source_q8_reference,
 )
 from magi_tpu_torch.ops.fused_norm import gate_norm_residual
-from magi_tpu_torch.ops.quant import quantized_matmul, quantized_matmul_i8
+from magi_tpu_torch.ops.quant import quantized_matmul, quantized_matmul_i8, unpack_int4
 
 
 def attn_int8(config: MagiConfig) -> bool:
@@ -116,16 +121,18 @@ def _apply_pre(x, pre, eps):
 def _linears_shared(x, plist, act_ok: bool, high_precision: bool = False, pre=None, eps: float = 1e-6):
     """Several linears on one shared input, the single dispatch of every
     DiT linear (the JAX package's single-device branches): bf16 `weight`,
-    or int8 `weight_q` + per-channel `weight_scale`.  With int8 weights and
-    `act_ok` the input is quantized once per row for the whole group and
-    each linear is an int8 x int8 GEMM; without `act_ok` (a quantized tree
-    without `blocks_edge`, edge layers) each is the bf16 x int8 dequant
-    GEMM.  `pre` is the group input's producer (see `_apply_pre`); the
-    int8 branch runs it fused with the row quantization (K8), and each
-    GEMM is K6: the kernels on CUDA tensors, their plain versions on CPU
-    tensors."""
+    int8 `weight_q` + per-channel `weight_scale`, or packed int4
+    `weight_q4` + `weight_scale`, unpacked to int8 here.  With int8
+    weights and `act_ok` the input is quantized once per row for the whole
+    group and each linear is an int8 x int8 GEMM (K6); without `act_ok` (a
+    quantized tree without `blocks_edge`, edge layers) each is the bf16 x
+    int8 dequant GEMM (K7).  `pre` is the group input's producer (see
+    `_apply_pre`); the int8 branch runs it fused with the row quantization
+    (K8, or K8s for SwiGLU), the dequant branch unfused.  The kernels run
+    on CUDA tensors, their plain versions on CPU tensors."""
     if "weight_q4" in plist[0]:
-        raise NotImplementedError("int4 weights (weight_q4) are ROADMAP queue 1 item 11, the 24B w4a8 slice")
+        plist = [{**{k: v for k, v in pp.items() if k != "weight_q4"}, "weight_q": unpack_int4(pp["weight_q4"])}
+                 for pp in plist]
     if "weight_q" not in plist[0]:
         x = _apply_pre(x, pre, eps)
         return tuple(_dot(x, pp["weight"], high_precision) for pp in plist)
@@ -406,11 +413,11 @@ def layer_params(blocks: dict, idx: int) -> dict:
 
 def _apply_layer_routed(blk, edge, config: MagiConfig, idx: int, *args, **kwargs):
     """Layer `idx` with the quantized tree's routing: middle layers run
-    int8 weights and int8 activations; layers 0 and L-1 run bf16 through
-    the `blocks_edge` side tree (the reference's first/last-layer policy).
-    A quantized tree without `blocks_edge` runs its edge layers with bf16
-    activations on the int8 weights (the dequant GEMM).  bf16 trees ignore
-    the routing."""
+    int8 (or int4) weights and int8 activations; layers 0 and L-1 run bf16
+    through the `blocks_edge` side tree (the reference's first/last-layer
+    policy).  A quantized tree without `blocks_edge` runs its edge layers
+    with bf16 activations on the int8 weights (the dequant GEMM, K7).  bf16
+    trees ignore the routing."""
     L = config.model_config.num_layers
     if edge is None:
         return layer_forward(blk, config.model_config, *args, act_quant_ok=0 < idx < L - 1, **kwargs)

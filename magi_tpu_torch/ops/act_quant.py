@@ -1,20 +1,25 @@
 """Fused producer + per-row int8 quantization of a linear group's input
-(K8, the port of `magi_tpu.ops.act_quant`).
+(K8 and K8s, the port of `magi_tpu.ops.act_quant`).
 
 Modes, as in the JAX package:
 
   * "plain":  q8(x)                        (proj, fc2 after GELU, kv_xattn inputs)
   * "ln":     q8(bf16(LayerNorm(x)))       (the shared pre-LN -> q/qx/k/v, mlp LN -> fc1)
-  * "swiglu": q8(bf16(silu(x_gate)) * x_up), a gated MLP's fc2 input: the
-              next slice (ROADMAP queue 2 K8s); it raises here.
+  * "swiglu": q8(bf16(bf16(silu_f32(x_gate)) * x_up)) of x = [gate | up],
+              a gated MLP's fc2 input: [S, 2F] -> [S, F] (K8s)
 
 q8 is `act_quant_rowwise`: scale amax / 127 per row (1 for a zero row),
 value round(x / scale) half to even, clipped to [-127, 127].
 
-`rowquant_fused` launches the CUDA kernel (`csrc/quant.cu`) on CUDA tensors
-(bf16) and runs `rowquant_fused_reference` on CPU tensors, where the "ln"
-output is rounded to x's dtype (bf16, as the kernel does, or f32 for an
-f32 model, as the unfused chain does).  The LayerNorm's mean and variance
+`rowquant_fused` launches the CUDA kernels (`csrc/quant.cu`) on CUDA
+tensors (bf16; "swiglu" through `rowquant_swiglu`, which counts K8s's
+launches apart from K8's) and runs `rowquant_fused_reference` on CPU
+tensors, where the "ln" and "swiglu" producers are rounded to x's dtype
+(bf16, as the kernels do, or f32 for an f32 model, as the unfused chain
+does).  silu is `F.silu`, g / (1 + exp(-g)) in f32, which the kernel
+computes with the same IEEE operations.  Unlike the Pallas kernel,
+"swiglu" takes any F that is a multiple of 8: the Pallas kernel's
+F % 2048 came from the TPU's 16 MB VMEM.  The LayerNorm's mean and variance
 are taken in float64 by both: the sum of a row of bf16 inputs is then
 exact in any order, so the kernel gives the plain version's bits.  The
 JAX package takes them in f32; the two differ by an f32 ulp or so of the
@@ -27,12 +32,12 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from magi_tpu_torch.ops import _lib
 from magi_tpu_torch.ops.quant import act_quant_rowwise
 
 MODES = ("plain", "ln", "swiglu")
-_SWIGLU = "rowquant_fused mode 'swiglu' (K8s, a gated MLP's fc2 input) is ROADMAP queue 2 K8s, the 24B slice"
 
 
 def _layer_norm_f64_stats(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
@@ -47,11 +52,18 @@ def _layer_norm_f64_stats(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps
     return (x.float() - mean.float()) * rstd * w.float() + b.float()
 
 
+def _check_x(fn: str, x: torch.Tensor) -> None:
+    if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{fn}: x must be a contiguous, 16-byte aligned bf16 tensor, got {x.dtype} "
+                         f"(contiguous={x.is_contiguous()})")
+
+
 def rowquant_fused_reference(x, mode: str = "plain", ln_w=None, ln_b=None, *, eps: float = 1e-6):
     """The plain op chain of each mode."""
     if mode == "swiglu":
-        raise NotImplementedError(_SWIGLU)
-    if mode == "ln":
+        d = x.shape[-1] // 2
+        x = (F.silu(x[:, :d].float()).to(x.dtype) * x[:, d:]).to(x.dtype)
+    elif mode == "ln":
         x = _layer_norm_f64_stats(x, ln_w, ln_b, eps).to(x.dtype)
     elif mode != "plain":
         raise ValueError(f"rowquant_fused mode must be one of {MODES}, got {mode!r}")
@@ -66,17 +78,17 @@ def rowquant_fused(
     *,
     eps: float = 1e-6,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (int8 [S, K], f32 row scales [S])."""
+    """Returns (int8 [S, d_out], f32 row scales [S]); d_out = K, or K / 2
+    for "swiglu"."""
     if x.device.type == "cpu":
         return rowquant_fused_reference(x, mode, ln_w, ln_b, eps=eps)
     fn = "rowquant_fused"
     if mode == "swiglu":
-        raise NotImplementedError(_SWIGLU)
-    if mode not in ("plain", "ln"):
+        return rowquant_swiglu(x)
+    if mode not in MODES:
         raise ValueError(f"{fn}: mode must be one of {MODES}, got {mode!r}")
     S, K = x.shape
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError(f"{fn}: x must be a contiguous bf16 tensor, got {x.dtype} (contiguous={x.is_contiguous()})")
+    _check_x(fn, x)
     if K % 4:
         raise ValueError(f"{fn}: width {K} must be a multiple of 4")
     w = b = None
@@ -99,3 +111,27 @@ def rowquant_fused(
 
 
 rowquant_fused.launches = 0
+
+
+def rowquant_swiglu(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8s, `rowquant_fused(x, "swiglu")` with a launch count of its own:
+    x = [gate | up] bf16 [S, 2F] (F a multiple of 8) -> (int8 [S, F], f32
+    row scales [S])."""
+    if x.device.type == "cpu":
+        return rowquant_fused_reference(x, "swiglu")
+    S, K = x.shape
+    _check_x("rowquant_swiglu", x)
+    if K % 16:
+        raise ValueError(f"rowquant_swiglu: width {K} must be a multiple of 16")
+    q = torch.empty((S, K // 2), dtype=torch.int8, device=x.device)
+    scale = torch.empty((S,), dtype=torch.float32, device=x.device)
+    if S == 0:
+        return q, scale
+    err = _lib.lib().magi_rowquant_swiglu(x.data_ptr(), q.data_ptr(), scale.data_ptr(), S, K // 2,
+                                          _lib.stream(x.device))
+    _lib.check(err, "rowquant_swiglu")
+    rowquant_swiglu.launches += 1
+    return q, scale
+
+
+rowquant_swiglu.launches = 0

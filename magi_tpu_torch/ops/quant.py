@@ -1,5 +1,5 @@
-"""int8 weight and activation quantization and the int8 GEMM (the port of
-`magi_tpu.ops.quant`, int8 half).
+"""Weight and activation quantization and the quantized GEMMs (the port of
+`magi_tpu.ops.quant`).
 
 * `quantize_int8` / `quantize_params_int8`: per-output-channel symmetric
   int8 weights with f32 scales, the JAX package's tree (`weight_q` int8
@@ -7,22 +7,33 @@
   bf16 first/last layers in a `blocks_edge/{first,last}` side tree), in
   the same [in, out] layout.  Quantized one layer at a time, so a bf16
   tree never has a whole f32 copy.
+* `quantize_int4` / `unpack_int4` / `quantize_params_int4` (w4a8):
+  symmetric int4 in [-7, 7] with per-output-channel scales, offset by 8
+  and nibble-packed two rows to a byte (row 2i in the low nibble, 2i+1 in
+  the high one), `weight_q4` uint8 [L, in/2, out] in the tree.  The model
+  unpacks one layer's weights to int8 per forward with `unpack_int4`,
+  plain PyTorch on every device (the JAX package leaves it to XLA), and
+  runs the int8 linears on them.
 * `act_quant_rowwise`: per-row dynamic int8 of an activation (plain
   PyTorch, as XLA does it in the JAX package).
 * `quantized_matmul_i8` (K6): int8 x int8 -> int32 GEMM with the f32
-  epilogue `acc * row_scale[m] * col_scale[n]`, a CUDA kernel
-  (`csrc/quant.cu`) on CUDA tensors and `quantized_matmul_i8_reference`
-  on the CPU.
+  epilogue `acc * row_scale[m] * col_scale[n]`.
+* `quantized_matmul` (K7): bf16 x times int8 weights, dequantized in the
+  loop, f32 sums, `* col_scale[n]` -> bf16; the linears of layers that run
+  bf16 activations on int8 weights (a quantized tree without
+  `blocks_edge`).
+K6 and K7 are CUDA kernels (`csrc/quant.cu`) on CUDA tensors and their
+plain versions on CPU tensors.
 
-int4 (w4a8), smooth-quant (`act_smooth`) and the bf16 x int8 dequant GEMM
-`quantized_matmul` (K7) on the card are the next slice and raise
-`NotImplementedError` (ROADMAP queue 1 item 11, queue 2 K7).
+Smooth-quant trees (`act_smooth`) wait for the fp8 checkpoint loader
+(ROADMAP queue 1 items 6 and 11) and raise `NotImplementedError`.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from magi_tpu_torch.ops import _lib
@@ -38,8 +49,6 @@ QUANTIZABLE_SUFFIXES = (
     "mlp/linear_fc2/weight",
 )
 
-_INT4 = "int4 weights (w4a8: quantize_int4, unpack_int4) are ROADMAP queue 1 item 11, the 24B w4a8 slice"
-
 
 def div127(t: torch.Tensor) -> torch.Tensor:
     """t / 127 as a true f32 quotient on every backend (PyTorch's CUDA
@@ -51,34 +60,61 @@ def _scale_of(amax: torch.Tensor) -> torch.Tensor:
     return torch.where(amax == 0, torch.ones_like(amax), div127(amax))
 
 
+def _weight_scale(amax: torch.Tensor, qmax: int) -> torch.Tensor:
+    """amax * f32(1 / qmax), 1 where amax is 0: the JAX package's
+    `amax / qmax` as XLA compiles it in its jitted tree quantization (a
+    multiply by the constant's reciprocal), so the trees are equal bit for
+    bit."""
+    recip = torch.tensor(float(np.float32(1) / np.float32(qmax)), dtype=torch.float32, device=amax.device)
+    return torch.where(amax == 0, torch.ones_like(amax), amax * recip)
+
+
 def quantize_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """[in, out] -> (int8 [in, out], f32 scales [out]): per-output-channel
     symmetric quantization, round half to even."""
     wf = w.float()
-    scale = _scale_of(wf.abs().amax(dim=0))
+    scale = _weight_scale(wf.abs().amax(dim=0), 127)
     return torch.round(wf / scale).clamp(-127, 127).to(torch.int8), scale
 
 
-def quantize_int4(w):
-    raise NotImplementedError(_INT4)
+def quantize_int4(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[in, out] -> (uint8 nibble-packed [in/2, out], f32 scales [out]):
+    values round(w / scale) in [-7, 7] plus 8, row 2i in the low nibble and
+    row 2i+1 in the high nibble."""
+    if w.shape[0] % 2:
+        raise ValueError(f"quantize_int4: the input dim ({w.shape[0]}) must be even for nibble packing")
+    wf = w.float()
+    scale = _weight_scale(wf.abs().amax(dim=0), 7)
+    q = torch.round(wf / scale).clamp(-7, 7).to(torch.int32) + 8  # [1, 15]
+    return (q[0::2] | (q[1::2] << 4)).to(torch.uint8), scale
 
 
-def unpack_int4(packed):
-    raise NotImplementedError(_INT4)
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """uint8 packed [..., in/2, out] -> int8 [..., in, out].  A packed leaf
+    carried as bf16 (exact for 0..255) is taken too."""
+    if packed.dtype != torch.uint8:
+        packed = packed.to(torch.uint8)
+    lo = (packed & 0xF).to(torch.int8) - 8
+    hi = (packed >> 4).to(torch.int8) - 8
+    shape = packed.shape[:-2] + (packed.shape[-2] * 2, packed.shape[-1])
+    return torch.stack([lo, hi], dim=-2).reshape(shape)
 
 
-def _quantize_stacked(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[L, in, out] -> (int8 [L, in, out], scales [L, out]), one layer at a
-    time so the f32 temporaries stay one layer wide."""
-    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
-    s = torch.empty((w.shape[0], w.shape[2]), dtype=torch.float32, device=w.device)
-    for i in range(w.shape[0]):
-        q[i], s[i] = quantize_int8(w[i])
+def _quantize_stacked(w: torch.Tensor, bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[L, in, out] -> (int8 [L, in, out], or uint8 packed [L, in/2, out]
+    for int4; scales [L, out]), one layer at a time so the f32 temporaries
+    stay one layer wide."""
+    L, k, n = w.shape
+    if bits == 8:
+        q = torch.empty((L, k, n), dtype=torch.int8, device=w.device)
+        one = quantize_int8
+    else:
+        q = torch.empty((L, k // 2, n), dtype=torch.uint8, device=w.device)
+        one = quantize_int4
+    s = torch.empty((L, n), dtype=torch.float32, device=w.device)
+    for i in range(L):
+        q[i], s[i] = one(w[i])
     return q, s
-
-
-def quantize_params_int4(params: dict, keep_edge_bf16: bool = True) -> dict:
-    raise NotImplementedError(_INT4)
 
 
 def _leaves(tree: dict, keys: list):
@@ -95,13 +131,11 @@ def _set_path(tree: dict, keys: list, value) -> None:
     tree[keys[-1]] = value
 
 
-def quantize_params_int8(params: dict) -> dict:
-    """Quantize the big DiT linears to int8 + per-channel scales, as a new
-    tree: the stacked linears' weights become `weight_q` / `weight_scale`
-    leaves and every other leaf is shared with `params`.  Layers 0 and L-1
-    keep their bf16 weights, cloned, in `blocks_edge/{first,last}` (the
-    reference's full-bf16 first/last layers; the model routes those two
-    layers through them), so dropping `params` frees the bf16 stacks."""
+def _quantize_params(params: dict, bits: int, keep_edge_bf16: bool) -> dict:
+    """The quantized tree: each stacked linear's weight becomes `weight_q`
+    (int8) or `weight_q4` (packed int4) plus `weight_scale`, every other
+    leaf is shared with `params`, and with `keep_edge_bf16` layers 0 and
+    L-1 keep their bf16 weights, cloned, in `blocks_edge/{first,last}`."""
     paths = {"/".join(keys) for keys, _ in _leaves(params, [])}
     new_tree: dict = {}
     for keys, leaf in _leaves(params, []):
@@ -110,12 +144,29 @@ def quantize_params_int8(params: dict) -> dict:
             continue
         if "/".join(keys[:-1] + ["act_smooth"]) in paths:
             raise NotImplementedError("smooth-quant (act_smooth) trees are ROADMAP queue 1 item 11")
-        q, s = _quantize_stacked(leaf)
-        _set_path(new_tree, keys[:-1] + ["weight_q"], q)
+        q, s = _quantize_stacked(leaf, bits)
+        _set_path(new_tree, keys[:-1] + ["weight_q" if bits == 8 else "weight_q4"], q)
         _set_path(new_tree, keys[:-1] + ["weight_scale"], s)
-        _set_path(new_tree, ["blocks_edge", "first"] + keys[1:], leaf[0].clone())
-        _set_path(new_tree, ["blocks_edge", "last"] + keys[1:], leaf[-1].clone())
+        if keep_edge_bf16:
+            _set_path(new_tree, ["blocks_edge", "first"] + keys[1:], leaf[0].clone())
+            _set_path(new_tree, ["blocks_edge", "last"] + keys[1:], leaf[-1].clone())
     return new_tree
+
+
+def quantize_params_int8(params: dict) -> dict:
+    """Quantize the big DiT linears to int8 + per-channel scales, as a new
+    tree.  Layers 0 and L-1 keep their bf16 weights in `blocks_edge` (the
+    reference's full-bf16 first/last layers; the model routes those two
+    layers through them), so dropping `params` frees the bf16 stacks."""
+    return _quantize_params(params, 8, keep_edge_bf16=True)
+
+
+def quantize_params_int4(params: dict, keep_edge_bf16: bool = True) -> dict:
+    """Nibble-packed int4 weights (w4a8): `weight_q4` uint8 [L, in/2, out]
+    + `weight_scale` [L, out] per quantized linear.  `keep_edge_bf16=False`
+    drops the bf16 first/last layers: the model then runs layers 0 and L-1
+    with bf16 activations on the dequantized weights (K7)."""
+    return _quantize_params(params, 4, keep_edge_bf16)
 
 
 def act_quant_rowwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -127,8 +178,26 @@ def act_quant_rowwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
-# int8 GEMM
+# the quantized GEMMs: K6 (int8 x int8) and K7 (bf16 x int8)
 # ---------------------------------------------------------------------------
+
+
+def _check_operands(fn: str, device, operands) -> None:
+    """Raise unless each (name, tensor, dtype, shape) is a contiguous tensor
+    of that dtype and shape on `device`, 16-byte aligned (the kernels load
+    16 bytes at a time)."""
+    for name, t, dt, shape in operands:
+        if (t.device != device or t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(
+                f"{fn}: {name} must be a contiguous, 16-byte aligned {dt} tensor of shape {shape} on {device}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})"
+            )
+
+
+def _check_kn(fn: str, k: int, n: int) -> None:
+    if k % 16 or n % 16:
+        raise ValueError(f"{fn}: k ({k}) and n ({n}) must be multiples of 16")
 
 
 def _epilogue(acc: torch.Tensor, row_scale, col_scale, out_dtype):
@@ -164,19 +233,13 @@ def quantized_matmul_i8(
     n = w_q.shape[1]
     if out_dtype != torch.bfloat16:
         raise ValueError(f"{fn}: the kernel writes bf16, got out_dtype {out_dtype}")
-    if k % 16 or n % 16:
-        raise ValueError(f"{fn}: k ({k}) and n ({n}) must be multiples of 16")
-    for name, t, dt, shape in (
+    _check_kn(fn, k, n)
+    _check_operands(fn, x_q.device, (
         ("x_q", x_q, torch.int8, (m, k)),
         ("row_scale", row_scale, torch.float32, (m,)),
         ("w_q", w_q, torch.int8, (k, n)),
         ("col_scale", col_scale, torch.float32, (n,)),
-    ):
-        if t.device != x_q.device or t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"{fn}: {name} must be a contiguous {dt} tensor of shape {shape} on {x_q.device}, "
-                f"got {t.dtype} {tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})"
-            )
+    ))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x_q.device)
     if m == 0:
         return out
@@ -192,23 +255,39 @@ def quantized_matmul_i8(
 quantized_matmul_i8.launches = 0
 
 
-# ---------------------------------------------------------------------------
-# bf16 x int8 dequant GEMM (K7): the plain version only
-# ---------------------------------------------------------------------------
-
-
 def quantized_matmul_reference(x, w_q, scale):
-    """x @ (w_q * scale) in f32, cast to x's dtype."""
+    """Plain version of K7, the JAX package's reference: x @ (w_q * scale)
+    in f32 (the scale applied to the weight, before the sum), cast to x's
+    dtype."""
     return (x.float() @ (w_q.float() * scale[None, :].float())).to(x.dtype)
 
 
 def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """The dequant GEMM of layers that run bf16 activations on int8 weights
-    (a quantized tree without `blocks_edge`): the plain version on the CPU;
-    its kernel (K7) is not ported yet."""
+    """K7: bf16(sum_k x[m, k] * w_q[k, n] in f32, times scale[n]), the
+    dequant GEMM of layers that run bf16 activations on int8 weights (a
+    quantized tree without `blocks_edge`).  The CUDA kernel on CUDA tensors
+    (bf16 x, k and n multiples of 16), which applies the scale after the
+    sum as the Pallas kernel does; the plain version on CPU tensors, which
+    applies it before (the two differ by about one bf16 step)."""
     if x.device.type == "cpu":
         return quantized_matmul_reference(x, w_q, scale)
-    raise NotImplementedError(
-        "quantized_matmul (K7, the bf16 x int8 dequant GEMM of a quantized tree without blocks_edge) is "
-        "ROADMAP queue 2 K7, with the 24B w4a8 slice"
-    )
+    fn = "quantized_matmul"
+    m, k = x.shape
+    n = w_q.shape[1]
+    _check_kn(fn, k, n)
+    _check_operands(fn, x.device, (
+        ("x", x, torch.bfloat16, (m, k)),
+        ("w_q", w_q, torch.int8, (k, n)),
+        ("scale", scale, torch.float32, (n,)),
+    ))
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    if m == 0:
+        return out
+    err = _lib.lib().magi_qmm_deq(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, k,
+                                   _lib.stream(x.device))
+    _lib.check(err, fn)
+    quantized_matmul.launches += 1
+    return out
+
+
+quantized_matmul.launches = 0

@@ -2,10 +2,11 @@
 
 This port runs the single-device text-to-video path with random weights
 (SKIP_LOAD_MODEL=1): the bf16 base model (3-branch CFG) and the distill /
-int8-quantized model (single-branch CFG, `fp8_quant` or `MAGI_INT8=1`),
-with int8 attention when `engine_config.attn_int8` or `MAGI_ATTN_INT8=1`
-is set.  What it does not cover yet raises `NotImplementedError` naming
-its ROADMAP item.
+quantized models (single-branch CFG, `fp8_quant` or `MAGI_INT8=1`): int8
+weights, or nibble-packed int4 weights (w4a8) under `quant_bits: 4` or
+`MAGI_INT4=1`, as the 24B runs on one device, with int8 attention when
+`engine_config.attn_int8` or `MAGI_ATTN_INT8=1` is set.  What it does not
+cover yet raises `NotImplementedError` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -27,10 +28,11 @@ from magi_tpu_torch.sampling.transport import ArdfSampler
 
 def get_dit(config: MagiConfig, device: torch.device, generator: torch.Generator) -> dict:
     """The DiT parameters: random weights under SKIP_LOAD_MODEL=1, then
-    quantized to int8 (first/last layers kept bf16) when `fp8_quant` or
-    `MAGI_INT8=1` is set."""
+    quantized (first/last layers kept bf16) when `fp8_quant`, `MAGI_INT8=1`
+    or `MAGI_INT4=1` is set: to nibble-packed int4 under `quant_bits: 4` or
+    `MAGI_INT4=1`, else to int8."""
     from magi_tpu_torch.models.dit.model import init_dit_params
-    from magi_tpu_torch.ops.quant import quantize_params_int8
+    from magi_tpu_torch.ops.quant import quantize_params_int4, quantize_params_int8
 
     if not env_is_true("SKIP_LOAD_MODEL"):
         raise NotImplementedError("loading a DiT checkpoint (checkpoint/loader.py) is ROADMAP queue 1 item 6")
@@ -38,9 +40,11 @@ def get_dit(config: MagiConfig, device: torch.device, generator: torch.Generator
     params = init_dit_params(config, device, generator)
     if config.engine_config.fp8_quant or env_is_true("MAGI_INT8") or env_is_true("MAGI_INT4"):
         if config.engine_config.quant_bits == 4 or env_is_true("MAGI_INT4"):
-            raise NotImplementedError("int4 weights (w4a8) are ROADMAP queue 1 item 11, the 24B w4a8 slice")
-        params = quantize_params_int8(params)
-        print_rank_0("Quantized DiT linears to int8 (first and last layers bf16)")
+            params = quantize_params_int4(params)
+            print_rank_0("Quantized DiT linears to nibble-packed int4 (w4a8; first and last layers bf16)")
+        else:
+            params = quantize_params_int8(params)
+            print_rank_0("Quantized DiT linears to int8 (first and last layers bf16)")
     return params
 
 

@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
 """Where a denoise step of the PyTorch/CUDA port spends its time on one GPU.
 
-    python3 scripts/profile_torch_step.py
+    python3 scripts/profile_torch_step.py [--configs base,distill,24b]
 
-Builds the 4.5B models at full width and depth with random weights: the
-base config (example/4.5B/4.5B_base_config.json, bf16, 3-branch CFG) and
-the distill + int8 config (4.5B_distill_quant_config.json with int8
-attention: single-branch CFG, the same weights quantized to int8).  For each and each video size
-it runs one denoise step of the given ARDF stage (stage 3 is the first
-step with the full window of 4 chunks) twice: once timed on the host
-clock with a device synchronise (after one warm-up step), once under
-torch.profiler.  It prints the device time summed by kernel group (the
-port's hand-written kernels one by one, cuBLAS GEMMs, the rest), the
-device-busy and idle share of the step, and the self-attention FLOPs of
-the step with the rate its attention kernel reached.  Then, for the base
-config, one VAE decode of a chunk, the same way.  The KV cache holds
-zeros: timing does not depend on its values.
+Builds the models at full width and depth with random weights: the 4.5B
+base config (example/4.5B/4.5B_base_config.json, bf16, 3-branch CFG), the
+4.5B distill + int8 config (4.5B_distill_quant_config.json with int8
+attention: single-branch CFG, the same weights quantized to int8) and the
+24B distill w4a8 config (example/24B/24B_distill_quant_config.json on one
+device with quant_bits 4 and int8 attention: int4 weights unpacked to
+int8 per layer, bf16 edge layers).  For each and each video size it runs
+one denoise step of the given ARDF stage (stage 3 is the first step with
+the full window of 4 chunks) twice: once timed on the host clock with a
+device synchronise (after one warm-up step), once under torch.profiler.
+It prints the device time summed by kernel group (the port's hand-written
+kernels one by one, cuBLAS GEMMs, the rest), the device-busy and idle
+share of the step, the peak device memory of the step, and the
+self-attention operations of the step with the rate its attention kernel
+reached.  For the 24B it also times `unpack_int4` of one layer's eight
+linears (CUDA events), which the profile counts among "other".  Then, for
+the base config, one VAE decode of a chunk, the same way.  The KV cache
+holds zeros: timing does not depend on its values.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ sys.path.insert(0, HERE)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-SIZES = (256, 720)  # the smoke's size and the config's own
+SIZES = {"base": ((256, 256), (720, 720)), "distill": ((256, 256), (720, 720)),
+         "24b": ((256, 256), (720, 1280))}  # the smoke's size and each config's own
 STAGE = 3  # ARDF stage of the profiled step: the first with the full window of 4 chunks
 STEPS = 64  # the config's schedule
 
@@ -45,7 +51,9 @@ K3Q = "K3q kv_norm_rope_pack (int8)"
 K4 = "K4 gate_norm_residual"
 K5 = "K5 segmented_attention_two_source_q8 (seg_attn_q8_kernel)"
 K6 = "K6 quantized_matmul_i8 (qmm_i8_kernel)"
+K7 = "K7 quantized_matmul (qmm_deq_kernel)"
 K8 = "K8 rowquant_fused (rowquant_kernel)"
+K8S = "K8s rowquant_swiglu (swiglu_rowquant_kernel)"
 
 
 def group_of(name: str) -> str:
@@ -53,6 +61,10 @@ def group_of(name: str) -> str:
         return K5
     if "qmm_i8_kernel" in name:
         return K6
+    if "qmm_deq_kernel" in name:
+        return K7
+    if "swiglu_rowquant_kernel" in name:
+        return K8S
     if "rowquant_kernel" in name:
         return K8
     if "kv_norm_rope_pack_kernel" in name and ("signed char" in name or "int8" in name):
@@ -112,8 +124,74 @@ def attention_flops(sampler, step: int) -> float:
     return (2 * cond + uncond) * mc.num_layers
 
 
+def load_config(name: str) -> dict:
+    file = {"base": "4.5B/4.5B_base_config.json", "distill": "4.5B/4.5B_distill_quant_config.json",
+            "24b": "24B/24B_distill_quant_config.json"}[name]
+    with open(os.path.join(HERE, "example", file)) as f:
+        d = json.load(f)
+    if name == "base":
+        d["runtime_config"]["num_steps"] = STEPS
+    else:
+        d["engine_config"]["attn_int8"] = True
+    if name == "24b":
+        d["engine_config"].update(quant_bits=4, cp_size=1)  # one device
+    return d
+
+
+def build_params(name: str, d: dict, dev, gen, cache: dict) -> dict:
+    """Random weights at full width and depth: the 4.5B bf16 tree (shared by
+    base and distill, quantized to int8 for distill), or the 24B tree
+    packed to int4 (its bf16 tree freed once packed)."""
+    from magi_tpu_torch.core.config import MagiConfig
+    from magi_tpu_torch.models.dit.model import init_dit_params
+    from magi_tpu_torch.ops.quant import quantize_params_int4, quantize_params_int8
+
+    if name == "24b":
+        cache.clear()
+        torch.cuda.empty_cache()
+        return quantize_params_int4(init_dit_params(MagiConfig.from_dict(d), dev, gen))
+    if "bf16" not in cache:
+        cache["bf16"] = init_dit_params(MagiConfig.from_dict(d), dev, gen)
+    if name == "base":
+        return cache["bf16"]
+    if "int8" not in cache:
+        cache["int8"] = quantize_params_int8(cache["bf16"])
+    return cache["int8"]
+
+
+def unpack_ms(params: dict) -> float:
+    """CUDA-event time of `unpack_int4` over one middle layer's linears."""
+    from magi_tpu_torch.models.dit.model import layer_params
+    from magi_tpu_torch.ops.quant import unpack_int4
+
+    blk = layer_params(params["blocks"], 1)
+    leaves = []
+
+    def walk(t):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v)
+            elif k == "weight_q4":
+                leaves.append(v)
+
+    walk(blk)
+    for q4 in leaves:
+        unpack_int4(q4)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        for q4 in leaves:
+            unpack_int4(q4)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 5
+
+
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--configs", default="base,distill,24b", help="comma list of base, distill, 24b")
+    names = ap.parse_args().configs.split(",")
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
@@ -122,39 +200,34 @@ def main() -> int:
     os.environ["SKIP_LOAD_MODEL"] = "1"
 
     from magi_tpu_torch.core.config import MagiConfig
-    from magi_tpu_torch.models.dit.model import init_dit_params
     from magi_tpu_torch.pipeline.prompt_process import build_inference_input, get_txt_embeddings
     from magi_tpu_torch.pipeline.video_process import post_chunk_process
     from magi_tpu_torch.sampling.transport import ArdfSampler
 
-    from magi_tpu_torch.ops.quant import quantize_params_int8
-
     dev = torch.device("cuda", 0)
-    configs = []
-    for name, file, engine in (("base", "4.5B_base_config.json", {}),
-                               ("distill+int8", "4.5B_distill_quant_config.json", {"attn_int8": True})):
-        with open(os.path.join(HERE, "example", "4.5B", file)) as f:
-            d = json.load(f)
-        d["engine_config"].update(engine)
-        configs.append((name, d))
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    params = init_dit_params(MagiConfig.from_dict(configs[0][1]), dev, gen)
-    qparams = quantize_params_int8(params)
-    null = params["y_embedder"]["null_caption_embedding"].float().cpu().numpy()
+    cache: dict = {}
     results = {}
-    for name, base in configs:
-        for size in SIZES:
+    for name in names:
+        base = load_config(name)
+        params = build_params(name, base, dev, gen, cache)
+        null = params["y_embedder"]["null_caption_embedding"].float().cpu().numpy()
+        if name == "24b":
+            ums = unpack_ms(params)
+            layers = base["model_config"]["num_layers"] - 2  # the edge layers run bf16 weights
+            print(f"== 24b: unpack_int4 of one layer's 8 linears {ums:.3f} ms (CUDA events); x {layers} layers "
+                  f"= {ums * layers:.1f} ms per forward")
+        for size_h, size_w in SIZES[name]:
             d = json.loads(json.dumps(base))
-            d["runtime_config"].update(video_size_h=size, video_size_w=size)
-            if name == "base":
-                d["runtime_config"]["num_steps"] = STEPS
+            d["runtime_config"].update(video_size_h=size_h, video_size_w=size_w)
             cfg = MagiConfig.from_dict(d)
             emb, mask = get_txt_embeddings("a red cube on a table", cfg)
             inp = build_inference_input(cfg, null, emb, mask, dev)
-            sampler = ArdfSampler(cfg, params if name == "base" else qparams, inp, gen, device=dev)
+            sampler = ArdfSampler(cfg, params, inp, gen, device=dev)
             dpss = cfg.runtime_config.num_steps // cfg.runtime_config.window_size
             step = STAGE * dpss
+            torch.cuda.reset_peak_memory_stats(dev)
             sampler.do_step(step)  # warm-up (cuBLAS heuristics, allocator)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -163,23 +236,26 @@ def main() -> int:
             step_ms = (time.perf_counter() - t0) * 1e3
             p = sampler._plan(step + 2)
             groups, counts, wall = profile(lambda: sampler.do_step(step + 2))
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
             busy = sum(groups.values())
             flops = attention_flops(sampler, step + 2)
             attn_ms = groups.get(K1 if name == "base" else K5, 0.0)
             n_fwd = 3 if cfg.runtime_config.cfg_number == 3 else 1
-            print(f"== {name} {size}x{size}: stage {STAGE} step of {cfg.runtime_config.num_steps} (n_seg {p['n_seg']}"
-                  f"{' + the ride-along' if p['distill_nearly'] else ''}, seg_len {sampler.ctn} tokens, "
-                  f"{cfg.model_config.num_layers} layers, {n_fwd} forward{'s' if n_fwd > 1 else ''})")
+            print(f"== {name} {size_h}x{size_w}: stage {STAGE} step of {cfg.runtime_config.num_steps} "
+                  f"(n_seg {p['n_seg']}{' + the ride-along' if p['distill_nearly'] else ''}, seg_len {sampler.ctn} "
+                  f"tokens, {cfg.model_config.num_layers} layers, {n_fwd} forward{'s' if n_fwd > 1 else ''})")
             print(f"  step wall {step_ms:.1f} ms (host clock, synchronised, no profiler); under the profiler "
-                  f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}")
+                  f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}; "
+                  f"peak memory {peak:.2f} GiB")
             for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
                 print(f"  {ms:10.2f} ms  {100 * ms / busy:5.1f}%  {counts[g]:6d} launches  {g}")
             print(f"  self-attention operations of the step {flops:.3e}; attention kernel device time {attn_ms:.1f} ms "
                   f"-> {flops / (attn_ms * 1e-3) / 1e12:.1f} T/s")
-            results[f"{name} {size}"] = dict(step_ms=step_ms, busy_ms=busy, profiled_ms=wall, groups=groups)
+            key = f"{name} {size_h}x{size_w}"
+            results[key] = dict(step_ms=step_ms, busy_ms=busy, profiled_ms=wall, peak_gib=peak, groups=groups)
             if name == "base":
                 # one VAE decode of a chunk
-                chunk = torch.randn((16, 6, size // 8, size // 8), generator=gen, device=dev)
+                chunk = torch.randn((16, 6, size_h // 8, size_w // 8), generator=gen, device=dev)
                 post_chunk_process(chunk, cfg, dev)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -191,9 +267,10 @@ def main() -> int:
                       f"device busy {vbusy:.1f} ms of {vwall:.1f} ms profiled")
                 for g, ms in sorted(vgroups.items(), key=lambda kv: -kv[1]):
                     print(f"  {ms:10.2f} ms  {100 * ms / vbusy:5.1f}%  {vcounts[g]:6d} launches  {g}")
-                results[f"{name} {size}"]["decode_ms"] = dec_ms
+                results[key]["decode_ms"] = dec_ms
             del sampler
             torch.cuda.empty_cache()
+        del params
     import subprocess
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -13,8 +13,11 @@ P is rounded to bf16 for the PV product).  A segment of a dozen keys has
 outputs near 1 and takes 2e-2 absolute + relative, one or two bf16 ulps
 there, as `chip_smoke.py` does for its short captions.
 
-The int8 kernels: K6 (int8 GEMM) and K8 (row quantization) are bit-equal
-to their plain versions.  K3q's int8 values are equal except one step on
+The quantized kernels: K6 (int8 GEMM), K8 (row quantization) and K8s
+(SwiGLU + row quantization) are bit-equal to their plain versions.  K7
+(the bf16 x int8 dequant GEMM) sums before it scales and its plain
+version scales the weight first: one bf16 step apart at most (2**-7
+relative + 1e-3 absolute).  K3q's int8 values are equal except one step on
 under 1e-3 of them (its LayerNorm sums in another order than the plain
 version's, which moves a quotient sitting on a rounding edge) and its
 scales agree to 1e-6 relative.  K5 (int8 attention, qk8) is held to the
@@ -282,3 +285,61 @@ def test_linears_shared_int8_runs_the_kernels(dev, pre, monkeypatch):
     for o, pp in zip(out, plist):
         assert o.dtype == torch.bfloat16
         assert torch.equal(o, Q.quantized_matmul_i8_reference(xq, rs, pp["weight_q"], pp["weight_scale"]))
+
+
+K7_TOL = dict(atol=1e-3, rtol=2**-7)
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 256, 384), (1, 16, 16), (129, 6144, 1024), (200, 16400, 272)])
+def test_quantized_matmul_kernel(dev, m, k, n):
+    g = _gen(dev)
+    x = _randn(g, dev, m, k)
+    wq, ws = Q.quantize_int8(0.02 * _randn(g, dev, k, n, dtype=torch.float32))
+    before = Q.quantized_matmul.launches
+    out = Q.quantized_matmul(x, wq, ws)
+    assert Q.quantized_matmul.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    _close(out, Q.quantized_matmul_reference(x, wq, ws), **K7_TOL)
+
+
+@pytest.mark.parametrize("f", [1536, 16384])
+def test_rowquant_fused_swiglu_kernel(dev, f):
+    g = _gen(dev)
+    x = (3 * torch.randn((300, 2 * f), generator=g, device=dev)).to(torch.bfloat16)
+    x[7] = 0  # a zero row: scale 1, values 0
+    x[9, :f] = -100.0  # silu of a large negative gate: -0
+    before = AQ.rowquant_swiglu.launches
+    q8, sc = AQ.rowquant_fused(x, "swiglu")
+    assert AQ.rowquant_swiglu.launches == before + 1
+    ref8, ref_sc = AQ.rowquant_fused_reference(x, "swiglu")
+    torch.cuda.synchronize()
+    assert q8.shape == (300, f) and torch.equal(q8, ref8) and torch.equal(sc, ref_sc)
+    assert float(sc[7]) == 1.0 and int(q8[7].abs().max()) == 0 and float(sc[9]) == 1.0
+
+
+def test_int4_gated_layer_runs_the_kernels(dev, monkeypatch):
+    """A gated MLP on int4 weights: the middle layer's fc2 group runs one
+    K8s and one K6 per linear; the same group in a layer without act_ok (a
+    tree without blocks_edge) runs K7 per linear on the unfused SwiGLU."""
+    for var in ("MAGI_QMM_IMPL", "MAGI_FUSED_ACT_QUANT"):
+        monkeypatch.delenv(var, raising=False)
+    g = _gen(dev)
+    f, n = 256, 128
+    x = _randn(g, dev, 200, 2 * f)
+    plist = [dict(zip(("weight_q4", "weight_scale"), Q.quantize_int4(0.02 * _randn(g, dev, f, n))))
+             for _ in range(2)]
+    counts = lambda: (Q.quantized_matmul_i8.launches, AQ.rowquant_swiglu.launches, Q.quantized_matmul.launches)
+    before = counts()
+    out = M._linears_shared(x, plist, True, pre=("swiglu",))
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 1, 0)
+    xq, rs = AQ.rowquant_fused_reference(x, "swiglu")
+    torch.cuda.synchronize()
+    for o, pp in zip(out, plist):
+        ref = Q.quantized_matmul_i8_reference(xq, rs, Q.unpack_int4(pp["weight_q4"]), pp["weight_scale"])
+        assert torch.equal(o, ref)
+    before = counts()
+    out = M._linears_shared(x, plist, False, pre=("swiglu",))
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 2)
+    xs = M._apply_pre(x, ("swiglu",), 1e-6)
+    for o, pp in zip(out, plist):
+        _close(o, Q.quantized_matmul_reference(xs, Q.unpack_int4(pp["weight_q4"]), pp["weight_scale"]), **K7_TOL)

@@ -19,7 +19,10 @@ relative L2 error of 2e-3 and 2e-3 absolute + 1e-2 relative per element
 cache (values about 1) to the same relative L2 and 1e-2 absolute + 1e-2
 relative per element (7.4e-3 seen at most), and the int8 cache to equal values
 except one step on under 1% of them (0.28% seen, in the layers after the
-first), scales to 1e-2 relative (2.4e-3 seen)."""
+first), scales to 1e-2 relative (2.4e-3 seen).  The gated int4 forwards
+(with and without the bf16 edge layers) are held to the same limits (seen
+5.6e-6 and 2.4e-6 relative L2); the gated f32 forward to the whole-forward
+tolerance above (seen 2e-7 relative L2)."""
 
 import dataclasses
 
@@ -56,11 +59,13 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-# tiny (head_dim 16: q-norm outside the kernel) and head_dim 128 (the
-# fused q prologue path of the attention wrappers)
+# tiny (head_dim 16: q-norm outside the kernel), head_dim 128 (the fused
+# q prologue path of the attention wrappers), and the gated (SwiGLU) MLP of
+# the 24B model
 CONFIGS = {
     "hd16": {},
     "hd128": {"model": dict(hidden_size=256, num_attention_heads=2, num_query_groups=1, kv_channels=128)},
+    "gated": {"model": dict(gated_linear_unit=True)},
 }
 
 
@@ -214,19 +219,20 @@ def test_attention_forward_int8_layer_matches(monkeypatch, branch):
         np.testing.assert_allclose(tcache.numpy(), np.asarray(jnew), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("store", ["1", "0"])
-def test_dit_forward_int8_distill_matches(monkeypatch, store):
-    """A distill forward (distill_factor) of an int8 tree (three layers: the
-    middle one int8, the edges bf16 from blocks_edge) with int8 attention,
-    with the int8-stored cache (store "1") and with a bf16 cache quantized
-    every forward (store "0"); it writes the cache and carries the
-    ride-along chunk, which attends only itself and is not written."""
+def _quantized_distill_forward_check(monkeypatch, store, quantize, model=None):
+    """A distill forward (distill_factor) of a quantized tree (three layers:
+    the middle one on int8 activations, the edges bf16 from blocks_edge or,
+    without it, bf16 activations on the dequantized weights) with int8
+    attention, with the int8-stored cache (store "1") or a bf16 cache
+    quantized every forward (store "0"); it writes the cache and carries
+    the ride-along chunk, which attends only itself and is not written.
+    `quantize` makes the JAX package's quantized tree from its bf16 one."""
     monkeypatch.setenv("MAGI_ATTN_INT8", "1")
     monkeypatch.setenv("MAGI_ATTN_INT8_STORE", store)
-    cfg = tiny_config(model=dict(num_layers=3), runtime=dict(cfg_number=1),
+    cfg = tiny_config(model=dict(num_layers=3, **(model or {})), runtime=dict(cfg_number=1),
                       engine=dict(distill=True, fp8_quant=True))
     tcfg = torch_config(cfg)
-    jparams = JQ.quantize_params_int8(JM.init_dit_params(jax.random.PRNGKey(0), cfg))
+    jparams = quantize(JM.init_dit_params(jax.random.PRNGKey(0), cfg))
     tparams = dit_params_from_jax(_np_tree(jparams))
     mc = cfg.model_config
     rng = np.random.default_rng(4)
@@ -279,6 +285,22 @@ def test_dit_forward_int8_distill_matches(monkeypatch, store):
     with pytest.raises(ValueError, match="distill_factor"):
         TM.dit_forward(tparams, tcfg, torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(y), False,
                        tcache, tmeta, torch.from_numpy(toff))
+
+
+@pytest.mark.parametrize("store", ["1", "0"])
+def test_dit_forward_int8_distill_matches(monkeypatch, store):
+    """The int8 tree (edge layers from blocks_edge) with int8 attention."""
+    _quantized_distill_forward_check(monkeypatch, store, JQ.quantize_params_int8)
+
+
+@pytest.mark.parametrize("edge", [True, False])
+def test_dit_forward_int4_gated_distill_matches(monkeypatch, edge):
+    """The 24B's tree at tiny width: a gated MLP on nibble-packed int4
+    weights (w4a8) with the int8-stored cache, with the bf16 edge layers of
+    blocks_edge, or without them (edge layers on the dequant GEMM, K7's
+    plain version; the middle layer's fc2 input through K8s's)."""
+    _quantized_distill_forward_check(
+        monkeypatch, "1", lambda p: JQ.quantize_params_int4(p, keep_edge_bf16=edge), model=dict(gated_linear_unit=True))
 
 
 def test_dit_uncond_forward_int8_attention_matches(monkeypatch):

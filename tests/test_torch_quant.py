@@ -1,7 +1,7 @@
-"""magi_tpu_torch.ops.quant and ops.act_quant (int8 weights, row
-quantization, the plain versions of K6 and K8) against magi_tpu.ops.quant
-and ops.act_quant, Pallas kernels in interpret mode with blocks of 128, on
-the CPU.
+"""magi_tpu_torch.ops.quant and ops.act_quant (int8 and int4 weights,
+row quantization, the plain versions of K6, K7, K8 and K8s) against
+magi_tpu.ops.quant and ops.act_quant, Pallas kernels in interpret mode
+with blocks of 128, on the CPU.
 
 Tolerances: the int8 trees, the row quantization and the int8 GEMM are
 exact against the JAX package's plain versions (the same f32 operations in
@@ -19,9 +19,24 @@ moved, and then that maximum is one bf16 step away (on these inputs none
 moved).  The JAX package's own test of that kernel allows the same
 one-step differences.  `_linears_shared` on int8 weights matches within
 1e-5 (the LayerNorm in another summation order can flip an int8 value at
-a rounding edge; none does on these inputs)."""
+a rounding edge; none does on these inputs).
 
-import functools
+Weight quantization (int8 and int4) takes its scale as amax * f32(1 / qmax),
+which is how XLA compiles the JAX package's `amax / qmax` inside its
+jitted tree quantization; the JAX package's eager `quantize_int4` divides
+instead and moves about 0.3% of bf16 weights, those on a rounding tie, by
+one step.  So the port's weights, packed bytes and unpacked int8 values
+are equal to the jitted JAX package's.  K7's plain version is the JAX
+package's reference, the scale applied to the weight before the sum: in
+f32 it matches that reference to 1e-6 and the Pallas kernel, which
+applies the scale after the sum, to 1e-5 relative; in bf16 both within one
+bf16 step (2**-7 relative, 1e-3 absolute).  K8s's plain version equals the
+JAX package's reference chain; against the Pallas kernel in interpret
+mode its int8 values are one step apart on under 1e-3 of the elements and
+its scales within one bf16 step (seen: within 1e-6), because the two
+compute silu's f32 value by other formulas (x / (1 + exp(-x)) against
+x * sigmoid(x)), which can differ in the last bit and move an element
+across a bf16 rounding edge."""
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +50,7 @@ from magi_tpu.ops import quant as JQ
 from magi_tpu_torch.checkpoint.from_jax import dit_params_from_jax
 from magi_tpu_torch.models.dit import model as TM
 from magi_tpu_torch.ops import act_quant as TA
+from magi_tpu_torch.ops import attention_q8 as TA8
 from magi_tpu_torch.ops import quant as TQ
 from tests.tiny import tiny_config
 
@@ -162,22 +178,132 @@ def test_linears_shared_int8_matches(act_ok):
 
 
 def test_paths_not_ported_raise():
+    """Smooth-quant trees and linears (fp8 checkpoints) and K5's sage and
+    dq schemes still raise."""
     w = torch.zeros((1, 16, 16))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TQ.quantize_params_int4({"blocks": {"mlp": {"linear_fc1": {"weight": w}}}})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TQ.unpack_int4(torch.zeros((8, 16), dtype=torch.uint8))
     smooth = {"blocks": {"mlp": {"linear_fc1": {"weight": w, "act_smooth": torch.ones((1, 16))}}}}
-    with pytest.raises(NotImplementedError, match="act_smooth"):
-        TQ.quantize_params_int8(smooth)
-    with pytest.raises(NotImplementedError, match="K8s"):
-        TA.rowquant_fused(torch.zeros((4, 4096), dtype=torch.bfloat16), "swiglu")
-    # a gated MLP's int8 fc2 needs K8s
+    for quantize in (TQ.quantize_params_int8, TQ.quantize_params_int4):
+        with pytest.raises(NotImplementedError, match="act_smooth"):
+            quantize(smooth)
     q8, sc = TQ.quantize_int8(torch.ones((16, 16)))
-    with pytest.raises(NotImplementedError, match="K8s"):
-        TM._linears_shared(torch.ones((4, 32)), [{"weight_q": q8, "weight_scale": sc}], True, pre=("swiglu",))
-    # the dequant GEMM off the CPU needs K7, which is not ported: it raises
-    # rather than running its plain version
-    meta = functools.partial(torch.zeros, device="meta")
-    with pytest.raises(NotImplementedError, match="K7"):
-        TQ.quantized_matmul(meta((4, 16)), meta((16, 16), dtype=torch.int8), meta((16,)))
+    linear = {"weight_q": q8, "weight_scale": sc, "act_smooth": torch.ones(16)}
+    for act_ok in (True, False):
+        with pytest.raises(NotImplementedError, match="act_smooth"):
+            TM._linears_shared(torch.ones((4, 16)), [linear], act_ok)
+    z = torch.zeros(1, dtype=torch.int32)
+    kv, ksc = torch.zeros((2, 1, 0, 128), dtype=torch.int8), torch.zeros((2, 1, 0))
+    for scheme in ("sage", "dq"):
+        with pytest.raises(NotImplementedError, match="K5"):
+            TA8.segmented_attention_two_source_q8(torch.zeros((4, 1, 128)), kv, ksc, kv, ksc, z, z, z, z, seg_len=4,
+                                                  scheme=scheme)
+
+
+def test_int4_pack_unpack_matches():
+    rng = np.random.default_rng(6)
+    w = rng.normal(size=(64, 48)).astype(np.float32)
+    w[:, 3] = 0.0  # a zero column: scale 1, values 8 (zero) in both nibbles
+    # jitted, as the JAX package's tree quantization runs it (see above)
+    jq, js = jax.jit(JQ.quantize_int4)(jnp.asarray(w))
+    tq, ts = TQ.quantize_int4(_t(w))
+    assert tq.dtype == torch.uint8 and tuple(tq.shape) == (32, 48)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert float(ts[3]) == 1.0 and (tq[:, 3] == 0x88).all()
+    unpacked = TQ.unpack_int4(tq)
+    assert unpacked.dtype == torch.int8 and int(unpacked.abs().max()) == 7
+    np.testing.assert_array_equal(unpacked.numpy(), np.asarray(JQ.unpack_int4(jq)))
+    # row 2i in the low nibble, 2i+1 in the high one
+    np.testing.assert_array_equal(unpacked[0::2].numpy(), (tq & 0xF).numpy().astype(np.int8) - 8)
+    # a stacked leaf, and one carried as bf16 (exact for 0..255)
+    stacked = np.stack([np.asarray(jq), np.asarray(jq)[::-1]])
+    want = np.asarray(JQ.unpack_int4(jnp.asarray(stacked)))
+    np.testing.assert_array_equal(TQ.unpack_int4(_t(stacked)).numpy(), want)
+    np.testing.assert_array_equal(TQ.unpack_int4(_t(stacked).to(torch.bfloat16)).numpy(), want)
+    np.testing.assert_array_equal(
+        np.asarray(JQ.unpack_int4(jnp.asarray(stacked, jnp.bfloat16))), want)
+    with pytest.raises(ValueError, match="even"):
+        TQ.quantize_int4(torch.ones((3, 4)))
+
+
+@pytest.mark.parametrize("keep_edge", [True, False])
+def test_quantize_params_int4_tree_matches(keep_edge):
+    cfg = tiny_config(model=dict(num_layers=3, params_dtype=jnp.bfloat16, gated_linear_unit=True))
+    jparams = JM.init_dit_params(jax.random.PRNGKey(0), cfg)
+    want = _flat(jax.tree.map(np.asarray, JQ.quantize_params_int4(jparams, keep_edge_bf16=keep_edge)))
+    got = _flat(TQ.quantize_params_int4(dit_params_from_jax(jax.tree.map(np.asarray, jparams)),
+                                        keep_edge_bf16=keep_edge))
+    assert sorted(got) == sorted(want)
+    assert any("weight_q4" in k for k in want) and not any("'weight_q'" in k for k in want)
+    assert any("blocks_edge" in k for k in want) == keep_edge
+    for k, w in want.items():
+        g = got[k]
+        assert tuple(g.shape) == w.shape, k
+        assert str(g.dtype).replace("torch.", "") == str(w.dtype), k
+        if "weight_scale" in k:
+            np.testing.assert_allclose(g.numpy(), w, rtol=1e-6, atol=0, err_msg=k)
+        else:
+            np.testing.assert_array_equal(g.float().numpy(), w.astype(np.float32), err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantized_matmul_plain_matches_pallas(dtype):
+    """K7's plain version against the Pallas kernel in interpret mode and
+    the JAX package's reference (130 rows: a ragged row block)."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(130, 256)).astype(np.float32)
+    wq, ws = JQ.quantize_int8(jnp.asarray(rng.normal(size=(256, 200)).astype(np.float32) * 0.02))
+    jx = jnp.asarray(x, jnp.dtype(dtype))
+    pallas = np.asarray(JQ.quantized_matmul(jx, wq, ws, block_m=128, block_k=128, block_n=128, interpret=True),
+                        np.float32)
+    ref = np.asarray(JQ.quantized_matmul_reference(jx, wq, ws), np.float32)
+    tx = torch.from_numpy(np.array(jx, np.float32)).to(getattr(torch, dtype))
+    # the wrapper takes its plain version on CPU tensors
+    for fn in (TQ.quantized_matmul_reference, TQ.quantized_matmul):
+        got = fn(tx, _t(wq), _t(ws))
+        assert got.dtype == tx.dtype
+        got = got.float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+            np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+        else:
+            for want in (ref, pallas):
+                np.testing.assert_allclose(got, want, rtol=2**-7, atol=1e-3)
+
+
+@pytest.mark.parametrize("d_out", [2048, 4096])
+def test_rowquant_fused_swiglu_plain_matches_pallas(d_out):
+    rng = np.random.default_rng(d_out)
+    x = (rng.normal(size=(300, 2 * d_out)) * 3).astype(np.float32)
+    x[7] = 0.0  # a zero row: scale 1, values 0
+    x[9, :d_out] = -100.0  # silu of a large negative gate is -0
+    xb = jnp.asarray(x, jnp.bfloat16)
+    pallas = JA.rowquant_fused(xb, "swiglu", block_s=128, interpret=True)
+    ref = JA.rowquant_fused_reference(xb, "swiglu")
+    xt = torch.from_numpy(np.array(xb, np.float32)).to(torch.bfloat16)
+    for q, s in (TA.rowquant_fused_reference(xt, "swiglu"), TA.rowquant_fused(xt, "swiglu")):
+        assert q.dtype == torch.int8 and tuple(q.shape) == (300, d_out)
+        q, s = q.numpy().astype(np.int32), s.numpy()
+        np.testing.assert_array_equal(q, np.asarray(ref[0], np.int32))
+        np.testing.assert_allclose(s, np.asarray(ref[1]), rtol=1e-6, atol=0)
+        dq = q - np.asarray(pallas[0], np.int32)
+        assert np.abs(dq).max() <= 1 and (dq != 0).mean() < 1e-3, (np.abs(dq).max(), (dq != 0).mean())
+        np.testing.assert_allclose(s, np.asarray(pallas[1]), rtol=2**-7, atol=0)
+        assert s[7] == 1.0 and not q[7].any() and s[9] == 1.0 and not q[9].any()
+
+
+@pytest.mark.parametrize("act_ok", [True, False])
+def test_linears_shared_int4_swiglu_matches(act_ok):
+    """A gated MLP's fc2 on int4 weights: the SwiGLU rides in as `pre`, the
+    weights unpack to int8, then the int8 branch (K8s + K6 plain versions)
+    or the dequant branch (K7's plain version)."""
+    rng = np.random.default_rng(8)
+    F, N, S = 64, 48, 40
+    x = rng.normal(size=(S, 2 * F)).astype(np.float32)
+    plist = []
+    for _ in range(2):
+        q4, sc = JQ.quantize_int4(jnp.asarray(rng.normal(size=(F, N)).astype(np.float32) * 0.1))
+        plist.append({"weight_q4": np.asarray(q4), "weight_scale": np.asarray(sc)})
+    jax_out = JM._linears_shared(jnp.asarray(x), jax.tree.map(jnp.asarray, plist), act_ok, pre=("swiglu",))
+    got = TM._linears_shared(_t(x), [dit_params_from_jax(pp) for pp in plist], act_ok, pre=("swiglu",))
+    for g, j in zip(got, jax_out):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=1e-5, rtol=1e-5)

@@ -12,7 +12,8 @@ the ride-along chunk, the int8 KV cache and its sliding window) follows the JAX 
 rounding edge can take the other value when the fp32 sums come out in
 another order (see `test_torch_dit.py`), and the walk carries such steps
 on.  Each emitted chunk is held to a relative L2 error of 1e-3 against the
-JAX package's (3.8e-5 seen at most)."""
+JAX package's (3.8e-5 seen at most; 1.3e-5 for the gated int4 walk without
+edge layers, whose edge layers run the dequant GEMM's plain version)."""
 
 import json
 import os
@@ -23,7 +24,7 @@ import pytest
 import torch
 
 from magi_tpu.models.dit.model import init_dit_params
-from magi_tpu.ops.quant import quantize_params_int8
+from magi_tpu.ops.quant import quantize_params_int4, quantize_params_int8
 from magi_tpu.pipeline import prompt_process as jpp
 from magi_tpu.sampling.transport import ArdfSampler as JaxSampler
 from magi_tpu.sampling.transport import InferenceInput as JaxInput
@@ -79,17 +80,25 @@ def test_walk_emits_same_chunks(case):
 DISTILL_WALKS = {
     # a cache window of 1 + 2 + 1 = 4 chunks for 5: the int8 dict rolls
     "distill_int8_sliding": ({"runtime": {"noise2clean_kvrange": [1, 1], "clean_chunk_kvrange": 1},
-                              "engine": {"kv_offload": True}}, 5),
+                              "engine": {"kv_offload": True}}, 5, quantize_params_int8),
+    # the 24B's single-device tree at tiny width: gated MLP, int4 weights,
+    # no bf16 edge layers (they run the dequant GEMM)
+    "distill_int4_gated_noedge": ({"model": {"gated_linear_unit": True},
+                                   "runtime": {"noise2clean_kvrange": [2, 1], "clean_chunk_kvrange": 1},
+                                   "engine": {"kv_offload": True}}, 3,
+                                  lambda p: quantize_params_int4(p, keep_edge_bf16=False)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(DISTILL_WALKS))
 def test_distill_int8_walk_emits_same_chunks(case, monkeypatch):
+    """A distill walk of a quantized tree with int8 attention (the walk of
+    the 4.5B distill + int8 path, and of the 24B w4a8 path)."""
     monkeypatch.setenv("MAGI_ATTN_INT8", "1")
-    overrides, chunk_num = DISTILL_WALKS[case]
+    overrides, chunk_num, quantize = DISTILL_WALKS[case]
     engine = dict(distill=True, fp8_quant=True, **overrides.get("engine", {}))
-    cfg = tiny_config(model={"num_layers": 3}, runtime={"cfg_number": 1, **overrides.get("runtime", {})},
-                      engine=engine)
+    cfg = tiny_config(model={"num_layers": 3, **overrides.get("model", {})},
+                      runtime={"cfg_number": 1, **overrides.get("runtime", {})}, engine=engine)
     mc, rc = cfg.model_config, cfg.runtime_config
     rng = np.random.default_rng(1)
     L = mc.caption_max_length
@@ -97,7 +106,7 @@ def test_distill_int8_walk_emits_same_chunks(case, monkeypatch):
     null = rng.normal(size=(L, mc.caption_channels)).astype(np.float32)
     lens = np.array([L // 2, 3, L, 7, 9][:chunk_num], np.int32)
     latent = (mc.in_channels, chunk_num * rc.chunk_width, H, W)
-    params = quantize_params_int8(init_dit_params(jax.random.PRNGKey(0), cfg))
+    params = quantize(init_dit_params(jax.random.PRNGKey(0), cfg))
 
     jinp = JaxInput(caption_embs=jax.numpy.asarray(cap), caption_lens=lens, null_emb=jax.numpy.asarray(null),
                     null_len=8, latent_size=latent, num_steps=rc.num_steps, chunk_num=chunk_num, has_text=True)
@@ -109,6 +118,7 @@ def test_distill_int8_walk_emits_same_chunks(case, monkeypatch):
                           null_len=8, latent_size=latent, num_steps=rc.num_steps, chunk_num=chunk_num, has_text=True)
     tsampler = ArdfSampler(torch_config(cfg), dit_params_from_jax(jax.tree.map(np.asarray, params)), tinp,
                            noise=torch.from_numpy(noise), device="cpu")
+    assert ("blocks_edge" in tsampler.params) == ("noedge" not in case)
     plans = [tsampler._plan(s) for s in range(tsampler.total_forward_steps())]
     assert any(p["distill_nearly"] for p in plans) and not all(p["distill_nearly"] for p in plans)
     assert isinstance(tsampler.cache, dict) and tsampler.cache["kv"].dtype == torch.int8
@@ -122,12 +132,13 @@ def test_distill_int8_walk_emits_same_chunks(case, monkeypatch):
         assert tsampler.cache_base > 0
 
 
-def _tiny_json(tmp_path, name="4.5B_base_config.json", **engine):
-    with open(os.path.join(REPO, "example", "4.5B", name)) as f:
+def _tiny_json(tmp_path, name="4.5B/4.5B_base_config.json", model=None, **engine):
+    with open(os.path.join(REPO, "example", name)) as f:
         d = json.load(f)
     d["model_config"].update(num_layers=2, hidden_size=64, ffn_hidden_size=128, num_attention_heads=4,
                              num_query_groups=2, kv_channels=16, params_dtype="float32", caption_channels=32,
                              caption_max_length=32, in_channels=16, out_channels=16)
+    d["model_config"].update(model or {})
     d["runtime_config"].update(num_frames=48, video_size_h=64, video_size_w=64, num_steps=4, window_size=2,
                                noise2clean_kvrange=[2, 1])
     d["engine_config"].update(engine)
@@ -176,15 +187,30 @@ def test_pipeline_writes_a_video_on_the_cpu(tmp_path, monkeypatch):
 def test_quant_pipeline_writes_a_video_on_the_cpu(tmp_path, monkeypatch):
     """The distill + int8 config with int8 attention through the CLI entry
     on the CPU (plain versions): int8 tree, int8 KV cache, single-branch
-    CFG.  int4 weights are the next slice and raise."""
+    CFG; then the same with int4 weights (`MAGI_INT4=1`)."""
     monkeypatch.setenv("SKIP_LOAD_MODEL", "1")
     from magi_tpu_torch.pipeline import entry
 
-    path = _tiny_json(tmp_path, "4.5B_distill_quant_config.json", attn_int8=True)
+    path = _tiny_json(tmp_path, "4.5B/4.5B_distill_quant_config.json", attn_int8=True)
+    for int4 in ("0", "1"):
+        monkeypatch.setenv("MAGI_INT4", int4)
+        stats = entry.main(["--config_file", path, "--mode", "t2v", "--prompt", "a red cube",
+                            "--output_path", str(tmp_path / f"q{int4}.mp4"), "--device", "cpu"])
+        assert stats["frames"] == 48 and stats["latents_finite"] and stats["video_std"] > 0
+        assert len(stats["step_seconds"]) == 2 * (2 + 2 - 1)
+
+
+def test_24b_w4a8_pipeline_writes_a_video_on_the_cpu(tmp_path, monkeypatch):
+    """The 24B distill config at tiny width through the CLI entry on the
+    CPU: `quant_bits: 4` (int4 weights, bf16 edge layers), gated MLP, int8
+    attention, the half-channel VAE, one device (`cp_size` 1)."""
+    monkeypatch.setenv("SKIP_LOAD_MODEL", "1")
+    from magi_tpu_torch.pipeline import entry
+
+    # 32 DiT channels: the 16-channel latent, doubled for the half-channel VAE
+    path = _tiny_json(tmp_path, "24B/24B_distill_quant_config.json", model=dict(in_channels=32, out_channels=32),
+                      attn_int8=True, quant_bits=4, cp_size=1)
     stats = entry.main(["--config_file", path, "--mode", "t2v", "--prompt", "a red cube",
                         "--output_path", str(tmp_path / "q.mp4"), "--device", "cpu"])
     assert stats["frames"] == 48 and stats["latents_finite"] and stats["video_std"] > 0
     assert len(stats["step_seconds"]) == 2 * (2 + 2 - 1)
-    monkeypatch.setenv("MAGI_INT4", "1")
-    with pytest.raises(NotImplementedError, match="int4"):
-        entry.main(["--config_file", path, "--mode", "t2v", "--prompt", "x", "--device", "cpu"])
