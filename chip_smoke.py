@@ -10,8 +10,10 @@ Phases, each printed on its own line; any failure exits non-zero:
      kernel, plain version and a PyTorch library yardstick (CUDA events);
   3. tiny walks with the kernels against the same walks on the CPU in fp32
      (plain versions), same weights and noise: the 3-branch bf16 walk, the
-     single-branch distill walk of an int8 tree with int8 attention, and
-     the same walk of a gated int4 tree without blocks_edge (K7 and K8s);
+     single-branch distill walk of an int8 tree with int8 attention, the
+     same walk of a gated int4 tree without blocks_edge (K7 and K8s), and
+     walks after a prefix video (v2v): the 3-branch walk, and the distill
+     int8 walk under the K5 schemes sage and dq;
   4. the 4.5B base config at full width and depth (34 layers, 3072 wide,
      24/8 heads, caption 800 x 4096) through the port's CLI entry with
      random weights (SKIP_LOAD_MODEL=1) and 3-branch CFG, noise2clean kv
@@ -33,15 +35,28 @@ Phases, each printed on its own line; any failure exits non-zero:
   7. the same 24B tree without blocks_edge (the JAX package's single-chip
      24B benchmark tree: edge layers on the dequant GEMM K7), walked by
      ArdfSampler.walk for 2 chunks at 256x256; K7 must launch and every
-     chunk must be finite.
+     chunk must be finite;
+  8. image-to-video on the 4.5B base config (full width and depth,
+     256x256, 96 frames, 16 steps, 3-branch CFG): one seeded uint8 frame
+     through `encode_prefix_video` (the VAE encoder) and then
+     `MagiPipeline._run`, the entry points below the image decoder.  Runs
+     K1-K4, and K2g in the encoder and the decoder;
+  9. video-to-video on the 4.5B distill + int8 config with int8 attention
+     under MAGI_ATTN_Q8_SCHEME=sage, the same way from 32 seeded frames (8
+     latent frames: one clean chunk written by the warm-up forward).  Runs
+     K3q, K5 sage, K6, K8, K4 and K2g, and no other K5 scheme;
+ 10. image-to-video on the same config under MAGI_ATTN_Q8_SCHEME=dq.  Runs
+     K5 dq and no other K5 scheme.
+Phases 8-10 check the frame count against the JAX package's for the same
+request (i2v keeps its first chunk whole; v2v drops the prefix frames).
 Phase 2 also checks K7 and K8s at phase 6-7's shapes, K8 at the 24B's
-widths and K5 at its 48/8 heads.  Phase 6 holds a quantization peak of
-about 57 GiB (the bf16 tree alive while it is packed), so each main path
-starts from an emptied allocator cache.
+widths and K5 (each scheme) at its 48/8 heads.  Phase 6 holds a
+quantization peak of about 57 GiB (the bf16 tree alive while it is
+packed), so each main path starts from an emptied allocator cache.
 Then the card's name and power limit, one JSON line of per-kernel results
-(`launches_by_path` holds each main path's count, phases 4-7, read just
-after its run; `launches` is their sum), and a last line
-`{"ok": true, "device": {...}}`.
+(`launches_by_path` holds each main path's count, phases 4-10, read just
+after its run; `launches` is their sum; K5's sage and dq rows come after
+every other), and a last line `{"ok": true, "device": {...}}`.
 
 TF32 is off for matmuls and convolutions (the VAE's final Conv3d would
 otherwise run in TF32), so fp32 comparisons are exact-precision.
@@ -70,6 +85,14 @@ STEPS = 16  # denoise steps of the 4.5B base run (64 in the config)
 # launches timed per kernel under 0.2 ms: a window of a few ms at least, so
 # one clock change of the card does not move the mean much
 SHORT_ITERS = 200
+
+
+T0 = time.perf_counter()
+
+
+def phase(msg: str) -> None:
+    """A phase's header, with the seconds since the script started."""
+    print(f"{msg} [{time.perf_counter() - T0:.1f} s]", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -356,9 +379,11 @@ def kernel_checks(dev):
 
 
 def int8_kernel_checks(dev):
-    """K3q, K5, K6 and K8 at the shapes of phase 5's widest step: 4
-    denoised segments of 1536 tokens and the ride-along copy (S = 7680),
-    two clean chunks in an int8 cache of 6144 tokens, captions of 800."""
+    """K3q, K5 (qk8, sage, dq), K6 and K8 at the shapes of phase 5's widest
+    step: 4 denoised segments of 1536 tokens and the ride-along copy (S =
+    7680), two clean chunks in an int8 cache of 6144 tokens, captions of
+    800.  Returns (the rows of qk8 and the others, the rows of sage and
+    dq)."""
     import torch
     import torch.nn.functional as F
 
@@ -421,7 +446,7 @@ def int8_kernel_checks(dev):
                         replaces="magi_tpu/ops/attention.py:812", max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bms, bound_by=by, library_ms=lib_ms))
 
-    # ---- K5 segmented_attention_two_source_q8 (qk8) ------------------------
+    # ---- K5 segmented_attention_two_source_q8: qk8, sage, dq ---------------
     # cache of 2 clean chunks (int8), 4 current segments whose noise2clean
     # spans are 1, 2, 3 and 5 chunks, and the ride-along copy attending itself
     q = randn(S, hq, hd)
@@ -441,21 +466,8 @@ def int8_kernel_checks(dev):
     qb = 0.1 * randn(hd, dtype=torch.float32)
     pro = (qw, qb, sin, cos, eps)
     args = (q, cache8, cache_sc, kv8, kv_sc, r1s, r1e, r2s, r2e)
-    call = lambda: A8.segmented_attention_two_source_q8(*args, seg_len=ctn, q_prologue=pro)
-    out = call()
-    ref = A8.segmented_attention_two_source_q8_qk8_reference(*args, seg_len=ctn, q_prologue=pro)
-    err = check_close("segmented_attention_two_source_q8 (int8 cache + current, ride-along)", out, ref, *ATTN_TOL)
     qn = A.apply_q_prologue(q, pro)
     deq = A8.segmented_attention_two_source_q8_reference(qn, *args[1:], seg_len=ctn).float()
-    mean_rel = float((out.float() - deq).abs().mean() / deq.abs().mean())
-    print(f"  segmented_attention_two_source_q8 against the dequant reference (q not quantized): mean |error| / "
-          f"mean |output| {mean_rel:.3e}, max abs error {float((out.float() - deq).abs().max()):.3e} "
-          f"(limit {Q8_DEQUANT_MEAN_REL}) {'ok' if mean_rel < Q8_DEQUANT_MEAN_REL else 'FAILED'}")
-    if mean_rel >= Q8_DEQUANT_MEAN_REL:
-        fail("segmented_attention_two_source_q8 strays from the dequant reference")
-    ms = cuda_ms(call, 10)
-    plain_ms = cuda_ms(lambda: A8.segmented_attention_two_source_q8_qk8_reference(
-        *args, seg_len=ctn, q_prologue=pro), 2)
     dq1 = (cache8.float() * cache_sc[..., None]).bfloat16()
     dq2 = (kv8.float() * kv_sc[..., None]).bfloat16()
     kk = torch.cat([dq1[0].transpose(0, 1), dq2[0].transpose(0, 1)])
@@ -467,7 +479,6 @@ def int8_kernel_checks(dev):
     tokens = span_tokens(r1s, r1e) + span_tokens(r2s, r2e)
     nbytes = 2 * S * hq * hd * 2 + tokens * 2 * hk * (hd + 4) + 2 * S * rot * 4
     work = 2 * ctn * attended * hd * hq
-    bms, by = bound(nbytes, (work, PEAK_INT8_OPS), (work, PEAK_BF16_FLOPS))
     # the int8 caption cross-attention: captions as source 1, source 2 empty
     xl = torch.tensor([50, 7, 800, 0, 800], **i32)
     cap8, cap_sc = A8.quantize_kv_per_token(randn(2, hk, n_seg * L, hd))
@@ -475,17 +486,44 @@ def int8_kernel_checks(dev):
     z = torch.zeros(n_seg, **i32)
     xargs = (q, cap8, cap_sc, cap8[:, :, :0], cap_sc[:, :, :0], xs_, xs_ + xl, z, z)
     pro_x = (qw, qb, None, None, eps)
-    xcall = lambda: A8.segmented_attention_two_source_q8(*xargs, seg_len=ctn, q_prologue=pro_x)
-    xout = xcall()
-    xref = A8.segmented_attention_two_source_q8_qk8_reference(*xargs, seg_len=ctn, q_prologue=pro_x)
-    err = max(err, check_close("segmented_attention_two_source_q8 (captions of 50 and 7 tokens)", xout[: 2 * ctn],
-                               xref[: 2 * ctn], *SHORT_CAPTION_TOL),
-              check_close("segmented_attention_two_source_q8 (captions of 800, 0 and 800 tokens)", xout[2 * ctn :],
-                          xref[2 * ctn :], *ATTN_TOL))
-    print(f"  segmented_attention_two_source_q8 on the captions: {cuda_ms(xcall, 20):.4f} ms")
-    results.append(dict(name="segmented_attention_two_source_q8", route="cuda",
-                        source="magi_tpu_torch/csrc/attention_q8.cu", replaces="magi_tpu/ops/attention_q8.py:631",
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms))
+    # each scheme against its plain version (sage and dq tiled at the
+    # kernel's tile width) and the dequant reference, which does not
+    # quantize q; the bound takes each product at its operand type's peak.
+    # The rows of sage and dq go after every earlier kernel's.
+    scheme_results = []
+    for scheme, peaks in (("qk8", (PEAK_INT8_OPS, PEAK_BF16_FLOPS)), ("sage", (PEAK_INT8_OPS, PEAK_INT8_OPS)),
+                          ("dq", (PEAK_BF16_FLOPS, PEAK_BF16_FLOPS))):
+        name = "segmented_attention_two_source_q8" + ("" if scheme == "qk8" else f"_{scheme}")
+        wrapper = getattr(A8, name)
+        plain = getattr(A8, f"segmented_attention_two_source_q8_{scheme}_reference")
+        call = lambda: A8.segmented_attention_two_source_q8(*args, seg_len=ctn, q_prologue=pro, scheme=scheme)
+        before = wrapper.launches
+        out = call()
+        if wrapper.launches != before + 1:
+            fail(f"{name} did not launch its kernel")
+        err = check_close(f"{name} (int8 cache + current, ride-along)", out,
+                          plain(*args, seg_len=ctn, q_prologue=pro), *ATTN_TOL)
+        mean_rel = float((out.float() - deq).abs().mean() / deq.abs().mean())
+        print(f"  {name} against the dequant reference: mean |error| / mean |output| {mean_rel:.3e}, max abs error "
+              f"{float((out.float() - deq).abs().max()):.3e} (limit {Q8_DEQUANT_MEAN_REL}) "
+              f"{'ok' if mean_rel < Q8_DEQUANT_MEAN_REL else 'FAILED'}")
+        if mean_rel >= Q8_DEQUANT_MEAN_REL:
+            fail(f"{name} strays from the dequant reference")
+        ms = cuda_ms(call, 10)
+        plain_ms = cuda_ms(lambda: plain(*args, seg_len=ctn, q_prologue=pro), 2)
+        xcall = lambda: A8.segmented_attention_two_source_q8(*xargs, seg_len=ctn, q_prologue=pro_x, scheme=scheme)
+        xout = xcall()
+        xref = plain(*xargs, seg_len=ctn, q_prologue=pro_x)
+        err = max(err, check_close(f"{name} (captions of 50 and 7 tokens)", xout[: 2 * ctn], xref[: 2 * ctn],
+                                   *SHORT_CAPTION_TOL),
+                  check_close(f"{name} (captions of 800, 0 and 800 tokens)", xout[2 * ctn :], xref[2 * ctn :],
+                              *ATTN_TOL))
+        print(f"  {name} on the captions: {cuda_ms(xcall, 20):.4f} ms")
+        bms, by = bound(nbytes, (work, peaks[0]), (work, peaks[1]))
+        (results if scheme == "qk8" else scheme_results).append(dict(
+            name=name, route="cuda", source="magi_tpu_torch/csrc/attention_q8.cu",
+            replaces="magi_tpu/ops/attention_q8.py:631", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=lib_ms))
 
     # ---- K6 quantized_matmul_i8: one middle layer's 8 GEMMs ----------------
     # (rows, k, n, launches per layer): q, qx / k, v / kv_xattn / proj / fc1 / fc2
@@ -554,10 +592,10 @@ def int8_kernel_checks(dev):
                         replaces="magi_tpu/ops/act_quant.py:220", max_abs_err=0.0, ms=tot["ms"] / n_launch,
                         plain_ms=tot["plain_ms"] / n_launch, library_ms=tot["library_ms"] / n_launch,
                         bound_ms=tot["bound_s"] * 1e3 / n_launch, bound_by="bytes"))
-    for r in results:
+    for r in results + scheme_results:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
               f"bound {r['bound_ms']:.4f} by {r['bound_by']})")
-    return results
+    return results, scheme_results
 
 
 # K7 against its plain version: the kernel sums x * w_q in f32 and scales
@@ -689,14 +727,16 @@ def w4a8_kernel_checks(dev):
     r2s, r2e = torch.clamp(gs - st, min=0), torch.clamp(ge - st, min=0)
     pro = (1.0 + 0.1 * randn(hd, dtype=torch.float32), 0.1 * randn(hd, dtype=torch.float32), sin, cos, eps)
     args = (q, cache8, cache_sc, kv8, kv_sc, r1s, r1e, r2s, r2e)
-    call = lambda: A8.segmented_attention_two_source_q8(*args, seg_len=ctn, q_prologue=pro)
-    check_close("segmented_attention_two_source_q8 at 48 / 8 heads", call(),
-                A8.segmented_attention_two_source_q8_qk8_reference(*args, seg_len=ctn, q_prologue=pro), *ATTN_TOL)
     attended = int(((r1e - r1s) + (r2e - r2s)).sum())
-    ms = cuda_ms(call, 10)
     work = 2 * ctn * attended * hd * hq
-    print(f"  segmented_attention_two_source_q8 at 48 / 8 heads (S {S}): {ms:.4f} ms, "
-          f"{2 * work / ms / 1e9:.1f} T/s")
+    for scheme in A8.SCHEMES:
+        call = lambda: A8.segmented_attention_two_source_q8(*args, seg_len=ctn, q_prologue=pro, scheme=scheme)
+        plain = getattr(A8, f"segmented_attention_two_source_q8_{scheme}_reference")
+        check_close(f"segmented_attention_two_source_q8 {scheme} at 48 / 8 heads", call(),
+                    plain(*args, seg_len=ctn, q_prologue=pro), *ATTN_TOL)
+        ms = cuda_ms(call, 10)
+        print(f"  segmented_attention_two_source_q8 {scheme} at 48 / 8 heads (S {S}): {ms:.4f} ms, "
+              f"{2 * work / ms / 1e9:.1f} T/s")
     for r in results:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
               f"bound {r['bound_ms']:.4f} by {r['bound_by']})")
@@ -712,12 +752,17 @@ TINY_MODEL = dict(num_layers=2, hidden_size=768, ffn_hidden_size=1536, num_atten
 TINY_RUNTIME = dict(num_steps=8, window_size=2, chunk_width=2, noise2clean_kvrange=[3, 2], clean_chunk_kvrange=1)
 
 
-def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quantize=None, wrappers=(), kernels=()):
+def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quantize=None, wrappers=(), kernels=(),
+                    prefix_frames=0, scheme=None):
     """A model at head_dim 128 (so every kernel runs) walks 3 chunks on the
     card in bf16 and on the CPU in fp32 with the same weights and noise;
     the emitted latents must agree to `tol` relative L2 error.  `quantize`
     (a tree function of `ops.quant`) quantizes the (bf16) weights first,
-    for both.  Each of `kernels` (names in `wrappers`) must launch in the
+    for both.  With `prefix_frames`, a seeded prefix latent of that many
+    frames comes first (v2v: the chunks it covers whole are written by the
+    warm-up forward) and the walk has one chunk more.  `scheme` sets
+    `MAGI_ATTN_Q8_SCHEME` for the card's walk (the CPU's takes the dequant
+    reference).  Each of `kernels` (names in `wrappers`) must launch in the
     card's walk."""
     import numpy as np
     import torch
@@ -735,7 +780,8 @@ def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quanti
     d["model_config"]["params_dtype"] = "torch.float32"
     cfg_cpu = MagiConfig.from_dict(d)
     mc = cfg_cpu.model_config
-    n_chunks, H, W, Lc = 3, 16, 16, mc.caption_max_length
+    cw = TINY_RUNTIME["chunk_width"]
+    n_chunks, H, W, Lc = 3 + (prefix_frames > 0), 16, 16, mc.caption_max_length
     gen = torch.Generator(device="cpu")
     gen.manual_seed(1)
     p_bf = init_dit_params(cfg_gpu, "cpu", gen)  # bf16 values are exact in fp32
@@ -744,19 +790,29 @@ def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quanti
     p_gpu = _map(p_bf, lambda t: t.to(dev))
     p_cpu = _map(p_bf, lambda t: t.float() if t.dtype == torch.bfloat16 else t)
     rng = np.random.default_rng(0)
-    noise = torch.from_numpy(rng.normal(size=(mc.in_channels, n_chunks * 2, H, W)).astype(np.float32))
+    noise = torch.from_numpy(rng.normal(size=(mc.in_channels, n_chunks * cw, H, W)).astype(np.float32))
     cap = torch.from_numpy(rng.normal(size=(n_chunks, Lc, mc.caption_channels)).astype(np.float32))
     null = torch.from_numpy(rng.normal(size=(Lc, mc.caption_channels)).astype(np.float32))
+    prefix = None
+    if prefix_frames:
+        prefix = torch.from_numpy(rng.normal(size=(mc.in_channels, prefix_frames, H, W)).astype(np.float32))
+    lens = np.array([0] * (prefix_frames // cw) + [9] * (n_chunks - prefix_frames // cw), np.int32)
 
     def walk(cfg, params, device):
         inp = InferenceInput(
-            caption_embs=cap.to(device), caption_lens=np.array([9, 9, 9], np.int32), null_emb=null.to(device),
-            null_len=5, latent_size=(mc.in_channels, n_chunks * 2, H, W), num_steps=8, chunk_num=n_chunks,
-            has_text=True)
+            caption_embs=cap.to(device), caption_lens=lens, null_emb=null.to(device), null_len=5,
+            latent_size=(mc.in_channels, n_chunks * cw, H, W), num_steps=8, chunk_num=n_chunks, has_text=True,
+            prefix_video=None if prefix is None else prefix.to(device))
         return torch.cat([c.cpu() for _, c in ArdfSampler(cfg, params, inp, noise=noise, device=device).walk()], 1)
 
     before = {n: wrappers[n].launches for n in kernels}
-    a = walk(cfg_gpu, p_gpu, dev)
+    old_scheme = os.environ.get("MAGI_ATTN_Q8_SCHEME")
+    if scheme:
+        os.environ["MAGI_ATTN_Q8_SCHEME"] = scheme
+    try:
+        a = walk(cfg_gpu, p_gpu, dev)
+    finally:
+        _set_env("MAGI_ATTN_Q8_SCHEME", old_scheme)
     idle = [n for n in kernels if wrappers[n].launches == before[n]]
     if idle:
         fail(f"{name}: the card's walk launched no {idle}")
@@ -779,6 +835,13 @@ def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quanti
 # the limit keeps phase 3's 2e-2, five times that, for the int8 and the
 # gated int4 walks.
 TINY_QUANT_TOL = 2e-2
+
+
+def _set_env(name: str, value) -> None:
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
 
 
 def _map(tree, fn):
@@ -822,6 +885,75 @@ def run_main_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: li
     missing = [n for n in path_kernels if launches[n] == 0]
     if missing:
         fail(f"the main path launched no {missing}")
+    return launches
+
+
+def run_prefix_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: list, *, mode: str,
+                    scheme=None, idle_kernels=()) -> dict:
+    """i2v (one seeded frame) or v2v (32 seeded frames) of `config`, entered
+    below the file decoders: the uint8 frames go through
+    `encode_prefix_video` (the VAE encoder) and then `MagiPipeline._run`,
+    with every launch count set to 0 just before the encode and read just
+    after the video is written; `scheme` sets `MAGI_ATTN_Q8_SCHEME` for the
+    run.  Checks the frame count against the JAX package's for the same
+    request (i2v emits every chunk whole; v2v drops the prefix frames), the
+    latents and that every kernel of `path_kernels` launched and none of
+    `idle_kernels`.  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from magi_tpu_torch.pipeline.pipeline import MagiPipeline
+    from magi_tpu_torch.pipeline.video_process import encode_prefix_video
+
+    with open(stem + ".json", "w") as f:
+        json.dump(config, f)
+    rc = config["runtime_config"]
+    h, w, fps, cw = rc["video_size_h"], rc["video_size_w"], rc["fps"], rc["chunk_width"]
+    frames = np.random.default_rng(rc["seed"]).integers(0, 256, size=(1 if mode == "i2v" else 32, h, w, 3),
+                                                        dtype=np.uint8)
+    old_scheme = os.environ.get("MAGI_ATTN_Q8_SCHEME")
+    if scheme:
+        os.environ["MAGI_ATTN_Q8_SCHEME"] = scheme
+    try:
+        pipeline = MagiPipeline(stem + ".json", device=dev)
+        torch.cuda.empty_cache()  # the earlier phases' cached blocks
+        torch.cuda.reset_peak_memory_stats(dev)
+        for wr in wrappers.values():
+            wr.launches = 0
+        t0 = time.perf_counter()
+        prefix = encode_prefix_video(frames, fps, rc["vae_pretrained"], rc["scale_factor"], dev)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        stats = pipeline._run("a red cube on a table", prefix, stem + ".mp4")
+        wall = time.perf_counter() - t0
+        launches = {name: wr.launches for name, wr in wrappers.items()}
+    finally:
+        _set_env("MAGI_ATTN_Q8_SCHEME", old_scheme)
+    t_pre = prefix.shape[1]
+    chunks = -(-(rc["num_frames"] // rc["temporal_downsample_factor"] + t_pre) // cw)
+    want = 4 * (chunks * cw - (0 if t_pre == 1 else t_pre))
+    steps = stats["step_seconds"]
+    print(f"  prefix: {frames.shape[0]} frames -> latent {tuple(prefix.shape)} in {encode_s:.3f} s (VAE encode); "
+          f"{chunks} chunks, {chunks - t_pre // cw} denoised")
+    print(f"  frames written: {stats['frames']} (the JAX package's count for this request: {want}) -> {stats['path']}")
+    print(f"  denoise steps: {len(steps)}, seconds per step: mean {sum(steps) / len(steps):.4f}, "
+          f"first {steps[0]:.4f}, last {steps[-1]:.4f}; VAE decode seconds per chunk: "
+          f"{', '.join(f'{s_:.3f}' for s_ in stats['decode_seconds'])}; run wall {wall:.1f} s; "
+          f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    print(f"  launches in this run: {json.dumps(launches)}")
+    print(f"  launches per denoise step: "
+          f"{json.dumps({n: round(launches[n] / len(steps), 2) for n in path_kernels})}")
+    print(f"  video {stats['video_shape']}, std {stats['video_std']:.2f}, latents finite: {stats['latents_finite']}")
+    if stats["video_shape"] != (want, h, w, 3) or not os.path.exists(stats["path"]):
+        fail(f"expected {want} frames of {h}x{w}x3 written, got {stats['video_shape']} at {stats['path']}")
+    if not stats["latents_finite"] or stats["video_std"] == 0:
+        fail("the walk emitted non-finite latents or a constant video")
+    missing = [n for n in path_kernels if launches[n] == 0]
+    if missing:
+        fail(f"the {mode} path launched no {missing}")
+    stray = [n for n in idle_kernels if launches[n]]
+    if stray:
+        fail(f"the {mode} path launched {stray}, which its scheme does not run")
     return launches
 
 
@@ -910,7 +1042,7 @@ def main() -> int:
     from magi_tpu_torch.ops import fused_norm as FN
     from magi_tpu_torch.ops import quant as Q
 
-    print("phase 1: build", flush=True)
+    phase("phase 1: build")
     t0 = time.perf_counter()
     _lib.lib()
     print(f"  built {_lib.LIB_NAME} from {', '.join(_lib.SOURCES)} in {time.perf_counter() - t0:.2f} s")
@@ -919,9 +1051,10 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("  ptxas:", line.strip().split("ptxas info    : ")[-1])
 
-    print("phase 2: kernels against their plain versions (CUDA events)", flush=True)
+    phase("phase 2: kernels against their plain versions (CUDA events)")
     warm_card(dev)
-    results = kernel_checks(dev) + int8_kernel_checks(dev) + w4a8_kernel_checks(dev)
+    int8_results, scheme_results = int8_kernel_checks(dev)
+    results = kernel_checks(dev) + int8_results + w4a8_kernel_checks(dev) + scheme_results
 
     wrappers = {
         "segmented_attention_two_source": A.segmented_attention_two_source,
@@ -935,9 +1068,11 @@ def main() -> int:
         "rowquant_fused": AQ.rowquant_fused,
         "quantized_matmul": Q.quantized_matmul,
         "rowquant_swiglu": AQ.rowquant_swiglu,
+        "segmented_attention_two_source_q8_sage": A8.segmented_attention_two_source_q8_sage,
+        "segmented_attention_two_source_q8_dq": A8.segmented_attention_two_source_q8_dq,
     }
 
-    print("phase 3: tiny walks, card against CPU", flush=True)
+    phase("phase 3: tiny walks, card against CPU")
     tiny_walk_check(dev, "tiny 3-CFG walk", CONFIG, 2e-2)
     tiny_walk_check(dev, "tiny distill int8 1-CFG walk with int8 attention", QUANT_CONFIG, TINY_QUANT_TOL,
                     model=dict(num_layers=3), engine=dict(attn_int8=True), quantize=Q.quantize_params_int8)
@@ -945,12 +1080,21 @@ def main() -> int:
                     TINY_QUANT_TOL, model=dict(num_layers=3, gated_linear_unit=True), engine=dict(attn_int8=True),
                     quantize=lambda p: Q.quantize_params_int4(p, keep_edge_bf16=False), wrappers=wrappers,
                     kernels=["quantized_matmul", "rowquant_swiglu", "quantized_matmul_i8", "rowquant_fused"])
+    # v2v walks: a prefix of 3 latent frames (the warm-up forward writes
+    # chunk 0, chunk 1 is half pasted), one chunk more
+    tiny_walk_check(dev, "tiny 3-CFG v2v walk", CONFIG, 2e-2, prefix_frames=3, wrappers=wrappers,
+                    kernels=["segmented_attention_two_source", "kv_norm_rope_pack"])
+    for scheme in ("sage", "dq"):
+        tiny_walk_check(dev, f"tiny distill int8 1-CFG v2v walk with int8 attention ({scheme})", QUANT_CONFIG,
+                        TINY_QUANT_TOL, model=dict(num_layers=3), engine=dict(attn_int8=True),
+                        quantize=Q.quantize_params_int8, prefix_frames=3, scheme=scheme, wrappers=wrappers,
+                        kernels=[f"segmented_attention_two_source_q8_{scheme}"])
 
     out_dir = os.path.join(_lib.BUILD_DIR, "smoke")
     os.makedirs(out_dir, exist_ok=True)
     os.environ["SKIP_LOAD_MODEL"] = "1"
 
-    print(f"phase 4: 4.5B t2v through the CLI entry (256x256, 96 frames, {STEPS} steps)", flush=True)
+    phase(f"phase 4: 4.5B t2v through the CLI entry (256x256, 96 frames, {STEPS} steps)")
     with open(CONFIG) as f:
         d = json.load(f)
     d["runtime_config"].update(video_size_h=256, video_size_w=256, num_frames=96, num_steps=STEPS)
@@ -958,8 +1102,8 @@ def main() -> int:
         "segmented_attention_two_source", "segmented_attention_v2", "segmented_attention", "kv_norm_rope_pack",
         "gate_norm_residual"])
 
-    print("phase 5: 4.5B distill + int8 t2v with int8 attention through the CLI entry (256x256, 96 frames, "
-          "the config's 16 steps)", flush=True)
+    phase("phase 5: 4.5B distill + int8 t2v with int8 attention through the CLI entry (256x256, 96 frames, "
+          "the config's 16 steps)")
     with open(QUANT_CONFIG) as f:
         d = json.load(f)
     d["runtime_config"].update(video_size_h=256, video_size_w=256, num_frames=96)
@@ -976,23 +1120,53 @@ def main() -> int:
     d["engine_config"].update(attn_int8=True, quant_bits=4, cp_size=1)
     w4a8_kernels = ["kv_norm_rope_pack_q8", "segmented_attention_two_source_q8", "quantized_matmul_i8",
                     "rowquant_fused", "rowquant_swiglu", "gate_norm_residual"]
-    print("phase 6: 24B distill w4a8 t2v with int8 attention through the CLI entry (48 layers, 6144 wide, "
-          "256x256, 96 frames, the config's 16 steps)", flush=True)
+    phase("phase 6: 24B distill w4a8 t2v with int8 attention through the CLI entry (48 layers, 6144 wide, "
+          "256x256, 96 frames, the config's 16 steps)")
     launches6 = run_main_path(dev, d, os.path.join(out_dir, "24B_distill_w4a8_256"), wrappers,
                               w4a8_kernels + ["segmented_attention"])
-    print("phase 7: the 24B w4a8 tree without blocks_edge, ArdfSampler.walk of 2 chunks (256x256)", flush=True)
+    phase("phase 7: the 24B w4a8 tree without blocks_edge, ArdfSampler.walk of 2 chunks (256x256)")
     d["runtime_config"]["num_frames"] = 48
     launches7 = run_noedge_walk(dev, d, wrappers, w4a8_kernels + ["quantized_matmul"])
 
+    phase(f"phase 8: 4.5B i2v through encode_prefix_video and MagiPipeline._run (256x256, 96 frames, {STEPS} steps)")
+    with open(CONFIG) as f:
+        d = json.load(f)
+    d["runtime_config"].update(video_size_h=256, video_size_w=256, num_frames=96, num_steps=STEPS)
+    launches8 = run_prefix_path(dev, d, os.path.join(out_dir, "4.5B_base_i2v_256"), wrappers, [
+        "segmented_attention_two_source", "segmented_attention_v2", "segmented_attention", "kv_norm_rope_pack",
+        "gate_norm_residual"], mode="i2v")
+
+    # the int8 paths under the other two schemes of K5: no launch of another
+    q8_names = {s_: "segmented_attention_two_source_q8" + ("" if s_ == "qk8" else f"_{s_}") for s_ in A8.SCHEMES}
+    int8_kernels = ["kv_norm_rope_pack_q8", "quantized_matmul_i8", "rowquant_fused", "gate_norm_residual",
+                    "segmented_attention"]
+    with open(QUANT_CONFIG) as f:
+        d = json.load(f)
+    d["runtime_config"].update(video_size_h=256, video_size_w=256, num_frames=96)
+    d["engine_config"]["attn_int8"] = True
+    phase("phase 9: 4.5B distill + int8 v2v from a 32-frame prefix video, int8 attention under "
+          "MAGI_ATTN_Q8_SCHEME=sage (256x256, 96 frames, the config's 16 steps)")
+    launches9 = run_prefix_path(dev, d, os.path.join(out_dir, "4.5B_distill_quant_v2v_sage_256"), wrappers,
+                                int8_kernels + [q8_names["sage"]], mode="v2v", scheme="sage",
+                                idle_kernels=[q8_names["qk8"], q8_names["dq"]])
+    phase("phase 10: 4.5B distill + int8 i2v, int8 attention under MAGI_ATTN_Q8_SCHEME=dq (256x256, 96 frames, "
+          "the config's 16 steps)")
+    launches10 = run_prefix_path(dev, d, os.path.join(out_dir, "4.5B_distill_quant_i2v_dq_256"), wrappers,
+                                 int8_kernels + [q8_names["dq"]], mode="i2v", scheme="dq",
+                                 idle_kernels=[q8_names["qk8"], q8_names["sage"]])
+
     for r in results:
         r["launches_by_path"] = {"base": launches4[r["name"]], "distill_int8": launches5[r["name"]],
-                                 "24b_w4a8": launches6[r["name"]], "24b_w4a8_noedge": launches7[r["name"]]}
+                                 "24b_w4a8": launches6[r["name"]], "24b_w4a8_noedge": launches7[r["name"]],
+                                 "i2v_base": launches8[r["name"]], "v2v_distill_int8_sage": launches9[r["name"]],
+                                 "i2v_distill_int8_dq": launches10[r["name"]]}
         r["launches"] = sum(r["launches_by_path"].values())
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr}")
+    phase("done")
     print(smi.stdout.strip().splitlines()[0])
     keys = ["name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"]

@@ -9,7 +9,7 @@ built at first use (`ops/_lib.py`).  This package never imports `jax` or
 
   core/        config, logging, timing, seeding
   ops/         CUDA kernel wrappers + their plain PyTorch versions
-  models/      DiT and ViT-VAE decoder
+  models/      DiT and ViT-VAE (encoder and decoder)
   sampling/    ARDF schedules, kv ranges, the denoising walk
   checkpoint/  parameter trees carried over from the JAX package
   pipeline/    prompt/video processing, MagiPipeline, CLI

@@ -1,16 +1,19 @@
-"""ViT video VAE, decoder side (the port of `magi_tpu.models.vae.model`).
+"""ViT video VAE (the port of `magi_tpu.models.vae.model`).
 
-8x spatial / 4x temporal compression; the decoder is a plain ViT stack,
-then an unpatchify and a 3x3x3 Conv3d.  Attention runs through the
-segmented attention op with one segment per batch element (tile), so a
-tiled decode batches its tiles through one forward.  The parameter tree
-is the JAX package's (linear weights [in, out], the final conv weight in
-OIDHW).  The encoder is a later slice.
+8x spatial / 4x temporal compression.  The encoder is a Conv3d patch
+embed (stride = kernel, so one matmul over patches), a plain ViT stack and
+a linear to the Gaussian posterior's statistics; the decoder is a plain
+ViT stack, then an unpatchify and a 3x3x3 Conv3d.  Attention runs through
+the segmented attention op with one segment per batch element (tile), so
+a tiled encode or decode batches its tiles through one forward.  The
+parameter tree is the JAX package's (linear weights [in, out], the patch
+embed and the final conv weights in OIDHW).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -163,6 +166,43 @@ def _pos_embed_for(p, cfg: VaeConfig, shape):
     return pos
 
 
+def _run_blocks(p, cfg: VaeConfig, h, feat_shape):
+    rope = vae_rope(feat_shape, cfg.head_dim, dtype=h.dtype, device=h.device) if cfg.use_rope else None
+    for idx in range(cfg.depth):
+        h = _block_forward(layer_params(p["blocks"], idx), cfg, h, rope)
+    return h
+
+
+def encoder_forward(p, cfg: VaeConfig, x: torch.Tensor) -> torch.Tensor:
+    """[B, C, T, H, W] -> latent statistics [B, 2*z (or z), T', H', W']."""
+    B, C, T, H, W = x.shape
+    pt, ps = cfg.patch_length, cfg.patch_size
+    Tl, Hl, Wl = T // pt, H // ps, W // ps
+    # a Conv3d with stride = kernel drops the remainders
+    x = x[:, :, : Tl * pt, : Hl * ps, : Wl * ps]
+    # the patch embed as one matmul; features in (C, kt, kh, kw) order
+    xp = x.reshape(B, C, Tl, pt, Hl, ps, Wl, ps).permute(0, 2, 4, 6, 1, 3, 5, 7)
+    xp = xp.reshape(B, Tl * Hl * Wl, C * pt * ps * ps)
+    w = p["patch_embed"]["proj"]["weight"]  # [D, C, kt, kh, kw]
+    D = w.shape[0]
+    h = xp @ w.reshape(D, -1).t().to(xp.dtype)
+    h = h + p["patch_embed"]["proj"]["bias"].to(h.dtype)
+    if cfg.with_cls_token:
+        h = torch.cat([p["cls_token"][0].to(h.dtype).expand(B, 1, D), h], dim=1)
+    h = h + _pos_embed_for(p, cfg, (Tl, Hl, Wl))[None].to(h.dtype)
+
+    h = _run_blocks(p, cfg, h, (Tl, Hl, Wl))
+    h = _linear(p["last_layer"], layer_norm(h, p["norm"], 1e-5))
+    if cfg.with_cls_token:
+        h = h[:, 1:]
+    out_ch = cfg.z_chans * (2 if cfg.double_z else 1)
+    h = h.reshape(B, Tl, Hl, Wl, out_ch).permute(0, 4, 1, 2, 3)
+    if cfg.norm_code:
+        hf = h.float()
+        h = (hf / torch.linalg.vector_norm(hf, dim=1, keepdim=True)).to(h.dtype)
+    return h
+
+
 def decoder_forward(p, cfg: VaeConfig, z: torch.Tensor) -> torch.Tensor:
     """[B, z, T', H', W'] -> [B, 3, T, H, W]."""
     B, C, Tl, Hl, Wl = z.shape
@@ -174,10 +214,7 @@ def decoder_forward(p, cfg: VaeConfig, z: torch.Tensor) -> torch.Tensor:
         h = torch.cat([p["cls_token"][0].to(h.dtype).expand(B, 1, D), h], dim=1)
     h = h + _pos_embed_for(p, cfg, (Tl, Hl, Wl))[None].to(h.dtype)
 
-    rope = vae_rope((Tl, Hl, Wl), cfg.head_dim, dtype=h.dtype, device=h.device) if cfg.use_rope else None
-    for idx in range(cfg.depth):
-        h = _block_forward(layer_params(p["blocks"], idx), cfg, h, rope)
-    h = layer_norm(h, p["norm"], 1e-5)
+    h = layer_norm(_run_blocks(p, cfg, h, (Tl, Hl, Wl)), p["norm"], 1e-5)
     if cfg.with_cls_token:
         h = h[:, 1:]
 
@@ -194,8 +231,20 @@ def decoder_forward(p, cfg: VaeConfig, z: torch.Tensor) -> torch.Tensor:
     return out.to(z.dtype)
 
 
+def gaussian_mode(stats: torch.Tensor) -> torch.Tensor:
+    """The posterior's mode (its mean), what inference encodes to."""
+    return stats.chunk(2, dim=1)[0]
+
+
+def gaussian_sample(stats: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    mean, logvar = stats.chunk(2, dim=1)
+    std = torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0))
+    noise = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=torch.float32).to(mean.dtype)
+    return mean + std * noise
+
+
 class ViTVAE:
-    """ViT-VAE with the released model's decode surface."""
+    """ViT-VAE with the released model's encode / decode surface."""
 
     def __init__(self, cfg: VaeConfig, params: dict):
         self.cfg = cfg
@@ -209,14 +258,28 @@ class ViTVAE:
     def temporal_downsample_factor(self) -> int:
         return self.cfg.patch_length
 
+    def encode(self, x: torch.Tensor, sample_posterior: bool = False,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """video [B, C, T, H, W] in [-1, 1] -> latent [B, z, T', H', W']: the
+        posterior's mode, or a sample of it.  A single frame (an image) is
+        repeated to 4 frames and the latent cut back to its first frame."""
+        B, C, T, H, W = x.shape
+        single = T == 1 and self.cfg.patch_length > 1
+        if single:
+            x = x.expand(B, C, 4, H, W)
+        stats = encoder_forward(self.params["encoder"], self.cfg, x)
+        z = gaussian_sample(stats, generator) if sample_posterior else gaussian_mode(stats)
+        return z[:, :, :1] if single else z
+
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """latent [B, z, T', H', W'] -> video [B, 3, T, H, W]."""
         return decoder_forward(self.params["decoder"], self.cfg, z)
 
 
 def init_vae_params(cfg: VaeConfig, seed: int = 0, dtype=torch.float32, device=None) -> dict:
-    """Random decoder weights (normal, std 0.02) drawn on `device`; the
-    JAX package's key tree under "decoder"."""
+    """Random weights (normal, std 0.02) drawn on `device`; the JAX
+    package's key tree under "encoder" and "decoder".  The decoder is drawn
+    first, so its weights do not depend on the encoder's."""
     device = torch.device(device or "cuda")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -239,20 +302,24 @@ def init_vae_params(cfg: VaeConfig, seed: int = 0, dtype=torch.float32, device=N
         s = (depth, n) if stacked else (n,)
         return {"weight": torch.ones(s, dtype=dtype, device=device), "bias": zeros(s)}
 
-    blocks = {
-        "attn": {"qkv": lin(D, 3 * D, bias=cfg.qkv_bias, stacked=True), "proj": lin(D, D, stacked=True)},
-        "norm2": normp(D, stacked=True),
-        "mlp": {"fc1": lin(D, mlp, stacked=True), "fc2": lin(mlp, D, stacked=True)},
-    }
-    if not cfg.ln_in_attn:
-        blocks["norm1"] = normp(D, stacked=True)
+    def blocks():
+        b = {
+            "attn": {"qkv": lin(D, 3 * D, bias=cfg.qkv_bias, stacked=True), "proj": lin(D, D, stacked=True)},
+            "norm2": normp(D, stacked=True),
+            "mlp": {"fc1": lin(D, mlp, stacked=True), "fc2": lin(mlp, D, stacked=True)},
+        }
+        if not cfg.ln_in_attn:
+            b["norm1"] = normp(D, stacked=True)
+        return b
+
     n_patches = cfg.latent_length * cfg.latent_size**2
     cls_n = 1 if cfg.with_cls_token else 0
     up_ch = 4 if cfg.use_final_proj else D // (cfg.patch_size**2 * cfg.patch_length)
+    dec_blocks = blocks()
     dec = {
         "proj_in": lin(cfg.z_chans, D),
         "pos_embed": w((1, n_patches + cls_n, D)),
-        "blocks": blocks,
+        "blocks": dec_blocks,
         "norm": normp(D),
         "last_layer": {"weight": w((3, up_ch, 3, 3, 3)), "bias": zeros((3,))},
     }
@@ -261,4 +328,16 @@ def init_vae_params(cfg: VaeConfig, seed: int = 0, dtype=torch.float32, device=N
     if cfg.use_final_proj:
         dec["final_proj"] = lin(D, up_ch * cfg.patch_size**2 * cfg.patch_length)
         dec["final_norm"] = normp(up_ch * cfg.patch_size**2 * cfg.patch_length)
-    return {"decoder": dec}
+
+    out_ch = cfg.z_chans * (2 if cfg.double_z else 1)
+    enc = {
+        "patch_embed": {"proj": {"weight": w((D, cfg.in_chans, cfg.patch_length, cfg.patch_size, cfg.patch_size)),
+                                 "bias": zeros((D,))}},
+        "pos_embed": w((1, n_patches + cls_n, D)),
+        "blocks": blocks(),
+        "norm": normp(D),
+        "last_layer": lin(D, out_ch),
+    }
+    if cfg.with_cls_token:
+        enc["cls_token"] = w((1, 1, D))
+    return {"encoder": enc, "decoder": dec}

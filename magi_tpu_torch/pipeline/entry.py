@@ -4,9 +4,11 @@
         --config_file example/4.5B/4.5B_base_config.json --mode t2v \\
         --prompt "a red cube" --output_path out.mp4
 
-Runs on CUDA unless `--device cpu` is given.  This slice runs `--mode t2v`
-with one `--prompt`; i2v, v2v and `--prompts` batching raise
-`NotImplementedError` naming their ROADMAP item.
+    ... --mode i2v --image_path first_frame.png
+    ... --mode v2v --prefix_video_path prefix.mp4
+
+Runs on CUDA unless `--device cpu` is given.  One `--prompt` per run;
+`--prompts` batching raises `NotImplementedError` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -32,6 +34,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     args = parser.parse_args(argv)
     if not (args.prompt or args.prompts):
         parser.error("--prompt or --prompts required")
+    if args.mode == "i2v" and not args.image_path:
+        parser.error("--image_path required for i2v")
+    if args.mode == "v2v" and not args.prefix_video_path:
+        parser.error("--prefix_video_path required for v2v")
     return args
 
 
@@ -39,9 +45,13 @@ def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
     if args.prompts:
         raise NotImplementedError("--prompts batching (DpBatchedSampler / walk_many) is ROADMAP queue 1 item 13")
-    if args.mode != "t2v":
-        raise NotImplementedError(f"--mode {args.mode} is ROADMAP queue 1 item 10")
     pipeline = MagiPipeline(args.config_file, device=args.device)
+    if args.mode == "i2v":
+        return pipeline.run_image_to_video(prompt=args.prompt, image_path=args.image_path,
+                                           output_path=args.output_path)
+    if args.mode == "v2v":
+        return pipeline.run_video_to_video(prompt=args.prompt, prefix_video_path=args.prefix_video_path,
+                                           output_path=args.output_path)
     return pipeline.run_text_to_video(prompt=args.prompt, output_path=args.output_path)
 
 

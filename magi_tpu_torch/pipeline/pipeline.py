@@ -1,12 +1,15 @@
-"""User-facing pipeline: MagiPipeline.run_text_to_video(prompt, output_path).
+"""User-facing pipeline: MagiPipeline.run_{text,image,video}_to_video.
 
-This port runs the single-device text-to-video path with random weights
-(SKIP_LOAD_MODEL=1): the bf16 base model (3-branch CFG) and the distill /
+This port runs the single-device paths with random weights
+(SKIP_LOAD_MODEL=1): text-to-video, image-to-video (the image's latent as a
+one-frame prefix) and video-to-video (the latent of a prefix video's first
+32 frames), for the bf16 base model (3-branch CFG) and the distill /
 quantized models (single-branch CFG, `fp8_quant` or `MAGI_INT8=1`): int8
 weights, or nibble-packed int4 weights (w4a8) under `quant_bits: 4` or
 `MAGI_INT4=1`, as the 24B runs on one device, with int8 attention when
-`engine_config.attn_int8` or `MAGI_ATTN_INT8=1` is set.  What it does not
-cover yet raises `NotImplementedError` naming its ROADMAP item.
+`engine_config.attn_int8` or `MAGI_ATTN_INT8=1` is set (its scheme from
+`MAGI_ATTN_Q8_SCHEME`: qk8, sage or dq).  What it does not cover yet
+raises `NotImplementedError` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,7 +25,12 @@ from magi_tpu_torch.core.profiler import log_memory
 from magi_tpu_torch.core.timer import event_path_timer
 from magi_tpu_torch.core.utils import env_is_true, resolve_device, set_random_seed
 from magi_tpu_torch.pipeline.prompt_process import build_inference_input, get_txt_embeddings
-from magi_tpu_torch.pipeline.video_process import post_chunk_process, save_video_to_disk
+from magi_tpu_torch.pipeline.video_process import (
+    post_chunk_process,
+    process_image,
+    process_prefix_video,
+    save_video_to_disk,
+)
 from magi_tpu_torch.sampling.transport import ArdfSampler
 
 
@@ -64,16 +72,30 @@ class MagiPipeline:
         print_rank_0(self.config)
 
     def run_text_to_video(self, prompt: str, output_path: str) -> dict:
-        """Generate a video for `prompt` and write it to `output_path`.
-        Returns what the run measured: the decoded video's shape and
-        standard deviation, whether every emitted latent was finite, the
-        path written, and the host seconds of every denoise step and of
-        every chunk decode."""
+        """Generate a video for `prompt` and write it to `output_path`;
+        returns the stats of `_run`."""
+        return self._run(prompt, None, output_path)
+
+    def run_image_to_video(self, prompt: str, image_path: str, output_path: str) -> dict:
+        """The same, continuing the image at `image_path`."""
+        return self._run(prompt, process_image(image_path, self.config, self.device), output_path)
+
+    def run_video_to_video(self, prompt: str, prefix_video_path: str, output_path: str) -> dict:
+        """The same, continuing the video at `prefix_video_path`."""
+        return self._run(prompt, process_prefix_video(prefix_video_path, self.config, self.device), output_path)
+
+    def _run(self, prompt: str, prefix_video, output_path: str) -> dict:
+        """Generate from `prompt` after the latent `prefix_video` ([C, T_pre,
+        H', W'] or None) and write the video to `output_path`.  Returns
+        what the run measured: the decoded video's shape and standard
+        deviation, whether every emitted latent was finite, the path
+        written, and the host seconds of every denoise step and of every
+        chunk decode."""
         t0 = time.perf_counter()
         caption_embs, emb_masks = get_txt_embeddings(prompt, self.config)
         params = get_dit(self.config, self.device, self.generator)
         null_caption = params["y_embedder"]["null_caption_embedding"].float().cpu().numpy()
-        inp = build_inference_input(self.config, null_caption, caption_embs, emb_masks, self.device)
+        inp = build_inference_input(self.config, null_caption, caption_embs, emb_masks, self.device, prefix_video)
 
         sampler = ArdfSampler(self.config, params, inp, self.generator, device=self.device)
         event_path_timer().synced_record("begin_walk")
@@ -83,7 +105,7 @@ class MagiPipeline:
             td = time.perf_counter()
             segments.append(post_chunk_process(chunk, self.config, self.device))
             decode_seconds.append(time.perf_counter() - td)
-            print_rank_0(f"chunk {chunk_idx + 1}/{inp.chunk_num} done")
+            print_rank_0(f"chunk {chunk_idx + 1}/{inp.chunk_num - sampler.chunk_offset} done")
         event_path_timer().synced_record("end_walk")
         log_memory("after walk", self.device)
         video = np.concatenate(segments, axis=0)

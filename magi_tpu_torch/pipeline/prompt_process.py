@@ -128,21 +128,34 @@ def build_inference_input(
     caption_embs: np.ndarray,  # [1, L0, C]
     emb_masks: np.ndarray,  # [1, L0]
     device,
+    prefix_video: Optional[torch.Tensor] = None,  # latent [C, T_pre, H', W'] (i2v / v2v)
 ) -> InferenceInput:
     """Per-chunk captions (special tokens applied), the null slab and the
-    latent size of a t2v request."""
+    latent size of a request.  With a prefix video the whole chunks it
+    covers come first, clean, with the null caption and 0 valid tokens,
+    and the chunks to denoise cover the video's frames after the prefix."""
     mc, rc = config.model_config, config.runtime_config
     max_len = mc.caption_max_length
     latent_frames = rc.num_frames // rc.temporal_downsample_factor
-    chunk_num = math.ceil(latent_frames / rc.chunk_width)
+    clean_chunk_num = 0
+    if prefix_video is not None:
+        clean_chunk_num = prefix_video.shape[1] // rc.chunk_width
+        chunk_num = math.ceil((latent_frames + prefix_video.shape[1]) / rc.chunk_width)
+    else:
+        chunk_num = math.ceil(latent_frames / rc.chunk_width)
+    n_denoise = chunk_num - clean_chunk_num
 
-    cap = np.repeat(caption_embs.astype(np.float32), chunk_num, axis=0)  # [n, L0, C]
+    cap = np.repeat(caption_embs.astype(np.float32), n_denoise, axis=0)  # [n_den, L0, C]
     if cap.shape[1] < max_len:
         cap = np.pad(cap, ((0, 0), (0, max_len - cap.shape[1]), (0, 0)))
     cap = cap[:, :max_len]
-    lens = np.full(chunk_num, int(emb_masks.sum()), np.int64)
+    lens = np.full(n_denoise, int(emb_masks.sum()), np.int64)
     cap, lens = pad_special_token(get_special_token_keys(), cap, lens, max_len)
     print_rank_0(f"special_token = {get_special_token_keys()}")
+    if clean_chunk_num:
+        null_row = null_caption_embedding.astype(np.float32)[None]
+        cap = np.concatenate([np.repeat(null_row, clean_chunk_num, axis=0), cap], axis=0)
+        lens = np.concatenate([np.zeros(clean_chunk_num, np.int64), lens])
 
     null_emb = null_caption_embedding.astype(np.float32)
     neg_keys = get_negative_special_token_keys()
@@ -159,5 +172,6 @@ def build_inference_input(
         num_steps=rc.num_steps,
         chunk_num=chunk_num,
         has_text=bool(emb_masks.sum() != 0),
+        prefix_video=None if prefix_video is None else torch.as_tensor(prefix_video, device=device),
         prev_chunks_scale=float(os.getenv("prev_chunks_scale", 0.7)),
     )

@@ -1,9 +1,10 @@
-"""Video output and VAE decode glue (the decode side of
+"""Image and video input, video output and the VAE glue (the port of
 `magi_tpu.pipeline.video_process`).
 
-MAGI's ViT-VAE disables spatial tiling and uses no temporal overlap, so
-a tiled decode is fixed-length temporal tiles, batched through one ViT
-forward."""
+MAGI's ViT-VAE disables spatial tiling and uses no temporal overlap, so a
+tiled encode or decode is fixed-length temporal tiles, the equal ones
+batched through one ViT forward.  The loaders import PIL and cv2 only when
+they run."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from typing import Optional
 
 import numpy as np
 import torch
@@ -18,6 +20,78 @@ import torch
 from magi_tpu_torch.core.config import MagiConfig
 from magi_tpu_torch.core.logger import magi_logger
 from magi_tpu_torch.core.utils import env_is_true
+
+
+def load_image(image_path: str, w: int, h: int, aspect_policy: str = "fit") -> np.ndarray:
+    """-> uint8 [1, h, w, 3]: the image scaled to (w, h) ("fit"), scaled to
+    cover and centre-cropped ("crop"), or scaled to fit and centred on
+    black ("pad"); bicubic."""
+    from PIL import Image
+
+    img = Image.open(image_path).convert("RGB")
+    iw, ih = img.size
+    if aspect_policy == "crop":
+        scale = max(w / iw, h / ih)
+        img = img.resize((max(1, round(iw * scale)), max(1, round(ih * scale))), Image.BICUBIC)
+        left = (img.size[0] - w) // 2
+        top = (img.size[1] - h) // 2
+        img = img.crop((left, top, left + w, top + h))
+    elif aspect_policy == "pad":
+        scale = min(w / iw, h / ih)
+        img = img.resize((max(1, round(iw * scale)), max(1, round(ih * scale))), Image.BICUBIC)
+        canvas = Image.new("RGB", (w, h), (0, 0, 0))
+        canvas.paste(img, ((w - img.size[0]) // 2, (h - img.size[1]) // 2))
+        img = canvas
+    else:
+        if aspect_policy != "fit":
+            magi_logger.warning(f"Unknown aspect policy: {aspect_policy}, using fit as fallback")
+        img = img.resize((w, h), Image.BICUBIC)
+    return np.asarray(img, np.uint8)[None]
+
+
+def load_video(video_path: Optional[str], fps: int, w: int, h: int, prefix_frame: Optional[int] = None,
+               prefix_video_max_chunk: int = 5) -> Optional[np.ndarray]:
+    """-> uint8 [T, h, w, 3], resampled to `fps` (a source frame is repeated
+    or dropped to keep time), then its first `prefix_frame` frames, or else
+    its last whole seconds up to `prefix_video_max_chunk` (one frame when
+    shorter than a second)."""
+    if video_path is None:
+        return None
+    import cv2
+
+    cap = cv2.VideoCapture(video_path)
+    if not cap.isOpened():
+        raise ValueError(f"cannot open video {video_path}")
+    src_fps = cap.get(cv2.CAP_PROP_FPS) or fps
+    frames = []
+    t_next = 0.0
+    idx = 0
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        t = idx / src_fps
+        while t >= t_next - 1e-9:
+            f = cv2.resize(frame, (w, h), interpolation=cv2.INTER_AREA)
+            frames.append(cv2.cvtColor(f, cv2.COLOR_BGR2RGB))
+            t_next += 1.0 / fps
+        idx += 1
+    cap.release()
+    video = np.asarray(frames, np.uint8)
+
+    if prefix_frame is not None:
+        return video[:prefix_frame]
+    n = video.shape[0]
+    clip = 1 if n < fps else min(n // fps * fps, prefix_video_max_chunk * fps)
+    return video[-clip:]
+
+
+def u8_thwc_to_f32_cthw(frames: np.ndarray) -> np.ndarray:
+    """uint8 [T, H, W, 3] -> f32 [3, T, H, W] in [-1, 1]."""
+    if frames.shape[-1] != 3:
+        raise ValueError(f"expected 3 channels, got {frames.shape[-1]}")
+    out = frames.astype(np.float32) / 127.5 - 1.0
+    return np.ascontiguousarray(out.transpose(3, 0, 1, 2))
 
 
 def f32_cthw_to_u8_thwc(video: np.ndarray) -> np.ndarray:
@@ -74,9 +148,9 @@ _vae_cache: dict = {}
 
 
 def get_vae(vae_ckpt: str, device: torch.device, z_chans: int = 16):
-    """The VAE for decoding.  Under SKIP_LOAD_MODEL with no checkpoint on
-    disk: a random MAGI-shaped ViT-VAE (8x spatial / 4x temporal, 1024
-    wide, 16 layers of 16 heads) in bf16."""
+    """The VAE.  Under SKIP_LOAD_MODEL with no checkpoint on disk: a random
+    MAGI-shaped ViT-VAE (8x spatial / 4x temporal, 1024 wide, 16 layers of
+    16 heads, encoder and decoder) in bf16."""
     key = (vae_ckpt, str(device), z_chans)
     if key in _vae_cache:
         return _vae_cache[key]
@@ -95,6 +169,25 @@ def get_vae(vae_ckpt: str, device: torch.device, z_chans: int = 16):
 
 def _temporal_tiles(T: int, tile: int):
     return [(s, min(s + tile, T)) for s in range(0, T, tile)]
+
+
+def tiled_encode(vae, video: torch.Tensor, tile_frames: int) -> torch.Tensor:
+    """video [N, C, T, H, W] in [-1, 1] -> latent.  Temporal tiles of
+    `tile_frames`, the full ones batched through one forward."""
+    N, C, T, H, W = video.shape
+    if T <= tile_frames:
+        return vae.encode(video)
+    spans = _temporal_tiles(T, tile_frames)
+    full = [s for s in spans if s[1] - s[0] == tile_frames]
+    outs = {}
+    if full:
+        z = vae.encode(torch.cat([video[:, :, a:b] for a, b in full], dim=0))
+        for i, (a, _) in enumerate(full):
+            outs[a] = z[i * N : (i + 1) * N]
+    for a, b in spans:
+        if b - a != tile_frames:
+            outs[a] = vae.encode(video[:, :, a:b])
+    return torch.cat([outs[a] for a, _ in spans], dim=2)
 
 
 def tiled_decode(vae, z: torch.Tensor, tile_frames: int) -> torch.Tensor:
@@ -129,3 +222,29 @@ def decode_chunk(chunk: torch.Tensor, config: MagiConfig, device: torch.device) 
 
 def post_chunk_process(chunk: torch.Tensor, config: MagiConfig, device: torch.device) -> np.ndarray:
     return decode_chunk(chunk, config, device)
+
+
+def encode_prefix_video(prefix_video: Optional[np.ndarray], fps: int, vae_ckpt: str, scale_factor: float,
+                        device: torch.device) -> Optional[torch.Tensor]:
+    """uint8 [T, H, W, 3] -> scaled latent [C, T', H', W'] f32 on `device`:
+    the bf16 frames through the tiled encode (tiles of fps / 2 frames)."""
+    if prefix_video is None:
+        return None
+    vae = get_vae(vae_ckpt, device)
+    video = torch.from_numpy(u8_thwc_to_f32_cthw(np.asarray(prefix_video)))[None].to(device)
+    z = tiled_encode(vae, video.to(torch.bfloat16), tile_frames=fps // 2)
+    return (z[0] * scale_factor).float()
+
+
+def process_image(image_path: str, config: MagiConfig, device: torch.device) -> torch.Tensor:
+    """The i2v prefix: the image's latent, one frame."""
+    rc = config.runtime_config
+    img = load_image(image_path, w=rc.video_size_w, h=rc.video_size_h)
+    return encode_prefix_video(img, rc.fps, rc.vae_pretrained, rc.scale_factor, device)
+
+
+def process_prefix_video(prefix_video_path: str, config: MagiConfig, device: torch.device) -> torch.Tensor:
+    """The v2v prefix: the latent of the video's first 32 frames."""
+    rc = config.runtime_config
+    vid = load_video(prefix_video_path, fps=rc.fps, w=rc.video_size_w, h=rc.video_size_h, prefix_frame=32)
+    return encode_prefix_video(vid, rc.fps, rc.vae_pretrained, rc.scale_factor, device)

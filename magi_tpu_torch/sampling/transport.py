@@ -11,8 +11,11 @@ This port covers the 3-branch CFG walk without packing
 with its nearly-clean ride-along chunk, with the KV cache in device
 memory (the bf16 tensor, or the int8 {kv, scale} dict of int8 attention),
 including the sliding cache window that `kv_offload` selects under
-noise2clean kv ranges.  Prefix video (i2v/v2v) and host KV offload are
-later slices and raise `NotImplementedError`.
+noise2clean kv ranges.  A prefix video (i2v, v2v) is pasted over the
+window's frames it covers at every step, the chunks it covers whole run
+as clean (t = 1), and those chunks' KV is written into the cache by one
+warm-up forward before the first step.  Host KV offload (`kv_offload`
+under the default kv ranges) raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -88,8 +91,6 @@ class ArdfSampler:
             raise NotImplementedError(f"cfg_number={rc.cfg_number}")
         if ec.pack_uncond:
             raise NotImplementedError("pack_uncond (2-forward CFG) is not ported; this slice runs 3 forwards")
-        if inp.prefix_video is not None:
-            raise NotImplementedError("prefix video (i2v/v2v) is ROADMAP queue 1 item 10")
         if ec.kv_offload and not rc.noise2clean_kvrange:
             raise NotImplementedError("host KV offload is ROADMAP queue 1 item 13")
 
@@ -114,18 +115,27 @@ class ArdfSampler:
             self.xs = torch.randn(inp.latent_size, generator=generator, device=self.device, dtype=torch.float32)
 
         # noise2clean kv ranges bound the attended span, so kv_offload keeps
-        # a sliding cache window that rolls forward (O(1) memory in length)
+        # a sliding cache window that rolls forward (O(1) memory in length);
+        # it holds at least the prefix chunks the warm-up writes
+        offset_chunks = 0 if inp.prefix_video is None else inp.prefix_video.shape[1] // self.cw
         if ec.kv_offload:
             span = max(rc.noise2clean_kvrange)
             if rc.clean_chunk_kvrange != -1:
                 span = max(span, rc.clean_chunk_kvrange)
-            self.cache_chunks = min(self.chunk_num, span + self.window + 1)
+            self.cache_chunks = min(self.chunk_num, max(span + self.window + 1, offset_chunks))
         else:
             self.cache_chunks = self.chunk_num
         self.cache_base = 0  # chunk index of cache slot 0
         self.counts: Counter = Counter()
         self.cache = init_kv_cache(config, round_up(self.cache_chunks * self.ctn, 1024), self.device)
-        self.chunk_offset = 0
+        # the prefix video's latent, zero-padded to the chunk grid
+        self.chunk_offset = offset_chunks
+        self.prefix_buf, self.prefix_len = None, 0
+        if inp.prefix_video is not None:
+            pv = inp.prefix_video.to(device=self.device, dtype=torch.float32)
+            self.prefix_buf = torch.nn.functional.pad(pv, (0, 0, 0, 0, 0, self.chunk_num * self.cw - pv.shape[1]))
+            self.prefix_len = int(pv.shape[1])
+        self._warmed = False
         self.step_seconds: list = []  # host wall time of each denoise step, device work included
 
         dev = self.device
@@ -164,8 +174,10 @@ class ArdfSampler:
     # ----- the walk -------------------------------------------------------
 
     def walk(self) -> Generator[Tuple[int, torch.Tensor], None, None]:
-        """Yields (chunk_idx, clean latent [C, cw, H, W] on the device) as
-        chunks finish."""
+        """Yields (chunk_idx, clean latent [C, <=cw, H, W] on the device) as
+        chunks finish; chunk_idx counts from the first chunk after the
+        prefix chunks."""
+        self.prepare()
         for step in range(self.total_forward_steps()):
             t0 = time.perf_counter()
             emitted = self.do_step(step)
@@ -174,6 +186,24 @@ class ArdfSampler:
             self.step_seconds.append(time.perf_counter() - t0)
             if emitted is not None:
                 yield emitted
+
+    def prepare(self) -> None:
+        """Write the prefix chunks' KV into the cache, once."""
+        if self.chunk_offset > 0 and not self._warmed:
+            self._run_prefix_warmup()
+            self._warmed = True
+
+    def _run_prefix_warmup(self) -> None:
+        """One forward of the clean prefix chunks that writes their KV into
+        the cache."""
+        rc, ec = self.config.runtime_config, self.config.engine_config
+        n = self.chunk_offset
+        kv_s, kv_e = kvr.prefix_kvrange(rc, n, self.ctn)
+        dfac = sched.distill_dt_factor(self.num_steps, float(self.interval[0])) if ec.distill else None
+        self.cache = _prefix_warmup_step(
+            self.config, self.params, self.cache, self.prefix_buf[:, : n * self.cw], self._null_emb,
+            self.inp.null_len, kv_s, kv_e, rc.clean_t, dfac, n_chunks=n,
+        )
 
     def _plan(self, step: int) -> dict:
         """Pure host arithmetic for one step: schedule, ranges, flags."""
@@ -194,13 +224,19 @@ class ArdfSampler:
         t_before = sched.get_timestep(self.t_total, dpss, t_start, t_end, didx)
         t_after = sched.get_timestep(self.t_total, dpss, t_start, t_end, didx + 1)
         dt = (t_after - t_before).astype(np.float32)
+        # the chunks of the window that the prefix covers whole run clean
+        use_prefix = self.prefix_len > 0
+        tvec_padded = tvec.copy()
+        if use_prefix:
+            tvec_padded[: max(self.prefix_len - sp * self.cw, 0) // self.cw] = 1.0
         # single-branch walk: the first denoised chunk, once nearly clean,
         # rides along as a text-only copy
-        distill_nearly = rc.cfg_number == 1 and float(tvec[int(extra)]) > ec.distill_nearly_clean_chunk_threshold
+        distill_nearly = (rc.cfg_number == 1
+                          and float(tvec_padded[int(extra)]) > ec.distill_nearly_clean_chunk_threshold)
         return dict(
             didx=didx, c_start=c_start, c_end=c_end, n_den=n_den, extra=extra, sp=sp, n_seg=n_seg,
-            tvec=tvec, kv_start=kv_start, kv_end=kv_end, dt=dt, y_lens_win=self._lens_eff[c_start:c_end],
-            distill_nearly=distill_nearly,
+            tvec=tvec, tvec_padded=tvec_padded, kv_start=kv_start, kv_end=kv_end, dt=dt,
+            y_lens_win=self._lens_eff[c_start:c_end], use_prefix=use_prefix, distill_nearly=distill_nearly,
         )
 
     def do_step(self, step: int) -> Optional[Tuple[int, torch.Tensor]]:
@@ -228,11 +264,11 @@ class ArdfSampler:
             )
 
         if self.config.runtime_config.cfg_number == 3:
-            ps, ts_ = self._cfg_scales(p["tvec"][-n_den:])
+            ps, ts_ = self._cfg_scales(p["tvec_padded"][-n_den:])
             self.xs, self.cache = _cfg3_step(
                 self.config, self.params, self.xs, self.cache, sp, sp - self.cache_base, self._text_embs,
                 p["y_lens_win"], self._null_emb, self.inp.null_len, p["tvec"], kv_start_r, kv_end_r, p["dt"],
-                ps, ts_, n_den=n_den, extra=extra,
+                ps, ts_, self.prefix_buf, self.prefix_len, n_den=n_den, extra=extra, use_prefix=p["use_prefix"],
             )
         else:
             ec = self.config.engine_config
@@ -240,17 +276,26 @@ class ArdfSampler:
             self.xs, self.cache = _cfg1_step(
                 self.config, self.params, self.xs, self.cache, sp, sp - self.cache_base, self._text_embs,
                 p["y_lens_win"], self._null_emb, self.inp.null_len, p["tvec"], kv_start_r, kv_end_r, p["dt"],
-                dfac, self.inp.prev_chunks_scale, n_den=n_den, extra=extra, distill_nearly=p["distill_nearly"],
+                dfac, self.inp.prev_chunks_scale, self.prefix_buf, self.prefix_len, n_den=n_den, extra=extra,
+                use_prefix=p["use_prefix"], distill_nearly=p["distill_nearly"],
             )
 
         for ci in range(c_start, c_end):
             self.counts[ci] += 1
         if self.counts[c_start] == self.num_steps:
-            return c_start - self.chunk_offset, self._emit(c_start)
+            chunk = self._emit(c_start)
+            if chunk is not None:
+                return c_start - self.chunk_offset, chunk
         return None
 
-    def _emit(self, chunk_idx: int) -> torch.Tensor:
+    def _emit(self, chunk_idx: int) -> Optional[torch.Tensor]:
+        """The chunk's latent frames after the prefix (None when the prefix
+        covers it); an i2v walk (a one-frame prefix) keeps chunk 0 whole."""
         lo, hi = chunk_idx * self.cw, (chunk_idx + 1) * self.cw
+        if self.prefix_len > 0:
+            if hi <= self.prefix_len:
+                return None
+            lo = 0 if chunk_idx == 0 and self.prefix_len == 1 else max(lo, self.prefix_len)
         return self.xs[:, lo:hi].clone()
 
 
@@ -261,6 +306,18 @@ class ArdfSampler:
 
 def _slice_window(xs, sp, n_seg, cw):
     return xs[:, sp * cw : (sp + n_seg) * cw]
+
+
+def _apply_prefix(x_chunk, tvec, prefix_buf, prefix_len, sp, cw, n_seg):
+    """The prefix video's latents pasted over the window's frames they
+    cover; the chunks they cover whole get t = 1 (clean).  Returns a new
+    window (x_chunk, a view of the latent state, is not written) and tvec."""
+    C, Tw, H, W = x_chunk.shape
+    start_f = sp * cw
+    covered = (start_f + torch.arange(Tw, device=x_chunk.device) < prefix_len)[None, :, None, None]
+    x_chunk = torch.where(covered, prefix_buf[:, start_f : start_f + Tw], x_chunk)
+    tvec = np.where(np.arange(n_seg) < max(prefix_len - start_f, 0) // cw, 1.0, tvec).astype(tvec.dtype)
+    return x_chunk, tvec
 
 
 def _build_y(caption_embs, null_emb, null_len, y_lens_win, sp, extra, n_den):
@@ -283,7 +340,7 @@ def _integrate_and_store(xs, x_chunk_den, velocity, dt, c_start, cw, n_den):
 
 
 def _cfg3_step(config, params, xs, cache, sp, cache_sp, caption_embs, y_lens_win, null_emb, null_len, tvec,
-               kv_start, kv_end, dt, ps, ts_, *, n_den: int, extra: bool):
+               kv_start, kv_end, dt, ps, ts_, prefix_buf, prefix_len, *, n_den: int, extra: bool, use_prefix: bool):
     """One denoise step with 3-branch CFG: (1) text + previous chunks,
     (3) unconditional (self-only ranges, fresh positions, no cache),
     (2) null caption + previous chunks, which writes the cache."""
@@ -298,6 +355,8 @@ def _cfg3_step(config, params, xs, cache, sp, cache_sp, caption_embs, y_lens_win
     L = caption_embs.shape[1]
 
     x_chunk = _slice_window(xs, sp, n_seg, cw)
+    if use_prefix:
+        x_chunk, tvec = _apply_prefix(x_chunk, tvec, prefix_buf, prefix_len, sp, cw, n_seg)
     t_vec = torch.as_tensor(tvec, dtype=torch.float32, device=dev)
     y_text, lens_text = _build_y(caption_embs, null_emb, null_len, y_lens_win, sp, extra, n_den)
     y_null = null_emb[None].expand(n_seg, L, null_emb.shape[-1])
@@ -337,8 +396,8 @@ def _cfg3_step(config, params, xs, cache, sp, cache_sp, caption_embs, y_lens_win
 
 
 def _cfg1_step(config, params, xs, cache, sp, cache_sp, caption_embs, y_lens_win, null_emb, null_len, tvec,
-               kv_start, kv_end, dt, distill_factor, prev_chunks_scale, *, n_den: int, extra: bool,
-               distill_nearly: bool):
+               kv_start, kv_end, dt, distill_factor, prev_chunks_scale, prefix_buf, prefix_len, *, n_den: int,
+               extra: bool, use_prefix: bool, distill_nearly: bool):
     """One denoise step with single-branch CFG (the distill and quantized
     models): one forward on text + previous chunks, which writes the cache.
     With `distill_nearly`, a copy of the first denoised chunk rides along as
@@ -356,6 +415,8 @@ def _cfg1_step(config, params, xs, cache, sp, cache_sp, caption_embs, y_lens_win
     ctn = chunk_patches * HP * WP
 
     x_chunk = _slice_window(xs, sp, n_seg, cw)
+    if use_prefix:
+        x_chunk, tvec = _apply_prefix(x_chunk, tvec, prefix_buf, prefix_len, sp, cw, n_seg)
     y_text, lens_text = _build_y(caption_embs, null_emb, null_len, y_lens_win, sp, extra, n_den)
     t_off = (sp + torch.arange(n_seg, dtype=torch.int32, device=dev)) * chunk_patches
 
@@ -387,3 +448,24 @@ def _cfg1_step(config, params, xs, cache, sp, cache_sp, caption_embs, y_lens_win
     dt_t = torch.as_tensor(dt, dtype=torch.float32, device=dev)
     xs = _integrate_and_store(xs, x_chunk[:, -dw:], out[:, -dw:], dt_t, sp + int(extra), cw, n_den)
     return xs, cache
+
+
+def _prefix_warmup_step(config, params, cache, prefix_latent, null_emb, null_len, kv_start, kv_end, clean_t,
+                        distill_factor, *, n_chunks: int):
+    """Forward the clean prefix chunks (prefix_latent [C, n_chunks * cw, H,
+    W]) once with null captions at t = clean_t; the forward writes their
+    KV into the cache, which it returns."""
+    mc, rc = config.model_config, config.runtime_config
+    dev = prefix_latent.device
+    HP = prefix_latent.shape[2] // mc.patch_size
+    WP = prefix_latent.shape[3] // mc.patch_size
+    chunk_patches = rc.chunk_width // mc.t_patch_size
+    ctn = chunk_patches * HP * WP
+    y = null_emb[None].expand(n_chunks, *null_emb.shape)
+    lens = np.full((n_chunks,), null_len, np.int32)
+    t = torch.full((n_chunks,), float(clean_t), dtype=torch.float32, device=dev)
+    t_off = torch.arange(n_chunks, dtype=torch.int32, device=dev) * chunk_patches
+    meta = _meta(n_chunks, ctn, HP, WP, 0, kv_start, kv_end, lens, update=True, use_cache=True, device=dev)
+    _, cache = dit_forward(params, config, prefix_latent, t, y, True, cache, meta, t_off,
+                           distill_factor=distill_factor)
+    return cache

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a denoise step of the PyTorch/CUDA port spends its time on one GPU.
 
-    python3 scripts/profile_torch_step.py [--configs base,distill,24b]
+    python3 scripts/profile_torch_step.py [--configs base,distill,24b] [--schemes qk8,sage,dq]
 
 Builds the models at full width and depth with random weights: the 4.5B
 base config (example/4.5B/4.5B_base_config.json, bf16, 3-branch CFG), the
@@ -9,7 +9,9 @@ base config (example/4.5B/4.5B_base_config.json, bf16, 3-branch CFG), the
 attention: single-branch CFG, the same weights quantized to int8) and the
 24B distill w4a8 config (example/24B/24B_distill_quant_config.json on one
 device with quant_bits 4 and int8 attention: int4 weights unpacked to
-int8 per layer, bf16 edge layers).  For each and each video size it runs
+int8 per layer, bf16 edge layers).  The int8 configs run once per K5
+scheme of `--schemes` (`MAGI_ATTN_Q8_SCHEME`; default qk8).  For each and
+each video size it runs
 one denoise step of the given ARDF stage (stage 3 is the first step with
 the full window of 4 chunks) twice: once timed on the host clock with a
 device synchronise (after one warm-up step), once under torch.profiler.
@@ -49,7 +51,10 @@ K2G = "K2g segmented_attention (seg_attn_grid_kernel, VAE)"
 K3 = "K3 kv_norm_rope_pack"
 K3Q = "K3q kv_norm_rope_pack (int8)"
 K4 = "K4 gate_norm_residual"
-K5 = "K5 segmented_attention_two_source_q8 (seg_attn_q8_kernel)"
+K5 = "K5 segmented_attention_two_source_q8 (seg_attn_q8_kernel, qk8)"
+K5S = "K5 sage (seg_attn_q8_sage_kernel)"
+K5D = "K5 dq (seg_attn_q8_dq_kernel)"
+K5_OF = {"qk8": K5, "sage": K5S, "dq": K5D}
 K6 = "K6 quantized_matmul_i8 (qmm_i8_kernel)"
 K7 = "K7 quantized_matmul (qmm_deq_kernel)"
 K8 = "K8 rowquant_fused (rowquant_kernel)"
@@ -57,6 +62,10 @@ K8S = "K8s rowquant_swiglu (swiglu_rowquant_kernel)"
 
 
 def group_of(name: str) -> str:
+    if "seg_attn_q8_sage_kernel" in name:
+        return K5S
+    if "seg_attn_q8_dq_kernel" in name:
+        return K5D
     if "seg_attn_q8_kernel" in name:
         return K5
     if "qmm_i8_kernel" in name:
@@ -191,7 +200,9 @@ def unpack_ms(params: dict) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--configs", default="base,distill,24b", help="comma list of base, distill, 24b")
-    names = ap.parse_args().configs.split(",")
+    ap.add_argument("--schemes", default="qk8", help="comma list of the K5 schemes (qk8, sage, dq) of the int8 configs")
+    args = ap.parse_args()
+    names, schemes = args.configs.split(","), args.schemes.split(",")
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
@@ -218,7 +229,9 @@ def main() -> int:
             layers = base["model_config"]["num_layers"] - 2  # the edge layers run bf16 weights
             print(f"== 24b: unpack_int4 of one layer's 8 linears {ums:.3f} ms (CUDA events); x {layers} layers "
                   f"= {ums * layers:.1f} ms per forward")
-        for size_h, size_w in SIZES[name]:
+        runs = [(hw, sch) for hw in SIZES[name] for sch in (["qk8"] if name == "base" else schemes)]
+        for (size_h, size_w), scheme in runs:
+            os.environ["MAGI_ATTN_Q8_SCHEME"] = scheme
             d = json.loads(json.dumps(base))
             d["runtime_config"].update(video_size_h=size_h, video_size_w=size_w)
             cfg = MagiConfig.from_dict(d)
@@ -239,9 +252,10 @@ def main() -> int:
             peak = torch.cuda.max_memory_allocated(dev) / 2**30
             busy = sum(groups.values())
             flops = attention_flops(sampler, step + 2)
-            attn_ms = groups.get(K1 if name == "base" else K5, 0.0)
+            attn_ms = groups.get(K1 if name == "base" else K5_OF[scheme], 0.0)
             n_fwd = 3 if cfg.runtime_config.cfg_number == 3 else 1
-            print(f"== {name} {size_h}x{size_w}: stage {STAGE} step of {cfg.runtime_config.num_steps} "
+            tag = "" if name == "base" else f" K5 {scheme}"
+            print(f"== {name} {size_h}x{size_w}{tag}: stage {STAGE} step of {cfg.runtime_config.num_steps} "
                   f"(n_seg {p['n_seg']}{' + the ride-along' if p['distill_nearly'] else ''}, seg_len {sampler.ctn} "
                   f"tokens, {cfg.model_config.num_layers} layers, {n_fwd} forward{'s' if n_fwd > 1 else ''})")
             print(f"  step wall {step_ms:.1f} ms (host clock, synchronised, no profiler); under the profiler "
@@ -251,7 +265,7 @@ def main() -> int:
                 print(f"  {ms:10.2f} ms  {100 * ms / busy:5.1f}%  {counts[g]:6d} launches  {g}")
             print(f"  self-attention operations of the step {flops:.3e}; attention kernel device time {attn_ms:.1f} ms "
                   f"-> {flops / (attn_ms * 1e-3) / 1e12:.1f} T/s")
-            key = f"{name} {size_h}x{size_w}"
+            key = f"{name} {size_h}x{size_w}{tag}"
             results[key] = dict(step_ms=step_ms, busy_ms=busy, profiled_ms=wall, peak_gib=peak, groups=groups)
             if name == "base":
                 # one VAE decode of a chunk

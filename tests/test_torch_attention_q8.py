@@ -7,6 +7,13 @@ Tolerances:
 * `quantize_kv_per_token` is exact (int8 equal, scales to 1e-6 relative).
 * The dequant reference matches the JAX package's to 2e-5 (fp32 on both
   sides, another summation order).
+* The sage and dq plain versions at tile 128 against the Pallas kernel
+  of the same scheme at block_k 128: 2e-3 absolute + 1e-2 relative.  They
+  walk the same tiles with the same online softmax, so what differs is
+  summation order (the LayerNorm, the bf16 dot of dq, the row sums) and
+  exp2's last bits; for sage such a difference can flip one p8 step,
+  which moves an output by at most max|v| / 127 * p / l, under 1e-3 at
+  these spans.
 * The qk8 plain version against the Pallas qk8 kernel: 2e-3 absolute +
   1e-2 relative, on outputs of about 0.05 to 0.1 (spans of 128 to 512
   keys).  Both quantize q the same way, but the plain version rounds
@@ -34,8 +41,8 @@ from magi_tpu_torch.ops import attention as TA
 from magi_tpu_torch.ops import attention_q8 as T8
 
 QK8_TOL = dict(atol=2e-3, rtol=1e-2)
-J8K = functools.partial(J8.segmented_attention_two_source_q8, interpret=True, block_q=128, block_k=128,
-                        scheme="qk8")
+J8K = functools.partial(J8.segmented_attention_two_source_q8, interpret=True, block_q=128, block_k=128)
+TILED_TOL = dict(atol=2e-3, rtol=1e-2)
 
 
 def _t(a):
@@ -74,8 +81,7 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_qk8_plain_matches_pallas(case):
+def _case_inputs(case):
     n_seg, seg_len, L1, L2, hq, hk, r1, r2, rot = CASES[case]
     hd = 128
     rng = np.random.default_rng(zlib.crc32(case.encode()))
@@ -91,14 +97,39 @@ def test_qk8_plain_matches_pallas(case):
                (rng.standard_normal(hd) * 0.05).astype(np.float32), np.sin(ang), np.cos(ang), 1e-6)
     jpro = None if pro is None else tuple(jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in pro)
     tpro = None if pro is None else tuple(_t(a) if isinstance(a, np.ndarray) else a for a in pro)
-    want = np.asarray(J8K(jnp.asarray(q, jnp.bfloat16), *map(jnp.asarray, (kv1, sc1, kv2, sc2)),
-                          *map(jnp.asarray, rs), seg_len=seg_len, q_prologue=jpro), np.float32)
+    jargs = (jnp.asarray(q, jnp.bfloat16), *map(jnp.asarray, (kv1, sc1, kv2, sc2)), *map(jnp.asarray, rs))
     targs = (_t(q).to(torch.bfloat16), *map(_t, (kv1, sc1, kv2, sc2)), *map(_t, rs))
+    return n_seg, seg_len, rs, jargs, jpro, targs, tpro
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_qk8_plain_matches_pallas(case):
+    n_seg, seg_len, rs, jargs, jpro, targs, tpro = _case_inputs(case)
+    want = np.asarray(J8K(*jargs, seg_len=seg_len, q_prologue=jpro, scheme="qk8"), np.float32)
     got = T8.segmented_attention_two_source_q8_qk8_reference(*targs, seg_len=seg_len, q_prologue=tpro)
     np.testing.assert_allclose(got.float().numpy(), want, **QK8_TOL)
     # the wrapper on CPU tensors is this plain version
-    wrapped = T8.segmented_attention_two_source_q8(*targs, seg_len=seg_len, q_prologue=tpro)
+    wrapped = T8.segmented_attention_two_source_q8(*targs, seg_len=seg_len, q_prologue=tpro, scheme="qk8")
     np.testing.assert_array_equal(wrapped.float().numpy(), got.float().numpy())
+    for i in range(n_seg):
+        if rs[0][i] == rs[1][i] and rs[2][i] == rs[3][i]:
+            assert not got[i * seg_len : (i + 1) * seg_len].float().any()
+
+
+TILED = {"sage": T8.segmented_attention_two_source_q8_sage_reference,
+         "dq": T8.segmented_attention_two_source_q8_dq_reference}
+
+
+@pytest.mark.parametrize("scheme", sorted(TILED))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tiled_plain_matches_pallas(case, scheme):
+    """The sage and dq plain versions, tile 128, against the Pallas kernel
+    of the same scheme in interpret mode at block_k 128."""
+    n_seg, seg_len, rs, jargs, jpro, targs, tpro = _case_inputs(case)
+    want = np.asarray(J8K(*jargs, seg_len=seg_len, q_prologue=jpro, scheme=scheme), np.float32)
+    got = TILED[scheme](*targs, seg_len=seg_len, q_prologue=tpro, block_k=128)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, **TILED_TOL)
     for i in range(n_seg):
         if rs[0][i] == rs[1][i] and rs[2][i] == rs[3][i]:
             assert not got[i * seg_len : (i + 1) * seg_len].float().any()
@@ -119,15 +150,23 @@ def test_dequant_reference_matches():
 
 
 def test_scheme_switch(monkeypatch):
+    """`MAGI_ATTN_Q8_SCHEME` picks the scheme; on CPU tensors the wrapper
+    returns that scheme's plain version (sage and dq at the kernel's tile
+    width)."""
+    monkeypatch.delenv("MAGI_ATTN_Q8_SCHEME", raising=False)
     assert T8.default_scheme() == "qk8"
-    q = torch.zeros((4, 1, 128), dtype=torch.bfloat16)
-    kv, sc = torch.zeros((2, 1, 0, 128), dtype=torch.int8), torch.zeros((2, 1, 0))
-    z = torch.zeros(1, dtype=torch.int32)
-    for scheme in ("sage", "dq"):
+    _, seg_len, _, _, _, targs, tpro = _case_inputs("fused_q_prologue")
+    plain = {"qk8": T8.segmented_attention_two_source_q8_qk8_reference,
+             "sage": functools.partial(TILED["sage"], block_k=T8.KERNEL_BLOCK_K),
+             "dq": functools.partial(TILED["dq"], block_k=T8.KERNEL_BLOCK_K)}
+    outs = {}
+    for scheme in ("sage", "qk8", "dq"):
         monkeypatch.setenv("MAGI_ATTN_Q8_SCHEME", scheme)
         assert T8.default_scheme() == scheme
-        with pytest.raises(NotImplementedError, match="K5"):
-            T8.segmented_attention_two_source_q8(q, kv, sc, kv, sc, z, z, z, z, seg_len=4)
+        outs[scheme] = T8.segmented_attention_two_source_q8(*targs, seg_len=seg_len, q_prologue=tpro)
+        want = plain[scheme](*targs, seg_len=seg_len, q_prologue=tpro)
+        np.testing.assert_array_equal(outs[scheme].float().numpy(), want.float().numpy())
+    assert not torch.equal(outs["sage"], outs["qk8"]) and not torch.equal(outs["dq"], outs["qk8"])
     monkeypatch.setenv("MAGI_ATTN_Q8_SCHEME", "int4")
     with pytest.raises(ValueError, match="MAGI_ATTN_Q8_SCHEME"):
         T8.default_scheme()

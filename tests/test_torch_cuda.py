@@ -23,7 +23,9 @@ version's, which moves a quotient sitting on a rounding edge) and its
 scales agree to 1e-6 relative.  K5 (int8 attention, qk8) is held to the
 attention tolerance against its step-by-step plain version, and against
 the dequant reference (which does not quantize q) by the JAX package's
-own criterion for its q8 kernel: mean |error| under 4% of mean |output|."""
+own criterion for its q8 kernel: mean |error| under 4% of mean |output|.
+The sage and dq schemes of K5 are held the same way against their tiled
+plain versions at the kernel's tile width."""
 
 import pytest
 import torch
@@ -227,13 +229,66 @@ def test_two_source_q8_kernel_captions(dev):
     _close(out[seg:], ref[seg:], **SHORT_SPAN_TOL)  # 13 keys
 
 
-def test_q8_schemes_not_ported_raise(dev, monkeypatch):
-    monkeypatch.setenv("MAGI_ATTN_Q8_SCHEME", "sage")
-    z = torch.zeros(1, dtype=torch.int32, device=dev)
-    kv, sc = torch.zeros((2, 1, 0, 128), dtype=torch.int8, device=dev), torch.zeros((2, 1, 0), device=dev)
-    with pytest.raises(NotImplementedError, match="K5"):
-        A8.segmented_attention_two_source_q8(torch.zeros((4, 1, 128), dtype=torch.bfloat16, device=dev),
-                                             kv, sc, kv, sc, z, z, z, z, seg_len=4)
+SCHEME_WRAPPERS = {"sage": "segmented_attention_two_source_q8_sage", "dq": "segmented_attention_two_source_q8_dq"}
+SCHEME_PLAIN = {"sage": "segmented_attention_two_source_q8_sage_reference",
+                "dq": "segmented_attention_two_source_q8_dq_reference"}
+
+
+@pytest.mark.parametrize("L1", [0, 200])
+@pytest.mark.parametrize("scheme", ["sage", "dq"])
+def test_two_source_q8_scheme_kernel(dev, scheme, L1, monkeypatch):
+    """K5 under `MAGI_ATTN_Q8_SCHEME` sage and dq: its own launch count,
+    the attention tolerance against the tiled plain version at the
+    kernel's tile width (ranges that start off the tile grid), and the
+    dequant reference's 4% mean error."""
+    monkeypatch.setenv("MAGI_ATTN_Q8_SCHEME", scheme)
+    g = _gen(dev)
+    n_seg, seg, hq, hk, hd, rot = 3, 130, 24, 8, 128, 48
+    S = n_seg * seg
+    q = _randn(g, dev, S, hq, hd)
+    kv1, sc1 = _q8_inputs(g, dev, hk, L1, hd)
+    kv2, sc2 = _q8_inputs(g, dev, hk, S, hd)
+    i32 = dict(dtype=torch.int32, device=dev)
+    r1s = torch.tensor([0, 50, 0], **i32).clamp(max=L1)
+    r1e = torch.tensor([L1, L1, 0], **i32)
+    r2s, r2e = torch.tensor([0, 70, 7], **i32), torch.tensor([seg, 2 * seg, 7], **i32)
+    qw, qb = _ln_affine(g, dev, hd)
+    pro = (qw, qb, torch.sin(_randn(g, dev, S, rot, dtype=torch.float32)),
+           torch.cos(_randn(g, dev, S, rot, dtype=torch.float32)), 1e-6)
+    args = (q, kv1, sc1, kv2, sc2, r1s, r1e, r2s, r2e)
+    wrapper = getattr(A8, SCHEME_WRAPPERS[scheme])
+    before = (wrapper.launches, A8.segmented_attention_two_source_q8.launches)
+    out = A8.segmented_attention_two_source_q8(*args, seg_len=seg, q_prologue=pro)
+    assert (wrapper.launches, A8.segmented_attention_two_source_q8.launches) == (before[0] + 1, before[1])
+    plain = getattr(A8, SCHEME_PLAIN[scheme])(*args, seg_len=seg, q_prologue=pro, block_k=A8.KERNEL_BLOCK_K)
+    _close(out, plain, **ATTN_TOL)
+    deq = A8.segmented_attention_two_source_q8_reference(A.apply_q_prologue(q, pro), *args[1:], seg_len=seg).float()
+    attended = slice(0, 2 * seg) if L1 == 0 else slice(0, S)  # L1 == 0: the third segment attends nothing
+    err = (out.float() - deq)[attended].abs().mean() / deq[attended].abs().mean()
+    assert float(err) < 0.04, float(err)
+    if L1 == 0:
+        assert (out[2 * seg :].float() == 0).all()
+
+
+@pytest.mark.parametrize("scheme", ["sage", "dq"])
+def test_two_source_q8_scheme_kernel_captions(dev, scheme):
+    """The int8 cross-attention under sage and dq: caption kv as source 1
+    (segments start off the tile grid), an empty source 2, the norm-only
+    prologue."""
+    g = _gen(dev)
+    n_seg, seg, L, hq, hk, hd = 2, 97, 80, 24, 8, 128
+    q = _randn(g, dev, n_seg * seg, hq, hd)
+    kv1, sc1 = _q8_inputs(g, dev, hk, n_seg * L, hd)
+    kv2, sc2 = kv1[:, :, :0], sc1[:, :, :0]
+    st = torch.arange(n_seg, dtype=torch.int32, device=dev) * L
+    en = st + torch.tensor([L, 13], dtype=torch.int32, device=dev)
+    z = torch.zeros_like(st)
+    pro = (*_ln_affine(g, dev, hd), None, None, 1e-6)
+    args = (q, kv1, sc1, kv2, sc2, st, en, z, z)
+    out = A8.segmented_attention_two_source_q8(*args, seg_len=seg, q_prologue=pro, scheme=scheme)
+    ref = getattr(A8, SCHEME_PLAIN[scheme])(*args, seg_len=seg, q_prologue=pro)
+    _close(out[:seg], ref[:seg], **ATTN_TOL)  # 80 keys
+    _close(out[seg:], ref[seg:], **SHORT_SPAN_TOL)  # 13 keys
 
 
 @pytest.mark.parametrize("m,k,n", [(300, 256, 384), (1, 16, 16), (129, 3072, 1024)])

@@ -178,8 +178,9 @@ def test_linears_shared_int8_matches(act_ok):
 
 
 def test_paths_not_ported_raise():
-    """Smooth-quant trees and linears (fp8 checkpoints) and K5's sage and
-    dq schemes still raise."""
+    """Smooth-quant trees and linears (fp8 checkpoints) still raise; K5's
+    sage and dq schemes no longer do (their plain versions run on the CPU,
+    here over empty ranges: zeros), and an unknown scheme is refused."""
     w = torch.zeros((1, 16, 16))
     smooth = {"blocks": {"mlp": {"linear_fc1": {"weight": w, "act_smooth": torch.ones((1, 16))}}}}
     for quantize in (TQ.quantize_params_int8, TQ.quantize_params_int4):
@@ -192,10 +193,12 @@ def test_paths_not_ported_raise():
             TM._linears_shared(torch.ones((4, 16)), [linear], act_ok)
     z = torch.zeros(1, dtype=torch.int32)
     kv, ksc = torch.zeros((2, 1, 0, 128), dtype=torch.int8), torch.zeros((2, 1, 0))
+    q = torch.zeros((4, 1, 128), dtype=torch.bfloat16)
     for scheme in ("sage", "dq"):
-        with pytest.raises(NotImplementedError, match="K5"):
-            TA8.segmented_attention_two_source_q8(torch.zeros((4, 1, 128)), kv, ksc, kv, ksc, z, z, z, z, seg_len=4,
-                                                  scheme=scheme)
+        out = TA8.segmented_attention_two_source_q8(q, kv, ksc, kv, ksc, z, z, z, z, seg_len=4, scheme=scheme)
+        assert out.shape == q.shape and not out.float().any()
+    with pytest.raises(ValueError, match="scheme"):
+        TA8.segmented_attention_two_source_q8(q, kv, ksc, kv, ksc, z, z, z, z, seg_len=4, scheme="int4")
 
 
 def test_int4_pack_unpack_matches():

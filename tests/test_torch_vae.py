@@ -1,12 +1,15 @@
-"""magi_tpu_torch.models.vae (decoder) and the tiled decode against
-magi_tpu on the same numpy weights (`vae_params_from_jax`), fp32 on the
-CPU.  Covers the cls token, final projection or plain unpatchify, the
-interleaved VAE rotary with the in-attention LayerNorm, and the
-trilinear pos-embed resize in both directions (the 4-frame training grid
-shrinks to the 3-frame decode tile of the pipeline).
+"""magi_tpu_torch.models.vae (encoder and decoder), the tiled encode and
+decode, and the image and video loaders against magi_tpu on the same
+numpy weights (`vae_params_from_jax`) and files, fp32 on the CPU.  Covers
+the cls token, final projection or plain unpatchify, the interleaved VAE
+rotary with the in-attention LayerNorm, the trilinear pos-embed resize in
+both directions (the 4-frame training grid shrinks to the 3-frame tile of
+the pipeline), the patch embed's remainder truncation, `norm_code`, and
+`ViTVAE.encode` of one frame (repeated to 4, cut back to 1 latent frame).
 
 Tolerance: 1e-4 absolute and relative (fp32 matmuls, LayerNorms and a
-Conv3d in another summation order)."""
+Conv3d in another summation order).  The loaders are held equal: both
+packages decode the same file with the same PIL or cv2 calls."""
 
 import dataclasses
 
@@ -17,9 +20,12 @@ import pytest
 import torch
 
 from magi_tpu.models.vae import model as JV
+from magi_tpu.pipeline import video_process as JVP
 from magi_tpu.pipeline.video_process import tiled_decode as jax_tiled_decode
+from magi_tpu.runtime_native import u8_thwc_to_f32_cthw as jax_u8_to_f32
 from magi_tpu_torch.checkpoint.from_jax import vae_params_from_jax
 from magi_tpu_torch.models.vae import model as TV
+from magi_tpu_torch.pipeline import video_process as TVP
 from magi_tpu_torch.pipeline.video_process import tiled_decode as torch_tiled_decode
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -63,3 +69,99 @@ def test_tiled_decode_and_rope_match():
     np.testing.assert_allclose(got, want, **TOL)
     for got_t, want_t in zip(TV.vae_rope((2, 4, 6), 24), JV.vae_rope((2, 4, 6), 24)):
         np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), atol=1e-6, rtol=1e-6)
+
+
+ENC_CASES = {
+    # (config overrides, video T, H, W)
+    "training_grid": (dict(), (16, 32, 32)),
+    "resized_with_remainder": (dict(), (13, 27, 41)),  # 3 x 3 x 5 patches, remainders dropped
+    "rope_ln_in_attn": (dict(embed_dim=96, use_rope=True, ln_in_attn=True), (8, 32, 32)),
+    "no_cls_norm_code_single_z": (dict(with_cls_token=False, norm_code=True, double_z=False), (4, 16, 24)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ENC_CASES))
+def test_encoder_forward_matches(case):
+    overrides, (T, H, W) = ENC_CASES[case]
+    jcfg, jparams, tcfg, tparams = _pair(overrides, seed=len(case) + 1)
+    x = np.random.default_rng(2).uniform(-1, 1, size=(2, 3, T, H, W)).astype(np.float32)
+    got = TV.encoder_forward(tparams["encoder"], tcfg, torch.from_numpy(x)).numpy()
+    want = np.asarray(JV.encoder_forward(jparams["encoder"], jcfg, jnp.asarray(x)))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("T", [1, 12])
+def test_vae_encode_matches(T):
+    """ViTVAE.encode (the posterior's mode); T = 1 is an image."""
+    jcfg, jparams, tcfg, tparams = _pair(dict(use_final_proj=True), seed=5)
+    x = np.random.default_rng(T).uniform(-1, 1, size=(1, 3, T, 32, 32)).astype(np.float32)
+    got = TV.ViTVAE(tcfg, tparams).encode(torch.from_numpy(x)).numpy()
+    want = np.asarray(JV.ViTVAE(jcfg, jparams).encode(jnp.asarray(x)))
+    assert got.shape == want.shape == (1, jcfg.z_chans, max(1, T // 4), 4, 4)
+    np.testing.assert_allclose(got, want, **TOL)
+    # a sample of the posterior has the mode's shape
+    gen = torch.Generator().manual_seed(0)
+    assert TV.ViTVAE(tcfg, tparams).encode(torch.from_numpy(x), sample_posterior=True, generator=gen).shape == got.shape
+
+
+def test_tiled_encode_matches():
+    """32 frames in tiles of 12: two full tiles batched, then 8 frames:
+    8 latent frames, the v2v prefix of the pipeline."""
+    jcfg, jparams, tcfg, tparams = _pair(dict(use_final_proj=True), seed=7)
+    x = np.random.default_rng(3).uniform(-1, 1, size=(1, 3, 32, 32, 32)).astype(np.float32)
+    got = TVP.tiled_encode(TV.ViTVAE(tcfg, tparams), torch.from_numpy(x), tile_frames=12).numpy()
+    want = np.asarray(JVP.tiled_encode(JV.ViTVAE(jcfg, jparams), jnp.asarray(x), tile_frames=12))
+    assert got.shape == want.shape == (1, jcfg.z_chans, 8, 4, 4)
+    np.testing.assert_allclose(got, want, **TOL)
+    frames = np.random.default_rng(4).integers(0, 256, size=(5, 8, 6, 3), dtype=np.uint8)
+    # the port keeps the numpy branch (x / 127.5 - 1); the JAX package's
+    # native library, where it is built, may round the last bit otherwise
+    np.testing.assert_allclose(TVP.u8_thwc_to_f32_cthw(frames), jax_u8_to_f32(frames), atol=2.5e-7, rtol=0)
+
+
+def test_init_vae_params_tree_matches():
+    """The random VAE's tree has the JAX package's keys and shapes, encoder
+    and decoder."""
+    cfg = dict(BASE, use_final_proj=True)
+    want = jax.tree.map(np.shape, JV.init_vae_params(JV.VaeConfig(**cfg)))
+    got = TV.init_vae_params(TV.VaeConfig(**cfg), device="cpu")
+
+    def shapes(t):
+        return {k: shapes(v) if isinstance(v, dict) else tuple(v.shape) for k, v in t.items()}
+
+    assert shapes(got) == want
+
+
+@pytest.mark.parametrize("policy,size", [("fit", (40, 24)), ("crop", (24, 24)), ("pad", (32, 20))])
+def test_load_image_matches(tmp_path, policy, size):
+    from PIL import Image
+
+    path = str(tmp_path / "img.png")
+    Image.fromarray(np.random.default_rng(0).integers(0, 256, size=(30, 50, 3), dtype=np.uint8)).save(path)
+    w, h = size
+    got = TVP.load_image(path, w=w, h=h, aspect_policy=policy)
+    want = JVP.load_image(path, w=w, h=h, aspect_policy=policy)
+    assert got.dtype == np.uint8 and got.shape == (1, h, w, 3)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_load_video_matches(tmp_path):
+    """An mp4 of 50 frames at 30 fps, resampled to 24 fps: its first 32
+    frames (v2v's prefix) and its trailing whole seconds."""
+    import cv2
+
+    path = str(tmp_path / "vid.mp4")
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 30, (48, 32))
+    assert vw.isOpened()
+    rng = np.random.default_rng(1)
+    for _ in range(50):
+        vw.write(rng.integers(0, 256, size=(32, 48, 3), dtype=np.uint8))
+    vw.release()
+    for kwargs in (dict(prefix_frame=32), dict()):
+        got = TVP.load_video(path, fps=24, w=24, h=16, **kwargs)
+        want = JVP.load_video(path, fps=24, w=24, h=16, **kwargs)
+        assert got.dtype == np.uint8 and got.shape[1:] == (16, 24, 3) and got.shape[0] > 0
+        np.testing.assert_array_equal(got, want)
+    assert TVP.load_video(path, fps=24, w=24, h=16, prefix_frame=32).shape[0] == 32
+    assert TVP.load_video(None, fps=24, w=24, h=16) is None

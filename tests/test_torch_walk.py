@@ -1,8 +1,11 @@
 """The port's ARDF walk and pipeline against magi_tpu's: a tiny 3-CFG
 ArdfSampler walk emits the same chunks from the same noise and weights
 (default kv ranges, noise2clean ranges, and the sliding cache window of
-kv_offload under noise2clean), the prompt assembly is the same, and
-MagiPipeline.run_text_to_video(device="cpu") writes a video.
+kv_offload under noise2clean), so do walks after a prefix video (an i2v
+walk of one prefix frame; a v2v walk whose prefix covers a chunk and a
+half, with the warm-up forward and the sliding window), the prompt
+assembly is the same with and without a prefix, and the CLI writes a
+video in each mode with `--device cpu`.
 
 Tolerance for the walk: 1e-4 absolute and relative (8 steps of 3 fp32
 forwards each, in another summation order).
@@ -132,6 +135,71 @@ def test_distill_int8_walk_emits_same_chunks(case, monkeypatch):
         assert tsampler.cache_base > 0
 
 
+PREFIX_WALKS = {
+    # i2v on the 3-CFG config: a one-frame prefix, chunk 0 emitted whole
+    "i2v_3cfg": (dict(runtime={"noise2clean_kvrange": [3, 2], "clean_chunk_kvrange": 1}), 1, 3, None),
+    # v2v on the distill int8 config with int8 attention: a prefix of 3
+    # latent frames (chunk_offset 1, half of chunk 1 pasted), the warm-up
+    # forward, and a cache window of 1 + 2 + 1 = 4 chunks for 5 that rolls
+    "v2v_distill_int8_sliding": (dict(model={"num_layers": 3},
+                                      runtime={"cfg_number": 1, "noise2clean_kvrange": [1, 1],
+                                               "clean_chunk_kvrange": 1},
+                                      engine={"distill": True, "fp8_quant": True, "kv_offload": True}),
+                                 3, 5, quantize_params_int8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREFIX_WALKS))
+def test_prefix_walk_emits_same_chunks(case, monkeypatch):
+    overrides, t_pre, chunk_num, quantize = PREFIX_WALKS[case]
+    if quantize is not None:
+        monkeypatch.setenv("MAGI_ATTN_INT8", "1")
+    cfg = tiny_config(**overrides)
+    mc, rc = cfg.model_config, cfg.runtime_config
+    rng = np.random.default_rng(2)
+    L = mc.caption_max_length
+    cap = rng.normal(size=(chunk_num, L, mc.caption_channels)).astype(np.float32)
+    null = rng.normal(size=(L, mc.caption_channels)).astype(np.float32)
+    prefix = rng.normal(size=(mc.in_channels, t_pre, H, W)).astype(np.float32)
+    offset = t_pre // rc.chunk_width
+    lens = np.array([0] * offset + [L // 2, 3, L, 7, 9][: chunk_num - offset], np.int32)
+    latent = (mc.in_channels, chunk_num * rc.chunk_width, H, W)
+    params = init_dit_params(jax.random.PRNGKey(0), cfg)
+    if quantize is not None:
+        params = quantize(params)
+
+    jinp = JaxInput(caption_embs=jax.numpy.asarray(cap), caption_lens=lens, null_emb=jax.numpy.asarray(null),
+                    null_len=8, latent_size=latent, num_steps=rc.num_steps, chunk_num=chunk_num, has_text=True,
+                    prefix_video=jax.numpy.asarray(prefix))
+    jsampler = JaxSampler(cfg, params, jinp, jax.random.PRNGKey(7))
+    noise = np.array(jsampler.xs)
+    want = list(jsampler.walk())
+
+    tinp = InferenceInput(caption_embs=torch.from_numpy(cap), caption_lens=lens, null_emb=torch.from_numpy(null),
+                          null_len=8, latent_size=latent, num_steps=rc.num_steps, chunk_num=chunk_num, has_text=True,
+                          prefix_video=torch.from_numpy(prefix))
+    tsampler = ArdfSampler(torch_config(cfg), dit_params_from_jax(jax.tree.map(np.asarray, params)), tinp,
+                           noise=torch.from_numpy(noise), device="cpu")
+    assert tsampler.chunk_offset == jsampler.chunk_offset == offset
+    assert tsampler.cache_chunks == jsampler.cache_chunks
+    got = list(tsampler.walk())
+    assert [i for i, _ in got] == [i for i, _ in want] == list(range(chunk_num - offset))
+    for (_, a), (_, b) in zip(got, want):
+        b = np.asarray(b)
+        assert a.shape == b.shape
+        if quantize is None:
+            np.testing.assert_allclose(a.numpy(), b, atol=1e-4, rtol=1e-4)
+        else:
+            assert np.linalg.norm(a.numpy() - b) / np.linalg.norm(b) < 1e-3
+    # i2v keeps chunk 0 whole; v2v drops the prefix frames of chunk 1
+    frames = [a.shape[1] for _, a in got]
+    assert sum(frames) == chunk_num * rc.chunk_width - (0 if t_pre == 1 else t_pre)
+    assert tsampler.cache_base == jsampler.cache_base
+    if quantize is not None:
+        assert tsampler.cache_base > 0 and any(tsampler._plan(s)["distill_nearly"]
+                                               for s in range(tsampler.total_forward_steps()))
+
+
 def _tiny_json(tmp_path, name="4.5B/4.5B_base_config.json", model=None, **engine):
     with open(os.path.join(REPO, "example", name)) as f:
         d = json.load(f)
@@ -165,6 +233,33 @@ def test_prompt_assembly_matches(tmp_path, monkeypatch):
     np.testing.assert_array_equal(t.null_emb.numpy(), np.asarray(j.null_emb))
     for f in ("caption_lens", "null_len", "latent_size", "num_steps", "chunk_num", "has_text", "prev_chunks_scale"):
         np.testing.assert_array_equal(getattr(t, f), getattr(j, f))
+    assert t.prefix_video is None
+
+
+@pytest.mark.parametrize("t_pre", [1, 8])
+def test_prompt_assembly_with_prefix_matches(tmp_path, monkeypatch, t_pre):
+    """With a prefix latent of 1 (i2v) or 8 (v2v) frames: the chunks it
+    covers whole take the null caption with 0 valid tokens, the rest the
+    text, and the chunk count covers the prefix and the new frames."""
+    monkeypatch.setenv("SKIP_LOAD_MODEL", "1")
+    monkeypatch.setenv("PAD_DURATION", "1")  # a special token that depends on the chunk count
+    from magi_tpu.core.config import MagiConfig as JaxConfig
+    from magi_tpu_torch.core.config import MagiConfig
+
+    path = _tiny_json(tmp_path)
+    jcfg, tcfg = JaxConfig.from_json(path), MagiConfig.from_json(path)
+    emb, mask = tpp.get_txt_embeddings("a red cube on a table", tcfg)
+    rng = np.random.default_rng(t_pre)
+    null = rng.normal(size=(32, 32)).astype(np.float32)
+    prefix = rng.normal(size=(16, t_pre, 8, 8)).astype(np.float32)
+    j = jpp.build_inference_input(jcfg, null, emb, mask, jax.numpy.asarray(prefix))
+    t = tpp.build_inference_input(tcfg, null, emb, mask, "cpu", torch.from_numpy(prefix))
+    np.testing.assert_array_equal(t.caption_embs.numpy(), np.asarray(j.caption_embs))
+    np.testing.assert_array_equal(t.prefix_video.numpy(), np.asarray(j.prefix_video))
+    for f in ("caption_lens", "null_len", "latent_size", "num_steps", "chunk_num", "has_text"):
+        np.testing.assert_array_equal(getattr(t, f), getattr(j, f))
+    cw = tcfg.runtime_config.chunk_width
+    assert t.chunk_num == -(-(12 + t_pre) // cw) and (t.caption_lens == 0).sum() == t_pre // cw
 
 
 def test_pipeline_writes_a_video_on_the_cpu(tmp_path, monkeypatch):
@@ -177,7 +272,7 @@ def test_pipeline_writes_a_video_on_the_cpu(tmp_path, monkeypatch):
     assert stats["frames"] == 48  # 2 chunks of 6 latent frames, 4x temporal
     assert os.path.getsize(stats["path"]) > 0
     assert len(stats["step_seconds"]) == 2 * (2 + 2 - 1)  # dpss * (chunks + window - 1)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(SystemExit):  # i2v needs --image_path
         entry.main(["--config_file", _tiny_json(tmp_path), "--mode", "i2v", "--prompt", "x", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -214,3 +309,37 @@ def test_24b_w4a8_pipeline_writes_a_video_on_the_cpu(tmp_path, monkeypatch):
                         "--output_path", str(tmp_path / "q.mp4"), "--device", "cpu"])
     assert stats["frames"] == 48 and stats["latents_finite"] and stats["video_std"] > 0
     assert len(stats["step_seconds"]) == 2 * (2 + 2 - 1)
+
+
+def test_prefix_pipelines_write_videos_on_the_cpu(tmp_path, monkeypatch):
+    """`--mode i2v` on the base config and `--mode v2v` on the distill int8
+    config (int8 attention, scheme sage) through the CLI entry on the CPU,
+    from a PNG and an mp4 written here.  The tiny config asks for 12 latent
+    frames in chunks of 6: i2v adds the image's one latent frame (3 chunks,
+    chunk 0 emitted whole: 18 latent frames, 72 frames); v2v the 8 latent
+    frames of the video's first 32 frames (4 chunks, chunk 0 clean, chunk
+    1 without its 2 prefix frames: 16 latent frames, 64 frames)."""
+    import cv2
+    from PIL import Image
+
+    monkeypatch.setenv("SKIP_LOAD_MODEL", "1")
+    from magi_tpu_torch.pipeline import entry
+
+    rng = np.random.default_rng(0)
+    img = str(tmp_path / "first.png")
+    Image.fromarray(rng.integers(0, 256, size=(48, 80, 3), dtype=np.uint8)).save(img)
+    vid = str(tmp_path / "prefix.mp4")
+    vw = cv2.VideoWriter(vid, cv2.VideoWriter_fourcc(*"mp4v"), 24, (64, 64))
+    for _ in range(40):
+        vw.write(rng.integers(0, 256, size=(64, 64, 3), dtype=np.uint8))
+    vw.release()
+    stats = entry.main(["--config_file", _tiny_json(tmp_path), "--mode", "i2v", "--prompt", "a red cube",
+                        "--image_path", img, "--output_path", str(tmp_path / "i2v.mp4"), "--device", "cpu"])
+    assert stats["frames"] == 72 and stats["latents_finite"] and os.path.getsize(stats["path"]) > 0
+    assert len(stats["step_seconds"]) == 2 * (3 + 2 - 1)
+    monkeypatch.setenv("MAGI_ATTN_Q8_SCHEME", "sage")
+    path = _tiny_json(tmp_path, "4.5B/4.5B_distill_quant_config.json", attn_int8=True)
+    stats = entry.main(["--config_file", path, "--mode", "v2v", "--prompt", "a red cube", "--prefix_video_path", vid,
+                        "--output_path", str(tmp_path / "v2v.mp4"), "--device", "cpu"])
+    assert stats["frames"] == 64 and stats["latents_finite"] and stats["video_std"] > 0
+    assert len(stats["step_seconds"]) == 2 * (4 + 2 - 1 - 1)
