@@ -123,6 +123,18 @@ def int8_dot_library(x_q, row_scale, w_q, col_scale):
     return (acc.float() * row_scale[:, None] * col_scale[None, :]).to(torch.bfloat16)
 
 
+def int8_dot_operand(x_q, w_q):
+    """The weight `torch._int_mm` is timed on: the kernel's own k-major
+    tensor where cuBLASLt takes it, else a row-major copy; and which."""
+    import torch
+
+    try:
+        torch._int_mm(x_q, w_q)
+        return w_q, "k-major, as the kernel's"
+    except RuntimeError:
+        return w_q.contiguous(), "a row-major copy (it refuses the k-major one)"
+
+
 def warm_card(dev, seconds: float = 1.0) -> None:
     """Keep the card busy for a moment, so the first kernels timed do not
     run while its clocks still ramp up from idle."""
@@ -533,7 +545,8 @@ def int8_kernel_checks(dev):
     n_launch = sum(c for *_, c in gemms)
     for m, kk_, n, count in gemms:
         xq, rs = Q.act_quant_rowwise(randn(m, kk_))
-        wq = torch.randint(-127, 128, (kk_, n), generator=g, device=dev, dtype=torch.int8)
+        # k-major, as the quantized trees store it
+        wq = torch.randint(-127, 128, (n, kk_), generator=g, device=dev, dtype=torch.int8).t()
         ws = torch.rand((n,), generator=g, device=dev) * 1e-3
         out = Q.quantized_matmul_i8(xq, rs, wq, ws)
         ref = Q.quantized_matmul_i8_reference(xq, rs, wq, ws)
@@ -542,11 +555,15 @@ def int8_kernel_checks(dev):
             fail(f"quantized_matmul_i8 [{m}x{kk_}] @ [{kk_}x{n}] is not bit-equal to its plain version")
         t = cuda_ms(lambda: Q.quantized_matmul_i8(xq, rs, wq, ws), 20)
         tp = cuda_ms(lambda: Q.quantized_matmul_i8_reference(xq, rs, wq, ws), 3)
-        tl = cuda_ms(lambda: int8_dot_library(xq, rs, wq, ws), 20)
+        wl, how = int8_dot_operand(xq, wq)
+        tl = cuda_ms(lambda: int8_dot_library(xq, rs, wl, ws), 20)
+        del wl
         nbytes = m * kk_ + kk_ * n + 4 * (m + n) + 2 * m * n
         t_ops = 2 * m * n * kk_ / PEAK_INT8_OPS
+        bms = max(t_ops, nbytes / PEAK_BYTES) * 1e3
         print(f"  quantized_matmul_i8 [{m}x{kk_}] @ [{kk_}x{n}]: bit-equal; {t:.4f} ms ({2 * m * n * kk_ / t / 1e9:.1f} "
-              f"TOP/s), torch._int_mm + epilogue {tl:.4f} ms, bound {max(t_ops, nbytes / PEAK_BYTES) * 1e3:.4f} ms")
+              f"TOP/s, {bms / t:.0%} of the bound), torch._int_mm + epilogue {tl:.4f} ms on {how}, "
+              f"bound {bms:.4f} ms")
         tot["ms"] += count * t
         tot["plain_ms"] += count * tp
         tot["library_ms"] += count * tl
@@ -638,7 +655,7 @@ def w4a8_kernel_checks(dev):
     err = 0.0
     for m, k, n, count in gemms:
         x = randn(m, k)
-        # the weights the path gives K7: int4, unpacked to int8
+        # the weights the path gives K7: int4, unpacked to int8 (k-major)
         q4, ws = Q.quantize_int4(0.02 * randn(k, n, dtype=torch.float32))
         wq = Q.unpack_int4(q4)
         del q4
@@ -652,8 +669,8 @@ def w4a8_kernel_checks(dev):
         ops = 2 * m * n * k
         nbytes = 2 * m * k + k * n + 4 * n + 2 * m * n
         bms = max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        print(f"  quantized_matmul [{m}x{k}] @ [{k}x{n}]: {t:.4f} ms ({ops / t / 1e9:.1f} TFLOP/s), plain {tp:.4f} ms, "
-              f"cuBLAS bf16 + epilogue {tl:.4f} ms, bound {bms:.4f} ms")
+        print(f"  quantized_matmul [{m}x{k}] @ [{k}x{n}]: {t:.4f} ms ({ops / t / 1e9:.1f} TFLOP/s, {bms / t:.0%} of the "
+              f"bound), plain {tp:.4f} ms, cuBLAS bf16 + cast + epilogue {tl:.4f} ms, bound {bms:.4f} ms")
         tot["ms"] += count * t
         tot["plain_ms"] += count * tp
         tot["library_ms"] += count * tl

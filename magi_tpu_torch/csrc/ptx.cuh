@@ -1,5 +1,6 @@
 // PTX helpers shared by the port's kernels (sm_90a): asynchronous copies,
-// ldmatrix, the mma.sync tensor-core products and warp reductions.
+// ldmatrix, the mma.sync tensor-core products, warp reductions, and
+// Hopper's mbarriers, TMA tile loads and warpgroup products (wgmma).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -62,6 +63,119 @@ __device__ __forceinline__ void mma16832_s8(int (&d)[4], const uint32_t (&a)[4],
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// ---- Hopper: mbarriers, TMA, wgmma ------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// spin until the phase of the given parity has completed (a fresh barrier
+// counts its phase before the first as completed: parity 1 passes at once);
+// a phase that never completes traps after about 2**30 tries instead of
+// hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done, tries = 0;
+  do {
+    if (++tries == (1u << 30)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// 2-D tile of a tensor map (innermost coordinate first) into shared memory,
+// completion counted in bytes on `bar`; elements outside the tensor arrive
+// as zeros
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch_desc(const void* tmap) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(tmap)) : "memory");
+}
+
+// wgmma descriptor of a K-major tile whose rows are 128 bytes, written by
+// TMA with the 128-byte swizzle: 8-row groups 1024 bytes apart (the tile
+// 1024-byte aligned); a step of 32 bytes along k adds 2 to the address field
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accesses of an accumulator across the
+// asynchronous wgmma that owns it
+template <int R>
+__device__ __forceinline__ void wgmma_hold(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void wgmma_hold(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define MAGI_WG8(C, d, i) C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), C(d[i + 5]), C(d[i + 6]), C(d[i + 7])
+#define MAGI_WG32(C, d, i) MAGI_WG8(C, d, i), MAGI_WG8(C, d, i + 8), MAGI_WG8(C, d, i + 16), MAGI_WG8(C, d, i + 24)
+#define MAGI_WG128(C, d) MAGI_WG32(C, d, 0), MAGI_WG32(C, d, 32), MAGI_WG32(C, d, 64), MAGI_WG32(C, d, 96)
+#define MAGI_RW(x) "+r"(x)
+#define MAGI_FW(x) "+f"(x)
+#define MAGI_D128                                                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                           \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                  \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                   \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "                   \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "                   \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "                   \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "       \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+
+// D[64 x 256] (s32) += A[64 x 32] * B[256 x 32]^T, both int8 K-major in
+// shared memory; thread t of the warpgroup holds rows 16 * (t / 32) +
+// (t % 32) / 4 + 8 i and columns 8 j + 2 (t % 4) + c in d[4 j + 2 i + c]
+__device__ __forceinline__ void wgmma_s8_m64n256k32(int (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " MAGI_D128 ", %128, %129, p;\n}\n"
+      : MAGI_WG128(MAGI_RW, d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 256] (f32) += A[64 x 16] * B[256 x 16]^T, both bf16 K-major in
+// shared memory; d laid out as above
+__device__ __forceinline__ void wgmma_bf16_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " MAGI_D128 ", %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : MAGI_WG128(MAGI_FW, d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void setmaxnreg_dec40() { asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n"); }
+__device__ __forceinline__ void setmaxnreg_inc232() { asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n"); }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -6,15 +6,16 @@
 //   (_qmm_i8_kernel, K6):
 //   out[m, n] = bf16(((float)(sum_k x_q[m, k] * w_q[k, n]) * row_scale[m])
 //                    * col_scale[n]),
-//   x_q [M, K] int8 row-major, w_q [K, N] int8 row-major (the JAX package's
-//   weight layout), int32 accumulation (exact), the epilogue in the plain
-//   version's f32 multiply order.
+//   x_q [M, K] int8 row-major, w_q logically [K, N] int8 as in the JAX
+//   package but stored k-major ([N, K] in memory: ops/quant.py makes the
+//   weights so), int32 accumulation (exact), the epilogue in the plain
+//   version's f32 multiply order, so the kernel gives its bits.
 // magi_qmm_deq replaces magi_tpu/ops/quant.py quantized_matmul
 //   (_qmm_kernel, K7):
 //   out[m, n] = bf16((sum_k x[m, k] * w_q[k, n]) * col_scale[n]),
-//   x [M, K] bf16, w_q [K, N] int8, f32 accumulation, the scale applied
-//   after the sum as the Pallas kernel does (its plain version applies it
-//   to the weight first; the two differ by about one bf16 step).
+//   x [M, K] bf16, w_q k-major int8 as for K6, f32 accumulation, the scale
+//   applied after the sum as the Pallas kernel does (its plain version
+//   applies it to the weight first; the two differ by about one bf16 step).
 // magi_rowquant replaces magi_tpu/ops/act_quant.py rowquant_fused, modes
 //   "plain" and "ln" (_rowquant_kernel, K8):
 //   plain: q = round(x / s), s = amax == 0 ? 1 : amax / 127 per row;
@@ -32,35 +33,61 @@
 //
 // What bounds them on the H100.  K6 at the DiT's shapes (M = 1536 to 9216
 // tokens, K and N 1024 to 32768) does 2*M*N*K int8 operations on
-// M*K + K*N input bytes: the int8 rate (1979 TOP/s) bounds it.  K7 does
-// the same count of bf16 operations on 2*M*K + K*N bytes: the bf16 rate
-// (989 TFLOP/s) bounds it.  K8 and K8s read a bf16 row and write it (K8s
-// half of it) in int8 with one f32 scale: the bytes bound them (3.35 TB/s).
+// M*K + K*N input bytes: the int8 rate (1979 TOP/s) bounds it, and only
+// wgmma reaches that rate.  K7 does the same count of bf16 operations on
+// 2*M*K + K*N bytes: the bf16 rate (989 TFLOP/s) bounds it.  K8 and K8s
+// read a bf16 row and write it (K8s half of it) in int8 with one f32
+// scale: the bytes bound them (3.35 TB/s).
 //
-// Design.  K6: one block of 8 warps per 128 x 128 output tile, k tiles of
-// 64; each warp owns 64 x 32 outputs and runs mma.sync m16n8k32 s8.  The
-// operand B of that instruction is k-contiguous while w_q is n-contiguous,
-// so each w_q tile is read into registers (16 bytes a thread, a warp on 32
-// consecutive k rows) and written to shared memory transposed, [n][k];
-// x_q tiles arrive by cp.async.  Both are double-buffered: the next tile's
-// loads are in flight while the current one is multiplied.  Rows past M are
-// zero-filled and never stored, so M needs no padding.  K7: K6's tile and
-// pipeline with k tiles of 32 and mma.sync m16n8k16 bf16.  x tiles arrive
-// as bf16 by cp.async; each w_q tile is read into registers as int8 (a
-// quarter of the bytes of a bf16 weight), converted to bf16 (exact for
-// [-127, 127]) and stored [k][n], which ldmatrix.trans hands to the mma as
-// its B operand without a transpose in memory.  K8: one block per row, the
-// row staged in shared memory in f32, block reductions for the statistics
-// and the row max, then one pass that writes int8 four bytes at a time.
-// K8s: one block per row, gate and up read once with 16-byte loads, the
-// bf16 product kept in shared memory (32 KB at F = 16384) while the row
-// max is reduced, then written in int8 eight bytes at a time: one read of
-// the input where the Pallas kernel made two passes over width chunks to
-// fit the TPU's 16 MB VMEM.
+// Design of K6 and K7.  A persistent grid, one block per SM, each block
+// walking output tiles blockIdx.x, + gridDim.x, ...  A block has three
+// warpgroups: one producer thread keeps TMA tile loads
+// (cp.async.bulk.tensor, completion on an mbarrier) in flight through a
+// ring of shared-memory stages, and two consumer warpgroups, which take the
+// registers (setmaxnreg), run wgmma.mma_async on each stage as it lands and
+// hand it back on an "empty" mbarrier; while they run a tile's epilogue the
+// producer already loads the next tile.  For 8-bit operands wgmma reads
+// both from shared memory K-major only, which is why the weights are
+// stored k-major: TMA then feeds them to the tensor cores as they are,
+// where the mma.sync kernels this replaces transposed every weight tile
+// byte by byte on every call.  TMA fills the edges past M, N and K with
+// zeros, so no operand needs padding.  Tiles are walked in groups of 8
+// along N so that the tiles in work at one time share operands in L2.
+// K6: a 128 x 256 output tile (each consumer 64 rows x 256), k tiles of 128
+// bytes (4 x wgmma m64n256k32 s8), 4 stages of 48 KB; both tiles with the
+// 128-byte swizzle.  The epilogue scales the exact int32 sums as the plain
+// version does.
+// K7 swaps the operands, out^T = W x^T, as mixed-input GEMMs do: x's 256
+// tokens are the B operand straight from the TMA-filled stage, and each
+// consumer converts its 64 weight rows of the stage from int8 to bf16
+// (exact for [-127, 127]; a byte permute and a subtraction, no I2F) into
+// its own double-buffered bf16 tile in shared memory, the A operand of
+// wgmma m64n256k16.  Only that 8 KB tile is written; the weight never has
+// a bf16 copy in device memory.  (Converting into registers, wgmma's A
+// from registers, lets ptxas serialize the products: the next stage's A
+// registers are written while the previous stage's products run.)  A tile
+// of 128 weight rows x 256 tokens, k tiles of 64 (x with the 128-byte
+// swizzle, the int8 weight with the 64-byte one, which keeps the 16-byte
+// reads of the conversion free of bank conflicts), 4 stages of 40 KB.  The
+// epilogue scales each row of out^T by col_scale[n] and stores it
+// transposed.
+// K8: one block per row, the row staged in shared memory in f32, block
+// reductions for the statistics and the row max, then one pass that
+// writes int8 four bytes at a time.  K8s: one block per row, gate and up
+// read once with 16-byte loads, the bf16 product kept in shared memory
+// (32 KB at F = 16384) while the row max is reduced, then written in int8
+// eight bytes at a time: one read of the input where the Pallas kernel
+// made two passes over width chunks to fit the TPU's 16 MB VMEM.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <array>
+#include <map>
+#include <mutex>
 
 #include "ptx.cuh"
 
@@ -68,253 +95,347 @@ namespace {
 
 using namespace magi;
 
-// ---- K6 ------------------------------------------------------------------
+// ---- K6 and K7 -----------------------------------------------------------
 
-constexpr int kBM = 128, kBN = 128, kBK = 64;
-constexpr int kLDS = kBK + 16;  // bytes per shared row: ldmatrix rows hit distinct banks
-constexpr int kQmmThreads = 256;
+constexpr int kGemmThreads = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int kGroupN = 8;         // output tiles along N walked together
 
-__global__ void __launch_bounds__(kQmmThreads) qmm_i8_kernel(const int8_t* __restrict__ xq,
-                                                             const float* __restrict__ rs,
-                                                             const int8_t* __restrict__ wq,
-                                                             const float* __restrict__ cs,
-                                                             __nv_bfloat16* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(16) int8_t sA[2][kBM * kLDS];  // [m][k]
-  __shared__ __align__(16) int8_t sB[2][kBN * kLDS];  // [n][k]
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int wm = (warp >> 2) * 64;  // 2 x 4 warps, 64 x 32 outputs each
-  const int wn = (warp & 3) * 32;
-  const int nk = (K + kBK - 1) / kBK;
+// K6: 128 x 256 output tiles, k tiles of 128 bytes
+constexpr int kI8BM = 128, kI8BN = 256, kI8BK = 128, kI8Stages = 4;
+constexpr int kI8ABytes = kI8BM * kI8BK, kI8BBytes = kI8BN * kI8BK;
+constexpr int kI8Smem = 1024 + kI8Stages * (kI8ABytes + kI8BBytes) + 2 * kI8Stages * 8;
 
-  auto load_a = [&](int kt, int buf) {
-    for (int c = tid; c < kBM * (kBK / 16); c += kQmmThreads) {
-      const int r = c / (kBK / 16);
-      const int col = (c % (kBK / 16)) * 16;
-      const int gm = m0 + r;
-      const int gk = kt * kBK + col;
-      const bool valid = gm < M && gk < K;
-      cp_async16(&sA[buf][r * kLDS + col], xq + (valid ? (long long)gm * K + gk : 0), valid);
+// K7: 128 weight rows (n) x 256 tokens (m), k tiles of 64; besides the
+// ring, each consumer has two bf16 buffers of its 64 weight rows
+constexpr int kDqBN = 128, kDqBM = 256, kDqBK = 64, kDqStages = 4;
+constexpr int kDqWBytes = kDqBN * kDqBK, kDqXBytes = kDqBM * kDqBK * 2, kDqABytes = 64 * kDqBK * 2;
+constexpr int kDqSmem = 1024 + kDqStages * (kDqWBytes + kDqXBytes) + 4 * kDqABytes + 2 * kDqStages * 8;
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// output tile t: groups of kGroupN tiles along N, and within a group N
+// fastest, so the blocks working at one time share x and weight tiles in L2
+__device__ __forceinline__ void tile_of(int t, int num_m, int num_n, int& mt, int& nt) {
+  const int per_group = kGroupN * num_m;
+  const int first_n = (t / per_group) * kGroupN;
+  const int gsize = min(num_n - first_n, kGroupN);
+  const int r = t % per_group;
+  nt = first_n + r % gsize;
+  mt = r / gsize;
+}
+
+// the ring's barriers: full[s] completes when stage s has landed (the
+// producer's expect_tx plus the bytes), empty[s] when the 8 consumer warps
+// are done with it
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int stages) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
     }
-    cp_async_commit();
-  };
-
-  // w_q tile [kBK][kBN]: chunk c is 16 bytes of row k = c % kBK at column
-  // 16 * (c / kBK), so a warp reads 32 consecutive k rows of one column
-  // chunk and its transposed byte stores fall in distinct banks
-  constexpr int kBChunks = kBK * kBN / 16 / kQmmThreads;
-  uint4 breg[kBChunks];
-  auto fetch_b = [&](int kt) {
-#pragma unroll
-    for (int i = 0; i < kBChunks; ++i) {
-      const int c = tid + i * kQmmThreads;
-      const int gk = kt * kBK + c % kBK;
-      const int gn = n0 + (c / kBK) * 16;
-      breg[i] = gk < K && gn < N ? *reinterpret_cast<const uint4*>(wq + (long long)gk * N + gn)
-                                 : make_uint4(0, 0, 0, 0);
-    }
-  };
-  auto store_b = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < kBChunks; ++i) {
-      const int c = tid + i * kQmmThreads;
-      const int kk = c % kBK;
-      const int nc = (c / kBK) * 16;
-      const int8_t* b = reinterpret_cast<const int8_t*>(&breg[i]);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) sB[buf][(nc + j) * kLDS + kk] = b[j];
-    }
-  };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0;
-
-  load_a(0, 0);
-  fetch_b(0);
-  store_b(0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) {
-      load_a(kt + 1, buf ^ 1);
-      fetch_b(kt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int8_t* A = sA[buf];
-    const int8_t* B = sB[buf];
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) ldsm_x4(af[mi], A + (wm + mi * 16 + (lane & 15)) * kLDS + kk + (lane >> 4) * 16);
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int n2 = 0; n2 < 2; ++n2) {
-        const int m = lane >> 3, i = lane & 7;
-        uint32_t r[4];
-        ldsm_x4(r, B + (wn + n2 * 16 + i + (m >> 1) * 8) * kLDS + kk + (m & 1) * 16);
-        bf[2 * n2][0] = r[0];
-        bf[2 * n2][1] = r[1];
-        bf[2 * n2 + 1][0] = r[2];
-        bf[2 * n2 + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma16832_s8(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
-    }
-    if (kt + 1 < nk) store_b(buf ^ 1);  // its last readers finished before the previous barrier
-    __syncthreads();
+    mbar_fence_init();
   }
+  __syncthreads();
+}
 
-  // epilogue: ((float)acc * row_scale) * col_scale -> bf16, two columns a store
-  const int g = lane >> 2, t = lane & 3;
+// a position in the ring: the stage and the parity of its current round
+template <int S>
+struct RingPos {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next() {
+    if (++stage == S) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// The producer's loop, one thread: for each output tile of this block
+// (a persistent grid walks tile blockIdx.x, + gridDim.x, ...) and each k
+// tile, wait for the stage to be handed back and load both operand tiles
+// into it.  `load(stage, bar, kt, m0, n0)` issues the TMA copies.
+template <int S, typename Load>
+__device__ __forceinline__ void produce(uint64_t* full, uint64_t* empty, int tiles, int num_m, int num_n, int bm,
+                                        int bn, int nk, uint32_t tx_bytes, Load load) {
+  RingPos<S> pos;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int mt, nt;
+    tile_of(t, num_m, num_n, mt, nt);
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(&empty[pos.stage], pos.phase ^ 1);
+      mbar_arrive_expect_tx(&full[pos.stage], tx_bytes);
+      load(pos.stage, &full[pos.stage], kt, mt * bm, nt * bn);
+      pos.next();
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    qmm_i8_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                        const float* __restrict__ rs, const float* __restrict__ cs, __nv_bfloat16* __restrict__ out,
+                        int M, int N, int K) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sA = align1024(smem_raw);        // [stage][128 rows of x_q][128 B]
+  uint8_t* sB = sA + kI8Stages * kI8ABytes;  // [stage][256 rows of w_q^T][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sB + kI8Stages * kI8BBytes);
+  uint64_t* empty = full + kI8Stages;
+  const int wg = threadIdx.x / 128;
+  const int num_m = (M + kI8BM - 1) / kI8BM, num_n = (N + kI8BN - 1) / kI8BN, tiles = num_m * num_n;
+  const int nk = (K + kI8BK - 1) / kI8BK;
+  init_ring(full, empty, kI8Stages);
+
+  if (wg == 2) {
+    setmaxnreg_dec40();
+    if (threadIdx.x == 256) {
+      tma_prefetch_desc(&tx);
+      tma_prefetch_desc(&tw);
+      produce<kI8Stages>(full, empty, tiles, num_m, num_n, kI8BM, kI8BN, nk, kI8ABytes + kI8BBytes,
+                         [&](int s, uint64_t* bar, int kt, int m0, int n0) {
+                           tma_load_2d(sA + s * kI8ABytes, &tx, bar, kt * kI8BK, m0);
+                           tma_load_2d(sB + s * kI8BBytes, &tw, bar, kt * kI8BK, n0);
+                         });
+    }
+  } else {
+    setmaxnreg_inc232();
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x >> 5) & 3, g = lane >> 2, q = lane & 3;
+    RingPos<kI8Stages> pos;
+    int acc[128];
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int mt, nt;
+      tile_of(t, num_m, num_n, mt, nt);
+      const int m0 = mt * kI8BM, n0 = nt * kI8BN;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+      for (int i = 0; i < 128; ++i) acc[i] = 0;
+      int prev = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(&full[pos.stage], pos.phase);
+        const uint64_t da = wgmma_desc_sw128(sA + pos.stage * kI8ABytes + wg * 64 * kI8BK);
+        const uint64_t db = wgmma_desc_sw128(sB + pos.stage * kI8BBytes);
+        wgmma_hold(acc);
+        wgmma_fence();
 #pragma unroll
-    for (int r2 = 0; r2 < 2; ++r2) {
-      const int m = m0 + wm + mi * 16 + g + 8 * r2;
-      if (m >= M) continue;
-      const float rsm = rs[m];
+        for (int kk = 0; kk < kI8BK / 32; ++kk) wgmma_s8_m64n256k32(acc, da + 2 * kk, db + 2 * kk);
+        wgmma_commit();
+        wgmma_hold(acc);
+        wgmma_wait<1>();  // the previous stage's products are done: hand it back
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = pos.stage;
+        pos.next();
+      }
+      wgmma_wait<0>();
+      wgmma_hold(acc);
+      if (lane == 0) mbar_arrive(&empty[prev]);  // the producer loads the next tile meanwhile
+
+      // epilogue: ((float)acc * row_scale) * col_scale -> bf16, two columns a store
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = n0 + wn + ni * 8 + t * 2;
-        if (n >= N) continue;
-        const float v0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][2 * r2]), rsm), cs[n]);
-        const float v1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][2 * r2 + 1]), rsm), cs[n + 1]);
-        *reinterpret_cast<uint32_t*>(out + (long long)m * N + n) = pack_bf16(v0, v1);
+      for (int i = 0; i < 2; ++i) {
+        const int m = m0 + wg * 64 + warp * 16 + g + 8 * i;
+        if (m >= M) continue;
+        const float rsm = rs[m];
+        __nv_bfloat16* orow = out + (long long)m * N;
+#pragma unroll
+        for (int j = 0; j < kI8BN / 8; ++j) {
+          const int n = n0 + 8 * j + 2 * q;
+          if (n >= N) continue;
+          const float2 c = *reinterpret_cast<const float2*>(cs + n);
+          const float v0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * i]), rsm), c.x);
+          const float v1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * i + 1]), rsm), c.y);
+          *reinterpret_cast<uint32_t*>(orow + n) = pack_bf16(v0, v1);
+        }
       }
     }
   }
 }
 
-// ---- K7 ------------------------------------------------------------------
+// two int8 (the low 16 bits of v, lower k first) -> bf16x2, exact: the
+// biased byte becomes the low mantissa bits of 2**23 + byte in f32
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t v) {
+  const uint32_t u = v ^ 0x8080u;
+  const float f0 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)), 8388736.f);
+  const float f1 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)), 8388736.f);
+  return pack_bf16(f0, f1);
+}
 
-constexpr int kDBK = 32;           // k tile
-constexpr int kDLA = kDBK + 8;     // bf16 per shared row of x: ldmatrix rows hit distinct banks
-constexpr int kDLB = kBN + 8;      // bf16 per shared row of w
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    qmm_deq_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                         const float* __restrict__ cs, __nv_bfloat16* __restrict__ out, int M, int N, int K) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sW = align1024(smem_raw);        // [stage][128 weight rows][64 B], 64-byte swizzle
+  uint8_t* sX = sW + kDqStages * kDqWBytes;  // [stage][256 tokens][64 bf16], 128-byte swizzle
+  uint8_t* sA = sX + kDqStages * kDqXBytes;  // [consumer][buffer][64 weight rows][64 bf16], 128-byte swizzle
+  uint64_t* full = reinterpret_cast<uint64_t*>(sA + 4 * kDqABytes);
+  uint64_t* empty = full + kDqStages;
+  const int wg = threadIdx.x / 128;
+  const int num_m = (M + kDqBM - 1) / kDqBM, num_n = (N + kDqBN - 1) / kDqBN, tiles = num_m * num_n;
+  const int nk = (K + kDqBK - 1) / kDqBK;
+  init_ring(full, empty, kDqStages);
 
-__global__ void __launch_bounds__(kQmmThreads) qmm_deq_kernel(const __nv_bfloat16* __restrict__ x,
-                                                              const int8_t* __restrict__ wq,
-                                                              const float* __restrict__ cs,
-                                                              __nv_bfloat16* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(16) __nv_bfloat16 sA[2][kBM * kDLA];  // [m][k]
-  __shared__ __align__(16) __nv_bfloat16 sB[2][kDBK * kDLB];  // [k][n]
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int wm = (warp >> 2) * 64;  // 2 x 4 warps, 64 x 32 outputs each
-  const int wn = (warp & 3) * 32;
-  const int nk = (K + kDBK - 1) / kDBK;
-
-  auto load_a = [&](int kt, int buf) {
-    for (int c = tid; c < kBM * (kDBK / 8); c += kQmmThreads) {
-      const int r = c / (kDBK / 8);
-      const int col = (c % (kDBK / 8)) * 8;
-      const int gm = m0 + r;
-      const int gk = kt * kDBK + col;
-      const bool valid = gm < M && gk < K;
-      cp_async16(&sA[buf][r * kDLA + col], x + (valid ? (long long)gm * K + gk : 0), valid);
+  if (wg == 2) {
+    setmaxnreg_dec40();
+    if (threadIdx.x == 256) {
+      tma_prefetch_desc(&tx);
+      tma_prefetch_desc(&tw);
+      produce<kDqStages>(full, empty, tiles, num_m, num_n, kDqBM, kDqBN, nk, kDqWBytes + kDqXBytes,
+                         [&](int s, uint64_t* bar, int kt, int m0, int n0) {
+                           tma_load_2d(sW + s * kDqWBytes, &tw, bar, kt * kDqBK, n0);
+                           tma_load_2d(sX + s * kDqXBytes, &tx, bar, kt * kDqBK, m0);
+                         });
     }
-    cp_async_commit();
-  };
+  } else {
+    setmaxnreg_inc232();
+    const int tid = threadIdx.x & 127, lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x >> 5) & 3, g = lane >> 2, q = lane & 3;
+    uint8_t* a_buf = sA + wg * 2 * kDqABytes;
+    RingPos<kDqStages> pos;
+    int buf = 0;
+    float acc[128];
 
-  // w_q tile [kDBK][kBN] int8: one 16-byte chunk a thread, row tid / 8,
-  // columns 16 * (tid % 8) .. + 15; converted to bf16 on the way to
-  // shared memory
-  static_assert(kDBK * kBN / 16 == kQmmThreads, "one w_q chunk per thread");
-  const int bk = tid / (kBN / 16);
-  const int bn = (tid % (kBN / 16)) * 16;
-  uint4 breg;
-  auto fetch_b = [&](int kt) {
-    const int gk = kt * kDBK + bk;
-    breg = gk < K && n0 + bn < N ? *reinterpret_cast<const uint4*>(wq + (long long)gk * N + n0 + bn)
-                                 : make_uint4(0, 0, 0, 0);
-  };
-  auto store_b = [&](int buf) {
-    const int8_t* b = reinterpret_cast<const int8_t*>(&breg);
-    uint32_t p[8];
+    // this consumer's 64 weight rows of stage s, int8 -> bf16 into a_buf[b]
+    // (exact); thread tid converts 16-byte chunks tid and tid + 128: row
+    // c / 4, k 16 (c % 4) .. + 15.  The int8 tile has the 64-byte swizzle
+    // (16-byte chunk j of row r at j ^ (r / 2) % 4), the bf16 one the
+    // 128-byte swizzle (chunk j at j ^ r % 8) that wgmma reads
+    auto convert = [&](int s, int b) {
+      const uint8_t* w = sW + s * kDqWBytes + wg * 64 * kDqBK;
+      uint8_t* a = a_buf + b * kDqABytes;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) p[j] = pack_bf16((float)b[2 * j], (float)b[2 * j + 1]);
-    uint4* dst = reinterpret_cast<uint4*>(&sB[buf][bk * kDLB + bn]);
-    dst[0] = make_uint4(p[0], p[1], p[2], p[3]);
-    dst[1] = make_uint4(p[4], p[5], p[6], p[7]);
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
-
-  load_a(0, 0);
-  fetch_b(0);
-  store_b(0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) {
-      load_a(kt + 1, buf ^ 1);
-      fetch_b(kt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* A = sA[buf];
-    const __nv_bfloat16* B = sB[buf];
-#pragma unroll
-    for (int kk = 0; kk < kDBK; kk += 16) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) ldsm_x4(af[mi], A + (wm + mi * 16 + (lane & 15)) * kDLA + kk + (lane >> 4) * 8);
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int n2 = 0; n2 < 2; ++n2) {
-        const int m = lane >> 3, i = lane & 7;
-        uint32_t r[4];
-        ldsm_x4_trans(r, B + (kk + i + (m & 1) * 8) * kDLB + wn + n2 * 16 + (m >> 1) * 8);
-        bf[2 * n2][0] = r[0];
-        bf[2 * n2][1] = r[1];
-        bf[2 * n2 + 1][0] = r[2];
-        bf[2 * n2 + 1][1] = r[3];
+      for (int h = 0; h < 2; ++h) {
+        const int c = tid + 128 * h, r = c >> 2, j = c & 3;
+        const uint4 v = *reinterpret_cast<const uint4*>(w + r * kDqBK + ((j ^ ((r >> 1) & 3)) << 4));
+        const uint4 lo = make_uint4(i8x2_to_bf16x2(v.x), i8x2_to_bf16x2(v.x >> 16), i8x2_to_bf16x2(v.y),
+                                    i8x2_to_bf16x2(v.y >> 16));
+        const uint4 hi = make_uint4(i8x2_to_bf16x2(v.z), i8x2_to_bf16x2(v.z >> 16), i8x2_to_bf16x2(v.w),
+                                    i8x2_to_bf16x2(v.w >> 16));
+        *reinterpret_cast<uint4*>(a + r * 128 + (((2 * j) ^ (r & 7)) << 4)) = lo;
+        *reinterpret_cast<uint4*>(a + r * 128 + (((2 * j + 1) ^ (r & 7)) << 4)) = hi;
       }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma16816(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
-    }
-    if (kt + 1 < nk) store_b(buf ^ 1);  // its last readers finished before the previous barrier
-    __syncthreads();
-  }
+      // the generic-proxy writes, visible to wgmma's async proxy, from the
+      // whole warpgroup, before any of its warps issues the products
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    };
 
-  // epilogue: acc * col_scale -> bf16, two columns a store
-  const int g = lane >> 2, t = lane & 3;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int mt, nt;
+      tile_of(t, num_m, num_n, mt, nt);
+      const int m0 = mt * kDqBM, n0 = nt * kDqBN;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      int prev = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(&full[pos.stage], pos.phase);
+        // a_buf[buf] was last read by the products of two stages ago,
+        // retired by the previous stage's wait
+        convert(pos.stage, buf);
+        const uint64_t da = wgmma_desc_sw128(a_buf + buf * kDqABytes);
+        const uint64_t db = wgmma_desc_sw128(sX + pos.stage * kDqXBytes);
+        wgmma_hold(acc);
+        wgmma_fence();
 #pragma unroll
-    for (int r2 = 0; r2 < 2; ++r2) {
-      const int m = m0 + wm + mi * 16 + g + 8 * r2;
-      if (m >= M) continue;
+        for (int kk = 0; kk < 4; ++kk) wgmma_bf16_m64n256k16(acc, da + 2 * kk, db + 2 * kk);
+        wgmma_commit();
+        wgmma_hold(acc);
+        wgmma_wait<1>();  // the previous stage's products are done: hand it back
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = pos.stage;
+        pos.next();
+        buf ^= 1;
+      }
+      wgmma_wait<0>();
+      wgmma_hold(acc);
+      if (lane == 0) mbar_arrive(&empty[prev]);  // the producer loads the next tile meanwhile
+
+      // epilogue: row n of out^T times col_scale[n] -> bf16, stored as out[m, n]
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = n0 + wn + ni * 8 + t * 2;
+      for (int i = 0; i < 2; ++i) {
+        const int n = n0 + wg * 64 + warp * 16 + g + 8 * i;
         if (n >= N) continue;
-        const float v0 = __fmul_rn(acc[mi][ni][2 * r2], cs[n]);
-        const float v1 = __fmul_rn(acc[mi][ni][2 * r2 + 1], cs[n + 1]);
-        *reinterpret_cast<uint32_t*>(out + (long long)m * N + n) = pack_bf16(v0, v1);
+        const float c = cs[n];
+#pragma unroll
+        for (int j = 0; j < kDqBM / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int m = m0 + 8 * j + 2 * q + e;
+            if (m < M) out[(long long)m * N + n] = __float2bfloat16_rn(__fmul_rn(acc[4 * j + 2 * i + e], c));
+          }
       }
     }
   }
+}
+
+// ---- host side: tensor maps ----------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a libcuda function) looked up at run time, so
+// the library links without -lcuda
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    return err == cudaSuccess && res == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a row-major [rows, cols] matrix cut in boxes of
+// [box_rows, box_cols].  A map is a pure function of these arguments, so
+// it is cached by them: a weight's map (and, with PyTorch's caching
+// allocator, most activations') is encoded once, not on every launch.
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType dt, int elem_bytes, long long rows,
+                       long long cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  using Key = std::array<unsigned long long, 7>;
+  static std::mutex mu;
+  static std::map<Key, CUtensorMap> cache;
+  const Key key{(unsigned long long)ptr, (unsigned long long)rows, (unsigned long long)cols, (unsigned long long)dt,
+                (unsigned long long)box_rows, (unsigned long long)box_cols, (unsigned long long)swizzle};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return cudaSuccess;
+  }
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  if (fn(map, dt, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, *map);
+  return cudaSuccess;
+}
+
+// Before a kernel's first launch on a device: allow it `bytes` of dynamic
+// shared memory.  Returns the device's SM count, the persistent grid's
+// size, in `sms`.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int bytes, int (&sm_count)[64], int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && sm_count[dev]) {
+    *sms = sm_count[dev];
+    return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < 64) sm_count[dev] = *sms;
+  return err;
 }
 
 // ---- K8 ------------------------------------------------------------------
@@ -466,16 +587,25 @@ __global__ void __launch_bounds__(kRowThreads) swiglu_rowquant_kernel(const __nv
 
 extern "C" {
 
-// x_q: [M, K] int8; row_scale: [M] f32; w_q: [K, N] int8; col_scale: [N]
-// f32; out: [M, N] bf16.  K and N multiples of 16.
+// x_q: [M, K] int8; row_scale: [M] f32; w_q: the weight [K, N] int8 stored
+// k-major, [N, K] in memory; col_scale: [N] f32; out: [M, N] bf16.  K and N
+// multiples of 16, every pointer 16-byte aligned.
 int magi_qmm_i8(const void* xq, const float* row_scale, const void* wq, const float* col_scale, void* out, int M,
                 int N, int K, void* stream) {
   if (M == 0 || N == 0) return 0;
   if (K % 16 || N % 16) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  qmm_i8_kernel<<<grid, kQmmThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xq), row_scale, static_cast<const int8_t*>(wq), col_scale,
-      static_cast<__nv_bfloat16*>(out), M, N, K);
+  static int sm_count[64];
+  int sms = 0;
+  CUtensorMap tx, tw;
+  cudaError_t err = tensor_map(&tx, xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, M, K, kI8BM, kI8BK,
+                               CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = tensor_map(&tw, wq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K, kI8BN, kI8BK, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess) err = prepare(qmm_i8_wgmma_kernel, kI8Smem, sm_count, &sms);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = ((M + kI8BM - 1) / kI8BM) * ((N + kI8BN - 1) / kI8BN);
+  qmm_i8_wgmma_kernel<<<std::min(tiles, sms), kGemmThreads, kI8Smem, static_cast<cudaStream_t>(stream)>>>(
+      tx, tw, row_scale, col_scale, static_cast<__nv_bfloat16*>(out), M, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -502,16 +632,25 @@ int magi_rowquant(const void* x, const float* ln_w, const float* ln_b, void* q, 
   return (int)cudaGetLastError();
 }
 
-// x: [M, K] bf16; w_q: [K, N] int8; col_scale: [N] f32; out: [M, N] bf16.
-// K and N multiples of 16.
+// x: [M, K] bf16; w_q: the weight [K, N] int8 stored k-major, [N, K] in
+// memory; col_scale: [N] f32; out: [M, N] bf16.  K and N multiples of 16,
+// every pointer 16-byte aligned.
 int magi_qmm_deq(const void* x, const void* wq, const float* col_scale, void* out, int M, int N, int K,
                  void* stream) {
   if (M == 0 || N == 0) return 0;
   if (K % 16 || N % 16) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  qmm_deq_kernel<<<grid, kQmmThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(wq), col_scale,
-      static_cast<__nv_bfloat16*>(out), M, N, K);
+  static int sm_count[64];
+  int sms = 0;
+  CUtensorMap tx, tw;
+  cudaError_t err = tensor_map(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, kDqBM, kDqBK,
+                               CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = tensor_map(&tw, wq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K, kDqBN, kDqBK, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err == cudaSuccess) err = prepare(qmm_deq_wgmma_kernel, kDqSmem, sm_count, &sms);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = ((M + kDqBM - 1) / kDqBM) * ((N + kDqBN - 1) / kDqBN);
+  qmm_deq_wgmma_kernel<<<std::min(tiles, sms), kGemmThreads, kDqSmem, static_cast<cudaStream_t>(stream)>>>(
+      tx, tw, col_scale, static_cast<__nv_bfloat16*>(out), M, N, K);
   return (int)cudaGetLastError();
 }
 

@@ -4,8 +4,8 @@
 * `quantize_int8` / `quantize_params_int8`: per-output-channel symmetric
   int8 weights with f32 scales, the JAX package's tree (`weight_q` int8
   [L, in, out] + `weight_scale` f32 [L, out] per quantized linear, and the
-  bf16 first/last layers in a `blocks_edge/{first,last}` side tree), in
-  the same [in, out] layout.  Quantized one layer at a time, so a bf16
+  bf16 first/last layers in a `blocks_edge/{first,last}` side tree), with
+  the same shapes and values.  Quantized one layer at a time, so a bf16
   tree never has a whole f32 copy.
 * `quantize_int4` / `unpack_int4` / `quantize_params_int4` (w4a8):
   symmetric int4 in [-7, 7] with per-output-channel scales, offset by 8
@@ -14,6 +14,13 @@
   unpacks one layer's weights to int8 per forward with `unpack_int4`,
   plain PyTorch on every device (the JAX package leaves it to XLA), and
   runs the int8 linears on them.
+* The int8 and packed weights are stored k-major: a weight that is
+  logically [in, out] (the JAX layout, at every function here) lies in
+  memory as [out, in], strides (1, in), and a stacked leaf [L, in, out] as
+  [L, out, in].  The quantized GEMMs' tensor cores read 8-bit operands
+  along k only, so the weights are laid out once where they are made
+  (`quantize_*`, `unpack_int4`, `checkpoint.from_jax`); the kernels refuse
+  any other layout.
 * `act_quant_rowwise`: per-row dynamic int8 of an activation (plain
   PyTorch, as XLA does it in the JAX package).
 * `quantized_matmul_i8` (K6): int8 x int8 -> int32 GEMM with the f32
@@ -22,8 +29,8 @@
   loop, f32 sums, `* col_scale[n]` -> bf16; the linears of layers that run
   bf16 activations on int8 weights (a quantized tree without
   `blocks_edge`).
-K6 and K7 are CUDA kernels (`csrc/quant.cu`) on CUDA tensors and their
-plain versions on CPU tensors.
+K6 and K7 are CUDA kernels (`csrc/quant.cu`, wgmma fed by TMA from the
+k-major weights) on CUDA tensors and their plain versions on CPU tensors.
 
 Smooth-quant trees (`act_smooth`) wait for the fp8 checkpoint loader
 (ROADMAP queue 1 items 6 and 11) and raise `NotImplementedError`.
@@ -69,47 +76,57 @@ def _weight_scale(amax: torch.Tensor, qmax: int) -> torch.Tensor:
     return torch.where(amax == 0, torch.ones_like(amax), amax * recip)
 
 
+def k_major(t: torch.Tensor) -> torch.Tensor:
+    """`t` [..., k, n] with the same values, laid out k-major: the memory of
+    a contiguous [..., n, k], seen through a transpose."""
+    out = torch.empty(t.shape[:-2] + (t.shape[-1], t.shape[-2]), dtype=t.dtype, device=t.device).transpose(-1, -2)
+    return out.copy_(t)
+
+
 def quantize_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[in, out] -> (int8 [in, out], f32 scales [out]): per-output-channel
-    symmetric quantization, round half to even."""
+    """[in, out] -> (int8 [in, out] k-major, f32 scales [out]):
+    per-output-channel symmetric quantization, round half to even."""
     wf = w.float()
     scale = _weight_scale(wf.abs().amax(dim=0), 127)
-    return torch.round(wf / scale).clamp(-127, 127).to(torch.int8), scale
+    return k_major(torch.round(wf / scale).clamp(-127, 127).to(torch.int8)), scale
 
 
 def quantize_int4(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[in, out] -> (uint8 nibble-packed [in/2, out], f32 scales [out]):
-    values round(w / scale) in [-7, 7] plus 8, row 2i in the low nibble and
-    row 2i+1 in the high nibble."""
+    """[in, out] -> (uint8 nibble-packed [in/2, out] k-major, f32 scales
+    [out]): values round(w / scale) in [-7, 7] plus 8, row 2i in the low
+    nibble and row 2i+1 in the high nibble."""
     if w.shape[0] % 2:
         raise ValueError(f"quantize_int4: the input dim ({w.shape[0]}) must be even for nibble packing")
     wf = w.float()
     scale = _weight_scale(wf.abs().amax(dim=0), 7)
     q = torch.round(wf / scale).clamp(-7, 7).to(torch.int32) + 8  # [1, 15]
-    return (q[0::2] | (q[1::2] << 4)).to(torch.uint8), scale
+    return k_major((q[0::2] | (q[1::2] << 4)).to(torch.uint8)), scale
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
-    """uint8 packed [..., in/2, out] -> int8 [..., in, out].  A packed leaf
-    carried as bf16 (exact for 0..255) is taken too."""
+    """uint8 packed [..., in/2, out] -> int8 [..., in, out], k-major.  On a
+    k-major leaf one contiguous pass: byte j of memory row n holds k = 2j
+    (low nibble) and 2j+1 (high nibble).  A packed leaf carried as bf16
+    (exact for 0..255), or laid out [in/2, out], is taken too."""
     if packed.dtype != torch.uint8:
         packed = packed.to(torch.uint8)
-    lo = (packed & 0xF).to(torch.int8) - 8
-    hi = (packed >> 4).to(torch.int8) - 8
-    shape = packed.shape[:-2] + (packed.shape[-2] * 2, packed.shape[-1])
-    return torch.stack([lo, hi], dim=-2).reshape(shape)
+    pt = packed.transpose(-1, -2)  # [..., out, in/2]
+    lo = (pt & 0xF).to(torch.int8) - 8
+    hi = (pt >> 4).to(torch.int8) - 8
+    shape = pt.shape[:-1] + (pt.shape[-1] * 2,)
+    return torch.stack([lo, hi], dim=-1).reshape(shape).transpose(-1, -2)
 
 
 def _quantize_stacked(w: torch.Tensor, bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """[L, in, out] -> (int8 [L, in, out], or uint8 packed [L, in/2, out]
-    for int4; scales [L, out]), one layer at a time so the f32 temporaries
-    stay one layer wide."""
+    for int4, k-major; scales [L, out]), one layer at a time so the f32
+    temporaries stay one layer wide."""
     L, k, n = w.shape
     if bits == 8:
-        q = torch.empty((L, k, n), dtype=torch.int8, device=w.device)
+        q = torch.empty((L, n, k), dtype=torch.int8, device=w.device).transpose(1, 2)
         one = quantize_int8
     else:
-        q = torch.empty((L, k // 2, n), dtype=torch.uint8, device=w.device)
+        q = torch.empty((L, n, k // 2), dtype=torch.uint8, device=w.device).transpose(1, 2)
         one = quantize_int4
     s = torch.empty((L, n), dtype=torch.float32, device=w.device)
     for i in range(L):
@@ -200,6 +217,18 @@ def _check_kn(fn: str, k: int, n: int) -> None:
         raise ValueError(f"{fn}: k ({k}) and n ({n}) must be multiples of 16")
 
 
+def _check_weight(fn: str, w_q: torch.Tensor, device, k: int, n: int) -> None:
+    """Raise unless `w_q` is an int8 [k, n] weight stored k-major (strides
+    (1, k)), 16-byte aligned, on `device`: the layout the kernels' tensor
+    cores read.  A row-major weight is refused, never copied."""
+    if w_q.device != device or w_q.dtype != torch.int8 or tuple(w_q.shape) != (k, n) or w_q.data_ptr() % 16:
+        raise ValueError(f"{fn}: w_q must be a 16-byte aligned int8 tensor of shape {(k, n)} on {device}, "
+                         f"got {w_q.dtype} {tuple(w_q.shape)} on {w_q.device}")
+    if not w_q.transpose(0, 1).is_contiguous():
+        raise ValueError(f"{fn}: w_q must be stored k-major (strides (1, {k}), as quantize_int8, quantize_params_int8 "
+                         f"and unpack_int4 make it), got strides {tuple(w_q.stride())}")
+
+
 def _epilogue(acc: torch.Tensor, row_scale, col_scale, out_dtype):
     return (acc.float() * row_scale[:, None] * col_scale[None, :]).to(out_dtype)
 
@@ -218,14 +247,14 @@ def quantized_matmul_i8_reference(x_q, row_scale, w_q, col_scale, out_dtype=torc
 def quantized_matmul_i8(
     x_q: torch.Tensor,  # [m, k] int8 (from act_quant_rowwise / rowquant_fused)
     row_scale: torch.Tensor,  # [m] f32
-    w_q: torch.Tensor,  # [k, n] int8
+    w_q: torch.Tensor,  # [k, n] int8, k-major
     col_scale: torch.Tensor,  # [n] f32
     *,
     out_dtype=torch.bfloat16,
 ) -> torch.Tensor:
     """K6: bf16((x_q @ w_q)_int32 * row_scale[m] * col_scale[n]); the CUDA
-    kernel on CUDA tensors (bf16 output, k and n multiples of 16), the
-    plain version on CPU tensors."""
+    kernel on CUDA tensors (bf16 output, k and n multiples of 16, `w_q`
+    k-major), the plain version on CPU tensors (any strides)."""
     if x_q.device.type == "cpu":
         return quantized_matmul_i8_reference(x_q, row_scale, w_q, col_scale, out_dtype)
     fn = "quantized_matmul_i8"
@@ -237,9 +266,9 @@ def quantized_matmul_i8(
     _check_operands(fn, x_q.device, (
         ("x_q", x_q, torch.int8, (m, k)),
         ("row_scale", row_scale, torch.float32, (m,)),
-        ("w_q", w_q, torch.int8, (k, n)),
         ("col_scale", col_scale, torch.float32, (n,)),
     ))
+    _check_weight(fn, w_q, x_q.device, k, n)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x_q.device)
     if m == 0:
         return out
@@ -266,9 +295,10 @@ def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) ->
     """K7: bf16(sum_k x[m, k] * w_q[k, n] in f32, times scale[n]), the
     dequant GEMM of layers that run bf16 activations on int8 weights (a
     quantized tree without `blocks_edge`).  The CUDA kernel on CUDA tensors
-    (bf16 x, k and n multiples of 16), which applies the scale after the
-    sum as the Pallas kernel does; the plain version on CPU tensors, which
-    applies it before (the two differ by about one bf16 step)."""
+    (bf16 x, k and n multiples of 16, `w_q` k-major), which applies the
+    scale after the sum as the Pallas kernel does; the plain version on CPU
+    tensors (any strides), which applies it before (the two differ by about
+    one bf16 step)."""
     if x.device.type == "cpu":
         return quantized_matmul_reference(x, w_q, scale)
     fn = "quantized_matmul"
@@ -277,9 +307,9 @@ def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) ->
     _check_kn(fn, k, n)
     _check_operands(fn, x.device, (
         ("x", x, torch.bfloat16, (m, k)),
-        ("w_q", w_q, torch.int8, (k, n)),
         ("scale", scale, torch.float32, (n,)),
     ))
+    _check_weight(fn, w_q, x.device, k, n)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return out

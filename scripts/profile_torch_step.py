@@ -55,8 +55,8 @@ K5 = "K5 segmented_attention_two_source_q8 (seg_attn_q8_kernel, qk8)"
 K5S = "K5 sage (seg_attn_q8_sage_kernel)"
 K5D = "K5 dq (seg_attn_q8_dq_kernel)"
 K5_OF = {"qk8": K5, "sage": K5S, "dq": K5D}
-K6 = "K6 quantized_matmul_i8 (qmm_i8_kernel)"
-K7 = "K7 quantized_matmul (qmm_deq_kernel)"
+K6 = "K6 quantized_matmul_i8 (qmm_i8_wgmma_kernel)"
+K7 = "K7 quantized_matmul (qmm_deq_wgmma_kernel)"
 K8 = "K8 rowquant_fused (rowquant_kernel)"
 K8S = "K8s rowquant_swiglu (swiglu_rowquant_kernel)"
 
@@ -68,9 +68,9 @@ def group_of(name: str) -> str:
         return K5D
     if "seg_attn_q8_kernel" in name:
         return K5
-    if "qmm_i8_kernel" in name:
+    if "qmm_i8_wgmma_kernel" in name:
         return K6
-    if "qmm_deq_kernel" in name:
+    if "qmm_deq_wgmma_kernel" in name:
         return K7
     if "swiglu_rowquant_kernel" in name:
         return K8S

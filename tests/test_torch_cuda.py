@@ -14,7 +14,9 @@ outputs near 1 and takes 2e-2 absolute + relative, one or two bf16 ulps
 there, as `chip_smoke.py` does for its short captions.
 
 The quantized kernels: K6 (int8 GEMM), K8 (row quantization) and K8s
-(SwiGLU + row quantization) are bit-equal to their plain versions.  K7
+(SwiGLU + row quantization) are bit-equal to their plain versions.  K6
+and K7 take their int8 weights k-major (as `quantize_int8` makes them)
+and refuse a row-major one.  K7
 (the bf16 x int8 dequant GEMM) sums before it scales and its plain
 version scales the weight first: one bf16 step apart at most (2**-7
 relative + 1e-3 absolute).  K3q's int8 values are equal except one step on
@@ -291,7 +293,14 @@ def test_two_source_q8_scheme_kernel_captions(dev, scheme):
     _close(out[seg:], ref[seg:], **SHORT_SPAN_TOL)  # 13 keys
 
 
-@pytest.mark.parametrize("m,k,n", [(300, 256, 384), (1, 16, 16), (129, 3072, 1024)])
+# ragged M, N and K around the kernels' tiles (K6 128 x 256 with k tiles of
+# 128, K7 256 tokens x 128 weight rows with k tiles of 64) and one full
+# 4.5B GEMM (fc1 of a segment batch)
+QMM_SHAPES = [(300, 256, 384), (1, 16, 16), (129, 3072, 1024), (1, 16400, 1040), (4000, 3072, 272),
+              (4000, 16400, 1040), (7680, 3072, 12288)]
+
+
+@pytest.mark.parametrize("m,k,n", QMM_SHAPES)
 def test_quantized_matmul_i8_kernel(dev, m, k, n):
     g = _gen(dev)
     xq, rs = Q.act_quant_rowwise(_randn(g, dev, m, k))
@@ -345,7 +354,7 @@ def test_linears_shared_int8_runs_the_kernels(dev, pre, monkeypatch):
 K7_TOL = dict(atol=1e-3, rtol=2**-7)
 
 
-@pytest.mark.parametrize("m,k,n", [(300, 256, 384), (1, 16, 16), (129, 6144, 1024), (200, 16400, 272)])
+@pytest.mark.parametrize("m,k,n", QMM_SHAPES + [(129, 6144, 1024), (200, 16400, 272)])
 def test_quantized_matmul_kernel(dev, m, k, n):
     g = _gen(dev)
     x = _randn(g, dev, m, k)
@@ -398,3 +407,20 @@ def test_int4_gated_layer_runs_the_kernels(dev, monkeypatch):
     xs = M._apply_pre(x, ("swiglu",), 1e-6)
     for o, pp in zip(out, plist):
         _close(o, Q.quantized_matmul_reference(xs, Q.unpack_int4(pp["weight_q4"]), pp["weight_scale"]), **K7_TOL)
+
+
+def test_quantized_matmuls_refuse_row_major_weights(dev):
+    """K6 and K7 take only k-major weights on the card: a row-major copy of
+    the same values raises, naming what makes the layout, and launches
+    nothing (no copy, no fallback)."""
+    g = _gen(dev)
+    xq, rs = Q.act_quant_rowwise(_randn(g, dev, 64, 256))
+    wq, ws = Q.quantize_int8(_randn(g, dev, 256, 128))
+    row_major = wq.contiguous()
+    assert torch.equal(row_major, wq) and row_major.stride() == (128, 1)
+    before = (Q.quantized_matmul_i8.launches, Q.quantized_matmul.launches)
+    with pytest.raises(ValueError, match="k-major.*quantize_int8.*unpack_int4"):
+        Q.quantized_matmul_i8(xq, rs, row_major, ws)
+    with pytest.raises(ValueError, match="k-major.*quantize_int8.*unpack_int4"):
+        Q.quantized_matmul(_randn(g, dev, 64, 256), row_major, ws)
+    assert (Q.quantized_matmul_i8.launches, Q.quantized_matmul.launches) == before

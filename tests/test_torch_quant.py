@@ -310,3 +310,94 @@ def test_linears_shared_int4_swiglu_matches(act_ok):
     got = TM._linears_shared(_t(x), [dit_params_from_jax(pp) for pp in plist], act_ok, pre=("swiglu",))
     for g, j in zip(got, jax_out):
         np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=1e-5, rtol=1e-5)
+
+
+def _assert_k_major(t, name=""):
+    """A [..., k, n] tensor laid out as a contiguous [..., n, k]."""
+    assert t.transpose(-1, -2).is_contiguous(), (name, tuple(t.shape), t.stride())
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_weights_are_k_major(bits):
+    """quantize_int8 / quantize_int4 / unpack_int4 and both tree
+    quantizations store the weights k-major, with the values of a plain
+    row-major quantization (the JAX layout at every function)."""
+    rng = np.random.default_rng(9)
+    w = _t(rng.normal(size=(64, 48)).astype(np.float32))
+    q, s = (TQ.quantize_int8 if bits == 8 else TQ.quantize_int4)(w)
+    _assert_k_major(q)
+    assert tuple(q.shape) == ((64, 48) if bits == 8 else (32, 48))
+    if bits == 8:
+        np.testing.assert_array_equal(q.numpy(), torch.round(w / s).clamp(-127, 127).to(torch.int8).numpy())
+    else:
+        unpacked = TQ.unpack_int4(q)
+        _assert_k_major(unpacked)
+        np.testing.assert_array_equal(unpacked.numpy(), torch.round(w / s).clamp(-7, 7).to(torch.int8).numpy())
+        # a row-major packed leaf unpacks to the same values, k-major
+        row_major = q.contiguous()
+        assert not row_major.transpose(0, 1).is_contiguous()
+        again = TQ.unpack_int4(row_major)
+        _assert_k_major(again)
+        assert torch.equal(again, unpacked)
+    cfg = tiny_config(model=dict(num_layers=3, params_dtype=jnp.bfloat16))
+    params = dit_params_from_jax(jax.tree.map(np.asarray, JM.init_dit_params(jax.random.PRNGKey(0), cfg)))
+    tree = TQ.quantize_params_int8(params) if bits == 8 else TQ.quantize_params_int4(params)
+    leaf = "weight_q" if bits == 8 else "weight_q4"
+    found = 0
+    for keys, v in TQ._leaves(tree, []):
+        if keys[-1] == leaf:
+            _assert_k_major(v, "/".join(keys))
+            _assert_k_major(v[1], "/".join(keys))  # one layer's [in, out] view
+            found += 1
+    assert found
+
+
+def test_dit_params_from_jax_quantized_leaves_are_k_major():
+    """A JAX quantized tree carried over: weight_q and weight_q4 leaves come
+    k-major with equal values, every other leaf as it was."""
+    cfg = tiny_config(model=dict(num_layers=3, params_dtype=jnp.bfloat16, gated_linear_unit=True))
+    jparams = JM.init_dit_params(jax.random.PRNGKey(0), cfg)
+    for jtree in (JQ.quantize_params_int8(jparams), JQ.quantize_params_int4(jparams)):
+        flat = _flat(jax.tree.map(np.asarray, jtree))
+        got = _flat(dit_params_from_jax(jax.tree.map(np.asarray, jtree)))
+        n_quant = 0
+        for k, want in flat.items():
+            np.testing.assert_array_equal(got[k].float().numpy(), want.astype(np.float32), err_msg=k)
+            if "'weight_q'" in k or "'weight_q4'" in k:
+                _assert_k_major(got[k], k)
+                n_quant += 1
+            elif got[k].dim():
+                assert got[k].is_contiguous(), k
+        assert n_quant
+
+
+@pytest.mark.parametrize("act_ok", [True, False])
+def test_linears_shared_k_major_tree_matches(act_ok):
+    """`_linears_shared` on weights quantized by the port (k-major) against
+    the JAX package on its own row-major quantization of the same weights:
+    the int8 branch and the dequant branch."""
+    rng = np.random.default_rng(10)
+    D, N, S = 128, 64, 40
+    x = rng.normal(size=(S, D)).astype(np.float32)
+    ws = [rng.normal(size=(D, N)).astype(np.float32) * 0.1 for _ in range(2)]
+    jlist = [dict(zip(("weight_q", "weight_scale"), jax.jit(JQ.quantize_int8)(jnp.asarray(w)))) for w in ws]
+    tlist = [dict(zip(("weight_q", "weight_scale"), TQ.quantize_int8(_t(w)))) for w in ws]
+    for pp in tlist:
+        _assert_k_major(pp["weight_q"])
+    jax_out = JM._linears_shared(jnp.asarray(x), jlist, act_ok)
+    got = TM._linears_shared(_t(x), tlist, act_ok)
+    for g, j in zip(got, jax_out):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=1e-5, rtol=1e-5)
+
+
+def test_kernel_weight_check_refuses_row_major():
+    """The quantized GEMMs' operand check (run before each launch on the
+    card) takes a k-major weight and refuses a row-major one, naming what
+    makes the layout; it never copies."""
+    q, _ = TQ.quantize_int8(torch.ones((32, 16)))
+    cpu = torch.device("cpu")
+    TQ._check_weight("quantized_matmul_i8", q, cpu, 32, 16)
+    with pytest.raises(ValueError, match="k-major.*quantize_int8.*unpack_int4"):
+        TQ._check_weight("quantized_matmul_i8", q.contiguous(), cpu, 32, 16)
+    with pytest.raises(ValueError, match="shape"):
+        TQ._check_weight("quantized_matmul", q, cpu, 16, 32)
