@@ -50,7 +50,8 @@ Phases, each printed on its own line; any failure exits non-zero:
 Phases 8-10 check the frame count against the JAX package's for the same
 request (i2v keeps its first chunk whole; v2v drops the prefix frames).
 Phase 2 also checks K7 and K8s at phase 6-7's shapes, K8 at the 24B's
-widths and K5 (each scheme) at its 48/8 heads.  Phase 6 holds a
+widths and K5 (each scheme, qk8 against the dequant reference too) and
+K1 at its 48/8 heads.  Phase 6 holds a
 quantization peak of about 57 GiB (the bf16 tree alive while it is
 packed), so each main path starts from an emptied allocator cache.
 Then the card's name and power limit, one JSON line of per-kernel results
@@ -152,6 +153,13 @@ def bound(nbytes: float, *work):
     peak rate) pairs, one per operand type: (ms, what bounds it)."""
     t_bytes, t_ops = nbytes / PEAK_BYTES, sum(ops / peak for ops, peak in work)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def print_rate(name: str, ops: float, ms: float, bound_ms: float) -> None:
+    """The rate an attention kernel reached (operations of both products,
+    bf16 or int8, per second) beside its bound."""
+    print(f"  {name}: {ops / ms / 1e9:.1f} T operations/s ({ops:.4e} in {ms:.4f} ms); bound {bound_ms:.4f} ms, "
+          f"{bound_ms / ms:.1%} of it reached")
 
 
 def span_tokens(starts, ends) -> int:
@@ -326,7 +334,9 @@ def kernel_checks(dev):
     kv_bytes = (span_tokens(r1s, r1e) + span_tokens(r2s, r2e)) * 2 * hk * hd * 2
     nbytes = 2 * S * hq * hd * 2 + kv_bytes + 2 * S * rot * 4
     bms, by = bound(nbytes, (4 * ctn * attended * hd * hq, PEAK_BF16_FLOPS))
-    results.append(dict(name="segmented_attention_two_source", route="cuda", source="magi_tpu_torch/csrc/attention.cu",
+    print_rate("segmented_attention_two_source", 4 * ctn * attended * hd * hq, ms, bms)
+    results.append(dict(name="segmented_attention_two_source", route="cuda",
+                        source="magi_tpu_torch/csrc/attention_tma.cu",
                         replaces="magi_tpu/ops/attention.py:1241", max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bms, bound_by=by, library_ms=lib_ms))
 
@@ -363,6 +373,7 @@ def kernel_checks(dev):
     attended = int((xe - xs_).sum())
     nbytes = 2 * S * hq * hd * 2 + span_tokens(xs_, xe) * 2 * hk * hd * 2
     bms, by = bound(nbytes, (4 * ctn * attended * hd * hq, PEAK_BF16_FLOPS))
+    print_rate("segmented_attention_v2", 4 * ctn * attended * hd * hq, ms, bms)
     results.append(dict(name="segmented_attention_v2", route="cuda", source="magi_tpu_torch/csrc/attention.cu",
                         replaces="magi_tpu/ops/attention.py:678", max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bms, bound_by=by, library_ms=lib_ms))
@@ -381,6 +392,7 @@ def kernel_checks(dev):
     lib_ms = sdpa_ms(qv, kv_, vv_, (col >= st_[:, None]) & (col < st_[:, None] + N), N)
     nbytes = 4 * B * N * hv * hdv * 2
     bms, by = bound(nbytes, (4 * B * N * N * hdv * hv, PEAK_BF16_FLOPS))
+    print_rate("segmented_attention", 4 * B * N * N * hdv * hv, ms, bms)
     results.append(dict(name="segmented_attention", route="cuda", source="magi_tpu_torch/csrc/attention.cu",
                         replaces="magi_tpu/ops/attention.py:307", max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bms, bound_by=by, library_ms=lib_ms))
@@ -532,8 +544,10 @@ def int8_kernel_checks(dev):
                               *ATTN_TOL))
         print(f"  {name} on the captions: {cuda_ms(xcall, 20):.4f} ms")
         bms, by = bound(nbytes, (work, peaks[0]), (work, peaks[1]))
+        print_rate(name, 2 * work, ms, bms)
         (results if scheme == "qk8" else scheme_results).append(dict(
-            name=name, route="cuda", source="magi_tpu_torch/csrc/attention_q8.cu",
+            name=name, route="cuda",
+            source="magi_tpu_torch/csrc/attention_" + ("tma.cu" if scheme == "qk8" else "q8.cu"),
             replaces="magi_tpu/ops/attention_q8.py:631", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
             bound_by=by, library_ms=lib_ms))
 
@@ -746,14 +760,32 @@ def w4a8_kernel_checks(dev):
     args = (q, cache8, cache_sc, kv8, kv_sc, r1s, r1e, r2s, r2e)
     attended = int(((r1e - r1s) + (r2e - r2s)).sum())
     work = 2 * ctn * attended * hd * hq
+    qn = A.apply_q_prologue(q, pro)
     for scheme in A8.SCHEMES:
         call = lambda: A8.segmented_attention_two_source_q8(*args, seg_len=ctn, q_prologue=pro, scheme=scheme)
         plain = getattr(A8, f"segmented_attention_two_source_q8_{scheme}_reference")
-        check_close(f"segmented_attention_two_source_q8 {scheme} at 48 / 8 heads", call(),
+        out = call()
+        check_close(f"segmented_attention_two_source_q8 {scheme} at 48 / 8 heads", out,
                     plain(*args, seg_len=ctn, q_prologue=pro), *ATTN_TOL)
+        if scheme == "qk8":
+            deq = A8.segmented_attention_two_source_q8_reference(qn, *args[1:], seg_len=ctn).float()
+            mean_rel = float((out.float() - deq).abs().mean() / deq.abs().mean())
+            print(f"  segmented_attention_two_source_q8 qk8 at 48 / 8 heads against the dequant reference: "
+                  f"mean |error| / mean |output| {mean_rel:.3e} (limit {Q8_DEQUANT_MEAN_REL}) "
+                  f"{'ok' if mean_rel < Q8_DEQUANT_MEAN_REL else 'FAILED'}")
+            if mean_rel >= Q8_DEQUANT_MEAN_REL:
+                fail("segmented_attention_two_source_q8 strays from the dequant reference at 48 / 8 heads")
         ms = cuda_ms(call, 10)
         print(f"  segmented_attention_two_source_q8 {scheme} at 48 / 8 heads (S {S}): {ms:.4f} ms, "
               f"{2 * work / ms / 1e9:.1f} T/s")
+    # K1 at the same heads and ranges (a bf16 cache of the same values)
+    cache = (cache8.float() * cache_sc[..., None]).bfloat16()
+    kv2 = (kv8.float() * kv_sc[..., None]).bfloat16()
+    call = lambda: A.segmented_attention_two_source(q, cache, kv2, r1s, r1e, r2s, r2e, seg_len=ctn, q_prologue=pro)
+    check_close("segmented_attention_two_source at 48 / 8 heads", call(),
+                A.segmented_attention_two_source_reference(qn, cache, kv2, r1s, r1e, r2s, r2e, seg_len=ctn), *ATTN_TOL)
+    ms = cuda_ms(call, 10)
+    print(f"  segmented_attention_two_source at 48 / 8 heads (S {S}): {ms:.4f} ms, {2 * work / ms / 1e9:.1f} T/s")
     for r in results:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
               f"bound {r['bound_ms']:.4f} by {r['bound_by']})")

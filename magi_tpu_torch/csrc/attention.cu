@@ -1,26 +1,19 @@
-// Segmented flash attention for Hopper (sm_90a): one kernel body, three
-// `__global__` kernels (one per Pallas kernel it replaces, so a trace
-// names each), two C entry points.
+// Single-source segmented flash attention for Hopper (sm_90a): one kernel
+// body, two `__global__` kernels (one per Pallas kernel it replaces, so a
+// trace names each), one C entry point.  The two-source kernel (K1) is in
+// csrc/attention_tma.cu.
 //
 // Replaces (magi_tpu/ops/attention.py):
-//   seg_attn_two_source_kernel -> segmented_attention_two_source
-//       (_seg_attn_kernel_two_source + _q_prologue + _o_epilogue), the DiT
-//       self-attention over the read-only KV cache and the current kv;
-//       C entry magi_seg_attn_two_source.
 //   seg_attn_v2_kernel -> segmented_attention_v2 (_seg_attn_kernel_v2), the
 //       DiT caption cross-attention (hd 128, norm-only q prologue);
 //       C entry magi_seg_attn with kind 1.
 //   seg_attn_grid_kernel -> segmented_attention (_seg_attn_kernel), the
 //       VAE self-attention (hd 64, no prologue); magi_seg_attn with kind 2.
 //
-// Semantics.  q is token-major [n_seg * seg_len, hq, hd] bf16.  Segment i
-// attends tokens [r1s[i], r1e[i]) of source 1, then [r2s[i], r2e[i]) of
-// source 2, each range clipped to its source's length.  Each source is a
-// (k, v) pair addressed by a token stride and a head stride, so the same
-// body reads the cache layout [2, hk, tok, hd] and the token-major layout
-// [tok, hk, hd].  A segment with empty ranges outputs 0.  GQA: q head h
-// reads kv head h / q_per_kv.  The single-source kernels have source 1
-// compiled out: their loop is that of a kernel written for one source.
+// Semantics.  q is token-major [n_seg * seg_len, hq, hd] bf16; k and v are
+// token-major [kv_len, hk, hd].  Segment i attends kv tokens
+// [kv_start[i], kv_end[i]), clipped to the kv length.  A segment with an
+// empty range outputs 0.  GQA: q head h reads kv head h / q_per_kv.
 //
 // Optional q prologue, as the Pallas kernel's: fp32 LayerNorm of each q
 // row with (w, b) already scaled by sm_scale*log2(e) in the wrapper, then
@@ -28,23 +21,23 @@
 // power of two), then the bf16 cast.  Without it q is scaled by
 // sm_scale*log2(e) before the cast.  The softmax runs in the exp2 domain.
 //
-// What bounds it on the H100.  At the main path's shapes (seg_len 12150
-// tokens at 720p, kv spans of up to 5 chunks) attention does ~300 flops
-// per byte of q/k/v it must read, at the ridge of the card's 989 TFLOP/s
-// bf16 over 3.35 TB/s: the tensor-core rate bounds it.  This first
-// version uses mma.sync m16n8k16 (bf16 in, fp32 accumulate) with
-// ldmatrix from padded shared memory; wgmma and TMA, which the card needs
-// for its full rate, are later work.
+// What bounds it on the H100.  The captions' spans are short (up to 800
+// tokens against segments of 1536 to 12150 queries): q and the output are
+// most of the bytes, so the memory rate bounds K2; the VAE's tiles of 3073
+// tokens at hd 64 do ~1500 flops per byte, so the tensor-core rate bounds
+// K2g.  This version uses mma.sync
+// m16n8k16 (bf16 in, fp32 accumulate) with ldmatrix from padded shared
+// memory; wgmma and TMA are later work.
 //
 // Design.  One block per (q tile of 64 tokens, group of heads that share
 // one kv head, segment).  The block stages its heads' q rows once
-// (prologue fused), then walks 64-token kv tiles of both sources with a
-// two-stage cp.async pipeline.  Folding the GQA heads into the block
+// (prologue fused), then walks 64-token kv tiles with a two-stage
+// cp.async pipeline.  Folding the GQA heads into the block
 // means each kv tile is read from memory once for all of them.  Each warp
 // owns 16 q rows; online softmax (flash-attention 2) keeps the output in
-// registers, normalised once at the end.  Only the last tile of a source
-// is masked: tiles start at the range start, and rows past the range end
-// are zero-filled by cp.async, so no read leaves the source.
+// registers, normalised once at the end.  Only the last tile is masked:
+// tiles start at the range start, and rows past the range end are
+// zero-filled by cp.async, so no read leaves the source.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,7 +57,7 @@ constexpr int kMaxHeadsPerBlock = 3;
 constexpr int kMaxThreads = 32 * kWarpsPerHead * kMaxHeadsPerBlock;
 
 // kernel kinds of magi_seg_attn (ops/attention.py passes the same numbers)
-enum Kind { kTwoSource = 0, kV2 = 1, kGrid = 2 };
+enum Kind { kV2 = 1, kGrid = 2 };
 
 struct Source {
   const __nv_bfloat16* k;
@@ -79,7 +72,7 @@ struct Source {
 struct Args {
   const __nv_bfloat16* q;
   __nv_bfloat16* out;
-  Source src[2];
+  Source src;
   const float* qw;  // [hd] LN weight * sm_scale*log2e, or nullptr (no LN)
   const float* qb;
   const float* sin;  // [n_seg*seg_len, rot] or nullptr (no rotary)
@@ -88,7 +81,7 @@ struct Args {
   float eps, scale;
 };
 
-template <int HD, bool TWO_SOURCE>
+template <int HD>
 __device__ __forceinline__ void seg_attn_body(const Args& a) {
   constexpr int LDS = HD + 8;  // padded row: ldmatrix rows hit distinct banks
   constexpr int EPT = HD / 32; // q elements per lane in the prologue
@@ -109,32 +102,17 @@ __device__ __forceinline__ void seg_attn_body(const Args& a) {
   __nv_bfloat16* sV = sK + 2 * kBK * LDS;   // [2][kBK][LDS]
   float* sRow = reinterpret_cast<float*>(sV + 2 * kBK * LDS);  // [nwarps][HD]
 
-  // ranges of both sources, clipped to the sources (scalars, not arrays:
-  // no dynamic indexing, so nothing spills to local memory).  Without a
-  // first source n0 is the constant 0 and its branches fold away.
-  const int lo0 = TWO_SOURCE ? max(a.src[0].start[seg], 0) : 0;
-  const int hi0 = TWO_SOURCE ? min(a.src[0].end[seg], a.src[0].len) : 0;
-  const int lo1 = max(a.src[1].start[seg], 0);
-  const int hi1 = min(a.src[1].end[seg], a.src[1].len);
-  const int n0 = TWO_SOURCE && hi0 > lo0 ? (hi0 - lo0 + kBK - 1) / kBK : 0;
-  const int n1 = hi1 > lo1 ? (hi1 - lo1 + kBK - 1) / kBK : 0;
-  const int total = n0 + n1;
-
-  // tile j: first token t0 and end `hi` within its source
-  auto tile_range = [&](int j, int& t0, int& hi) {
-    const bool first = j < n0;
-    t0 = first ? lo0 + j * kBK : lo1 + (j - n0) * kBK;
-    hi = first ? hi0 : hi1;
-  };
+  // the range, clipped to the source
+  const int lo = max(a.src.start[seg], 0);
+  const int hi = min(a.src.end[seg], a.src.len);
+  const int total = hi > lo ? (hi - lo + kBK - 1) / kBK : 0;
 
   auto load_tile = [&](int j, int buf) {
-    int t0, hi;
-    tile_range(j, t0, hi);
-    const bool first = j < n0;
-    const long long tok_stride = first ? a.src[0].tok_stride : a.src[1].tok_stride;
-    const long long head_off = kvh * (first ? a.src[0].head_stride : a.src[1].head_stride);
-    const __nv_bfloat16* kb = (first ? a.src[0].k : a.src[1].k) + head_off;
-    const __nv_bfloat16* vb = (first ? a.src[0].v : a.src[1].v) + head_off;
+    const int t0 = lo + j * kBK;
+    const long long tok_stride = a.src.tok_stride;
+    const long long head_off = kvh * a.src.head_stride;
+    const __nv_bfloat16* kb = a.src.k + head_off;
+    const __nv_bfloat16* vb = a.src.v + head_off;
     constexpr int CPR = HD / 8;  // 16-byte chunks per row
     for (int c = threadIdx.x; c < kBK * CPR; c += blockDim.x) {
       const int r = c / CPR;
@@ -245,10 +223,8 @@ __device__ __forceinline__ void seg_attn_body(const Args& a) {
       }
     }
 
-    // mask the columns past the range end (last tile of a source only)
-    int t0, hi;
-    tile_range(jt, t0, hi);
-    const int valid_cols = hi - t0;
+    // mask the columns past the range end (last tile only)
+    const int valid_cols = hi - (lo + jt * kBK);
     if (valid_cols < kBK) {
 #pragma unroll
       for (int nt = 0; nt < kBK / 8; ++nt) {
@@ -335,18 +311,13 @@ __device__ __forceinline__ void seg_attn_body(const Args& a) {
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kMaxThreads, 1) seg_attn_two_source_kernel(const __grid_constant__ Args a) {
-  seg_attn_body<HD, true>(a);
-}
-
-template <int HD>
 __global__ void __launch_bounds__(kMaxThreads, 1) seg_attn_v2_kernel(const __grid_constant__ Args a) {
-  seg_attn_body<HD, false>(a);
+  seg_attn_body<HD>(a);
 }
 
 template <int HD>
 __global__ void __launch_bounds__(kMaxThreads, 1) seg_attn_grid_kernel(const __grid_constant__ Args a) {
-  seg_attn_body<HD, false>(a);
+  seg_attn_body<HD>(a);
 }
 
 template <int HD>
@@ -365,7 +336,6 @@ cudaError_t launch(void (*kernel)(Args), const Args& a, int n_seg, cudaStream_t 
 template <int HD>
 cudaError_t launch_kind(int kind, const Args& a, int n_seg, cudaStream_t stream) {
   switch (kind) {
-    case kTwoSource: return launch<HD>(seg_attn_two_source_kernel<HD>, a, n_seg, stream);
     case kV2: return launch<HD>(seg_attn_v2_kernel<HD>, a, n_seg, stream);
     case kGrid: return launch<HD>(seg_attn_grid_kernel<HD>, a, n_seg, stream);
   }
@@ -392,31 +362,6 @@ cudaError_t dispatch(Args& a, int kind, int n_seg, int hd, int hk, cudaStream_t 
 
 extern "C" {
 
-// q, out: [n_seg*seg_len, hq, hd]; kv1, kv2: [2, hk, len, hd] (k then v)
-int magi_seg_attn_two_source(const void* q, void* out, const void* kv1, long long kv1_len, const void* kv2,
-                             long long kv2_len, const int* r1s, const int* r1e, const int* r2s, const int* r2e,
-                             const float* qw, const float* qb, const float* sin, const float* cos, int n_seg,
-                             int seg_len, int hq, int hk, int hd, int rot, float eps, float scale,
-                             void* stream) {
-  Args a = {};
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.out = static_cast<__nv_bfloat16*>(out);
-  const __nv_bfloat16* b1 = static_cast<const __nv_bfloat16*>(kv1);
-  const __nv_bfloat16* b2 = static_cast<const __nv_bfloat16*>(kv2);
-  a.src[0] = {b1, b1 + (long long)hk * kv1_len * hd, hd, kv1_len * hd, (int)kv1_len, r1s, r1e};
-  a.src[1] = {b2, b2 + (long long)hk * kv2_len * hd, hd, kv2_len * hd, (int)kv2_len, r2s, r2e};
-  a.qw = qw;
-  a.qb = qb;
-  a.sin = sin;
-  a.cos = cos;
-  a.seg_len = seg_len;
-  a.hq = hq;
-  a.rot = rot;
-  a.eps = eps;
-  a.scale = scale;
-  return (int)dispatch(a, kTwoSource, n_seg, hd, hk, static_cast<cudaStream_t>(stream));
-}
-
 // q, out: [n_seg*seg_len, hq, hd]; k, v: [kv_len, hk, hd] (token-major);
 // kind: 1 segmented_attention_v2, 2 segmented_attention
 int magi_seg_attn(const void* q, void* out, const void* k, const void* v, long long kv_len, const int* kv_start,
@@ -427,9 +372,8 @@ int magi_seg_attn(const void* q, void* out, const void* k, const void* v, long l
   Args a = {};
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.out = static_cast<__nv_bfloat16*>(out);
-  a.src[0] = {nullptr, nullptr, 0, 0, 0, nullptr, nullptr};
-  a.src[1] = {static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), (long long)hk * hd, hd,
-              (int)kv_len, kv_start, kv_end};
+  a.src = {static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), (long long)hk * hd, hd,
+           (int)kv_len, kv_start, kv_end};
   a.qw = qw;
   a.qb = qb;
   a.sin = sin;

@@ -1,32 +1,29 @@
 // Two-source segmented flash attention over an int8 KV cache, for Hopper
-// (sm_90a), in three schemes: qk8, sage and dq.
+// (sm_90a), under K5's schemes sage and dq.  The default scheme, qk8, is
+// a kernel of its own on TMA and wgmma in csrc/attention_tma.cu.
 //
 // Replaces (magi_tpu/ops/attention_q8.py):
-//   seg_attn_q8_kernel -> segmented_attention_two_source_q8 with scheme
-//       "qk8" (_seg_attn_kernel_two_source_q8 + _q_prologue_q8), the DiT
-//       self-attention over the int8-stored KV cache and the current
-//       window's int8 kv, and (with an empty second source) the int8
-//       caption cross-attention;
-//   seg_attn_q8_sage_kernel -> the same with scheme "sage";
+//   seg_attn_q8_sage_kernel -> segmented_attention_two_source_q8 with
+//       scheme "sage" (_seg_attn_kernel_two_source_q8 + _q_prologue_q8),
+//       the DiT self-attention over the int8-stored KV cache and the
+//       current window's int8 kv, and (with an empty second source) the
+//       int8 caption cross-attention;
 //   seg_attn_q8_dq_kernel -> the same with scheme "dq" (_q_prologue with
 //       a bf16 q scratch).
 //   C entry magi_seg_attn_two_source_q8, whose `scheme` argument picks one.
 //
-// Semantics.  As K1 (csrc/attention.cu): q token-major [n_seg * seg_len,
+// Semantics.  As K1 (csrc/attention_tma.cu): q token-major [n_seg * seg_len,
 // hq, hd] bf16; segment i attends tokens [r1s[i], r1e[i]) of source 1
 // then [r2s[i], r2e[i]) of source 2, each clipped to its source; a segment
 // with empty ranges outputs 0; q head h reads kv head h / (hq / hk).  Each
 // source is int8 kv [2, hk, len, hd] with f32 per-token scales [2, hk,
 // len] (k scales, then v scales).  Online softmax in f32 with exp2 (the
 // logits carry sm_scale * log2(e)).  The schemes:
-//   * qk8: q (after the optional fp32 LayerNorm + GPT-NeoX rotary
+//   * sage: q (after the optional fp32 LayerNorm + GPT-NeoX rotary
 //     prologue) is quantized per row (token, head) to int8: scale sq =
 //     max(amax, 1e-8) / 127, value round(q * (1 / sq)); logits s =
-//     (q8 . k8)_int32 * (sq * sm_scale * log2e) * sk_token; the per-token v
-//     scale folds into p, which is cast to bf16, and p.v runs in bf16
-//     against the int8 v cast to bf16 (ints in [-127, 127] are exact in
-//     bf16).
-//   * sage: q and the logits as in qk8; per kv tile pv = p * sv is
+//     (q8 . k8)_int32 * (sq * sm_scale * log2e) * sk_token, as qk8's; per
+//     kv tile pv = p * sv is
 //     requantized per row against the tile's row max, sp = max(rowmax(pv),
 //     1e-20) * (1/127), p8 = round(pv * (1 / sp)) (half to even), and p.v
 //     runs int8: o = o * alpha + (p8 . v8)_int32 * sp.  p8 depends on the
@@ -35,22 +32,24 @@
 //     and the plain version walks the same tiles.
 //   * dq: q stays bf16 (rounded after the prologue, no sm_scale folded);
 //     k is converted int8 -> bf16 (exact) and the logits are (q . k) *
-//     (sk_token * sm_scale * log2e); p.v as in qk8.
+//     (sk_token * sm_scale * log2e); the per-token v scale folds into p,
+//     which is cast to bf16, and p.v runs in bf16 against the int8 v cast
+//     to bf16 (ints in [-127, 127] are exact in bf16), as in qk8.
 //
 // What bounds it on the H100.  At the main path's shapes (seg_len 1536,
 // kv spans of 1 to 5 chunks) the operations: q.k runs at the int8 rate
-// (1979 TOP/s) in qk8 and sage and at the bf16 rate (989 TFLOP/s) in dq;
-// p.v at the int8 rate in sage and the bf16 rate in qk8 and dq.  The kv
+// (1979 TOP/s) in sage and at the bf16 rate (989 TFLOP/s) in dq; p.v at
+// the int8 rate in sage and the bf16 rate in dq.  The kv
 // bytes are half of K1's in every scheme.  This first version uses
 // mma.sync (m16n8k32 s8 and m16n8k16 bf16); wgmma and TMA are later work.
 //
-// Design.  K1's: one block per (64 q tokens, the q heads of one kv head,
-// segment); each kv tile of 64 tokens (int8 k and v, and their 64 + 64
+// Design.  That of K2 (csrc/attention.cu): one block per (64 q tokens,
+// the q heads of one kv head, segment); each kv tile of 64 tokens (int8 k and v, and their 64 + 64
 // scales) is loaded once for the block's heads with a two-stage cp.async
 // pipeline.  q is staged once in the prologue into shared memory (int8 and
 // its row scales, or bf16 for dq).  ldmatrix cannot transpose 8-bit data,
 // so after each v tile lands it is rewritten in shared memory: to bf16 for
-// qk8 and dq (read by ldmatrix.trans, as K1 does), or, for sage, to the
+// dq (read by ldmatrix.trans, as K2 does), or, for sage, to the
 // byte-transposed v8^T [hd][tokens] that the int8 B operand needs (read by
 // ldmatrix as the int8 k is: the int8 fragments have the bf16 ones' byte
 // layout).  sage's p.v reuses the q.k accumulator registers as its A
@@ -100,7 +99,7 @@ struct Args {
   float eps, scale;  // scale = sm_scale * log2(e)
 };
 
-enum Scheme : int { kQK8 = 0, kSage = 1, kDQ = 2 };
+enum Scheme : int { kSage = 1, kDQ = 2 };  // 0 is qk8, in csrc/attention_tma.cu
 
 template <int HD>
 struct Layout {
@@ -117,7 +116,7 @@ __host__ __device__ constexpr size_t q_bytes(int rows) {
 
 template <int HD, int S>
 __host__ __device__ constexpr size_t aux_bytes() {
-  // qk8, dq: the bf16 v tile (dq: and the bf16 k tile); sage: v8^T
+  // dq: the bf16 v and k tiles; sage: v8^T
   return S == kSage ? (size_t)HD * Layout<HD>::LDVT : (size_t)(S == kDQ ? 2 : 1) * kBK * Layout<HD>::LDV * 2;
 }
 
@@ -139,7 +138,6 @@ __device__ __forceinline__ void seg_attn_q8_body(const Args& a) {
   constexpr int LDVT = Layout<HD>::LDVT;
   constexpr int EPT = HD / 32;  // q elements per lane in the prologue
   constexpr int CPR = HD / 16;  // 16-byte chunks per int8 row
-  constexpr bool kAligned = S != kQK8;  // sage and dq walk kBK-aligned tiles, as their plain versions
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int qt = blockIdx.x;
@@ -153,14 +151,14 @@ __device__ __forceinline__ void seg_attn_q8_body(const Args& a) {
   const int kvh = head0 / a.q_per_kv;
 
   unsigned char* p = smem;
-  int8_t* sQ = reinterpret_cast<int8_t*>(p);                 // qk8, sage: [rows][LDQ]
+  int8_t* sQ = reinterpret_cast<int8_t*>(p);                 // sage: [rows][LDQ]
   __nv_bfloat16* sQb = reinterpret_cast<__nv_bfloat16*>(p);  // dq: [rows][LDV]
   p += q_bytes<HD, S>(rows);
   int8_t* sK = reinterpret_cast<int8_t*>(p);  // [2][kBK][LDQ]
   p += 2 * kBK * LDQ;
   int8_t* sV8 = reinterpret_cast<int8_t*>(p);  // [2][kBK][HD]
   p += 2 * kBK * HD;
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(p);  // qk8, dq: [kBK][LDV]
+  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(p);  // dq: [kBK][LDV]
   int8_t* sVt = reinterpret_cast<int8_t*>(p);               // sage: [HD][LDVT], tokens permuted
   __nv_bfloat16* sKb = sV + kBK * LDV;                      // dq: [kBK][LDV]
   p += aux_bytes<HD, S>();
@@ -173,8 +171,9 @@ __device__ __forceinline__ void seg_attn_q8_body(const Args& a) {
   const int hi0 = min(a.src[0].end[seg], a.src[0].len);
   const int lo1 = max(a.src[1].start[seg], 0);
   const int hi1 = min(a.src[1].end[seg], a.src[1].len);
-  const int base0 = kAligned ? lo0 / kBK * kBK : lo0;  // first tile's first token
-  const int base1 = kAligned ? lo1 / kBK * kBK : lo1;
+  // tiles aligned to kBK within each source, as the plain versions walk them
+  const int base0 = lo0 / kBK * kBK;  // first tile's first token
+  const int base1 = lo1 / kBK * kBK;
   const int n0 = hi0 > lo0 ? (hi0 - base0 + kBK - 1) / kBK : 0;
   const int n1 = hi1 > lo1 ? (hi1 - base1 + kBK - 1) / kBK : 0;
   const int total = n0 + n1;
@@ -556,11 +555,6 @@ __device__ __forceinline__ void seg_attn_q8_body(const Args& a) {
 
 // one symbol per scheme, so a trace reads them apart
 template <int HD>
-__global__ void __launch_bounds__(kMaxThreads, 1) seg_attn_q8_kernel(const __grid_constant__ Args a) {
-  seg_attn_q8_body<HD, kQK8>(a);
-}
-
-template <int HD>
 __global__ void __launch_bounds__(kMaxThreads, 1) seg_attn_q8_sage_kernel(const __grid_constant__ Args a) {
   seg_attn_q8_body<HD, kSage>(a);
 }
@@ -584,7 +578,6 @@ cudaError_t launch(Kernel kernel, const Args& a, int n_seg, cudaStream_t stream)
 
 template <int HD>
 cudaError_t launch_scheme(int scheme, const Args& a, int n_seg, cudaStream_t stream) {
-  if (scheme == kQK8) return launch<HD, kQK8>(seg_attn_q8_kernel<HD>, a, n_seg, stream);
   if (scheme == kSage) return launch<HD, kSage>(seg_attn_q8_sage_kernel<HD>, a, n_seg, stream);
   if (scheme == kDQ) return launch<HD, kDQ>(seg_attn_q8_dq_kernel<HD>, a, n_seg, stream);
   return cudaErrorInvalidValue;
@@ -597,7 +590,7 @@ extern "C" {
 // q, out: [n_seg*seg_len, hq, hd] bf16; kv1, kv2: [2, hk, len, hd] int8;
 // sc1, sc2: [2, hk, len] f32; qw, qb: [hd] f32 or null; sin, cos:
 // [n_seg*seg_len, rot] f32 or null; scale = sm_scale * log2(e); scheme 0
-// qk8, 1 sage, 2 dq
+// 1 sage, 2 dq
 int magi_seg_attn_two_source_q8(const void* q, void* out, const void* kv1, const float* sc1, long long kv1_len,
                                 const void* kv2, const float* sc2, long long kv2_len, const int* r1s, const int* r1e,
                                 const int* r2s, const int* r2e, const float* qw, const float* qb, const float* sin,

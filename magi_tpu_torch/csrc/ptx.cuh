@@ -13,6 +13,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// the first 1024-byte aligned shared-memory address at or after p (the
+// 128-byte swizzle repeats every 1024 bytes)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
 // 16-byte global -> shared copy; src-size 0 zero-fills without reading src
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const int n = valid ? 16 : 0;
@@ -107,6 +113,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap, uint64_
       : "memory");
 }
 
+// 4-D tile (innermost coordinate first), as tma_load_2d
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], "
+      "[%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_desc(const void* tmap) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(tmap)) : "memory");
 }
@@ -116,6 +132,23 @@ __device__ __forceinline__ void tma_prefetch_desc(const void* tmap) {
 // 1024-byte aligned); a step of 32 bytes along k adds 2 to the address field
 __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p) {
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// wgmma descriptor of an MN-major tile (the B operand read transposed) of
+// 16-bit elements written with the 128-byte swizzle: rows of 64 elements
+// (128 bytes) along N, 8-row groups along K 1024 bytes apart, and the next
+// 64 elements along N `atom_stride` bytes on
+__device__ __forceinline__ uint64_t wgmma_desc_mn_sw128(const void* p, uint32_t atom_stride) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)((atom_stride >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// the async proxy (TMA, wgmma) sees this thread's earlier shared-memory writes
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// named barrier `id` (1-15; 0 is __syncthreads) over `count` threads
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -143,6 +176,16 @@ __device__ __forceinline__ void wgmma_hold(float (&d)[R]) {
 #define MAGI_WG128(C, d) MAGI_WG32(C, d, 0), MAGI_WG32(C, d, 32), MAGI_WG32(C, d, 64), MAGI_WG32(C, d, 96)
 #define MAGI_RW(x) "+r"(x)
 #define MAGI_FW(x) "+f"(x)
+#define MAGI_RO(x) "=r"(x)
+#define MAGI_FO(x) "=f"(x)
+#define MAGI_D32                                                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                           \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define MAGI_D64                                                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                           \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                  \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                   \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 #define MAGI_D128                                                                                     \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                           \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                  \
@@ -174,12 +217,81 @@ __device__ __forceinline__ void wgmma_bf16_m64n256k16(float (&d)[128], uint64_t 
       : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void setmaxnreg_dec40() { asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n"); }
-__device__ __forceinline__ void setmaxnreg_inc232() { asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n"); }
+// D[64 x 64] (f32) = A[64 x 16] * B[64 x 16]^T (+ D if ACC), both bf16
+// K-major in shared memory; d laid out as above (j < 8).  Without ACC, d
+// is written only: its old values are not an input the compiler must keep
+template <bool ACC>
+__device__ __forceinline__ void wgmma_bf16_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+  if constexpr (ACC) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MAGI_D32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : MAGI_WG32(MAGI_FW, d, 0)
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MAGI_D32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : MAGI_WG32(MAGI_FO, d, 0)
+        : "l"(da), "l"(db), "r"(0));
+  }
+}
+
+// D[64 x 64] (s32) = A[64 x 32] * B[64 x 32]^T (+ D if ACC), both int8
+// K-major in shared memory; d as above
+template <bool ACC>
+__device__ __forceinline__ void wgmma_s8_m64n64k32(int (&d)[32], uint64_t da, uint64_t db) {
+  if constexpr (ACC) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " MAGI_D32 ", %32, %33, p;\n}\n"
+        : MAGI_WG32(MAGI_RW, d, 0)
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " MAGI_D32 ", %32, %33, p;\n}\n"
+        : MAGI_WG32(MAGI_RO, d, 0)
+        : "l"(da), "l"(db), "r"(0));
+  }
+}
+
+// D[64 x 128] (f32) += A[64 x 16] * B[16 x 128], A bf16 from registers (the
+// layout of mma.sync's m16n8k16 A fragment, warp w of the warpgroup holding
+// rows 16 w ..), B bf16 MN-major in shared memory (transposed read)
+__device__ __forceinline__ void wgmma_bf16_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " MAGI_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : MAGI_WG32(MAGI_FW, d, 0), MAGI_WG32(MAGI_FW, d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// the calling warpgroup's registers per thread, lowered to or raised to N
+// (a multiple of 8); registers move within the block's own allocation
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two int8 (the low 16 bits of v, lower k first) -> bf16x2, exact: the
+// biased byte becomes the low mantissa bits of 2**23 + byte in f32
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t v) {
+  const uint32_t u = v ^ 0x8080u;
+  const float f0 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)), 8388736.f);
+  const float f1 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)), 8388736.f);
+  return pack_bf16(f0, f1);
 }
 
 template <typename T>

@@ -79,7 +79,6 @@
 // eight bytes at a time: one read of the input where the Pallas kernel
 // made two passes over width chunks to fit the TPU's 16 MB VMEM.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,6 +89,7 @@
 #include <mutex>
 
 #include "ptx.cuh"
+#include "tmap.cuh"
 
 namespace {
 
@@ -110,10 +110,6 @@ constexpr int kI8Smem = 1024 + kI8Stages * (kI8ABytes + kI8BBytes) + 2 * kI8Stag
 constexpr int kDqBN = 128, kDqBM = 256, kDqBK = 64, kDqStages = 4;
 constexpr int kDqWBytes = kDqBN * kDqBK, kDqXBytes = kDqBM * kDqBK * 2, kDqABytes = 64 * kDqBK * 2;
 constexpr int kDqSmem = 1024 + kDqStages * (kDqWBytes + kDqXBytes) + 4 * kDqABytes + 2 * kDqStages * 8;
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
-}
 
 // output tile t: groups of kGroupN tiles along N, and within a group N
 // fastest, so the blocks working at one time share x and weight tiles in L2
@@ -188,7 +184,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
   init_ring(full, empty, kI8Stages);
 
   if (wg == 2) {
-    setmaxnreg_dec40();
+    setmaxnreg_dec<40>();
     if (threadIdx.x == 256) {
       tma_prefetch_desc(&tx);
       tma_prefetch_desc(&tw);
@@ -199,7 +195,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
                          });
     }
   } else {
-    setmaxnreg_inc232();
+    setmaxnreg_inc<232>();
     const int lane = threadIdx.x & 31;
     const int warp = (threadIdx.x >> 5) & 3, g = lane >> 2, q = lane & 3;
     RingPos<kI8Stages> pos;
@@ -251,15 +247,6 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
   }
 }
 
-// two int8 (the low 16 bits of v, lower k first) -> bf16x2, exact: the
-// biased byte becomes the low mantissa bits of 2**23 + byte in f32
-__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t v) {
-  const uint32_t u = v ^ 0x8080u;
-  const float f0 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)), 8388736.f);
-  const float f1 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)), 8388736.f);
-  return pack_bf16(f0, f1);
-}
-
 __global__ void __launch_bounds__(kGemmThreads, 1)
     qmm_deq_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                          const float* __restrict__ cs, __nv_bfloat16* __restrict__ out, int M, int N, int K) {
@@ -275,7 +262,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
   init_ring(full, empty, kDqStages);
 
   if (wg == 2) {
-    setmaxnreg_dec40();
+    setmaxnreg_dec<40>();
     if (threadIdx.x == 256) {
       tma_prefetch_desc(&tx);
       tma_prefetch_desc(&tw);
@@ -286,7 +273,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
                          });
     }
   } else {
-    setmaxnreg_inc232();
+    setmaxnreg_inc<232>();
     const int tid = threadIdx.x & 127, lane = threadIdx.x & 31;
     const int warp = (threadIdx.x >> 5) & 3, g = lane >> 2, q = lane & 3;
     uint8_t* a_buf = sA + wg * 2 * kDqABytes;
@@ -368,26 +355,6 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
 }
 
 // ---- host side: tensor maps ----------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (a libcuda function) looked up at run time, so
-// the library links without -lcuda
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    return err == cudaSuccess && res == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
 
 // The tensor map of a row-major [rows, cols] matrix cut in boxes of
 // [box_rows, box_cols].  A map is a pure function of these arguments, so

@@ -9,9 +9,14 @@ kernel layout `[2, hk, tok, hd]`.  A range is clipped to its source's
 tokens.  A segment with empty ranges outputs 0.
 GQA: q head h reads kv head h // (hq // hk).
 
-Each public function launches a CUDA kernel (`csrc/attention.cu`,
+Each public function launches a CUDA kernel (`csrc/attention_tma.cu` for
+the two-source attention, `csrc/attention.cu` for the single-source one,
 `csrc/norm.cu`) when its tensors are on a CUDA device and runs the plain
-PyTorch version beside it when they are on the CPU.  Each keeps a count
+PyTorch version beside it when they are on the CPU.  The two-source
+kernels (K1 here, K5's qk8 in `ops/attention_q8.py`) take head_dim 128
+and load their sources with TMA: a source may be any view with a
+contiguous last dimension whose base and other strides are multiples of
+16 bytes; anything else raises.  Each keeps a count
 of its kernel launches in its `launches` attribute.  The int8 attention
 over an int8 KV cache is in `ops/attention_q8.py`; its cache writer is
 `kv_norm_rope_pack(..., quantize=True)` here.
@@ -185,6 +190,32 @@ def _check_ranges(fn: str, device, n_seg: int, *ranges) -> None:
         _require(f"{fn}: range {i}", r, device, torch.int32, (n_seg,))
 
 
+TMA_HEAD_DIM = 128  # the head_dim of the two-source kernels (csrc/attention_tma.cu)
+
+
+def _tma_source(fn: str, name: str, kv: torch.Tensor, device, dtype, hk: int, hd: int):
+    """(pointer, tokens, token / head / k|v strides in elements) of a source
+    [2, hk, len, hd] for the TMA kernels.  Raises unless the last dimension
+    is contiguous and the base and the other strides are multiples of 16
+    bytes, which TMA needs."""
+    if kv.device != device or kv.dtype != dtype or kv.dim() != 4 or tuple(kv.shape[:2]) != (2, hk) or (
+        kv.shape[3] != hd
+    ):
+        raise ValueError(f"{fn}: {name} must be a {dtype} tensor [2, {hk}, tokens, {hd}] on {device}; got "
+                         f"{kv.dtype} {tuple(kv.shape)} on {kv.device}")
+    L = kv.shape[2]
+    if L == 0:
+        return kv.data_ptr(), 0, 0, 0, 0  # never read
+    s_kv, s_h, s_t, s_d = kv.stride()
+    if hk == 1:
+        s_h = s_t * L  # the stride of a single head is never used
+    es = kv.element_size()
+    if s_d != 1 or kv.data_ptr() % 16 or any(st * es % 16 for st in (s_t, s_h, s_kv)):
+        raise ValueError(f"{fn}: {name} must have a contiguous last dimension and a base and strides that are "
+                         f"multiples of 16 bytes (TMA); got strides {kv.stride()} at address {kv.data_ptr():#x}")
+    return kv.data_ptr(), L, s_t, s_h, s_kv
+
+
 def segmented_attention_two_source(
     q: torch.Tensor,  # [n_seg * seg_len, hq, hd]
     kv1: torch.Tensor,  # [2, hk, kv1_len, hd] (k, v stacked)
@@ -211,17 +242,19 @@ def segmented_attention_two_source(
         )
     fn = "segmented_attention_two_source"
     total_q, hq, hd = q.shape
-    hk, L1, L2 = kv1.shape[1], kv1.shape[2], kv2.shape[2]
+    hk = kv1.shape[1]
     n_seg = _check_q(fn, q, hk, seg_len)
-    _require(f"{fn}: kv1", kv1, q.device, torch.bfloat16, (2, hk, L1, hd))
-    _require(f"{fn}: kv2", kv2, q.device, torch.bfloat16, (2, hk, L2, hd))
+    if hd != TMA_HEAD_DIM:
+        raise ValueError(f"{fn}: the kernel takes head_dim {TMA_HEAD_DIM}, got {hd}")
+    src1 = _tma_source(fn, "kv1", kv1, q.device, torch.bfloat16, hk, hd)
+    src2 = _tma_source(fn, "kv2", kv2, q.device, torch.bfloat16, hk, hd)
     _check_ranges(fn, q.device, n_seg, r1_start, r1_end, r2_start, r2_end)
     qw, qb, sin, cos, rot, eps = _prologue_operands(fn, q, q_prologue, sm_scale)
     out = torch.empty_like(q)
     if total_q == 0:
         return out
     err = _lib.lib().magi_seg_attn_two_source(
-        q.data_ptr(), out.data_ptr(), kv1.data_ptr(), L1, kv2.data_ptr(), L2,
+        q.data_ptr(), out.data_ptr(), *src1, *src2,
         r1_start.data_ptr(), r1_end.data_ptr(), r2_start.data_ptr(), r2_end.data_ptr(),
         _lib.ptr(qw), _lib.ptr(qb), _lib.ptr(sin), _lib.ptr(cos),
         n_seg, seg_len, hq, hk, hd, rot, eps, float(sm_scale * LOG2E), _lib.stream(q.device),

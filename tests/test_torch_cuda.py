@@ -97,27 +97,63 @@ def test_gate_norm_residual_kernel(dev):
            atol=1e-2, rtol=1e-2)
 
 
-@pytest.mark.parametrize("L1", [0, 200])
-def test_two_source_kernel(dev, L1):
-    g = _gen(dev)
-    n_seg, seg, hq, hk, hd, rot = 3, 130, 24, 8, 128, 48
+# Cases of the two-source kernels (K1 and K5 qk8), 3 segments of 130 q
+# tokens, head_dim 128: (hq, hk, tokens of source 1, ranges of source 1
+# and of source 2 per segment; source 2 holds the 390 current tokens).
+# "0" and "200": a cache of 0 or 200 tokens, the third segment attending
+# nothing when it is empty.  "48x8": the 24B's 6 q heads per kv head, two
+# blocks per kv head.  "off_grid": every range starts and ends off the
+# 64-token tile grid with attended-by-no-one tokens on both sides of it in
+# both sources (a TMA tile past a range's end reads real tokens, which
+# must be masked).  "short": a source shorter than one tile and ranges of
+# 5 tokens; the third segment attends only 5 keys, whose outputs reach 1,
+# and takes the short-span tolerance, as the captions of 7 and 13 keys do
+# (P is rounded to bf16 for the PV product, which with 5 keys moves an
+# output by up to three of its bf16 steps).
+TWO_SOURCE_CASES = {
+    "0": (24, 8, 0, ([0, 0, 0], [0, 0, 0]), ([0, 0, 7], [130, 260, 7])),
+    "200": (24, 8, 200, ([0, 50, 0], [200, 200, 0]), ([0, 0, 7], [130, 260, 7])),
+    "48x8": (48, 8, 200, ([0, 50, 0], [200, 200, 0]), ([0, 0, 7], [130, 260, 7])),
+    "off_grid": (24, 8, 300, ([13, 70, 150], [90, 235, 290]), ([3, 140, 200], [120, 333, 389])),
+    "short": (24, 8, 40, ([3, 0, 0], [8, 40, 0]), ([0, 17, 200], [100, 150, 205])),
+}
+
+
+def _close_two_source(out, ref, case, seg):
+    """The attention tolerance, except the short-span one on the segment
+    of the "short" case that attends 5 keys only."""
+    n = 2 * seg if case == "short" else out.shape[0]
+    _close(out[:n], ref[:n], **ATTN_TOL)
+    if n < out.shape[0]:
+        _close(out[n:], ref[n:], **SHORT_SPAN_TOL)
+
+
+def _two_source_case(g, dev, case, kv_of):
+    """q, prologue, sources (kv_of(L) makes one of L tokens) and ranges of
+    a TWO_SOURCE_CASES entry."""
+    hq, hk, L1, (r1s, r1e), (r2s, r2e) = TWO_SOURCE_CASES[case]
+    n_seg, seg, hd, rot = 3, 130, 128, 48
     S = n_seg * seg
     q = _randn(g, dev, S, hq, hd)
-    kv1, kv2 = _randn(g, dev, 2, hk, L1, hd), _randn(g, dev, 2, hk, S, hd)
+    src1, src2 = kv_of(hk, L1), kv_of(hk, S)
     i32 = dict(dtype=torch.int32, device=dev)
-    r1s = torch.tensor([0, 50, 0], **i32).clamp(max=L1)
-    r1e = torch.tensor([L1, L1, 0], **i32)
-    r2s, r2e = torch.tensor([0, 0, 7], **i32), torch.tensor([seg, 2 * seg, 7], **i32)
+    ranges = [torch.tensor(r, **i32) for r in (r1s, r1e, r2s, r2e)]
     qw, qb = _ln_affine(g, dev, hd)
     pro = (qw, qb, torch.sin(_randn(g, dev, S, rot, dtype=torch.float32)),
            torch.cos(_randn(g, dev, S, rot, dtype=torch.float32)), 1e-6)
+    return q, pro, src1, src2, ranges, seg
+
+
+@pytest.mark.parametrize("case", list(TWO_SOURCE_CASES))
+def test_two_source_kernel(dev, case):
+    g = _gen(dev)
+    q, pro, kv1, kv2, ranges, seg = _two_source_case(g, dev, case, lambda hk, L: _randn(g, dev, 2, hk, L, 128))
     before = A.segmented_attention_two_source.launches
-    out = A.segmented_attention_two_source(q, kv1, kv2, r1s, r1e, r2s, r2e, seg_len=seg, q_prologue=pro)
+    out = A.segmented_attention_two_source(q, kv1, kv2, *ranges, seg_len=seg, q_prologue=pro)
     assert A.segmented_attention_two_source.launches == before + 1
-    ref = A.segmented_attention_two_source_reference(A.apply_q_prologue(q, pro), kv1, kv2, r1s, r1e, r2s, r2e,
-                                                     seg_len=seg)
-    _close(out, ref, **ATTN_TOL)
-    if L1 == 0:
+    ref = A.segmented_attention_two_source_reference(A.apply_q_prologue(q, pro), kv1, kv2, *ranges, seg_len=seg)
+    _close_two_source(out, ref, case, seg)
+    if case == "0":
         assert (out[2 * seg :].float() == 0).all()  # the third segment attends nothing
 
 
@@ -161,6 +197,46 @@ def test_ranges_clip_to_sources(dev):
         _close(out, A.segmented_attention_reference(q, k, v, r2s, r2e, seg_len=seg), **ATTN_TOL)
 
 
+def test_two_source_kernels_take_views_and_refuse_other_layouts(dev):
+    """K1 and K5 qk8 load their sources with TMA: a token slice of a larger
+    cache (a strided view) gives the result of its contiguous copy; a
+    source whose last dimension is strided or whose base is not 16-byte
+    aligned, and head_dim 64, raise and launch nothing."""
+    g = _gen(dev)
+    n_seg, seg, hq, hk, hd, L1 = 2, 70, 8, 4, 128, 100
+    i32 = dict(dtype=torch.int32, device=dev)
+    q = _randn(g, dev, n_seg * seg, hq, hd)
+    big = _randn(g, dev, 2, hk, 3 * L1, hd)
+    kv1, kv2 = big[:, :, :L1], _randn(g, dev, 2, hk, n_seg * seg, hd)
+    assert not kv1.is_contiguous()
+    ranges = (torch.tensor([0, 30], **i32), torch.tensor([L1, 90], **i32), torch.tensor([0, 5], **i32),
+              torch.tensor([seg, 2 * seg], **i32))
+    out = A.segmented_attention_two_source(q, kv1, kv2, *ranges, seg_len=seg)
+    _close(out, A.segmented_attention_two_source(q, kv1.contiguous(), kv2, *ranges, seg_len=seg), atol=0, rtol=0)
+    (k8, s8), (k8b, s8b) = _q8_inputs(g, dev, hk, 3 * L1, hd), _q8_inputs(g, dev, hk, n_seg * seg, hd)
+    args = (q, k8[:, :, :L1], s8[:, :, :L1], k8b, s8b, *ranges)
+    out = A8.segmented_attention_two_source_q8(*args, seg_len=seg, scheme="qk8")
+    dense = (q, k8[:, :, :L1].contiguous(), s8[:, :, :L1].contiguous(), k8b, s8b, *ranges)
+    _close(out, A8.segmented_attention_two_source_q8(*dense, seg_len=seg, scheme="qk8"), atol=0, rtol=0)
+
+    counts = lambda: (A.segmented_attention_two_source.launches, A8.segmented_attention_two_source_q8.launches)
+    before = counts()
+    strided = _randn(g, dev, 2, hk, L1, 2 * hd)[..., ::2]
+    flat = torch.empty(2 * hk * L1 * hd + 1, dtype=torch.bfloat16, device=dev)
+    misaligned = flat[1:].view(2, hk, L1, hd)
+    for bad in (strided, misaligned):
+        with pytest.raises(ValueError, match="16 bytes"):
+            A.segmented_attention_two_source(q, bad, kv2, *ranges, seg_len=seg)
+    strided8 = torch.randint(-127, 128, (2, hk, L1, 2 * hd), generator=g, device=dev, dtype=torch.int8)[..., ::2]
+    with pytest.raises(ValueError, match="16 bytes"):
+        A8.segmented_attention_two_source_q8(q, strided8, s8[:, :, :L1], k8b, s8b, *ranges, seg_len=seg, scheme="qk8")
+    q64 = _randn(g, dev, n_seg * seg, hq, 64)
+    with pytest.raises(ValueError, match="head_dim 128"):
+        A.segmented_attention_two_source(q64, kv1[..., :64].contiguous(), kv2[..., :64].contiguous(), *ranges,
+                                         seg_len=seg)
+    assert counts() == before
+
+
 def test_kv_norm_rope_pack_q8_kernel(dev):
     g = _gen(dev)
     S, hk, hd, rot = 300, 8, 128, 48
@@ -184,31 +260,22 @@ def _q8_inputs(g, dev, hk, L, hd):
     return kv, sc
 
 
-@pytest.mark.parametrize("L1", [0, 200])
-def test_two_source_q8_kernel(dev, L1):
+@pytest.mark.parametrize("case", list(TWO_SOURCE_CASES))
+def test_two_source_q8_kernel(dev, case):
     g = _gen(dev)
-    n_seg, seg, hq, hk, hd, rot = 3, 130, 24, 8, 128, 48
-    S = n_seg * seg
-    q = _randn(g, dev, S, hq, hd)
-    kv1, sc1 = _q8_inputs(g, dev, hk, L1, hd)
-    kv2, sc2 = _q8_inputs(g, dev, hk, S, hd)
-    i32 = dict(dtype=torch.int32, device=dev)
-    r1s = torch.tensor([0, 50, 0], **i32).clamp(max=L1)
-    r1e = torch.tensor([L1, L1, 0], **i32)
-    r2s, r2e = torch.tensor([0, 0, 7], **i32), torch.tensor([seg, 2 * seg, 7], **i32)
-    qw, qb = _ln_affine(g, dev, hd)
-    pro = (qw, qb, torch.sin(_randn(g, dev, S, rot, dtype=torch.float32)),
-           torch.cos(_randn(g, dev, S, rot, dtype=torch.float32)), 1e-6)
-    args = (q, kv1, sc1, kv2, sc2, r1s, r1e, r2s, r2e)
+    q, pro, (kv1, sc1), (kv2, sc2), ranges, seg = _two_source_case(
+        g, dev, case, lambda hk, L: _q8_inputs(g, dev, hk, L, 128))
+    args = (q, kv1, sc1, kv2, sc2, *ranges)
     before = A8.segmented_attention_two_source_q8.launches
     out = A8.segmented_attention_two_source_q8(*args, seg_len=seg, q_prologue=pro)
     assert A8.segmented_attention_two_source_q8.launches == before + 1
-    _close(out, A8.segmented_attention_two_source_q8_qk8_reference(*args, seg_len=seg, q_prologue=pro), **ATTN_TOL)
+    _close_two_source(out, A8.segmented_attention_two_source_q8_qk8_reference(*args, seg_len=seg, q_prologue=pro),
+                      case, seg)
     deq = A8.segmented_attention_two_source_q8_reference(A.apply_q_prologue(q, pro), *args[1:], seg_len=seg).float()
-    attended = slice(0, 2 * seg) if L1 == 0 else slice(0, S)  # L1 == 0: the third segment attends nothing
+    attended = slice(0, 2 * seg) if case == "0" else slice(0, 3 * seg)  # "0": the third segment attends nothing
     err = (out.float() - deq)[attended].abs().mean() / deq[attended].abs().mean()
     assert float(err) < 0.04, float(err)
-    if L1 == 0:
+    if case == "0":
         assert (out[2 * seg :].float() == 0).all()
 
 
