@@ -50,8 +50,8 @@ Phases, each printed on its own line; any failure exits non-zero:
 Phases 8-10 check the frame count against the JAX package's for the same
 request (i2v keeps its first chunk whole; v2v drops the prefix frames).
 Phase 2 also checks K7 and K8s at phase 6-7's shapes, K8 at the 24B's
-widths and K5 (each scheme, qk8 against the dequant reference too) and
-K1 at its 48/8 heads.  Phase 6 holds a
+widths and K5 (each scheme, against the dequant reference too) and K1 at
+its 48/8 heads.  Phase 6 holds a
 quantization peak of about 57 GiB (the bf16 tree alive while it is
 packed), so each main path starts from an emptied allocator cache.
 Then the card's name and power limit, one JSON line of per-kernel results
@@ -547,7 +547,7 @@ def int8_kernel_checks(dev):
         print_rate(name, 2 * work, ms, bms)
         (results if scheme == "qk8" else scheme_results).append(dict(
             name=name, route="cuda",
-            source="magi_tpu_torch/csrc/attention_" + ("tma.cu" if scheme == "qk8" else "q8.cu"),
+            source="magi_tpu_torch/csrc/attention_tma.cu",
             replaces="magi_tpu/ops/attention_q8.py:631", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
             bound_by=by, library_ms=lib_ms))
 
@@ -761,20 +761,19 @@ def w4a8_kernel_checks(dev):
     attended = int(((r1e - r1s) + (r2e - r2s)).sum())
     work = 2 * ctn * attended * hd * hq
     qn = A.apply_q_prologue(q, pro)
+    deq = A8.segmented_attention_two_source_q8_reference(qn, *args[1:], seg_len=ctn).float()
     for scheme in A8.SCHEMES:
         call = lambda: A8.segmented_attention_two_source_q8(*args, seg_len=ctn, q_prologue=pro, scheme=scheme)
         plain = getattr(A8, f"segmented_attention_two_source_q8_{scheme}_reference")
         out = call()
         check_close(f"segmented_attention_two_source_q8 {scheme} at 48 / 8 heads", out,
                     plain(*args, seg_len=ctn, q_prologue=pro), *ATTN_TOL)
-        if scheme == "qk8":
-            deq = A8.segmented_attention_two_source_q8_reference(qn, *args[1:], seg_len=ctn).float()
-            mean_rel = float((out.float() - deq).abs().mean() / deq.abs().mean())
-            print(f"  segmented_attention_two_source_q8 qk8 at 48 / 8 heads against the dequant reference: "
-                  f"mean |error| / mean |output| {mean_rel:.3e} (limit {Q8_DEQUANT_MEAN_REL}) "
-                  f"{'ok' if mean_rel < Q8_DEQUANT_MEAN_REL else 'FAILED'}")
-            if mean_rel >= Q8_DEQUANT_MEAN_REL:
-                fail("segmented_attention_two_source_q8 strays from the dequant reference at 48 / 8 heads")
+        mean_rel = float((out.float() - deq).abs().mean() / deq.abs().mean())
+        print(f"  segmented_attention_two_source_q8 {scheme} at 48 / 8 heads against the dequant reference: "
+              f"mean |error| / mean |output| {mean_rel:.3e} (limit {Q8_DEQUANT_MEAN_REL}) "
+              f"{'ok' if mean_rel < Q8_DEQUANT_MEAN_REL else 'FAILED'}")
+        if mean_rel >= Q8_DEQUANT_MEAN_REL:
+            fail(f"segmented_attention_two_source_q8 {scheme} strays from the dequant reference at 48 / 8 heads")
         ms = cuda_ms(call, 10)
         print(f"  segmented_attention_two_source_q8 {scheme} at 48 / 8 heads (S {S}): {ms:.4f} ms, "
               f"{2 * work / ms / 1e9:.1f} T/s")

@@ -1,5 +1,5 @@
 // PTX helpers shared by the port's kernels (sm_90a): asynchronous copies,
-// ldmatrix, the mma.sync tensor-core products, warp reductions, and
+// ldmatrix, the bf16 mma.sync tensor-core product, warp reductions, and
 // Hopper's mbarriers, TMA tile loads and warpgroup products (wgmma).
 #pragma once
 
@@ -23,12 +23,6 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(n));
-}
-
-// 4-byte variant (per-token scales, whose rows need not be 16-byte aligned)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  const int n = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(n));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -58,15 +52,6 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// D += A(16x32, row) * B(32x8, col), int8 in, int32 accumulate (exact)
-__device__ __forceinline__ void mma16832_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -132,6 +117,14 @@ __device__ __forceinline__ void tma_prefetch_desc(const void* tmap) {
 // 1024-byte aligned); a step of 32 bytes along k adds 2 to the address field
 __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p) {
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// wgmma descriptor of a K-major tile whose rows are 64 bytes, written with
+// the 64-byte swizzle (16-byte chunk c of row r at c ^ (r / 2) % 4): 8-row
+// groups 512 bytes apart (the tile 512-byte aligned); a step of 32 bytes
+// along k adds 2 to the address field
+__device__ __forceinline__ uint64_t wgmma_desc_sw64(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
 }
 
 // wgmma descriptor of an MN-major tile (the B operand read transposed) of
@@ -266,6 +259,28 @@ __device__ __forceinline__ void wgmma_bf16_m64n128k16_rs(float (&d)[64], const u
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : MAGI_WG32(MAGI_FW, d, 0), MAGI_WG32(MAGI_FW, d, 32)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] (s32) = A[64 x 32] * B[64 x 32]^T (+ D if ACC), A int8 from
+// registers (the layout of mma.sync's m16n8k32 A fragment, warp w of the
+// warpgroup holding rows 16 w ..: register e holds row (lane / 4) + 8 (e %
+// 2), k indices 16 (e / 2) + 4 (lane % 4) .. + 3, lowest byte first), B
+// int8 K-major in shared memory; d as above
+template <bool ACC>
+__device__ __forceinline__ void wgmma_s8_m64n64k32_rs(int (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (ACC) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " MAGI_D32 ", {%32, %33, %34, %35}, %36, p;\n}\n"
+        : MAGI_WG32(MAGI_RW, d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " MAGI_D32 ", {%32, %33, %34, %35}, %36, p;\n}\n"
+        : MAGI_WG32(MAGI_RO, d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+  }
 }
 
 // the calling warpgroup's registers per thread, lowered to or raised to N

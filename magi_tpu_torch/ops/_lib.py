@@ -22,7 +22,7 @@ from typing import Optional
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "magi_tpu_torch")
-SOURCES = ("attention.cu", "attention_q8.cu", "attention_tma.cu", "norm.cu", "quant.cu")
+SOURCES = ("attention.cu", "attention_tma.cu", "norm.cu", "quant.cu")
 HEADERS = ("ptx.cuh", "tmap.cuh")
 LIB_NAME = "libmagi_tpu_torch.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -39,12 +39,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "magi_seg_attn_two_source": [_P, _P, _P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL, _LL, _P, _P, _P, _P,
                                  _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
-    "magi_seg_attn_two_source_qk8": [_P, _P, _P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _LL, _LL, _P,
-                                     _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                                     _P],
+    "magi_seg_attn_two_source_int8": [_P, _P, _P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _LL, _LL, _P,
+                                      _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                                      _I, _P],
     "magi_seg_attn": [_P, _P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
-    "magi_seg_attn_two_source_q8": [_P, _P, _P, _P, _LL, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "magi_kv_norm_rope_pack": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
     "magi_kv_norm_rope_pack_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
     "magi_qmm_i8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -8,10 +8,11 @@ optional fused q prologue are those of `segmented_attention_two_source`
 (`ops/attention.py`).
 
 `MAGI_ATTN_Q8_SCHEME` picks how the kernel consumes the int8 kv, as in the
-JAX package (default "qk8").  Each scheme is its own CUDA kernel (K5: qk8
-in `csrc/attention_tma.cu`, on TMA and wgmma like K1, whose rules for the
-sources it shares; sage and dq in `csrc/attention_q8.cu`, which take
-contiguous tensors) with a wrapper and launch count of its own:
+JAX package (default "qk8").  Each scheme is its own CUDA kernel of K5 in
+`csrc/attention_tma.cu`, on TMA and wgmma like K1, whose rules for the
+sources (head_dim 128, any view with a contiguous last dimension and
+16-byte aligned base and strides) all three share, with a wrapper and
+launch count of its own:
 
   * "qk8" (`segmented_attention_two_source_q8`): q quantized per row
     (token, head) to int8 after the prologue; logits (q8 . k8)_int32 *
@@ -65,8 +66,8 @@ from magi_tpu_torch.ops.attention import (
 )
 
 SCHEMES = ("sage", "qk8", "dq")
-KERNEL_BLOCK_K = 64  # kv tokens per tile of the sage and dq kernels (csrc/attention_q8.cu kBK)
-_SCHEME_ID = {"sage": 1, "dq": 2}  # the scheme argument of magi_seg_attn_two_source_q8 (qk8 has its own entry)
+KERNEL_BLOCK_K = 64  # kv tokens per tile of the kernels (csrc/attention_tma.cu kBK)
+_SCHEME_ID = {"qk8": 0, "sage": 1, "dq": 2}  # the scheme argument of magi_seg_attn_two_source_int8
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # the Pallas kernels' masked logit
 
 
@@ -254,7 +255,7 @@ _PLAIN = {
 
 def _token_scales(fn: str, name: str, sc: torch.Tensor, device, hk: int, L: int):
     """(pointer, head stride, k|v stride) of per-token scales [2, hk, L] f32
-    with contiguous tokens (the qk8 kernel loads them 4 bytes at a time)."""
+    with contiguous tokens (the kernels load them 4 bytes at a time)."""
     if sc.device != device or sc.dtype != torch.float32 or tuple(sc.shape) != (2, hk, L) or (
         L > 1 and sc.stride(2) != 1
     ):
@@ -271,18 +272,12 @@ def _launch(wrapper, scheme, q, kv1, sc1, kv2, sc2, r1_start, r1_end, r2_start, 
     total_q, hq, hd = q.shape
     hk, L1, L2 = kv1.shape[1], kv1.shape[2], kv2.shape[2]
     n_seg = _check_q(fn, q, hk, seg_len)
-    if scheme == "qk8":
-        if hd != TMA_HEAD_DIM:
-            raise ValueError(f"{fn}: the qk8 kernel takes head_dim {TMA_HEAD_DIM}, got {hd}")
-        src1 = _tma_source(fn, "kv1", kv1, q.device, torch.int8, hk, hd)
-        src2 = _tma_source(fn, "kv2", kv2, q.device, torch.int8, hk, hd)
-        sc1_ = _token_scales(fn, "sc1", sc1, q.device, hk, L1)
-        sc2_ = _token_scales(fn, "sc2", sc2, q.device, hk, L2)
-    else:
-        _require(f"{fn}: kv1", kv1, q.device, torch.int8, (2, hk, L1, hd))
-        _require(f"{fn}: sc1", sc1, q.device, torch.float32, (2, hk, L1))
-        _require(f"{fn}: kv2", kv2, q.device, torch.int8, (2, hk, L2, hd))
-        _require(f"{fn}: sc2", sc2, q.device, torch.float32, (2, hk, L2))
+    if hd != TMA_HEAD_DIM:
+        raise ValueError(f"{fn}: the {scheme} kernel takes head_dim {TMA_HEAD_DIM}, got {hd}")
+    src1 = _tma_source(fn, "kv1", kv1, q.device, torch.int8, hk, hd)
+    src2 = _tma_source(fn, "kv2", kv2, q.device, torch.int8, hk, hd)
+    sc1_ = _token_scales(fn, "sc1", sc1, q.device, hk, L1)
+    sc2_ = _token_scales(fn, "sc2", sc2, q.device, hk, L2)
     _check_ranges(fn, q.device, n_seg, r1_start, r1_end, r2_start, r2_end)
     qw = qb = sin = cos = None
     rot, eps = 0, 0.0
@@ -301,21 +296,13 @@ def _launch(wrapper, scheme, q, kv1, sc1, kv2, sc2, r1_start, r1_end, r2_start, 
     out = torch.empty_like(q)
     if total_q == 0:
         return out
-    if scheme == "qk8":
-        err = _lib.lib().magi_seg_attn_two_source_qk8(
-            q.data_ptr(), out.data_ptr(), *src1, *sc1_, *src2, *sc2_,
-            r1_start.data_ptr(), r1_end.data_ptr(), r2_start.data_ptr(), r2_end.data_ptr(),
-            _lib.ptr(qw), _lib.ptr(qb), _lib.ptr(sin), _lib.ptr(cos),
-            n_seg, seg_len, hq, hk, hd, rot, float(eps), float(sm_scale * LOG2E), _lib.stream(q.device),
-        )
-    else:
-        err = _lib.lib().magi_seg_attn_two_source_q8(
-            q.data_ptr(), out.data_ptr(), kv1.data_ptr(), sc1.data_ptr(), L1, kv2.data_ptr(), sc2.data_ptr(), L2,
-            r1_start.data_ptr(), r1_end.data_ptr(), r2_start.data_ptr(), r2_end.data_ptr(),
-            _lib.ptr(qw), _lib.ptr(qb), _lib.ptr(sin), _lib.ptr(cos),
-            n_seg, seg_len, hq, hk, hd, rot, float(eps), float(sm_scale * LOG2E), _SCHEME_ID[scheme],
-            _lib.stream(q.device),
-        )
+    err = _lib.lib().magi_seg_attn_two_source_int8(
+        q.data_ptr(), out.data_ptr(), *src1, *sc1_, *src2, *sc2_,
+        r1_start.data_ptr(), r1_end.data_ptr(), r2_start.data_ptr(), r2_end.data_ptr(),
+        _lib.ptr(qw), _lib.ptr(qb), _lib.ptr(sin), _lib.ptr(cos),
+        n_seg, seg_len, hq, hk, hd, rot, float(eps), float(sm_scale * LOG2E), _SCHEME_ID[scheme],
+        _lib.stream(q.device),
+    )
     _lib.check(err, fn)
     wrapper.launches += 1
     return out

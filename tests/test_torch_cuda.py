@@ -27,7 +27,8 @@ attention tolerance against its step-by-step plain version, and against
 the dequant reference (which does not quantize q) by the JAX package's
 own criterion for its q8 kernel: mean |error| under 4% of mean |output|.
 The sage and dq schemes of K5 are held the same way against their tiled
-plain versions at the kernel's tile width."""
+plain versions at the kernel's tile width, on the two-source cases too;
+no scheme reads a k or v scale outside the attended ranges."""
 
 import pytest
 import torch
@@ -198,7 +199,7 @@ def test_ranges_clip_to_sources(dev):
 
 
 def test_two_source_kernels_take_views_and_refuse_other_layouts(dev):
-    """K1 and K5 qk8 load their sources with TMA: a token slice of a larger
+    """K1 and K5 (each scheme) load their sources with TMA: a token slice of a larger
     cache (a strided view) gives the result of its contiguous copy; a
     source whose last dimension is strided or whose base is not 16-byte
     aligned, and head_dim 64, raise and launch nothing."""
@@ -215,9 +216,10 @@ def test_two_source_kernels_take_views_and_refuse_other_layouts(dev):
     _close(out, A.segmented_attention_two_source(q, kv1.contiguous(), kv2, *ranges, seg_len=seg), atol=0, rtol=0)
     (k8, s8), (k8b, s8b) = _q8_inputs(g, dev, hk, 3 * L1, hd), _q8_inputs(g, dev, hk, n_seg * seg, hd)
     args = (q, k8[:, :, :L1], s8[:, :, :L1], k8b, s8b, *ranges)
-    out = A8.segmented_attention_two_source_q8(*args, seg_len=seg, scheme="qk8")
     dense = (q, k8[:, :, :L1].contiguous(), s8[:, :, :L1].contiguous(), k8b, s8b, *ranges)
-    _close(out, A8.segmented_attention_two_source_q8(*dense, seg_len=seg, scheme="qk8"), atol=0, rtol=0)
+    for scheme in A8.SCHEMES:
+        out = A8.segmented_attention_two_source_q8(*args, seg_len=seg, scheme=scheme)
+        _close(out, A8.segmented_attention_two_source_q8(*dense, seg_len=seg, scheme=scheme), atol=0, rtol=0)
 
     counts = lambda: (A.segmented_attention_two_source.launches, A8.segmented_attention_two_source_q8.launches)
     before = counts()
@@ -358,6 +360,54 @@ def test_two_source_q8_scheme_kernel_captions(dev, scheme):
     ref = getattr(A8, SCHEME_PLAIN[scheme])(*args, seg_len=seg, q_prologue=pro)
     _close(out[:seg], ref[:seg], **ATTN_TOL)  # 80 keys
     _close(out[seg:], ref[seg:], **SHORT_SPAN_TOL)  # 13 keys
+
+
+@pytest.mark.parametrize("case", list(TWO_SOURCE_CASES))
+@pytest.mark.parametrize("scheme", ["sage", "dq"])
+def test_two_source_q8_scheme_cases(dev, scheme, case):
+    """K5 sage and dq on the two-source cases, whose tiles are aligned to 64
+    tokens within each source: ranges that start inside a tile in both
+    sources ("off_grid": the tokens of the first tile before the range
+    start are masked), a source shorter than one tile ("short"), two head
+    groups per kv head ("48x8"), and a segment with empty ranges, whose
+    output is exactly 0 ("0")."""
+    g = _gen(dev)
+    q, pro, (kv1, sc1), (kv2, sc2), ranges, seg = _two_source_case(
+        g, dev, case, lambda hk, L: _q8_inputs(g, dev, hk, L, 128))
+    args = (q, kv1, sc1, kv2, sc2, *ranges)
+    wrapper = getattr(A8, SCHEME_WRAPPERS[scheme])
+    before = wrapper.launches
+    out = A8.segmented_attention_two_source_q8(*args, seg_len=seg, q_prologue=pro, scheme=scheme)
+    assert wrapper.launches == before + 1
+    _close_two_source(out, getattr(A8, SCHEME_PLAIN[scheme])(*args, seg_len=seg, q_prologue=pro), case, seg)
+    deq = A8.segmented_attention_two_source_q8_reference(A.apply_q_prologue(q, pro), *args[1:], seg_len=seg).float()
+    attended = slice(0, 2 * seg) if case == "0" else slice(0, 3 * seg)  # "0": the third segment attends nothing
+    err = (out.float() - deq)[attended].abs().mean() / deq[attended].abs().mean()
+    assert float(err) < 0.04, float(err)
+    if case == "0":
+        assert (out[2 * seg :].float() == 0).all()
+
+
+@pytest.mark.parametrize("scheme", A8.SCHEMES)
+def test_two_source_q8_kernels_never_read_scales_outside_ranges(dev, scheme):
+    """Every K5 kernel reads the k and v scales of attended tokens only: with
+    the scales of the tokens no segment attends set to NaN (before and
+    after the ranges, some inside a tile that a range starts or ends in),
+    the output is bit-equal to the one with finite scales."""
+    g = _gen(dev)
+    q, pro, (kv1, sc1), (kv2, sc2), ranges, seg = _two_source_case(
+        g, dev, "off_grid", lambda hk, L: _q8_inputs(g, dev, hk, L, 128))
+    call = lambda s1, s2: A8.segmented_attention_two_source_q8(q, kv1, s1, kv2, s2, *ranges, seg_len=seg,
+                                                               q_prologue=pro, scheme=scheme)
+    nan_sc = []
+    for sc, starts, ends in ((sc1, *ranges[:2]), (sc2, *ranges[2:])):
+        used = torch.zeros(sc.shape[-1], dtype=torch.bool, device=dev)
+        for a, b in zip(starts.tolist(), ends.tolist()):
+            used[a:b] = True
+        assert not used.all()
+        nan_sc.append(sc.masked_fill(~used, float("nan")))
+    out = call(sc1, sc2)
+    _close(call(*nan_sc), out, atol=0, rtol=0)
 
 
 # ragged M, N and K around the kernels' tiles (K6 128 x 256 with k tiles of
