@@ -7,7 +7,12 @@ Phases, each printed on its own line; any failure exits non-zero:
   1. build the CUDA kernels from `magi_tpu_torch/csrc` (build seconds);
   2. hold every kernel against its plain PyTorch version on the card at the
      shapes the t2v runs below give it, with the stated tolerance, and time
-     kernel, plain version and a PyTorch library yardstick (CUDA events);
+     kernel, plain version and a PyTorch library yardstick (CUDA events
+     around a host loop of calls; K2 and K2g, kernels of tens of
+     microseconds, also as the device time of calls replayed in a CUDA
+     graph, `graph_ms`), K2 also with the walk's captions (every one 50
+     tokens, every one 7) and K2g at the 720x720 decode's segments (timed
+     only);
   3. tiny walks with the kernels against the same walks on the CPU in fp32
      (plain versions), same weights and noise: the 3-branch bf16 walk, the
      single-branch distill walk of an int8 tree with int8 attention, the
@@ -110,6 +115,33 @@ def cuda_ms(fn, iters: int) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 50) -> float:
+    """The device time of one call of fn: `iters` calls captured in one CUDA
+    graph and replayed, so no host time sits between the launches (a
+    kernel of tens of microseconds can be quicker than the host's loop of
+    wrapper calls).  A replay adds nothing to the wrappers' launch counts,
+    which count the host's calls."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -355,7 +387,7 @@ def kernel_checks(dev):
                           *ATTN_TOL))
     if not bool((out[3 * ctn :] == 0).all()):
         fail("segmented_attention_v2: the empty caption's segment is not 0")
-    ms = cuda_ms(call, 20)
+    ms, g_ms = cuda_ms(call, 20), graph_ms(call)
     # the same captions through the two-source kernel with an empty cache:
     # what a single-source kernel gains over the two-source loop
     kv_cap = torch.stack([kx, vx]).transpose(1, 2).contiguous()
@@ -370,13 +402,30 @@ def kernel_checks(dev):
         A.apply_q_prologue(q, pro_x), kx, vx, xs_, xe, seg_len=ctn), 3)
     col = torch.arange(n_seg * L, device=dev)[None]
     lib_ms = sdpa_ms(qn, kx, vx, (col >= xs_[:, None]) & (col < xe[:, None]), ctn)
-    attended = int((xe - xs_).sum())
-    nbytes = 2 * S * hq * hd * 2 + span_tokens(xs_, xe) * 2 * hk * hd * 2
-    bms, by = bound(nbytes, (4 * ctn * attended * hd * hq, PEAK_BF16_FLOPS))
-    print_rate("segmented_attention_v2", 4 * ctn * attended * hd * hq, ms, bms)
+
+    def k2_bound(starts, ends):
+        attended = int((ends - starts).sum())
+        nbytes = 2 * S * hq * hd * 2 + span_tokens(starts, ends) * 2 * hk * hd * 2
+        return 4 * ctn * attended * hd * hq, bound(nbytes, (4 * ctn * attended * hd * hq, PEAK_BF16_FLOPS))
+
+    ops, (bms, by) = k2_bound(xs_, xe)
+    print(f"  segmented_attention_v2: a host loop of calls {ms:.4f} ms; calls replayed in a CUDA graph {g_ms:.4f} ms")
+    print_rate("segmented_attention_v2", ops, ms, bms)
+    # the walk's captions: the null caption (50 tokens) and a short prompt
+    # under SKIP_LOAD_MODEL (word count + 2), every segment alike
+    walk = {}
+    for n in (50, 7):
+        xe_n = xs_ + n
+        call_n = lambda xe_n=xe_n: A.segmented_attention_v2(q, kx, vx, xs_, xe_n, seg_len=ctn, q_prologue=pro_x)
+        check_close(f"segmented_attention_v2 (every caption {n} tokens)", call_n(),
+                    A.segmented_attention_reference(qn, kx, vx, xs_, xe_n, seg_len=ctn), *SHORT_CAPTION_TOL)
+        n_ops, (n_bms, n_by) = k2_bound(xs_, xe_n)
+        n_ms, n_gms = cuda_ms(call_n, 20), graph_ms(call_n)
+        print_rate(f"segmented_attention_v2, every caption {n} tokens", n_ops, n_ms, n_bms)
+        walk[str(n)] = dict(ms=n_ms, graph_ms=n_gms, bound_ms=n_bms, bound_by=n_by)
     results.append(dict(name="segmented_attention_v2", route="cuda", source="magi_tpu_torch/csrc/attention.cu",
                         replaces="magi_tpu/ops/attention.py:678", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bms, bound_by=by, library_ms=lib_ms))
+                        bound_ms=bms, bound_by=by, library_ms=lib_ms, graph_ms=g_ms, every_caption_tokens=walk))
 
     # ---- K2g segmented_attention: VAE self-attention, head_dim 64 --------
     N, B, hv, hdv = 3 * 32 * 32 + 1, 2, 16, 64  # a 3-latent-frame tile + cls, 2 tiles per chunk
@@ -386,16 +435,32 @@ def kernel_checks(dev):
     out = call()
     ref = A.segmented_attention_reference(qv, kv_, vv_, st_, st_ + N, seg_len=N)
     err = check_close("segmented_attention (VAE, hd 64)", out, ref, *ATTN_TOL)
-    ms = cuda_ms(call, 20)
+    ms, g_ms = cuda_ms(call, 20), graph_ms(call)
     plain_ms = cuda_ms(lambda: A.segmented_attention_reference(qv, kv_, vv_, st_, st_ + N, seg_len=N), 3)
     col = torch.arange(B * N, device=dev)[None]
     lib_ms = sdpa_ms(qv, kv_, vv_, (col >= st_[:, None]) & (col < st_[:, None] + N), N)
-    nbytes = 4 * B * N * hv * hdv * 2
-    bms, by = bound(nbytes, (4 * B * N * N * hdv * hv, PEAK_BF16_FLOPS))
-    print_rate("segmented_attention", 4 * B * N * N * hdv * hv, ms, bms)
+
+    def k2g_bound(n):
+        return 4 * B * n * n * hdv * hv, bound(4 * B * n * hv * hdv * 2, (4 * B * n * n * hdv * hv, PEAK_BF16_FLOPS))
+
+    ops, (bms, by) = k2g_bound(N)
+    print(f"  segmented_attention: a host loop of calls {ms:.4f} ms; calls replayed in a CUDA graph {g_ms:.4f} ms")
+    print_rate("segmented_attention", ops, ms, bms)
+    # the 720x720 decode's segments (3 latent frames of 90x90 + cls), timed
+    # only: the plain version's scores would need 75 GB
+    N7 = 3 * 90 * 90 + 1
+    q7, k7, v7 = randn(B * N7, hv, hdv), randn(B * N7, hv, hdv), randn(B * N7, hv, hdv)
+    s7 = torch.arange(B, dtype=torch.int32, device=dev) * N7
+    call7 = lambda: A.segmented_attention(q7, k7, v7, s7, s7 + N7, seg_len=N7)
+    if not bool(torch.isfinite(call7().float()).all()):
+        fail("segmented_attention at the 720x720 decode's shape is not finite")
+    ops7, (bms7, by7) = k2g_bound(N7)
+    ms7 = cuda_ms(call7, 5)
+    print_rate(f"segmented_attention, 2 segments of {N7} tokens (720x720 decode)", ops7, ms7, bms7)
     results.append(dict(name="segmented_attention", route="cuda", source="magi_tpu_torch/csrc/attention.cu",
                         replaces="magi_tpu/ops/attention.py:307", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bms, bound_by=by, library_ms=lib_ms))
+                        bound_ms=bms, bound_by=by, library_ms=lib_ms, graph_ms=g_ms,
+                        decode_720=dict(tokens=N7, ms=ms7, bound_ms=bms7, bound_by=by7)))
     for r in results:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
               f"bound {r['bound_ms']:.4f} by {r['bound_by']})")
@@ -1218,7 +1283,8 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
     keys = ["name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"]
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
+    extra = ["graph_ms", "every_caption_tokens", "decode_720"]  # K2, K2g
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + [x for x in extra if x in r]} for r in results]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

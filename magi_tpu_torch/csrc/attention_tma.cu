@@ -24,8 +24,8 @@
 // for K1; int8 for K5, with f32 per-token scales [2, hk, len], k scales
 // then v scales).  A segment with empty ranges outputs 0.  GQA: q head h
 // reads kv head h / (hq / hk).  The optional q prologue: fp32 LayerNorm of
-// each q row (K1: (w, b) already scaled by sm_scale * log2(e) in the
-// wrapper), then GPT-NeoX rotary on the first 2 * rot dims (rot = 48 on
+// each q row (K1: (w, b) scaled by sm_scale * log2(e) in f32 as the
+// kernel reads them), then GPT-NeoX rotary on the first 2 * rot dims (rot = 48 on
 // the DiT); without it K1 scales q by sm_scale * log2(e).  The softmax
 // runs in the exp2 domain, online (flash attention), normalised once at
 // the end.  The schemes:
@@ -150,39 +150,12 @@ namespace {
 
 using namespace magi;
 
-// Per-phase clocks, compiled in only with -DMAGI_PHASE_CLOCKS (as
-// scripts/time_k5.py --phases builds a copy): lane 0 of every consumer and
-// converter warp adds the clocks of each phase of each kv tile to the
-// block's s_phase[i] in shared memory, which the block adds to g_phase[i]
-// as it ends; magi_phase_clocks reads and clears them.  Phases: 0 the
-// consumer's wait for the tile (for dq: converted), 1 Q K^T, 2 the wait
-// for the converted tile (qk8, sage), 3 the softmax, 4 P V, 5 the
+// The phases of the per-phase clocks (ptx.cuh; magi_phase_clocks reads
+// them), per kv tile, by lane 0 of every consumer and converter warp: 0
+// the consumer's wait for the tile (for dq: converted), 1 Q K^T, 2 the
+// wait for the converted tile (qk8, sage), 3 the softmax, 4 P V, 5 the
 // converters' wait for the tile, 6 their scales and conversion; 7 counts
 // the consumer warps' tiles, 8 the converter warps'.
-#ifdef MAGI_PHASE_CLOCKS
-__device__ unsigned long long g_phase[9];
-#define PHASE_SETUP                           \
-  __shared__ unsigned long long s_phase[9]; \
-  if (threadIdx.x < 9) s_phase[threadIdx.x] = 0
-#define PHASE_START(t) long long t = clock64()
-#define PHASE_END(i, t)                                                        \
-  do {                                                                         \
-    const long long now_ = clock64();                                          \
-    if (lane == 0) atomicAdd(&s_phase[i], (unsigned long long)(now_ - (t))); \
-    t = now_;                                                                  \
-  } while (0)
-#define PHASE_COUNT(i) \
-  if (lane == 0) atomicAdd(&s_phase[i], 1ull)
-#define PHASE_FLUSH \
-  __syncthreads();  \
-  if (threadIdx.x < 9) atomicAdd(&g_phase[threadIdx.x], s_phase[threadIdx.x])
-#else
-#define PHASE_SETUP
-#define PHASE_START(t)
-#define PHASE_END(i, t)
-#define PHASE_COUNT(i)
-#define PHASE_FLUSH
-#endif
 
 constexpr int kHD = 128;      // head_dim
 constexpr int kBQ = 64;       // q tokens per block: one wgmma M
@@ -238,7 +211,7 @@ struct Args {
   const float* sc0;  // K5: [2, hk, len] scales, token-contiguous
   const float* sc1;
   long long sc_head0, sc_kv0, sc_head1, sc_kv1;  // their head and k|v strides (elements)
-  const float* qw;  // [hd] q LayerNorm weight (K1: times sm_scale*log2e), or nullptr (no prologue)
+  const float* qw;  // [hd] q LayerNorm weight (K1 scales it by sm_scale*log2e), or nullptr (no prologue)
   const float* qb;
   const float* sin;  // [n_seg*seg_len, rot] or nullptr (no rotary)
   const float* cos;
@@ -515,10 +488,11 @@ __device__ __forceinline__ void seg_attn_tma_body(const CUtensorMap* tm0, const 
 #pragma unroll
           for (int i = 0; i < 4; ++i) v += (x[i] - mean) * (x[i] - mean);
           const float rstd = rsqrtf(warp_sum(v) / kHD + a.eps);
+          const float ws = S == kK1 ? a.scale : 1.f;  // K1: the affine times sm_scale*log2e, in f32
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int d = 4 * lane + i;
-            x[i] = (x[i] - mean) * rstd * a.qw[d] + a.qb[d];
+            x[i] = (x[i] - mean) * rstd * __fmul_rn(a.qw[d], ws) + __fmul_rn(a.qb[d], ws);
           }
           if (a.sin) {
 #pragma unroll
@@ -1014,7 +988,7 @@ extern "C" {
 
 // K1.  q, out: [n_seg*seg_len, hq, 128] bf16; kv1, kv2: [2, hk, len, 128]
 // bf16 with element strides (token, head, k|v), 16-byte aligned; r*: [n_seg]
-// int32; qw, qb: [128] f32 (times sm_scale*log2e) or null; sin, cos:
+// int32; qw, qb: [128] f32, the LayerNorm affine, or null; sin, cos:
 // [n_seg*seg_len, rot] f32 or null; scale = sm_scale * log2(e)
 int magi_seg_attn_two_source(const void* q, void* out, const void* kv1, long long len1, long long ts1,
                              long long hs1, long long ks1, const void* kv2, long long len2, long long ts2,
@@ -1064,8 +1038,8 @@ int magi_seg_attn_two_source_int8(const void* q, void* out, const void* kv1, lon
 // the phase clocks into out[9], then cleared
 int magi_phase_clocks(unsigned long long* out) {
   static const unsigned long long zero[9] = {};
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase, sizeof(zero));
-  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));
+  cudaError_t err = cudaMemcpyFromSymbol(out, magi::g_phase, sizeof(zero));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(magi::g_phase, zero, sizeof(zero));
   return (int)err;
 }
 #endif

@@ -1,6 +1,6 @@
-// PTX helpers shared by the port's kernels (sm_90a): asynchronous copies,
-// ldmatrix, the bf16 mma.sync tensor-core product, warp reductions, and
-// Hopper's mbarriers, TMA tile loads and warpgroup products (wgmma).
+// PTX helpers shared by the port's kernels (sm_90a): warp reductions, and
+// Hopper's mbarriers, TMA tile loads and stores, named barriers and
+// warpgroup products (wgmma).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -8,6 +8,37 @@
 #include <stdint.h>
 
 namespace magi {
+
+// Per-phase clocks of the attention kernels, compiled in only with
+// -DMAGI_PHASE_CLOCKS (scripts/time_k5.py --phases builds such a copy):
+// lane 0 of a warp adds the clocks of phase i to the block's s_phase[i]
+// (PHASE_END; PHASE_COUNT adds 1), which the block adds to this source's
+// g_phase[i] as it ends (PHASE_FLUSH); each source's C entry reads and
+// clears them.  The code around them names its lane `lane`.
+#ifdef MAGI_PHASE_CLOCKS
+static __device__ unsigned long long g_phase[9];
+#define PHASE_SETUP                           \
+  __shared__ unsigned long long s_phase[9]; \
+  if (threadIdx.x < 9) s_phase[threadIdx.x] = 0
+#define PHASE_START(t) long long t = clock64()
+#define PHASE_END(i, t)                                                        \
+  do {                                                                         \
+    const long long now_ = clock64();                                          \
+    if (lane == 0) atomicAdd(&s_phase[i], (unsigned long long)(now_ - (t))); \
+    t = now_;                                                                  \
+  } while (0)
+#define PHASE_COUNT(i) \
+  if (lane == 0) atomicAdd(&s_phase[i], 1ull)
+#define PHASE_FLUSH \
+  __syncthreads();  \
+  if (threadIdx.x < 9) atomicAdd(&g_phase[threadIdx.x], s_phase[threadIdx.x])
+#else
+#define PHASE_SETUP
+#define PHASE_START(t)
+#define PHASE_END(i, t)
+#define PHASE_COUNT(i)
+#define PHASE_FLUSH
+#endif
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -17,42 +48,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // 128-byte swizzle repeats every 1024 bytes)
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
-}
-
-// 16-byte global -> shared copy; src-size 0 zero-fills without reading src
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8x8 b16 matrices (or 8x16 b8: the int8 fragments have the same byte
-// layout) from shared memory
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// D += A(16x16, row) * B(16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---- Hopper: mbarriers, TMA, wgmma ------------------------------------------
@@ -108,6 +103,38 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap, uint64_
       : "memory");
 }
 
+// 3-D tile (innermost coordinate first), as tma_load_2d
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* tmap, uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// 4-D tile from shared memory to the tensor (innermost coordinate first),
+// in this thread's current bulk group; elements outside the tensor are not
+// written.  The writes to `src` must be fenced for the async proxy first.
+__device__ __forceinline__ void tma_store_4d(const void* tmap, const void* src, int c0, int c1, int c2, int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(tmap)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit_group() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// until at most N of this thread's bulk groups are pending: _read, until
+// their sources may be overwritten; otherwise, until their writes are done
+template <int N>
+__device__ __forceinline__ void bulk_wait_group_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_group() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_desc(const void* tmap) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(tmap)) : "memory");
 }
@@ -142,6 +169,11 @@ __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.
 // named barrier `id` (1-15; 0 is __syncthreads) over `count` threads
 __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// arrive on named barrier `id` (of `count` threads) without waiting for it
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -230,6 +262,25 @@ __device__ __forceinline__ void wgmma_bf16_m64n64k16(float (&d)[32], uint64_t da
   }
 }
 
+// D[64 x 128] (f32) = A[64 x 16] * B[128 x 16]^T (+ D if ACC), both bf16
+// K-major in shared memory; d laid out as above (j < 16)
+template <bool ACC>
+__device__ __forceinline__ void wgmma_bf16_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  if constexpr (ACC) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " MAGI_D64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : MAGI_WG32(MAGI_FW, d, 0), MAGI_WG32(MAGI_FW, d, 32)
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " MAGI_D64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : MAGI_WG32(MAGI_FO, d, 0), MAGI_WG32(MAGI_FO, d, 32)
+        : "l"(da), "l"(db), "r"(0));
+  }
+}
+
 // D[64 x 64] (s32) = A[64 x 32] * B[64 x 32]^T (+ D if ACC), both int8
 // K-major in shared memory; d as above
 template <bool ACC>
@@ -258,6 +309,16 @@ __device__ __forceinline__ void wgmma_bf16_m64n128k16_rs(float (&d)[64], const u
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " MAGI_D64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : MAGI_WG32(MAGI_FW, d, 0), MAGI_WG32(MAGI_FW, d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] (f32) += A[64 x 16] * B[16 x 64], A bf16 from registers (as
+// wgmma_bf16_m64n128k16_rs), B bf16 MN-major in shared memory
+__device__ __forceinline__ void wgmma_bf16_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MAGI_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : MAGI_WG32(MAGI_FW, d, 0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

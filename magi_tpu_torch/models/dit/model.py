@@ -292,7 +292,7 @@ def attention_forward(
     (kv_x,) = _linears_shared(y_flat, [p["linear_kv_xattn"]], act_quant_ok)
     kv_x = kv_x.reshape(n_seg * L, hk, 2 * hd)
     k_x = layer_norm(kv_x[..., :hd], p["k_layernorm_xattn"], eps, cfg.apply_layernorm_1p).contiguous()
-    v_x = kv_x[..., hd:].contiguous()
+    v_x = kv_x[..., hd:]  # a view: the caption kernel loads it with TMA
     x_starts = torch.arange(n_seg, dtype=torch.int32, device=x.device) * L
     x_ends = x_starts + meta.y_lens.to(device=x.device, dtype=torch.int32)
     if int8_attn and (hd % 128 == 0 or not on_card):

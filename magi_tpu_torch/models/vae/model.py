@@ -120,11 +120,11 @@ def _block_forward(p, cfg: VaeConfig, x, rope):
         q = torch.cat([q[:, :off], apply_rot_interleaved(q[:, off:], sin, cos).to(q.dtype)], dim=1)
         k = torch.cat([k[:, :off], apply_rot_interleaved(k[:, off:], sin, cos).to(k.dtype)], dim=1)
 
-    # batch -> segments; each sample attends itself
+    # batch -> segments; each sample attends itself.  q, k and v go in as
+    # views of qkv (the kernel loads them with TMA)
     starts = torch.arange(B, dtype=torch.int32, device=x.device) * N
     out = segmented_attention_v2(
-        q.reshape(B * N, h, hd).contiguous(), k.reshape(B * N, h, hd).contiguous(),
-        v.reshape(B * N, h, hd).contiguous(), starts, starts + N, seg_len=N,
+        q.reshape(B * N, h, hd), k.reshape(B * N, h, hd), v.reshape(B * N, h, hd), starts, starts + N, seg_len=N,
     )
     x = residual + _linear(p["attn"]["proj"], out.reshape(B, N, D))
 

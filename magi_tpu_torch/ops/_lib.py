@@ -42,7 +42,8 @@ _SIGNATURES = {
     "magi_seg_attn_two_source_int8": [_P, _P, _P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _LL, _LL, _P,
                                       _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                                       _I, _P],
-    "magi_seg_attn": [_P, _P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    "magi_seg_attn": [_P, _LL, _LL, _P, _P, _LL, _LL, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _I, _I, _F, _F, _I, _P],
     "magi_kv_norm_rope_pack": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
     "magi_kv_norm_rope_pack_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
     "magi_qmm_i8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -12,9 +12,10 @@ GQA: q head h reads kv head h // (hq // hk).
 Each public function launches a CUDA kernel (`csrc/attention_tma.cu` for
 the two-source attention, `csrc/attention.cu` for the single-source one,
 `csrc/norm.cu`) when its tensors are on a CUDA device and runs the plain
-PyTorch version beside it when they are on the CPU.  The two-source
-kernels (K1 here, K5's qk8 in `ops/attention_q8.py`) take head_dim 128
-and load their sources with TMA: a source may be any view with a
+PyTorch version beside it when they are on the CPU.  The attention
+kernels load with TMA: the two-source kernels (K1 here, K5 in
+`ops/attention_q8.py`, head_dim 128) their sources, the single-source ones
+(K2, K2g: head_dim 64 or 128) q, k and v.  Each may be any view with a
 contiguous last dimension whose base and other strides are multiples of
 16 bytes; anything else raises.  Each keeps a count
 of its kernel launches in its `launches` attribute.  The int8 attention
@@ -153,8 +154,9 @@ def _require(name: str, t: torch.Tensor, device, dtype, shape) -> None:
 
 
 def _check_q(fn: str, q: torch.Tensor, hk: int, seg_len: int) -> int:
+    """The number of segments in q [n_seg * seg_len, hq, hd]; raises on
+    shapes the kernels do not take (q's layout is the caller's check)."""
     total_q, hq, hd = q.shape
-    _require(f"{fn}: q", q, q.device, torch.bfloat16, q.shape)
     if hd not in (64, 128):
         raise ValueError(f"{fn}: head_dim {hd} not supported by the kernel (64 or 128)")
     if hq % hk:
@@ -164,15 +166,15 @@ def _check_q(fn: str, q: torch.Tensor, hk: int, seg_len: int) -> int:
     return total_q // seg_len
 
 
-def _prologue_operands(fn: str, q: torch.Tensor, q_prologue, sm_scale: float):
-    """(qw, qb, sin, cos, rot, eps) for the kernel, sm_scale*log2e folded
-    into the LayerNorm affine (rotary is a rotation, so scaling commutes)."""
+def _prologue_operands(fn: str, q: torch.Tensor, q_prologue):
+    """(qw, qb, sin, cos, rot, eps) for the kernel: the plain LayerNorm
+    affine in f32 (K1 and K2 scale it by sm_scale*log2e as they read it;
+    rotary is a rotation, so scaling commutes)."""
     if q_prologue is None:
         return None, None, None, None, 0, 0.0
     qw, qb, sin, cos, eps = q_prologue
     total_q, _, hd = q.shape
-    qw = (qw.float() * (sm_scale * LOG2E)).contiguous()
-    qb = (qb.float() * (sm_scale * LOG2E)).contiguous()
+    qw, qb = (w.float().contiguous() for w in (qw, qb))
     _require(f"{fn}: qw", qw, q.device, torch.float32, (hd,))
     _require(f"{fn}: qb", qb, q.device, torch.float32, (hd,))
     rot = 0
@@ -243,13 +245,14 @@ def segmented_attention_two_source(
     fn = "segmented_attention_two_source"
     total_q, hq, hd = q.shape
     hk = kv1.shape[1]
+    _require(f"{fn}: q", q, q.device, torch.bfloat16, q.shape)
     n_seg = _check_q(fn, q, hk, seg_len)
     if hd != TMA_HEAD_DIM:
         raise ValueError(f"{fn}: the kernel takes head_dim {TMA_HEAD_DIM}, got {hd}")
     src1 = _tma_source(fn, "kv1", kv1, q.device, torch.bfloat16, hk, hd)
     src2 = _tma_source(fn, "kv2", kv2, q.device, torch.bfloat16, hk, hd)
     _check_ranges(fn, q.device, n_seg, r1_start, r1_end, r2_start, r2_end)
-    qw, qb, sin, cos, rot, eps = _prologue_operands(fn, q, q_prologue, sm_scale)
+    qw, qb, sin, cos, rot, eps = _prologue_operands(fn, q, q_prologue)
     out = torch.empty_like(q)
     if total_q == 0:
         return out
@@ -271,22 +274,47 @@ segmented_attention_two_source.launches = 0
 _KIND_V2, _KIND_GRID = 1, 2
 
 
+def token_major_view(fn: str, name: str, t: torch.Tensor, device, shape) -> tuple:
+    """(pointer, token stride, head stride), in elements, of a bf16
+    token-major tensor [tokens, heads, hd] that the single-source kernels
+    load with TMA.  Raises unless it lies on `device` with `shape`, its last
+    dimension is contiguous, and its base and other strides are multiples
+    of 16 bytes.  The stride of a single head is never used: it is given as
+    hd."""
+    if t.device != device or t.dtype != torch.bfloat16 or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{fn}: {name} must be a bfloat16 tensor of shape {tuple(shape)} on {device}; got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    s_t, s_h, s_d = t.stride()
+    if t.numel() == 0:
+        return t.data_ptr(), s_t, s_h  # never read
+    if shape[1] == 1:
+        s_h = shape[2]
+    if shape[0] <= 1:
+        s_t = shape[1] * shape[2]
+    es = t.element_size()
+    if s_d != 1 or t.data_ptr() % 16 or s_t * es % 16 or s_h * es % 16:
+        raise ValueError(f"{fn}: {name} must have a contiguous last dimension and a base and strides that are "
+                         f"multiples of 16 bytes (TMA); got strides {t.stride()} at address {t.data_ptr():#x}")
+    return t.data_ptr(), s_t, s_h
+
+
 def _single_source(wrapper, kind: int, q, k, v, kv_start, kv_end, *, seg_len, sm_scale, q_prologue):
     """Launch the single-source kernel `kind` for `wrapper`, whose launch
-    count it bumps."""
+    count it bumps.  q, k and v may be views (`token_major_view`)."""
     fn = wrapper.__name__
     total_q, hq, hd = q.shape
     kv_len, hk = k.shape[0], k.shape[1]
     n_seg = _check_q(fn, q, hk, seg_len)
-    _require(f"{fn}: k", k, q.device, torch.bfloat16, (kv_len, hk, hd))
-    _require(f"{fn}: v", v, q.device, torch.bfloat16, (kv_len, hk, hd))
+    vq = token_major_view(fn, "q", q, q.device, (total_q, hq, hd))
+    vk = token_major_view(fn, "k", k, q.device, (kv_len, hk, hd))
+    vv = token_major_view(fn, "v", v, q.device, (kv_len, hk, hd))
     _check_ranges(fn, q.device, n_seg, kv_start, kv_end)
-    qw, qb, sin, cos, rot, eps = _prologue_operands(fn, q, q_prologue, sm_scale)
-    out = torch.empty_like(q)
+    qw, qb, sin, cos, rot, eps = _prologue_operands(fn, q, q_prologue)
+    out = torch.empty((total_q, hq, hd), dtype=q.dtype, device=q.device)
     if total_q == 0:
         return out
     err = _lib.lib().magi_seg_attn(
-        q.data_ptr(), out.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len, kv_start.data_ptr(), kv_end.data_ptr(),
+        *vq, out.data_ptr(), *vk, *vv, kv_len, kv_start.data_ptr(), kv_end.data_ptr(),
         _lib.ptr(qw), _lib.ptr(qb), _lib.ptr(sin), _lib.ptr(cos),
         n_seg, seg_len, hq, hk, hd, rot, eps, float(sm_scale * LOG2E), kind, _lib.stream(q.device),
     )

@@ -59,6 +59,7 @@ from magi_tpu_torch.ops.attention import (
     TMA_HEAD_DIM,
     _check_q,
     _check_ranges,
+    _prologue_operands,
     _require,
     _tma_source,
     norm_rope_f32,
@@ -271,6 +272,7 @@ def _launch(wrapper, scheme, q, kv1, sc1, kv2, sc2, r1_start, r1_end, r2_start, 
     fn = wrapper.__name__
     total_q, hq, hd = q.shape
     hk, L1, L2 = kv1.shape[1], kv1.shape[2], kv2.shape[2]
+    _require(f"{fn}: q", q, q.device, torch.bfloat16, q.shape)
     n_seg = _check_q(fn, q, hk, seg_len)
     if hd != TMA_HEAD_DIM:
         raise ValueError(f"{fn}: the {scheme} kernel takes head_dim {TMA_HEAD_DIM}, got {hd}")
@@ -279,20 +281,7 @@ def _launch(wrapper, scheme, q, kv1, sc1, kv2, sc2, r1_start, r1_end, r2_start, 
     sc1_ = _token_scales(fn, "sc1", sc1, q.device, hk, L1)
     sc2_ = _token_scales(fn, "sc2", sc2, q.device, hk, L2)
     _check_ranges(fn, q.device, n_seg, r1_start, r1_end, r2_start, r2_end)
-    qw = qb = sin = cos = None
-    rot, eps = 0, 0.0
-    if q_prologue is not None:
-        qw, qb, sin, cos, eps = q_prologue
-        qw = qw.float().contiguous()
-        qb = qb.float().contiguous()
-        _require(f"{fn}: qw", qw, q.device, torch.float32, (hd,))
-        _require(f"{fn}: qb", qb, q.device, torch.float32, (hd,))
-        if sin is not None:
-            rot = sin.shape[-1]
-            if 2 * rot > hd:
-                raise ValueError(f"{fn}: rotary width 2*{rot} exceeds head_dim {hd}")
-            _require(f"{fn}: sin", sin, q.device, torch.float32, (total_q, rot))
-            _require(f"{fn}: cos", cos, q.device, torch.float32, (total_q, rot))
+    qw, qb, sin, cos, rot, eps = _prologue_operands(fn, q, q_prologue)
     out = torch.empty_like(q)
     if total_q == 0:
         return out

@@ -1,21 +1,31 @@
 #!/usr/bin/env python3
-"""Time the two-source attention kernels of `csrc/attention_tma.cu` (K1 and
-K5 under qk8, sage and dq) on the card at the shapes of `chip_smoke.py`
-phase 2: 5 segments of 1536 tokens (4 denoised, spans of 1, 2, 3 and 5
-chunks, and the ride-along copy), an int8 cache of 2 clean chunks, the
-DiT's q prologue.  Each kernel is first held against its plain version
-(4e-3 + 1e-2 |ref|), then timed with CUDA events.
+"""Time the attention kernels alone on the card at the shapes of
+`chip_smoke.py` phase 2: the two-source kernels of `csrc/attention_tma.cu`
+(K1 and K5 under qk8, sage and dq: 5 segments of 1536 tokens, 4 denoised
+with spans of 1, 2, 3 and 5 chunks and the ride-along copy, an int8 cache
+of 2 clean chunks, the DiT's q prologue) and the single-source kernels of
+`csrc/attention.cu` (K2, the caption cross-attention: 4 segments of 1536
+tokens, 24/8 heads, captions of 50, 7, 800 and 0 tokens in 800-token
+slabs, norm-only prologue, and the walk's captions, every one 50 tokens or
+every one 7; K2g, the VAE's attention at head_dim 64: 2 segments of 3073
+tokens, 16/16 heads, and the 720x720 decode's 2 x 24301, timed only: its
+plain version's scores would need 75 GB).  Each kernel is first held
+against its plain version (4e-3 + 1e-2 |ref|; captions of 50 and 7
+tokens 2e-2 + 2e-2 |ref|), then timed with CUDA events beside its bound:
+over a loop of calls from the host and, for K2 and K2g, also as calls
+replayed in a CUDA graph (the device time alone: at tens of microseconds
+the host's loop of wrapper calls can be the slower side).
 
-    python3 scripts/time_k5.py [--heads 24|48] [--iters 10] [--csrc DIR ...] [--phases]
+    python3 scripts/time_k5.py [--heads 24|48] [--iters 10] [--kernels K2,K2g,...] [--csrc DIR ...] [--phases]
 
 With --csrc, each DIR (a changed copy of `magi_tpu_torch/csrc`) is built
 into a library of its own (under build/time_k5/) and timed in turns with
 the package's build, as package, DIR..., DIR..., package, so versions are
 compared within one call on one card.  With --phases, the package's
 sources are also built with -DMAGI_PHASE_CLOCKS, and one launch of each
-kernel prints its clocks per kv tile and warp by phase (the phases of
-`csrc/attention_tma.cu`'s note).  Prints the card's name and power limit,
-then one line per version and kernel."""
+kernel prints its clocks per kv tile (and per item for K2, K2g) and warp
+by phase (the phases of each source's note).  Prints the card's name and
+power limit, then one line per version and kernel."""
 
 from __future__ import annotations
 
@@ -30,11 +40,15 @@ sys.path.insert(0, HERE)
 
 import torch  # noqa: E402
 
+from chip_smoke import cuda_ms, graph_ms  # noqa: E402
 from magi_tpu_torch.ops import _lib  # noqa: E402
 from magi_tpu_torch.ops import attention as A  # noqa: E402
 from magi_tpu_torch.ops import attention_q8 as A8  # noqa: E402
 
 ATTN_TOL = dict(atol=4e-3, rtol=1e-2)
+SHORT_TOL = dict(atol=2e-2, rtol=2e-2)
+PEAK_BF16 = 989e12  # H100 SXM, dense, at 700 W
+PEAK_BYTES = 3.35e12
 
 
 def build(csrc: str, tag: str, flags=()) -> ctypes.CDLL:
@@ -105,22 +119,52 @@ def inputs(dev, hq: int):
     return args8, args1, pro, ctn, 2 * 2 * ctn * attended * hd * hq
 
 
-def cuda_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def single_source_kernels(dev) -> dict:
+    """K2 and K2g at phase 2's shapes (seed 2): name -> (kernel call,
+    plain call or None, operations, bound ms, tolerance, clock entry)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    out = {}
+    hq, hk, hd, L, ctn, n_seg, eps = 24, 8, 128, 800, 1536, 4, 1e-6
+    q = randn(n_seg * ctn, hq, hd)
+    kx, vx = randn(n_seg * L, hk, hd), randn(n_seg * L, hk, hd)
+    pro = (1.0 + 0.1 * randn(hd, dtype=torch.float32), 0.1 * randn(hd, dtype=torch.float32), None, None, eps)
+    xs = torch.arange(n_seg, dtype=torch.int32, device=dev) * L
+    for tag, lens in (("K2", [50, 7, 800, 0]), ("K2_all50", [50] * 4), ("K2_all7", [7] * 4)):
+        xe = xs + torch.tensor(lens, dtype=torch.int32, device=dev)
+        attended = sum(lens)
+        nbytes = 2 * q.numel() * 2 + attended * 2 * hk * hd * 2
+        ops = 4 * ctn * attended * hd * hq
+        bms = max(nbytes / PEAK_BYTES, ops / PEAK_BF16) * 1e3
+        tol = ATTN_TOL if min(lens) > 50 else SHORT_TOL
+        out[tag] = (lambda xe=xe: A.segmented_attention_v2(q, kx, vx, xs, xe, seg_len=ctn, q_prologue=pro),
+                    lambda xe=xe: A.segmented_attention_reference(A.apply_q_prologue(q, pro), kx, vx, xs, xe,
+                                                                  seg_len=ctn),
+                    ops, bms, tol, "magi_seg_attn_phase_clocks")
+    hv, hdv = 16, 64
+    for tag, N in (("K2g", 3 * 32 * 32 + 1), ("K2g_720", 3 * 90 * 90 + 1)):
+        qv, kv_, vv_ = (randn(2 * N, hv, hdv) for _ in range(3))
+        st = torch.arange(2, dtype=torch.int32, device=dev) * N
+        ops = 4 * 2 * N * N * hdv * hv
+        bms = max(4 * qv.numel() * 2 / PEAK_BYTES, ops / PEAK_BF16) * 1e3
+        plain = None if N > 10000 else (
+            lambda qv=qv, kv_=kv_, vv_=vv_, st=st, N=N: A.segmented_attention_reference(qv, kv_, vv_, st, st + N,
+                                                                                         seg_len=N))
+        out[tag] = (lambda qv=qv, kv_=kv_, vv_=vv_, st=st, N=N: A.segmented_attention(qv, kv_, vv_, st, st + N,
+                                                                                      seg_len=N),
+                    plain, ops, bms, ATTN_TOL, "magi_seg_attn_phase_clocks")
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--heads", type=int, default=24, choices=(24, 48))
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--kernels", default="", help="comma list of the kernels to time (default: all)")
     ap.add_argument("--csrc", action="append", default=[], help="a changed copy of magi_tpu_torch/csrc")
     ap.add_argument("--phases", action="store_true", help="clocks per kv tile by phase")
     args = ap.parse_args()
@@ -134,19 +178,26 @@ def main() -> int:
     versions = [("package", build(_lib.CSRC_DIR, "package"))]
     for i, d in enumerate(args.csrc):
         versions.append((f"{i + 1}:{os.path.basename(os.path.normpath(d))}", build(os.path.abspath(d), f"v{i + 1}")))
+    _lib._lib = versions[0][1]
     args8, args1, pro, seg, ops = inputs(dev, args.heads)
-    kernels = {
+    bound = max(ops / PEAK_BF16, 0) * 1e3
+    kernels = {  # name -> (call, plain call or None, operations, bound ms, tolerance, clock entry)
         "K1": (lambda: A.segmented_attention_two_source(*args1, seg_len=seg, q_prologue=pro),
                lambda: A.segmented_attention_two_source_reference(A.apply_q_prologue(args1[0], pro), *args1[1:],
-                                                                  seg_len=seg)),
+                                                                  seg_len=seg),
+               ops, bound, ATTN_TOL, "magi_phase_clocks"),
     }
     for scheme in A8.SCHEMES:
         kernels[scheme] = (
             lambda scheme=scheme: A8.segmented_attention_two_source_q8(*args8, seg_len=seg, q_prologue=pro,
                                                                       scheme=scheme),
             lambda scheme=scheme: getattr(A8, f"segmented_attention_two_source_q8_{scheme}_reference")(
-                *args8, seg_len=seg, q_prologue=pro))
-    refs = {name: plain().float() for name, (_, plain) in kernels.items()}
+                *args8, seg_len=seg, q_prologue=pro),
+            ops, None, ATTN_TOL, "magi_phase_clocks")
+    kernels.update(single_source_kernels(dev))
+    if args.kernels:
+        kernels = {k: kernels[k] for k in args.kernels.split(",")}
+    refs = {name: plain().float() for name, (_, plain, *_) in kernels.items() if plain is not None}
 
     a = torch.randn((8192, 8192), device=dev, dtype=torch.bfloat16)
     for _ in range(50):  # the clocks up from idle before the first timing
@@ -154,34 +205,52 @@ def main() -> int:
     order = versions + versions[1:][::-1] + versions[:1] if len(versions) > 1 else versions
     for tag, handle in order:
         _lib._lib = handle
-        for name, (call, _) in kernels.items():
+        for name, (call, _, n_ops, bms, tol, entry) in kernels.items():
             out = call().float()
             torch.cuda.synchronize()
-            ok = bool(torch.isfinite(out).all()) and torch.allclose(out, refs[name], **ATTN_TOL)
-            err = float((out - refs[name]).abs().max())
-            ms = cuda_ms(call, args.iters)
-            print(f"{tag} {name} {args.heads}/8 heads: {ms:.4f} ms, {ops / ms / 1e9:.1f} T operations/s, "
-                  f"max_abs_err {err:.3e} {'ok' if ok else 'FAILED'}", flush=True)
+            check = "(timed only)"
+            if name in refs:
+                ok = bool(torch.isfinite(out).all()) and torch.allclose(out, refs[name], **tol)
+                check = f"max_abs_err {float((out - refs[name]).abs().max()):.3e} {'ok' if ok else 'FAILED'}"
+            elif not bool(torch.isfinite(out).all()):
+                check = "not finite: FAILED"
+            ms = cuda_ms(call, args.iters if bms is None or bms > 0.2 else max(args.iters, 200))
+            share = "" if bms is None else f", bound {bms:.4f} ms ({bms / ms:.1%})"
+            if entry == "magi_seg_attn_phase_clocks":  # K2, K2g: also the device time alone
+                dms = graph_ms(call, max(args.iters, 50))
+                share += f"; replayed in a CUDA graph {dms:.4f} ms" + ("" if bms is None else f" ({bms / dms:.1%})")
+            print(f"{tag} {name}{' ' + str(args.heads) + '/8 heads' if name in ('K1', *A8.SCHEMES) else ''}: "
+                  f"{ms:.4f} ms, {n_ops / ms / 1e9:.1f} T operations/s{share}, {check}", flush=True)
     if args.phases:
         handle = build(_lib.CSRC_DIR, "phases", ["-DMAGI_PHASE_CLOCKS"])
-        handle.magi_phase_clocks.argtypes = [ctypes.c_void_p]
-        handle.magi_phase_clocks.restype = ctypes.c_int
+        for entry in ("magi_phase_clocks", "magi_seg_attn_phase_clocks"):
+            getattr(handle, entry).argtypes = [ctypes.c_void_p]
+            getattr(handle, entry).restype = ctypes.c_int
         _lib._lib = handle
         clocks = (ctypes.c_ulonglong * 9)()
-        names = ["wait tile", "Q K^T", "wait converted", "softmax", "P V"]
-        for name, (call, _) in kernels.items():
+        two_source = ["wait tile", "Q K^T", "wait converted", "softmax", "P V"]
+        single = ["wait tile", "turn", "products", "softmax"]
+        for name, (call, *_, entry) in kernels.items():
+            read = getattr(handle, entry)
             call()
             torch.cuda.synchronize()
-            _lib.check(handle.magi_phase_clocks(clocks), "magi_phase_clocks")  # cleared
+            _lib.check(read(clocks), entry)  # cleared
             call()
             torch.cuda.synchronize()
-            _lib.check(handle.magi_phase_clocks(clocks), "magi_phase_clocks")
+            _lib.check(read(clocks), entry)
             c = list(clocks)
             per = lambda i, n: c[i] / max(c[n], 1)
-            cons = ", ".join(f"{nm} {per(i, 7):.0f}" for i, nm in enumerate(names))
-            conv = f"; converters: wait {per(5, 8):.0f}, convert {per(6, 8):.0f}" if c[8] else ""
-            print(f"phases {name} {args.heads}/8 heads, clocks per tile and warp: consumers: {cons} "
-                  f"(sum {sum(per(i, 7) for i in range(5)):.0f}){conv}", flush=True)
+            if entry == "magi_phase_clocks":
+                cons = ", ".join(f"{nm} {per(i, 7):.0f}" for i, nm in enumerate(two_source))
+                conv = f"; converters: wait {per(5, 8):.0f}, convert {per(6, 8):.0f}" if c[8] else ""
+                print(f"phases {name} {args.heads}/8 heads, clocks per tile and warp: consumers: {cons} "
+                      f"(sum {sum(per(i, 7) for i in range(5)):.0f}){conv}", flush=True)
+            else:
+                tiles = ", ".join(f"{nm} {per(i, 7):.0f}" for i, nm in enumerate(single))
+                print(f"phases {name}, clocks per kv tile and warp: {tiles} (sum "
+                      f"{sum(per(i, 7) for i in range(4)):.0f}); per item and warp: wait q {per(4, 8):.0f}, "
+                      f"prologue {per(5, 8):.0f}, epilogue {per(6, 8):.0f}; {c[7] / max(c[8], 1):.2f} tiles an item",
+                      flush=True)
     return 0
 
 

@@ -28,7 +28,16 @@ the dequant reference (which does not quantize q) by the JAX package's
 own criterion for its q8 kernel: mean |error| under 4% of mean |output|.
 The sage and dq schemes of K5 are held the same way against their tiled
 plain versions at the kernel's tile width, on the two-source cases too;
-no scheme reads a k or v scale outside the attended ranges."""
+no scheme reads a k or v scale outside the attended ranges.
+
+The single-source kernels (K2, K2g: persistent, TMA + wgmma) are held to
+the attention tolerances on cases that cover more work items than the
+card has blocks, a seg_len off the 64-row grid, spans from 7 to 800
+tokens, clipped and empty ranges (exactly 0), hq / hk of 1, 2, 3 and 6,
+the prologue at head_dim 64 and with rotary, and the VAE's 3073-token
+segments, and q rows whose mean is large against their spread (the
+LayerNorm's variance taken about the mean, as the plain version does);
+views of a fused qkv or kv give their contiguous copies' bits."""
 
 import pytest
 import torch
@@ -175,6 +184,122 @@ def test_single_source_kernel(dev, hd, hq, hk, norm):
     ref = A.segmented_attention_reference(q if pro is None else A.apply_q_prologue(q, pro), k, v, st, en, seg_len=seg)
     _close(out[:seg], ref[:seg], **ATTN_TOL)  # 80 keys
     _close(out[seg:], ref[seg:], **SHORT_SPAN_TOL)  # 13 keys
+
+
+# Cases of the single-source kernels (K2 `segmented_attention_v2`, K2g
+# `segmented_attention`): (wrapper, head_dim, hq, hk, prologue, seg_len, kv
+# ranges per segment, kv tokens).  "spans": kv spans of 7, 50, 64, 65 and
+# 800 tokens and an empty one in one call, seg_len 97 (not a multiple of
+# 64), 3 q heads per kv head.  "clip": ranges clipped at both ends of the
+# source (a negative start, ends past it, a range wholly past it).  "mha",
+# "gqa2", "gqa6": hq / hk of 1, 2 (both kernels) and 6 (two head groups).
+# "hd64_norm", "hd64_rope", "rope": the prologue at head_dim 64 and with
+# rotary.  "vae": K2g at the VAE's 3073-token segments (256x256), 50 work
+# items per segment and head group.  "captions": K2 at the DiT's shapes
+# (4 segments of 1536, 24/8 heads, captions of 50, 7, 800 and 0), 768
+# work items, more than the card has blocks.  "shifted", "shifted_hd64":
+# the norm prologue on q rows of mean 30 and spread 1, whose variance must
+# be taken about the mean (E[x^2] - mean^2 cancels in f32).
+SINGLE_SOURCE_CASES = {
+    "spans": ("v2", 128, 24, 8, "norm", 97,
+              [(0, 7), (800, 850), (1600, 1664), (2400, 2465), (3200, 4000), (4000, 4000)], 4800),
+    "clip": ("grid", 128, 8, 4, None, 70, [(-5, 40), (60, 220), (200, 300)], 120),
+    "mha": ("grid", 64, 16, 16, None, 97, [(0, 80), (80, 93)], 160),
+    "gqa2": ("v2", 128, 16, 8, None, 130, [(10, 200), (0, 64)], 200),
+    "gqa2_hd64": ("grid", 64, 8, 4, None, 130, [(10, 200), (0, 64)], 200),
+    "gqa6": ("v2", 128, 48, 8, "norm", 130, [(0, 300), (100, 165)], 300),
+    "hd64_norm": ("v2", 64, 16, 16, "norm", 97, [(0, 80), (80, 200)], 200),
+    "hd64_rope": ("v2", 64, 8, 4, "rope", 97, [(0, 80), (80, 200)], 200),
+    "rope": ("v2", 128, 24, 8, "rope", 130, [(0, 100), (30, 230)], 230),
+    "vae": ("grid", 64, 16, 16, None, 3073, [(0, 3073), (3073, 6146)], 6146),
+    "captions": ("v2", 128, 24, 8, "norm", 1536, [(0, 50), (800, 807), (1600, 2400), (2400, 2400)], 3200),
+    "shifted": ("v2", 128, 24, 8, "shifted", 130, [(0, 300), (100, 165), (0, 200)], 300),
+    "shifted_hd64": ("v2", 64, 24, 8, "shifted", 130, [(0, 300), (100, 165), (0, 200)], 300),
+}
+
+
+def _single_source_case(g, dev, case):
+    kind, hd, hq, hk, pro_kind, seg, ranges, L = SINGLE_SOURCE_CASES[case]
+    n_seg = len(ranges)
+    S = n_seg * seg
+    q = _randn(g, dev, S, hq, hd)
+    if pro_kind == "shifted":
+        q = (q.float() + 30.0).to(torch.bfloat16)
+    k, v = _randn(g, dev, L, hk, hd), _randn(g, dev, L, hk, hd)
+    i32 = dict(dtype=torch.int32, device=dev)
+    st = torch.tensor([r[0] for r in ranges], **i32)
+    en = torch.tensor([r[1] for r in ranges], **i32)
+    pro = None
+    if pro_kind is not None:
+        rot = 48 if hd == 128 else 16
+        sincos = (None, None)
+        if pro_kind == "rope":
+            ang = torch.rand((S, rot), generator=g, device=dev) * 6.28
+            sincos = (torch.sin(ang), torch.cos(ang))
+        pro = (*_ln_affine(g, dev, hd), *sincos, 1e-6)
+    wrapper = A.segmented_attention_v2 if kind == "v2" else A.segmented_attention
+    return wrapper, q, k, v, st, en, pro, seg
+
+
+@pytest.mark.parametrize("case", list(SINGLE_SOURCE_CASES))
+def test_single_source_kernel_cases(dev, case):
+    g = _gen(dev)
+    wrapper, q, k, v, st, en, pro, seg = _single_source_case(g, dev, case)
+    kw = dict(seg_len=seg) if pro is None else dict(seg_len=seg, q_prologue=pro)
+    before = wrapper.launches
+    out = wrapper(q, k, v, st, en, **kw)
+    assert wrapper.launches == before + 1
+    ref = A.segmented_attention_reference(q if pro is None else A.apply_q_prologue(q, pro), k, v, st, en, seg_len=seg)
+    L = k.shape[0]
+    for i, (s, e) in enumerate(zip(st.tolist(), en.tolist())):
+        n = max(min(e, L) - max(s, 0), 0)
+        o, r = out[i * seg : (i + 1) * seg], ref[i * seg : (i + 1) * seg]
+        if n == 0:
+            torch.cuda.synchronize()
+            assert (o.float() == 0).all()  # exactly 0, not merely close
+        else:
+            _close(o, r, **(SHORT_SPAN_TOL if n <= 50 else ATTN_TOL))
+
+
+def test_single_source_kernels_take_views_and_refuse_other_layouts(dev):
+    """K2 and K2g load q, k and v with TMA: the views the model passes (the
+    VAE's q, k, v inside its qkv; the DiT's caption v inside kv_x) give the
+    result of their contiguous copies bit for bit; a strided last
+    dimension or a base off 16 bytes raises and launches nothing."""
+    g = _gen(dev)
+    B, N, h, hd = 2, 97, 4, 64
+    qkv = _randn(g, dev, B, N, 3, h, hd)
+    q, k, v = (qkv[:, :, i].reshape(B * N, h, hd) for i in range(3))
+    assert not q.is_contiguous()
+    st = torch.arange(B, dtype=torch.int32, device=dev) * N
+    out = A.segmented_attention_v2(q, k, v, st, st + N, seg_len=N)
+    dense = A.segmented_attention_v2(q.contiguous(), k.contiguous(), v.contiguous(), st, st + N, seg_len=N)
+    _close(out, dense, atol=0, rtol=0)
+
+    n_seg, seg, hq, hk, hd, L = 3, 70, 24, 8, 128, 60
+    qx = _randn(g, dev, n_seg * seg, hq, hd)
+    kv_x = _randn(g, dev, n_seg * L, hk, 2 * hd)
+    k_x, v_x = kv_x[..., :hd].contiguous(), kv_x[..., hd:]
+    xs = torch.arange(n_seg, dtype=torch.int32, device=dev) * L
+    xe = xs + torch.tensor([L, 20, 0], dtype=torch.int32, device=dev)
+    pro = (*_ln_affine(g, dev, hd), None, None, 1e-6)
+    out = A.segmented_attention_v2(qx, k_x, v_x, xs, xe, seg_len=seg, q_prologue=pro)
+    dense = A.segmented_attention_v2(qx, k_x, v_x.contiguous(), xs, xe, seg_len=seg, q_prologue=pro)
+    _close(out, dense, atol=0, rtol=0)
+
+    counts = lambda: (A.segmented_attention_v2.launches, A.segmented_attention.launches)
+    before = counts()
+    strided = _randn(g, dev, n_seg * L, hk, 2 * hd)[..., ::2]
+    flat = torch.empty(n_seg * L * hk * hd + 1, dtype=torch.bfloat16, device=dev)
+    misaligned = flat[1:].view(n_seg * L, hk, hd)
+    for bad in (strided, misaligned):
+        with pytest.raises(ValueError, match="16 bytes"):
+            A.segmented_attention_v2(qx, k_x, bad, xs, xe, seg_len=seg, q_prologue=pro)
+        with pytest.raises(ValueError, match="16 bytes"):
+            A.segmented_attention(qx, bad, v_x, xs, xe, seg_len=seg)
+    with pytest.raises(ValueError, match="16 bytes"):
+        A.segmented_attention(_randn(g, dev, n_seg * seg, hq, 2 * hd)[..., ::2], k_x, v_x, xs, xe, seg_len=seg)
+    assert counts() == before
 
 
 def test_ranges_clip_to_sources(dev):
