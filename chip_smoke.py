@@ -8,11 +8,12 @@ Phases, each printed on its own line; any failure exits non-zero:
   2. hold every kernel against its plain PyTorch version on the card at the
      shapes the t2v runs below give it, with the stated tolerance, and time
      kernel, plain version and a PyTorch library yardstick (CUDA events
-     around a host loop of calls; K2 and K2g, kernels of tens of
+     around a host loop of calls; K2, K2g, K3 and K3q, kernels of tens of
      microseconds, also as the device time of calls replayed in a CUDA
      graph, `graph_ms`), K2 also with the walk's captions (every one 50
-     tokens, every one 7) and K2g at the 720x720 decode's segments (timed
-     only);
+     tokens, every one 7), K2g at the 720x720 decode's segments (timed
+     only), K3 at the base 720x720 step's S = 48600 and K3q at the
+     distill one's S = 60750 (checked and timed);
   3. tiny walks with the kernels against the same walks on the CPU in fp32
      (plain versions), same weights and noise: the 3-branch bf16 walk, the
      single-branch distill walk of an int8 tree with int8 attention, the
@@ -253,6 +254,18 @@ def check_close(name, out, ref, atol, rtol):
 # ---------------------------------------------------------------------------
 
 
+def kv_pack_inputs(dev, n: int, hk: int, hd: int, rot: int):
+    """k, v [n, hk, hd] bf16 and sin, cos [n, rot] from a generator of
+    their own (K3 and K3q at the 720x720 steps' shapes)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    k, v = (torch.randn((n, hk, hd), generator=g, device=dev).bfloat16() for _ in range(2))
+    ang = torch.rand((n, rot), generator=g, device=dev) * 6.28
+    return k, v, torch.sin(ang), torch.cos(ang)
+
+
 def kernel_checks(dev):
     import torch
     import torch.nn.functional as F
@@ -275,15 +288,20 @@ def kernel_checks(dev):
     results = []
 
     # ---- K3 kv_norm_rope_pack -------------------------------------------
+    def k3_bound(n):
+        return bound(2 * n * hk * hd * 2 + 2 * n * rot * 4 + 2 * hd * 4 + 2 * n * hk * hd * 2,
+                     (10 * n * hk * hd, PEAK_FP32_FLOPS))
+
     k, v = randn(S, hk, hd), randn(S, hk, hd)
     kw = 1.0 + 0.1 * randn(hd, dtype=torch.float32)
     kb = 0.1 * randn(hd, dtype=torch.float32)
     ang = torch.rand((S, rot), generator=g, device=dev) * 6.28
     sin, cos = torch.sin(ang), torch.cos(ang)
-    out = A.kv_norm_rope_pack(k, v, kw, kb, sin, cos, eps=eps)
+    call = lambda: A.kv_norm_rope_pack(k, v, kw, kb, sin, cos, eps=eps)
+    out = call()
     ref = A.kv_norm_rope_pack_reference(k, v, kw, kb, sin, cos, eps=eps)
     err = check_close("kv_norm_rope_pack", out, ref, 1e-2, 1e-2)
-    ms = cuda_ms(lambda: A.kv_norm_rope_pack(k, v, kw, kb, sin, cos, eps=eps), SHORT_ITERS)
+    ms, g_ms = cuda_ms(call, SHORT_ITERS), graph_ms(call, SHORT_ITERS)
     plain_ms = cuda_ms(lambda: A.kv_norm_rope_pack_reference(k, v, kw, kb, sin, cos, eps=eps), 10)
 
     def lib_k3():
@@ -294,11 +312,23 @@ def kernel_checks(dev):
         return torch.stack([kn.bfloat16(), v]).transpose(1, 2).contiguous()
 
     lib_ms = cuda_ms(lib_k3, 10)
-    nbytes = 2 * S * hk * hd * 2 + 2 * S * rot * 4 + 2 * hd * 4 + 2 * S * hk * hd * 2
-    bms, by = bound(nbytes, (10 * S * hk * hd, PEAK_FP32_FLOPS))
+    bms, by = k3_bound(S)
+    print(f"  kv_norm_rope_pack: a host loop of calls {ms:.4f} ms; calls replayed in a CUDA graph {g_ms:.4f} ms")
+    # the base 720x720 step's shape: 4 segments of 90x90 latent patches x 6 frames
+    S7 = 4 * 6 * 45 * 45
+    k7, v7, sin7, cos7 = kv_pack_inputs(dev, S7, hk, hd, rot)
+    call7 = lambda: A.kv_norm_rope_pack(k7, v7, kw, kb, sin7, cos7, eps=eps)
+    check_close(f"kv_norm_rope_pack, S = {S7} (720x720)", call7(),
+                A.kv_norm_rope_pack_reference(k7, v7, kw, kb, sin7, cos7, eps=eps), 1e-2, 1e-2)
+    ms7, g_ms7 = cuda_ms(call7, 50), graph_ms(call7, 50)
+    bms7, by7 = k3_bound(S7)
+    print(f"  kv_norm_rope_pack, S = {S7}: a host loop of calls {ms7:.4f} ms; calls replayed in a CUDA graph "
+          f"{g_ms7:.4f} ms; bound {bms7:.4f} ms by {by7}")
     results.append(dict(name="kv_norm_rope_pack", route="cuda", source="magi_tpu_torch/csrc/norm.cu",
                         replaces="magi_tpu/ops/attention.py:800", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bms, bound_by=by, library_ms=lib_ms))
+                        bound_ms=bms, bound_by=by, library_ms=lib_ms, graph_ms=g_ms,
+                        base_720=dict(tokens=S7, ms=ms7, graph_ms=g_ms7, bound_ms=bms7, bound_by=by7)))
+    del k7, v7, sin7, cos7
 
     # ---- K4 gate_norm_residual -------------------------------------------
     x, res = randn(S, D), randn(S, D)
@@ -499,26 +529,37 @@ def int8_kernel_checks(dev):
         return torch.round(v / scale).clamp_(-127, 127).to(torch.int8), scale
 
     # ---- K3q kv_norm_rope_pack(quantize=True) ------------------------------
+    def k3q_bound(n):
+        return bound(2 * n * hk * hd * 2 + 2 * n * rot * 4 + 2 * hd * 4 + 2 * n * hk * hd + 2 * n * hk * 4,
+                     (12 * n * hk * hd, PEAK_FP32_FLOPS))
+
+    def k3q_check(name, k, v, sin, cos):
+        """The int8 values at most one step off on under 1e-3 of them and
+        the scales within 1e-6 relative; returns the largest error of the
+        dequantized kv."""
+        q8, sc = A.kv_norm_rope_pack(k, v, kw, kb, sin, cos, eps=eps, quantize=True)
+        ref8, ref_sc = A.kv_norm_rope_pack_q8_reference(k, v, kw, kb, sin, cos, eps=eps)
+        torch.cuda.synchronize()
+        dq = (q8.int() - ref8.int()).abs()
+        share = float((dq > 0).float().mean())
+        sc_rel = float(((sc - ref_sc).abs() / ref_sc).max())
+        err = float((q8.float() * sc[..., None] - ref8.float() * ref_sc[..., None]).abs().max())
+        ok = int(dq.max()) <= 1 and share < 1e-3 and sc_rel <= 1e-6
+        print(f"  {name}: int8 values off by one step on a share {share:.3e} (limit 1e-3, none by more), "
+              f"scales within {sc_rel:.3e} relative (limit 1e-6), max abs error of the dequantized kv {err:.3e} "
+              f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"{name} disagrees with its plain version")
+        return err
+
     k, v = randn(S, hk, hd), randn(S, hk, hd)
     kw = 1.0 + 0.1 * randn(hd, dtype=torch.float32)
     kb = 0.1 * randn(hd, dtype=torch.float32)
     ang = torch.rand((S, rot), generator=g, device=dev) * 6.28
     sin, cos = torch.sin(ang), torch.cos(ang)
     call = lambda: A.kv_norm_rope_pack(k, v, kw, kb, sin, cos, eps=eps, quantize=True)
-    q8, sc = call()
-    ref8, ref_sc = A.kv_norm_rope_pack_q8_reference(k, v, kw, kb, sin, cos, eps=eps)
-    torch.cuda.synchronize()
-    dq = (q8.int() - ref8.int()).abs()
-    share = float((dq > 0).float().mean())
-    sc_rel = float(((sc - ref_sc).abs() / ref_sc).max())
-    err = float((q8.float() * sc[..., None] - ref8.float() * ref_sc[..., None]).abs().max())
-    ok = int(dq.max()) <= 1 and share < 1e-3 and sc_rel <= 1e-6
-    print(f"  kv_norm_rope_pack_q8: int8 values off by one step on a share {share:.3e} (limit 1e-3, none by more), "
-          f"scales within {sc_rel:.3e} relative (limit 1e-6), max abs error of the dequantized kv {err:.3e} "
-          f"{'ok' if ok else 'FAILED'}")
-    if not ok:
-        fail("kv_norm_rope_pack_q8 disagrees with its plain version")
-    ms = cuda_ms(call, SHORT_ITERS)
+    err = k3q_check("kv_norm_rope_pack_q8", k, v, sin, cos)
+    ms, g_ms = cuda_ms(call, SHORT_ITERS), graph_ms(call, SHORT_ITERS)
     plain_ms = cuda_ms(lambda: A.kv_norm_rope_pack_q8_reference(k, v, kw, kb, sin, cos, eps=eps), 10)
 
     def lib_k3q():
@@ -529,11 +570,23 @@ def int8_kernel_checks(dev):
         return int8_chain(torch.stack([kn, v.float()]).transpose(1, 2))
 
     lib_ms = cuda_ms(lib_k3q, 10)
-    nbytes = 2 * S * hk * hd * 2 + 2 * S * rot * 4 + 2 * hd * 4 + 2 * S * hk * hd + 2 * S * hk * 4
-    bms, by = bound(nbytes, (12 * S * hk * hd, PEAK_FP32_FLOPS))
+    bms, by = k3q_bound(S)
+    print(f"  kv_norm_rope_pack_q8: a host loop of calls {ms:.4f} ms; calls replayed in a CUDA graph {g_ms:.4f} ms")
+    # the distill 720x720 step's shape: 4 segments of 90x90 latent patches x
+    # 6 frames and the ride-along copy
+    S7 = 5 * 6 * 45 * 45
+    k7, v7, sin7, cos7 = kv_pack_inputs(dev, S7, hk, hd, rot)
+    k3q_check(f"kv_norm_rope_pack_q8, S = {S7} (720x720)", k7, v7, sin7, cos7)
+    call7 = lambda: A.kv_norm_rope_pack(k7, v7, kw, kb, sin7, cos7, eps=eps, quantize=True)
+    ms7, g_ms7 = cuda_ms(call7, 50), graph_ms(call7, 50)
+    bms7, by7 = k3q_bound(S7)
+    print(f"  kv_norm_rope_pack_q8, S = {S7}: a host loop of calls {ms7:.4f} ms; calls replayed in a CUDA graph "
+          f"{g_ms7:.4f} ms; bound {bms7:.4f} ms by {by7}")
     results.append(dict(name="kv_norm_rope_pack_q8", route="cuda", source="magi_tpu_torch/csrc/norm.cu",
                         replaces="magi_tpu/ops/attention.py:812", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bms, bound_by=by, library_ms=lib_ms))
+                        bound_ms=bms, bound_by=by, library_ms=lib_ms, graph_ms=g_ms,
+                        distill_720=dict(tokens=S7, ms=ms7, graph_ms=g_ms7, bound_ms=bms7, bound_by=by7)))
+    del k7, v7, sin7, cos7
 
     # ---- K5 segmented_attention_two_source_q8: qk8, sage, dq ---------------
     # cache of 2 clean chunks (int8), 4 current segments whose noise2clean
@@ -1283,7 +1336,7 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
     keys = ["name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"]
-    extra = ["graph_ms", "every_caption_tokens", "decode_720"]  # K2, K2g
+    extra = ["graph_ms", "every_caption_tokens", "decode_720", "base_720", "distill_720"]  # K2, K2g, K3, K3q
     print(json.dumps({"kernels": [{k: r[k] for k in keys + [x for x in extra if x in r]} for r in results]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -9,7 +9,7 @@
 // magi_kv_norm_rope_pack_q8 replaces the int8 branch of the same kernel
 //   (kv_norm_rope_pack(quantize=True), K3q): the same k row, then per-token
 //   symmetric int8 of k from the fp32 normed, roped row (not its bf16
-//   round) and of v, scale max(amax, 1e-8) / 127 and quotient x * (1 /
+//   round) and of v, scale max(amax, 1e-8) * (1/127) and quotient x * (1 /
 //   scale), as the Pallas kernel computes them.  Writes int8 [2, hk*rep,
 //   S, hd] and f32 scales [2, hk*rep, S]: the int8-stored KV cache's layout.
 // magi_gate_norm_residual replaces magi_tpu/ops/fused_norm.py
@@ -18,19 +18,47 @@
 //
 // What bounds them on the H100.  All are one-pass reductions with a few
 // flops per element: the bytes bound them (3.35 TB/s).  Per DiT layer and
-// forward, K3 moves 2*S*hk*hd bf16 in and out (K3q writes half of that in
-// int8, plus 2*S*hk f32 scales); K4 reads x and residual and writes one
-// [S, 3072] bf16 row per token.
+// forward, K3 reads k and v (2*S*hk*hd bf16) and sin, cos (2*S*rot f32)
+// and writes 2*S*hk*rep*hd bf16; K3q writes that in int8 plus 2*S*hk*rep
+// f32 scales.  K4 reads x and residual and writes one [S, 3072] bf16 row
+// per token.  K3q does about twice K3's instructions a row (the int8
+// maxima, two reciprocals, the rounding and packing), so it is as much
+// bound by the SM's issue rate as by the bytes, unless loads stay in
+// flight while it computes.
 //
-// Design.  Every input element is read once and every output element
-// written once; the fp32 intermediates stay in registers or shared memory,
-// never in device memory.  K3 and K3q give one warp to each (token, head)
-// row of hd elements: warp-shuffle reductions (sum for the LayerNorm, max
-// for the int8 scales), and a per-warp row in shared memory so each lane
-// finds its rotary partner.  K4 gives one block to each row of D: the
-// gated row is staged in shared memory in fp32, and the mean and variance
-// are two block reductions over it (two-pass variance, as the Pallas
-// kernel computes it).
+// Design of K3 and K3q (one template, kv_norm_rope_pack_kernel).  To
+// stream at the memory's rate an SM needs some 30 KB of loads in flight,
+// and every byte has to move in full 32-byte sectors.
+// - A block of 256 threads owns a tile of T consecutive tokens x all hk
+//   input heads: the tile's k and v rows are one contiguous run of memory
+//   each, and each output head's part of the tile is one contiguous run of
+//   T*hd values (and T consecutive scales).  The tile is 32 rows at hd
+//   128: T = 4 tokens at hk 8, so phase 2's S = 7680 gives 1920 blocks for
+//   the 4 to 6 an SM holds, and a short tail.
+// - hd/8 lanes own a row, 8 consecutive values a lane: 16-byte loads of k
+//   and v, one 16-byte bf16 (K3) or 8-byte int8 (K3q) store a lane and
+//   output head.  The LayerNorm sums and the int8 maxima are xor shuffles
+//   inside the lane group.  The rotary partner d -+ rot sits rot/8 lanes
+//   away when rot % 8 == 0 (one shuffle a value); other widths go through
+//   a row in shared memory.
+// - Each lane issues the loads of a pass's rows, k and v, before the
+//   first reduction: K3 two rows (64 bytes a lane in flight) at 64
+//   registers, 4 blocks an SM; K3q one row at 40 registers and 6 blocks
+//   an SM, so more warps hide its longer arithmetic.  sin and cos are read
+//   once a token from device memory; the hk heads of the token read them
+//   again from L1 / L2.  (A persistent grid with a 2-stage cp.async.bulk
+//   ring of tiles measured slower at phase 2's shapes: PERF.md.)
+// - Under GQA replication an input head is normed (and quantized) once and
+//   stored rep times.  K3q's scales are staged in shared memory and
+//   written at the end of the tile, T consecutive floats per output head.
+// The arithmetic is the Pallas kernel's and the plain version's: the
+// two-pass fp32 LayerNorm (the mean, then the mean of (x - mean)^2), the
+// affine, the rotary, and for K3q the scale __fmul_rn(max(amax, 1e-8),
+// 1/127) and quant_mul's quotient x * __fdiv_rn(1, scale) rounded half to
+// even, without fast math.  K4 gives one block to each row of D: the gated
+// row is staged in shared memory in fp32, and the mean and variance are
+// two block reductions over it (two-pass variance, as the Pallas kernel
+// computes it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,93 +70,227 @@ namespace {
 
 using namespace magi;
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxHd = 256;
+constexpr int kPackThreads = 256;
 
-// one warp per (token, output head) row; EPT = hd / 32 elements per lane.
-// OutT is __nv_bfloat16 (K3) or int8_t (K3q, which also writes `scale`).
-template <int EPT, typename OutT>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock) kv_norm_rope_pack_kernel(
+// Rows a lane group loads before its first reduction (a pass), and the
+// blocks an SM must hold (the register budget ptxas schedules for; 0: its
+// own choice).  K3 keeps two rows in flight a thread at the 64 registers
+// ptxas picks (a budget of 4 blocks made it pick 56 and run 15% slower);
+// K3q, with twice the arithmetic a row, one row, scheduled for 6 blocks
+// an SM at 40 registers (the same 40 unbudgeted ran 17% slower at 720).
+// Measured in scripts/time_k5.py A/B builds: PERF.md.
+template <typename OutT>
+__host__ __device__ constexpr int pack_rows_per_group() {
+  return sizeof(OutT) == 1 ? 1 : 2;
+}
+
+template <typename OutT>
+__host__ __device__ constexpr int pack_blocks_per_sm() {
+  return sizeof(OutT) == 1 ? 6 : 0;
+}
+
+// sum (max) over the LPR lanes of an aligned lane group; every lane of the
+// warp takes part
+template <int LPR>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = LPR / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <int LPR>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = LPR / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// 8 bf16 of a 16-byte word to f32, and back
+__device__ __forceinline__ void unpack_bf16(const uint4& r, float* x) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+    x[2 * i] = __low2float(h);
+    x[2 * i + 1] = __high2float(h);
+  }
+}
+
+__device__ __forceinline__ uint4 pack_bf16(const float* x) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// symmetric int8 of 8 values x * r with r = 1 / scale, scale = max|x| *
+// (1/127) (each IEEE-rounded), as quant_mul: |x * r| <= 127 (1 + 2**-21),
+// so its clamp to [-127, 127] never acts, and adding 1.5 * 2**23 rounds
+// x * r to an integer half to even in the adder (not the conversion unit),
+// whose value is the low byte of the sum's bits; four bytes packed by
+// three byte permutes
+__device__ __forceinline__ uint2 pack_int8(const float* x, float r) {
+  uint32_t b[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) b[i] = __float_as_uint(__fadd_rn(__fmul_rn(x[i], r), 12582912.f));
+  return make_uint2(__byte_perm(__byte_perm(b[0], b[1], 0x0040), __byte_perm(b[2], b[3], 0x0040), 0x5410),
+                    __byte_perm(__byte_perm(b[4], b[5], 0x0040), __byte_perm(b[6], b[7], 0x0040), 0x5410));
+}
+
+__device__ __forceinline__ void load8(const float* p, float* x) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w, x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+}
+
+// A block owns tokens [s0, s0 + T) x all hk input heads; LPR = hd / 8
+// lanes own a row, lane l its values [8l, 8l + 8).  Rows are taken in
+// passes of NG * pack_rows_per_group (tile row r = token t * hk + head).
+// OutT is __nv_bfloat16 (K3) or int8_t (K3q, which also writes `scale`);
+// kRotSmem: rot % 8 != 0, the rotary partner comes through shared memory.
+template <int LPR, typename OutT, bool kRotSmem>
+__global__ void __launch_bounds__(kPackThreads, pack_blocks_per_sm<OutT>()) kv_norm_rope_pack_kernel(
     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v, const float* __restrict__ kw,
     const float* __restrict__ kb, const float* __restrict__ sin, const float* __restrict__ cos,
-    OutT* __restrict__ out, float* __restrict__ scale, long long S, int hk, int rep, int rot, float eps) {
+    OutT* __restrict__ out, float* __restrict__ scale, long long S, int hk, int rep, int rot, int T, float eps) {
   constexpr bool kQuant = sizeof(OutT) == 1;
-  constexpr int HD = 32 * EPT;
-  __shared__ float rows[kWarpsPerBlock][HD];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  constexpr int HD = 8 * LPR;
+  constexpr int NG = kPackThreads / LPR;
+  constexpr int RPG = pack_rows_per_group<OutT>();
   const int G = hk * rep;
-  const long long r = (long long)blockIdx.x * kWarpsPerBlock + warp;
-  if (r >= S * G) return;
-  const long long s = r / G;
-  const int og = (int)(r % G);
-  const int ig = og / rep;
+  // [2][G][T] scales of the tile (K3q), then [NG][HD] rows (kRotSmem)
+  extern __shared__ float smem[];
+  float* s_scale = smem;
+  const int group = threadIdx.x / LPR;
+  const int l = threadIdx.x % LPR;
+  const int d0 = 8 * l;
+  float* s_row = smem + (kQuant ? 2 * G * T : 0) + group * HD;
+  const long long s0 = (long long)blockIdx.x * T;
+  const int nt = (int)(S - s0 < T ? S - s0 : T);
+  const int rows = nt * hk;
+  const uint4* kt = reinterpret_cast<const uint4*>(k + s0 * hk * HD + d0);
+  const uint4* vt = reinterpret_cast<const uint4*>(v + s0 * hk * HD + d0);
 
-  const __nv_bfloat16* kr = k + (s * hk + ig) * HD;
-  const __nv_bfloat16* vr = v + (s * hk + ig) * HD;
-  OutT* ok = out + ((long long)og * S + s) * HD;
-  OutT* ov = out + ((long long)(G + og) * S + s) * HD;
-
-  float x[EPT];
+  for (int base = 0; base < rows; base += NG * RPG) {
+    // every load of the pass first, k and v; rows past the tile read zeros
+    uint4 kr[RPG], vr[RPG];
 #pragma unroll
-  for (int i = 0; i < EPT; ++i) x[i] = __bfloat162float(kr[lane + 32 * i]);
-  float acc = 0.f;
+    for (int j = 0; j < RPG; ++j) {
+      const int r = base + j * NG + group;
+      kr[j] = vr[j] = make_uint4(0u, 0u, 0u, 0u);
+      if (r < rows) {
+        kr[j] = __ldg(kt + r * LPR);
+        vr[j] = __ldg(vt + r * LPR);
+      }
+    }
 #pragma unroll
-  for (int i = 0; i < EPT; ++i) acc += x[i];
-  const float mean = warp_sum(acc) / HD;
-  acc = 0.f;
+    for (int j = 0; j < RPG; ++j) {
+      const int r = base + j * NG + group;
+      const bool live = r < rows;
+      const int t = r / hk, ig = r - t * hk;
+      const long long s = s0 + t;
+      float x[8];
+      unpack_bf16(kr[j], x);
+      float acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < EPT; ++i) acc += (x[i] - mean) * (x[i] - mean);
-  const float rstd = rsqrtf(warp_sum(acc) / HD + eps);
+      for (int i = 0; i < 8; ++i) acc += x[i];
+      const float mean = group_sum<LPR>(acc) / HD;
+      acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < EPT; ++i) {
-    const int d = lane + 32 * i;
-    x[i] = (x[i] - mean) * rstd * kw[d] + kb[d];
-  }
-  if (rot) {
+      for (int i = 0; i < 8; ++i) {
+        x[i] -= mean;
+        acc += x[i] * x[i];
+      }
+      const float rstd = rsqrtf(group_sum<LPR>(acc) / HD + eps);
+      {
+        float w[8], b[8];
+        load8(kw + d0, w);
+        load8(kb + d0, b);
 #pragma unroll
-    for (int i = 0; i < EPT; ++i) rows[warp][lane + 32 * i] = x[i];
-    __syncwarp();
-    const float* sn = sin + s * rot;
-    const float* cs = cos + s * rot;
+        for (int i = 0; i < 8; ++i) x[i] = x[i] * rstd * w[i] + b[i];
+      }
+      if (rot) {
+        if constexpr (kRotSmem) {
 #pragma unroll
-    for (int i = 0; i < EPT; ++i) {
-      const int d = lane + 32 * i;
-      if (d < rot) {
-        x[i] = rows[warp][d] * cs[d] - rows[warp][d + rot] * sn[d];
-      } else if (d < 2 * rot) {
-        const int e = d - rot;
-        x[i] = rows[warp][e] * sn[e] + rows[warp][d] * cs[e];
+          for (int i = 0; i < 8; ++i) s_row[d0 + i] = x[i];
+          __syncwarp();
+          if (live) {
+            const float* sn = sin + s * rot;
+            const float* cs = cos + s * rot;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const int d = d0 + i;
+              if (d < rot) {
+                x[i] = x[i] * cs[d] - s_row[d + rot] * sn[d];
+              } else if (d < 2 * rot) {
+                const int e = d - rot;
+                x[i] = s_row[e] * sn[e] + x[i] * cs[e];
+              }
+            }
+          }
+          __syncwarp();  // the row is rewritten by the next one
+        } else {
+          const int q = rot / 8;  // lanes of the first rotary half
+          const int src = l < q ? l + q : (l < 2 * q ? l - q : l);
+          float p[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) p[i] = __shfl_sync(0xffffffffu, x[i], src, LPR);
+          if (live && l < 2 * q) {
+            // the first half takes x cos - x' sin, the second x' sin + x cos
+            const bool first = l < q;
+            float sn[8], cs[8];
+            load8(sin + s * rot + (first ? d0 : d0 - rot), sn);
+            load8(cos + s * rot + (first ? d0 : d0 - rot), cs);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) x[i] = x[i] * cs[i] + p[i] * (first ? -sn[i] : sn[i]);
+          }
+        }
+      }
+      OutT* ok = out + ((long long)ig * rep * S + s) * HD + d0;
+      OutT* ov = ok + (long long)G * S * HD;
+      if constexpr (kQuant) {
+        float vf[8];
+        unpack_bf16(vr[j], vf);
+        float ak = 0.f, av = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          ak = fmaxf(ak, fabsf(x[i]));
+          av = fmaxf(av, fabsf(vf[i]));
+        }
+        const float sk = __fmul_rn(fmaxf(group_max<LPR>(ak), 1e-8f), 1.f / 127.f);
+        const float sv = __fmul_rn(fmaxf(group_max<LPR>(av), 1e-8f), 1.f / 127.f);
+        if (live) {
+          const uint2 qk = pack_int8(x, __fdiv_rn(1.f, sk));
+          const uint2 qv = pack_int8(vf, __fdiv_rn(1.f, sv));
+          for (int c = 0; c < rep; ++c) {
+            *reinterpret_cast<uint2*>(ok + (long long)c * S * HD) = qk;
+            *reinterpret_cast<uint2*>(ov + (long long)c * S * HD) = qv;
+          }
+          if (l == 0) {
+            for (int c = 0; c < rep; ++c) {
+              s_scale[(ig * rep + c) * T + t] = sk;
+              s_scale[(G + ig * rep + c) * T + t] = sv;
+            }
+          }
+        }
+      } else if (live) {
+        const uint4 bk = pack_bf16(x);
+        for (int c = 0; c < rep; ++c) {
+          *reinterpret_cast<uint4*>(ok + (long long)c * S * HD) = bk;
+          *reinterpret_cast<uint4*>(ov + (long long)c * S * HD) = vr[j];
+        }
       }
     }
   }
   if constexpr (kQuant) {
-    // per-token scales: max(amax, 1e-8) * (1/127); quotient x * (1/scale)
-    float vf[EPT];
-    float ak = 0.f, av = 0.f;
-#pragma unroll
-    for (int i = 0; i < EPT; ++i) {
-      vf[i] = __bfloat162float(vr[lane + 32 * i]);
-      ak = fmaxf(ak, fabsf(x[i]));
-      av = fmaxf(av, fabsf(vf[i]));
-    }
-    const float sk = __fmul_rn(fmaxf(warp_max(ak), 1e-8f), 1.f / 127.f);
-    const float sv = __fmul_rn(fmaxf(warp_max(av), 1e-8f), 1.f / 127.f);
-    const float rk = __fdiv_rn(1.f, sk), rv = __fdiv_rn(1.f, sv);
-#pragma unroll
-    for (int i = 0; i < EPT; ++i) {
-      ok[lane + 32 * i] = (int8_t)quant_mul(x[i], rk);
-      ov[lane + 32 * i] = (int8_t)quant_mul(vf[i], rv);
-    }
-    if (lane == 0) {
-      scale[(long long)og * S + s] = sk;
-      scale[(long long)(G + og) * S + s] = sv;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < EPT; ++i) {
-      ok[lane + 32 * i] = __float2bfloat16(x[i]);
-      ov[lane + 32 * i] = vr[lane + 32 * i];
+    // T consecutive scales per output head, k's then v's
+    __syncthreads();
+    for (int i = threadIdx.x; i < 2 * G * T; i += kPackThreads) {
+      const int h = i / T, t = i - h * T;
+      if (t < nt) scale[(long long)h * S + s0 + t] = s_scale[i];
     }
   }
 }
@@ -201,33 +363,41 @@ __global__ void __launch_bounds__(256) gate_norm_residual_kernel(
   }
 }
 
+template <int LPR, typename OutT>
+cudaError_t launch_kv_pack_hd(const __nv_bfloat16* k, const __nv_bfloat16* v, const float* kw, const float* kb,
+                              const float* sin, const float* cos, OutT* out, float* scale, long long S, int hk,
+                              int rep, int rot, float eps, cudaStream_t st) {
+  constexpr int rows = 2 * kPackThreads / LPR;  // a tile: 4 tokens at hd 128 and hk 8
+  const int T = hk >= rows ? 1 : rows / hk;
+  const bool rot_smem = rot % 8 != 0;
+  const size_t smem = (sizeof(OutT) == 1 ? 2 * sizeof(float) * hk * rep * T : 0) +
+                      (rot_smem ? sizeof(float) * kPackThreads * 8 : 0);
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  const long long blocks = (S + T - 1) / T;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto kernel = rot_smem ? kv_norm_rope_pack_kernel<LPR, OutT, true> : kv_norm_rope_pack_kernel<LPR, OutT, false>;
+  kernel<<<(unsigned)blocks, kPackThreads, smem, st>>>(k, v, kw, kb, sin, cos, out, scale, S, hk, rep, rot, T, eps);
+  return cudaGetLastError();
+}
+
 template <typename OutT>
 cudaError_t launch_kv_pack(const void* k, const void* v, const float* kw, const float* kb, const float* sin,
                            const float* cos, OutT* out, float* scale, long long S, int hk, int hd, int rep, int rot,
                            float eps, cudaStream_t st) {
   if (S == 0) return cudaSuccess;
-  if (hd % 32 || hd > kMaxHd || 2 * rot > hd) return cudaErrorInvalidValue;
-  const long long rows = S * hk * rep;
-  const unsigned blocks = (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  if (hk <= 0 || rep <= 0 || rot < 0 || 2 * rot > hd) return cudaErrorInvalidValue;
   const auto* kk = static_cast<const __nv_bfloat16*>(k);
   const auto* vv = static_cast<const __nv_bfloat16*>(v);
-  switch (hd / 32) {
-    case 2:
-      kv_norm_rope_pack_kernel<2, OutT><<<blocks, 32 * kWarpsPerBlock, 0, st>>>(kk, vv, kw, kb, sin, cos, out, scale,
-                                                                              S, hk, rep, rot, eps);
-      break;
-    case 4:
-      kv_norm_rope_pack_kernel<4, OutT><<<blocks, 32 * kWarpsPerBlock, 0, st>>>(kk, vv, kw, kb, sin, cos, out, scale,
-                                                                              S, hk, rep, rot, eps);
-      break;
-    case 8:
-      kv_norm_rope_pack_kernel<8, OutT><<<blocks, 32 * kWarpsPerBlock, 0, st>>>(kk, vv, kw, kb, sin, cos, out, scale,
-                                                                              S, hk, rep, rot, eps);
-      break;
+  switch (hd) {
+    case 64:
+      return launch_kv_pack_hd<8, OutT>(kk, vv, kw, kb, sin, cos, out, scale, S, hk, rep, rot, eps, st);
+    case 128:
+      return launch_kv_pack_hd<16, OutT>(kk, vv, kw, kb, sin, cos, out, scale, S, hk, rep, rot, eps, st);
+    case 256:
+      return launch_kv_pack_hd<32, OutT>(kk, vv, kw, kb, sin, cos, out, scale, S, hk, rep, rot, eps, st);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace

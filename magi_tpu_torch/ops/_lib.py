@@ -131,6 +131,11 @@ def ptr(t) -> Optional[int]:
 
 
 def stream(device) -> int:
+    """The raw handle of `device`'s current stream (PyTorch's own lookup of
+    it, without the Stream object that `torch.cuda.current_stream` builds:
+    a few microseconds of host time a launch)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream

@@ -382,22 +382,30 @@ segmented_attention_v2.launches = 0
 
 
 def _kv_pack_rot(fn: str, k, v, kw, kb, sin, cos) -> int:
-    """Check the kv pack kernels' operands; returns the rotary width."""
+    """Check the kv pack kernels' operands; returns the rotary width.  The
+    kernel moves 8 values a lane, so every operand starts on 16 bytes.
+    All conditions are tested in one pass (the wrappers run tens of
+    microseconds of kernel each); the checks that name the fault run only
+    when one fails."""
     S, hk, hd = k.shape
-    if hd % 32 or hd > 256:
-        raise ValueError(f"{fn}: head_dim {hd} must be a multiple of 32 and at most 256")
-    _require(f"{fn}: k", k, k.device, torch.bfloat16, (S, hk, hd))
-    _require(f"{fn}: v", v, k.device, torch.bfloat16, (S, hk, hd))
-    _require(f"{fn}: kw", kw, k.device, torch.float32, (hd,))
-    _require(f"{fn}: kb", kb, k.device, torch.float32, (hd,))
-    if sin is None:
-        return 0
-    rot = sin.shape[-1]
+    rot = 0 if sin is None else sin.shape[-1]
+    ops = (k, v, kw, kb, sin, cos) if rot else (k, v, kw, kb)
+    dev = k.device
+    if (hd in (64, 128, 256) and 2 * rot <= hd and k.dtype == v.dtype == torch.bfloat16 and v.shape == k.shape
+            and kw.dtype == kb.dtype == torch.float32 and kw.shape == kb.shape == (hd,)
+            and (not rot or (sin.dtype == cos.dtype == torch.float32 and sin.shape == cos.shape == (S, rot)))
+            and all(t.device == dev and t.is_contiguous() and not t.data_ptr() % 16 for t in ops)):
+        return rot
+    if hd not in (64, 128, 256):
+        raise ValueError(f"{fn}: head_dim {hd} not supported by the kernel (64, 128 or 256)")
     if 2 * rot > hd:
         raise ValueError(f"{fn}: rotary width 2*{rot} exceeds head_dim {hd}")
-    _require(f"{fn}: sin", sin, k.device, torch.float32, (S, rot))
-    _require(f"{fn}: cos", cos, k.device, torch.float32, (S, rot))
-    return rot
+    for name, t, dtype, shape in (("k", k, torch.bfloat16, (S, hk, hd)), ("v", v, torch.bfloat16, (S, hk, hd)),
+                                  ("kw", kw, torch.float32, (hd,)), ("kb", kb, torch.float32, (hd,)),
+                                  ("sin", sin, torch.float32, (S, rot)), ("cos", cos, torch.float32, (S, rot))):
+        if rot or name not in ("sin", "cos"):
+            _require(f"{fn}: {name}", t, dev, dtype, shape)
+    raise ValueError(f"{fn}: k, v, kw, kb, sin and cos must start on 16 bytes")
 
 
 def kv_norm_rope_pack(

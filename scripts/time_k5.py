@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the attention kernels alone on the card at the shapes of
-`chip_smoke.py` phase 2: the two-source kernels of `csrc/attention_tma.cu`
+"""Time the attention kernels and the kv pack alone on the card at the
+shapes of `chip_smoke.py` phase 2: the two-source kernels of `csrc/attention_tma.cu`
 (K1 and K5 under qk8, sage and dq: 5 segments of 1536 tokens, 4 denoised
 with spans of 1, 2, 3 and 5 chunks and the ride-along copy, an int8 cache
 of 2 clean chunks, the DiT's q prologue) and the single-source kernels of
@@ -9,14 +9,20 @@ tokens, 24/8 heads, captions of 50, 7, 800 and 0 tokens in 800-token
 slabs, norm-only prologue, and the walk's captions, every one 50 tokens or
 every one 7; K2g, the VAE's attention at head_dim 64: 2 segments of 3073
 tokens, 16/16 heads, and the 720x720 decode's 2 x 24301, timed only: its
-plain version's scores would need 75 GB).  Each kernel is first held
-against its plain version (4e-3 + 1e-2 |ref|; captions of 50 and 7
-tokens 2e-2 + 2e-2 |ref|), then timed with CUDA events beside its bound:
-over a loop of calls from the host and, for K2 and K2g, also as calls
-replayed in a CUDA graph (the device time alone: at tens of microseconds
-the host's loop of wrapper calls can be the slower side).
+plain version's scores would need 75 GB); and K3, K3q of `csrc/norm.cu`
+(the k-side LayerNorm + rotary + pack, bf16 and int8: hk 8, hd 128, rot
+48, at phase 2's S = 6144 and 7680 and at the 720x720 steps' 48600 and
+60750: K3, K3q, K3_720, K3q_720).  Each kernel is first held against its
+plain version (4e-3 + 1e-2 |ref|; captions of 50 and 7 tokens 2e-2 +
+2e-2 |ref|; K3 1e-2 + 1e-2 |ref|; K3q one int8 step on under 1e-3 of
+the values, scales to 1e-6 relative), then timed with CUDA events beside
+its bound: over a loop of calls from the host and, for all but K1 and
+K5, also as calls replayed in a CUDA graph (the device time alone: at
+tens of microseconds the host's loop of wrapper calls can be the slower
+side) and the host's own time per call (perf_counter around a loop of
+calls that does not wait for the device).
 
-    python3 scripts/time_k5.py [--heads 24|48] [--iters 10] [--kernels K2,K2g,...] [--csrc DIR ...] [--phases]
+    python3 scripts/time_k5.py [--heads 24|48] [--iters 10] [--kernels K2,K2g,K3,K3q,...] [--csrc DIR ...] [--phases]
 
 With --csrc, each DIR (a changed copy of `magi_tpu_torch/csrc`) is built
 into a library of its own (under build/time_k5/) and timed in turns with
@@ -34,6 +40,7 @@ import ctypes
 import os
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
@@ -49,6 +56,19 @@ ATTN_TOL = dict(atol=4e-3, rtol=1e-2)
 SHORT_TOL = dict(atol=2e-2, rtol=2e-2)
 PEAK_BF16 = 989e12  # H100 SXM, dense, at 700 W
 PEAK_BYTES = 3.35e12
+
+
+def host_ms(fn, iters: int = 200) -> float:
+    """The host's time per call of fn (a loop of calls that the device
+    does not hold up: fewer than its launch queue holds)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def build(csrc: str, tag: str, flags=()) -> ctypes.CDLL:
@@ -75,7 +95,7 @@ def build(csrc: str, tag: str, flags=()) -> ctypes.CDLL:
     for line in log.splitlines():
         if "Compiling entry" in line:
             entry = line.split("'")[1] if "'" in line else line
-        elif ("registers" in line or "spill" in line) and "seg_attn" in entry:
+        elif ("registers" in line or "spill" in line) and ("seg_attn" in entry or "kv_norm" in entry):
             print(f"  ptxas {tag} {entry}: {line.split('ptxas info    : ')[-1].strip()}")
     handle = ctypes.CDLL(lib)
     for name, argtypes in _lib._SIGNATURES.items():
@@ -160,6 +180,43 @@ def single_source_kernels(dev) -> dict:
     return out
 
 
+def k3_int8_check(out, ref):
+    """K3q against its plain version: int8 values at most one step off on
+    under 1e-3 of them, scales within 1e-6 relative.  (ok, a summary)."""
+    (q8, sc), (ref8, ref_sc) = out, ref
+    dq = (q8.int() - ref8.int()).abs()
+    share = float((dq > 0).float().mean())
+    sc_rel = float(((sc - ref_sc).abs() / ref_sc).max())
+    ok = int(dq.max()) <= 1 and share < 1e-3 and sc_rel <= 1e-6
+    return ok, f"int8 off by one on {share:.2e}, scales within {sc_rel:.1e} relative"
+
+
+def kv_pack_kernels(dev) -> dict:
+    """K3 and K3q at phase 2's shapes (S = 6144 and 7680: 4 segments of
+    1536 tokens, and the ride-along copy) and at the 720x720 steps' (4 x
+    12150 base, 5 x 12150 distill), hk 8, hd 128, rot 48: name -> (kernel
+    call, plain call, bytes, bound ms, tolerance or check, None)."""
+    from chip_smoke import kv_pack_inputs
+
+    hk, hd, rot, eps = 8, 128, 48, 1e-6
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    kw = 1.0 + 0.1 * torch.randn(hd, generator=g, device=dev)
+    kb = 0.1 * torch.randn(hd, generator=g, device=dev)
+    out = {}
+    for tag, S, q in (("K3", 4 * 1536, False), ("K3q", 5 * 1536, True), ("K3_720", 4 * 12150, False),
+                      ("K3q_720", 5 * 12150, True)):
+        k, v, sin, cos = kv_pack_inputs(dev, S, hk, hd, rot)
+        nbytes = 2 * S * hk * hd * 2 + 2 * S * rot * 4 + 2 * hd * 4 + 2 * S * hk * hd * (1 if q else 2)
+        nbytes += 2 * S * hk * 4 if q else 0
+        plain = A.kv_norm_rope_pack_q8_reference if q else A.kv_norm_rope_pack_reference
+        out[tag] = (lambda k=k, v=v, sin=sin, cos=cos, q=q: A.kv_norm_rope_pack(k, v, kw, kb, sin, cos, eps=eps,
+                                                                                quantize=q),
+                    lambda k=k, v=v, sin=sin, cos=cos, plain=plain: plain(k, v, kw, kb, sin, cos, eps=eps),
+                    nbytes, nbytes / PEAK_BYTES * 1e3, k3_int8_check if q else dict(atol=1e-2, rtol=1e-2), None)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--heads", type=int, default=24, choices=(24, 48))
@@ -195,9 +252,11 @@ def main() -> int:
                 *args8, seg_len=seg, q_prologue=pro),
             ops, None, ATTN_TOL, "magi_phase_clocks")
     kernels.update(single_source_kernels(dev))
+    kernels.update(kv_pack_kernels(dev))
     if args.kernels:
-        kernels = {k: kernels[k] for k in args.kernels.split(",")}
-    refs = {name: plain().float() for name, (_, plain, *_) in kernels.items() if plain is not None}
+        by_lower = {k.lower(): k for k in kernels}
+        kernels = {by_lower[k.lower()]: kernels[by_lower[k.lower()]] for k in args.kernels.split(",")}
+    refs = {name: plain() for name, (_, plain, *_) in kernels.items() if plain is not None}
 
     a = torch.randn((8192, 8192), device=dev, dtype=torch.bfloat16)
     for _ in range(50):  # the clocks up from idle before the first timing
@@ -206,21 +265,27 @@ def main() -> int:
     for tag, handle in order:
         _lib._lib = handle
         for name, (call, _, n_ops, bms, tol, entry) in kernels.items():
-            out = call().float()
+            out = call()
             torch.cuda.synchronize()
             check = "(timed only)"
-            if name in refs:
-                ok = bool(torch.isfinite(out).all()) and torch.allclose(out, refs[name], **tol)
-                check = f"max_abs_err {float((out - refs[name]).abs().max()):.3e} {'ok' if ok else 'FAILED'}"
-            elif not bool(torch.isfinite(out).all()):
+            if callable(tol):  # K3q
+                ok, check = tol(out, refs[name])
+                check += " ok" if ok else " FAILED"
+            elif name in refs:
+                out, ref = out.float(), refs[name].float()
+                ok = bool(torch.isfinite(out).all()) and torch.allclose(out, ref, **tol)
+                check = f"max_abs_err {float((out - ref).abs().max()):.3e} {'ok' if ok else 'FAILED'}"
+            elif not bool(torch.isfinite(out.float()).all()):
                 check = "not finite: FAILED"
             ms = cuda_ms(call, args.iters if bms is None or bms > 0.2 else max(args.iters, 200))
             share = "" if bms is None else f", bound {bms:.4f} ms ({bms / ms:.1%})"
-            if entry == "magi_seg_attn_phase_clocks":  # K2, K2g: also the device time alone
+            if entry != "magi_phase_clocks":  # K2, K2g, K3, K3q: also the device time alone, and the host's
                 dms = graph_ms(call, max(args.iters, 50))
                 share += f"; replayed in a CUDA graph {dms:.4f} ms" + ("" if bms is None else f" ({bms / dms:.1%})")
+                share += f"; host {host_ms(call):.4f} ms a call"
+            rate = f"{n_ops / ms / 1e9:.1f} T operations/s" if entry else f"{n_ops / ms / 1e9:.3f} TB/s"
             print(f"{tag} {name}{' ' + str(args.heads) + '/8 heads' if name in ('K1', *A8.SCHEMES) else ''}: "
-                  f"{ms:.4f} ms, {n_ops / ms / 1e9:.1f} T operations/s{share}, {check}", flush=True)
+                  f"{ms:.4f} ms, {rate}{share}, {check}", flush=True)
     if args.phases:
         handle = build(_lib.CSRC_DIR, "phases", ["-DMAGI_PHASE_CLOCKS"])
         for entry in ("magi_phase_clocks", "magi_seg_attn_phase_clocks"):
@@ -231,6 +296,8 @@ def main() -> int:
         two_source = ["wait tile", "Q K^T", "wait converted", "softmax", "P V"]
         single = ["wait tile", "turn", "products", "softmax"]
         for name, (call, *_, entry) in kernels.items():
+            if entry is None:  # K3, K3q: no clocks
+                continue
             read = getattr(handle, entry)
             call()
             torch.cuda.synchronize()

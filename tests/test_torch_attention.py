@@ -160,10 +160,16 @@ def test_ranges_clip_to_sources():
     np.testing.assert_allclose(got, want, **TOL)
 
 
-@pytest.mark.parametrize("rep,rot", [(1, 48), (2, 48), (1, 0)])
-def test_kv_norm_rope_pack_matches_pallas(rep, rot):
-    rng = np.random.default_rng(rep * 100 + rot)
-    S, hk, hd = 70, 2, 128
+# (rep, rot, S, block_s): S off the Pallas kernel's token block, at a
+# block of 64 and at its default 512
+KV_PACK_CASES = [(1, 48, 70, 64), (2, 48, 70, 64), (1, 0, 70, 64), (2, 48, 600, 512), (1, 0, 600, 512)]
+
+
+@pytest.mark.parametrize("rep,rot,S,block_s", [
+    pytest.param(*c, id=f"{c[0]}-{c[1]}" + ("" if c[2] == 70 else f"-S{c[2]}")) for c in KV_PACK_CASES])
+def test_kv_norm_rope_pack_matches_pallas(rep, rot, S, block_s):
+    rng = np.random.default_rng(rep * 100 + rot + (S != 70))
+    hk, hd = 2, 128
     k = rng.normal(size=(S, hk, hd)).astype(np.float32)
     v = rng.normal(size=(S, hk, hd)).astype(np.float32)
     kw = rng.normal(size=(hd,)).astype(np.float32)
@@ -173,7 +179,7 @@ def test_kv_norm_rope_pack_matches_pallas(rep, rot):
     got = T.kv_norm_rope_pack(_t(k), _t(v), _t(kw), _t(kb), None if sin is None else _t(sin),
                               None if cos is None else _t(cos), eps=1e-6, rep=rep).numpy()
     jargs = [jnp.asarray(a) for a in (k, v, kw, kb)] + [None if a is None else jnp.asarray(a) for a in (sin, cos)]
-    want = np.asarray(J.kv_norm_rope_pack(*jargs, eps=1e-6, rep=rep, block_s=64, interpret=True))
+    want = np.asarray(J.kv_norm_rope_pack(*jargs, eps=1e-6, rep=rep, block_s=block_s, interpret=True))
     assert got.shape == want.shape == (2, hk * rep, S, hd)
     np.testing.assert_allclose(got, want, **TOL)
     ref = np.asarray(J.kv_norm_rope_pack_reference(*jargs, eps=1e-6, rep=rep))

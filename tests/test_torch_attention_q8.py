@@ -172,10 +172,17 @@ def test_scheme_switch(monkeypatch):
         T8.default_scheme()
 
 
-@pytest.mark.parametrize("rep,rot", [(1, 48), (2, 0)])
-def test_kv_norm_rope_pack_q8_matches_pallas(rep, rot):
-    rng = np.random.default_rng(rep * 10 + rot)
-    S, hk, hd = 70, 2, 128
+# (rep, rot, S, block_s): S off the Pallas kernel's token block, at a
+# block of 64 and at its default 512
+KV_PACK_Q8_CASES = [(1, 48, 70, 64), (2, 0, 70, 64), (1, 0, 70, 64), (2, 48, 70, 64), (2, 48, 600, 512),
+                    (1, 0, 600, 512)]
+
+
+@pytest.mark.parametrize("rep,rot,S,block_s", [
+    pytest.param(*c, id=f"{c[0]}-{c[1]}" + ("" if c[2] == 70 else f"-S{c[2]}")) for c in KV_PACK_Q8_CASES])
+def test_kv_norm_rope_pack_q8_matches_pallas(rep, rot, S, block_s):
+    rng = np.random.default_rng(rep * 10 + rot + (S != 70))
+    hk, hd = 2, 128
     k = _bf16(rng.normal(size=(S, hk, hd)))
     v = _bf16(rng.normal(size=(S, hk, hd)))
     kw = rng.normal(size=(hd,)).astype(np.float32)
@@ -184,7 +191,8 @@ def test_kv_norm_rope_pack_q8_matches_pallas(rep, rot):
     sin, cos = (np.sin(ang), np.cos(ang)) if rot else (None, None)
     jargs = [jnp.asarray(a, jnp.bfloat16) for a in (k, v)] + [jnp.asarray(a) for a in (kw, kb)]
     jargs += [None if a is None else jnp.asarray(a) for a in (sin, cos)]
-    want8, want_sc = JA.kv_norm_rope_pack(*jargs, eps=1e-6, rep=rep, block_s=64, quantize=True, interpret=True)
+    want8, want_sc = JA.kv_norm_rope_pack(*jargs, eps=1e-6, rep=rep, block_s=block_s, quantize=True,
+                                          interpret=True)
     targs = [_t(a).to(torch.bfloat16) for a in (k, v)] + [_t(a) for a in (kw, kb)]
     targs += [None if a is None else _t(a) for a in (sin, cos)]
     for got8, got_sc in (TA.kv_norm_rope_pack_q8_reference(*targs, eps=1e-6, rep=rep),

@@ -6,7 +6,10 @@ tests/test_torch_cuda.py`; `chip_smoke.py` holds the same kernels at the
 main path's shapes.
 
 Tolerances (bf16 outputs): K3 and K4 one or two bf16 ulps (1e-2 absolute
-+ 1e-2 relative); attention 4e-3 absolute + 1e-2 relative, well below
++ 1e-2 relative; K3 and K3q on token counts below, at and past the
+kernel's 4-token tile, with and without GQA replication and rotary, rows
+of mean 30, head_dim 64 and 256, rotary widths off the 8-lane grid, and
+the head dims and misaligned operands they refuse before any launch); attention 4e-3 absolute + 1e-2 relative, well below
 outputs of ~n**-0.5 for spans of n keys (q is rounded to bf16 after the
 sm_scale*log2e fold in the kernel and before it in the plain version, and
 P is rounded to bf16 for the PV product).  A segment of a dozen keys has
@@ -84,17 +87,62 @@ def _close(out, ref, atol, rtol):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
 
 
-def test_kv_norm_rope_pack_kernel(dev):
+# Cases of K3 and K3q: (S, hk, hd, rep, rot, mean of k's rows).  The
+# kernel's tile is 4 tokens at hd 128 and hk 8 (csrc/norm.cu), so S runs
+# below, at both sides of and well past one tile, each with and without
+# GQA replication and rotary.  Then k rows of mean 30 (the variance taken
+# about the mean), hd 64 and 256, hk 3 (a tile of 10 tokens) and hk 48
+# (one token, rows in two passes), and rotary widths that are not a
+# multiple of 8 (the partner through shared memory).
+KV_PACK_TILE = 4
+KV_PACK_CASES = [(S, 8, 128, rep, rot, 0.0) for S in (1, 7, KV_PACK_TILE - 1, KV_PACK_TILE + 1, 300, 1537)
+                 for rep in (1, 2) for rot in (48, 0)]
+KV_PACK_CASES += [(300, 8, 128, 1, 48, 30.0), (300, 8, 128, 2, 0, 30.0), (300, 8, 64, 2, 24, 0.0),
+                  (37, 8, 256, 1, 48, 0.0), (300, 3, 128, 2, 48, 0.0), (41, 48, 128, 1, 48, 0.0),
+                  (300, 8, 128, 2, 20, 0.0), (37, 8, 64, 1, 20, 0.0)]
+
+
+def _kv_pack_inputs(dev, S, hk, hd, rot, shift):
     g = _gen(dev)
-    S, hk, hd, rot = 300, 8, 128, 48
-    k, v = _randn(g, dev, S, hk, hd), _randn(g, dev, S, hk, hd)
-    kw, kb = (_randn(g, dev, hd, dtype=torch.float32) for _ in range(2))
-    sin, cos = (_randn(g, dev, S, rot, dtype=torch.float32) for _ in range(2))
-    for rep in (1, 2):
-        before = A.kv_norm_rope_pack.launches
-        out = A.kv_norm_rope_pack(k, v, kw, kb, sin, cos, eps=1e-6, rep=rep)
-        assert A.kv_norm_rope_pack.launches == before + 1
-        _close(out, A.kv_norm_rope_pack_reference(k, v, kw, kb, sin, cos, eps=1e-6, rep=rep), atol=1e-2, rtol=1e-2)
+    k, v = _randn(g, dev, S, hk, hd, dtype=torch.float32), _randn(g, dev, S, hk, hd)
+    k = (k + shift).bfloat16()
+    kw, kb = _ln_affine(g, dev, hd)
+    ang = torch.rand((S, rot), generator=g, device=dev) * 6.28
+    sin, cos = (torch.sin(ang), torch.cos(ang)) if rot else (None, None)
+    return k, v, kw, kb, sin, cos
+
+
+def _kv_pack_id(c):
+    return "S{}-hk{}-hd{}-rep{}-rot{}".format(*c[:5]) + (f"-mean{c[5]:g}" if c[5] else "")
+
+
+@pytest.mark.parametrize("S,hk,hd,rep,rot,shift", [pytest.param(*c, id=_kv_pack_id(c)) for c in KV_PACK_CASES])
+def test_kv_norm_rope_pack_kernel(dev, S, hk, hd, rep, rot, shift):
+    args = _kv_pack_inputs(dev, S, hk, hd, rot, shift)
+    before = A.kv_norm_rope_pack.launches
+    out = A.kv_norm_rope_pack(*args, eps=1e-6, rep=rep)
+    assert A.kv_norm_rope_pack.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (2, hk * rep, S, hd)
+    _close(out, A.kv_norm_rope_pack_reference(*args, eps=1e-6, rep=rep), atol=1e-2, rtol=1e-2)
+
+
+def test_kv_norm_rope_pack_kernels_refuse_other_layouts(dev):
+    """Head dims other than 64, 128 and 256 and operands off 16 bytes
+    raise before any launch; nothing falls back to the plain version."""
+    counts = lambda: (A.kv_norm_rope_pack.launches, A.kv_norm_rope_pack_q8.launches)
+    before = counts()
+    for hd in (32, 96, 192):
+        args = _kv_pack_inputs(dev, 9, 8, hd, 16, 0.0)
+        for quantize in (False, True):
+            with pytest.raises(ValueError, match="head_dim"):
+                A.kv_norm_rope_pack(*args, eps=1e-6, quantize=quantize)
+    k, v, kw, kb, sin, cos = _kv_pack_inputs(dev, 9, 8, 128, 48, 0.0)
+    k_off = torch.empty(k.numel() + 1, dtype=k.dtype, device=dev)[1:].view(k.shape)
+    k_off.copy_(k)
+    for quantize in (False, True):
+        with pytest.raises(ValueError, match="16 bytes"):
+            A.kv_norm_rope_pack(k_off, v, kw, kb, sin, cos, eps=1e-6, quantize=quantize)
+    assert counts() == before
 
 
 def test_gate_norm_residual_kernel(dev):
@@ -364,22 +412,19 @@ def test_two_source_kernels_take_views_and_refuse_other_layouts(dev):
     assert counts() == before
 
 
-def test_kv_norm_rope_pack_q8_kernel(dev):
-    g = _gen(dev)
-    S, hk, hd, rot = 300, 8, 128, 48
-    k, v = _randn(g, dev, S, hk, hd), _randn(g, dev, S, hk, hd)
-    kw, kb = _ln_affine(g, dev, hd)
-    sin, cos = (_randn(g, dev, S, rot, dtype=torch.float32) for _ in range(2))
-    for rep in (1, 2):
-        before = A.kv_norm_rope_pack_q8.launches
-        q8, sc = A.kv_norm_rope_pack(k, v, kw, kb, sin, cos, eps=1e-6, rep=rep, quantize=True)
-        assert A.kv_norm_rope_pack_q8.launches == before + 1
-        ref8, ref_sc = A.kv_norm_rope_pack_q8_reference(k, v, kw, kb, sin, cos, eps=1e-6, rep=rep)
-        torch.cuda.synchronize()
-        assert q8.dtype == torch.int8 and q8.shape == ref8.shape == (2, hk * rep, S, hd)
-        torch.testing.assert_close(sc, ref_sc, atol=0, rtol=1e-6)
-        dq = (q8.int() - ref8.int()).abs()
-        assert int(dq.max()) <= 1 and float((dq > 0).float().mean()) < 1e-3
+@pytest.mark.parametrize("S,hk,hd,rep,rot,shift", [pytest.param(*c, id=_kv_pack_id(c)) for c in KV_PACK_CASES])
+def test_kv_norm_rope_pack_q8_kernel(dev, S, hk, hd, rep, rot, shift):
+    args = _kv_pack_inputs(dev, S, hk, hd, rot, shift)
+    before = A.kv_norm_rope_pack_q8.launches
+    q8, sc = A.kv_norm_rope_pack(*args, eps=1e-6, rep=rep, quantize=True)
+    assert A.kv_norm_rope_pack_q8.launches == before + 1
+    ref8, ref_sc = A.kv_norm_rope_pack_q8_reference(*args, eps=1e-6, rep=rep)
+    torch.cuda.synchronize()
+    assert q8.dtype == torch.int8 and q8.shape == ref8.shape == (2, hk * rep, S, hd)
+    assert sc.shape == ref_sc.shape == (2, hk * rep, S)
+    torch.testing.assert_close(sc, ref_sc, atol=0, rtol=1e-6)
+    dq = (q8.int() - ref8.int()).abs()
+    assert int(dq.max()) <= 1 and float((dq > 0).float().mean()) < 1e-3
 
 
 def _q8_inputs(g, dev, hk, L, hd):
