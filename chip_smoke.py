@@ -17,9 +17,13 @@ Phases, each printed on its own line; any failure exits non-zero:
   3. tiny walks with the kernels against the same walks on the CPU in fp32
      (plain versions), same weights and noise: the 3-branch bf16 walk, the
      single-branch distill walk of an int8 tree with int8 attention, the
-     same walk of a gated int4 tree without blocks_edge (K7 and K8s), and
-     walks after a prefix video (v2v): the 3-branch walk, and the distill
-     int8 walk under the K5 schemes sage and dq;
+     same walk of a gated int4 tree without blocks_edge (K7 and K8s), the
+     int8 walk on a smooth-folded tree (`act_smooth` in [0.5, 2] on the
+     four smooth-quant linears, as an fp8 checkpoint loads) and the gated
+     int4 walk without blocks_edge with its fc2 smoothed (the divide before
+     K8 plain on K6 and K7, no K8s), and walks after a prefix video (v2v):
+     the 3-branch walk, and the distill int8 walk under the K5 schemes sage
+     and dq;
   4. the 4.5B base config at full width and depth (34 layers, 3072 wide,
      24/8 heads, caption 800 x 4096) through the port's CLI entry with
      random weights (SKIP_LOAD_MODEL=1) and 3-branch CFG, noise2clean kv
@@ -52,7 +56,22 @@ Phases, each printed on its own line; any failure exits non-zero:
      latent frames: one clean chunk written by the warm-up forward).  Runs
      K3q, K5 sage, K6, K8, K4 and K2g, and no other K5 scheme;
  10. image-to-video on the same config under MAGI_ATTN_Q8_SCHEME=dq.  Runs
-     K5 dq and no other K5 scheme.
+     K5 dq and no other K5 scheme;
+ 11. phase 5's request on the 4.5B distill fp8 config with SKIP_LOAD_MODEL
+     unset, from checkpoints written to a directory under `build/` in the
+     released formats from seeded random weights, and deleted after: the
+     DiT's `inference_weight.fp8.distill` at full width and depth (bf16
+     edge layers, F8_E4M3 middle layers with per-tensor and smooth-quant
+     scales, two shards and an index), a diffusers-format VAE of the
+     shape `get_vae` makes, and an HF-layout T5 encoder at T5-XXL's width
+     with 2 layers, tokenized by a stand-in (the card has no
+     `transformers`).  Checks a middle layer's dequant on the card against
+     the CPU's bit for bit, the T5 encode against the CPU's f32 encode,
+     the video, and the launch counts against phase 5's (equal: the
+     smooth-quant divide is a plain op before K8 plain); prints load
+     seconds and GB/s, the step time against phase 5's, the divide's ms a
+     step, the T5-XXL encode at L 800 resident and staged, and the peak
+     memory.
 Phases 8-10 check the frame count against the JAX package's for the same
 request (i2v keeps its first chunk whole; v2v drops the prefix frames).
 Phase 2 also checks K7 and K8s at phase 6-7's shapes, K8 at the 24B's
@@ -61,7 +80,7 @@ its 48/8 heads.  Phase 6 holds a
 quantization peak of about 57 GiB (the bf16 tree alive while it is
 packed), so each main path starts from an emptied allocator cache.
 Then the card's name and power limit, one JSON line of per-kernel results
-(`launches_by_path` holds each main path's count, phases 4-10, read just
+(`launches_by_path` holds each main path's count, phases 4-11, read just
 after its run; `launches` is their sum; K5's sage and dq rows come after
 every other), and a last line `{"ok": true, "device": {...}}`.
 
@@ -919,7 +938,7 @@ TINY_RUNTIME = dict(num_steps=8, window_size=2, chunk_width=2, noise2clean_kvran
 
 
 def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quantize=None, wrappers=(), kernels=(),
-                    prefix_frames=0, scheme=None):
+                    prefix_frames=0, scheme=None, idle=()):
     """A model at head_dim 128 (so every kernel runs) walks 3 chunks on the
     card in bf16 and on the CPU in fp32 with the same weights and noise;
     the emitted latents must agree to `tol` relative L2 error.  `quantize`
@@ -929,7 +948,7 @@ def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quanti
     warm-up forward) and the walk has one chunk more.  `scheme` sets
     `MAGI_ATTN_Q8_SCHEME` for the card's walk (the CPU's takes the dequant
     reference).  Each of `kernels` (names in `wrappers`) must launch in the
-    card's walk."""
+    card's walk, and none of `idle`."""
     import numpy as np
     import torch
 
@@ -971,7 +990,7 @@ def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quanti
             prefix_video=None if prefix is None else prefix.to(device))
         return torch.cat([c.cpu() for _, c in ArdfSampler(cfg, params, inp, noise=noise, device=device).walk()], 1)
 
-    before = {n: wrappers[n].launches for n in kernels}
+    before = {n: wrappers[n].launches for n in list(kernels) + list(idle)}
     old_scheme = os.environ.get("MAGI_ATTN_Q8_SCHEME")
     if scheme:
         os.environ["MAGI_ATTN_Q8_SCHEME"] = scheme
@@ -979,13 +998,16 @@ def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quanti
         a = walk(cfg_gpu, p_gpu, dev)
     finally:
         _set_env("MAGI_ATTN_Q8_SCHEME", old_scheme)
-    idle = [n for n in kernels if wrappers[n].launches == before[n]]
-    if idle:
-        fail(f"{name}: the card's walk launched no {idle}")
+    missing = [n for n in kernels if wrappers[n].launches == before[n]]
+    if missing:
+        fail(f"{name}: the card's walk launched no {missing}")
+    stray = [n for n in idle if wrappers[n].launches != before[n]]
+    if stray:
+        fail(f"{name}: the card's walk launched {stray}")
     b = walk(cfg_cpu, p_cpu, "cpu")
     rel = float((a - b).norm() / b.norm())
     ok = bool(torch.isfinite(a).all()) and a.shape == b.shape and rel < tol
-    print(f"  {name}, card (kernels, bf16) vs CPU (plain, fp32): relative L2 error {rel:.3e} "
+    print(f"  {name}, card (kernels, bf16) vs CPU (plain, fp32): relative L2 error {rel:.5e} "
           f"(tolerance {tol}) {'ok' if ok else 'FAILED'}")
     if not ok:
         fail(f"{name} on the card disagrees with the CPU walk")
@@ -1015,10 +1037,10 @@ def _map(tree, fn):
 
 
 def run_main_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: list) -> dict:
-    """Run `config` through the CLI entry (t2v, random weights) with every
-    launch count set to 0 just before and read just after; checks the video
-    (96 frames of 256x256, finite latents) and that every kernel of the path
-    launched.  Returns the launch counts."""
+    """Run `config` through the CLI entry (t2v) with every launch count set
+    to 0 just before and read just after; checks the video (96 frames of
+    256x256, finite latents) and that every kernel of the path launched.
+    Returns the launch counts and the run's stats."""
     import torch
 
     from magi_tpu_torch.pipeline import entry
@@ -1051,7 +1073,7 @@ def run_main_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: li
     missing = [n for n in path_kernels if launches[n] == 0]
     if missing:
         fail(f"the main path launched no {missing}")
-    return launches
+    return launches, stats
 
 
 def run_prefix_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: list, *, mode: str,
@@ -1175,6 +1197,434 @@ def run_noedge_walk(dev, config: dict, wrappers: dict, path_kernels: list) -> di
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3's smooth-folded trees and phase 11: checkpoints on disk
+# ---------------------------------------------------------------------------
+
+SMOOTH_LINEARS = ("self_attention/linear_kv_xattn", "self_attention/linear_proj", "mlp/linear_fc1",
+                  "mlp/linear_fc2")
+
+
+def with_smooth(params: dict, linears, seed: int = 3) -> dict:
+    """`params` (blocks copied, leaves shared) with an `act_smooth` [L, in]
+    in [0.5, 2] beside each of `linears`, 1 on layers 0 and L-1 (as the
+    loader gives the bf16 edge layers of an fp8 checkpoint)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    out = dict(params, blocks=_map(params["blocks"], lambda t: t))
+    for path in linears:
+        node = out["blocks"]
+        for k in path.split("/"):
+            node = node[k]
+        s = 0.5 + 1.5 * torch.rand(node["weight"].shape[:2], generator=gen)
+        s[0] = s[-1] = 1.0
+        node["act_smooth"] = s.to(node["weight"].device)
+    return out
+
+
+FP8_MAX = 448.0
+FP8_CKPT_LAYERS = 34  # the 4.5B's published depth, written whole
+PROMPT = "a red cube on a table"
+
+
+def write_dit_fp8_checkpoint(cfg, root: str, dev) -> int:
+    """The released 4.5B distill fp8 checkpoint's layout under
+    `root/inference_weight.fp8.distill`, from seeded random weights made on
+    the card: layers 0 and L-1 plain bf16; the middle layers' linears
+    F8_E4M3, [1, out, in], q/qx/k/v with per-tensor weight scales
+    (PerTensor), kv_xattn, proj, fc1 and fc2 smooth-folded with smooth and
+    input scales (PerChannel: weight = e4m3(W·s / ws), smooth_scale =
+    s·input_scale); every other tensor bf16, the rotary bands f32.  Two
+    shards (the globals and
+    the first half of the layers, then the rest) and an index.  Returns the
+    bytes written."""
+    import torch
+
+    from magi_tpu_torch.checkpoint.safetensors_io import save_file
+    from magi_tpu_torch.models.dit.rope import default_bands
+
+    mc = cfg.model_config
+    D, hd, hq, hk, L = mc.hidden_size, mc.kv_channels, mc.num_attention_heads, mc.num_query_groups, mc.num_layers
+    ch, xh, gh, ffn, cc = (mc.cond_hidden_size, mc.xattn_cond_hidden_size, mc.gate_hidden_size, mc.ffn_hidden_size,
+                           mc.caption_channels)
+    fc1 = 2 * ffn if mc.gated_linear_unit else ffn
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen, device=dev) * 0.02
+
+    def host(key, t):
+        keep = t.dtype == torch.float8_e4m3fn or key.endswith("_scale") or key == "rope.bands"
+        return (t if keep else t.to(torch.bfloat16)).cpu()
+
+    def fp8(t):
+        return (t / (t.abs().max() / FP8_MAX)).clamp(-FP8_MAX, FP8_MAX).to(torch.float8_e4m3fn)[None]
+
+    globals_ = {
+        "x_embedder.weight": w(D, mc.in_channels, mc.t_patch_size, mc.patch_size, mc.patch_size),
+        "t_embedder.mlp.0.weight": w(ch, 256), "t_embedder.mlp.0.bias": w(ch),
+        "t_embedder.mlp.2.weight": w(ch, ch), "t_embedder.mlp.2.bias": w(ch),
+        "y_embedder.y_proj_xattn.0.weight": w(xh, cc), "y_embedder.y_proj_xattn.0.bias": w(xh),
+        "y_embedder.y_proj_adaln.0.weight": w(ch, cc), "y_embedder.y_proj_adaln.0.bias": w(ch),
+        "y_embedder.null_caption_embedding": w(mc.caption_max_length, cc),
+        "rope.bands": default_bands(hd, device=dev),
+        "videodit_blocks.final_layernorm.weight": w(D), "videodit_blocks.final_layernorm.bias": w(D),
+        "final_linear.linear.weight": w(mc.patch_size**2 * mc.t_patch_size * mc.out_channels, D),
+    }
+    wdir = os.path.join(root, "inference_weight.fp8.distill")
+    os.makedirs(wdir)
+    shards = [{k: host(k, v) for k, v in globals_.items()}, {}]
+    for i in range(L):
+        b = f"videodit_blocks.layers.{i}."
+        a = b + "self_attention."
+        per_tensor = {a + f"linear_qkv.{n}.weight": w(o, D) for n, o in (("q", hq * hd), ("qx", hq * hd),
+                                                                           ("k", hk * hd), ("v", hk * hd))}
+        per_channel = {a + "linear_kv_xattn.weight": w(2 * hk * hd, xh), a + "linear_proj.weight": w(D, 2 * hq * hd),
+                       b + "mlp.linear_fc1.weight": w(fc1, D), b + "mlp.linear_fc2.weight": w(D, ffn)}
+        layer = {b + "ada_modulate_layer.proj.0.weight": w(2 * gh, ch), b + "ada_modulate_layer.proj.0.bias": w(2 * gh)}
+        for n in ("linear_qkv.layer_norm", "q_layernorm", "k_layernorm", "q_layernorm_xattn", "k_layernorm_xattn"):
+            dim = D if n == "linear_qkv.layer_norm" else hd
+            layer[a + n + ".weight"], layer[a + n + ".bias"] = w(dim), w(dim)
+        for n in ("self_attn_post_norm", "mlp.layer_norm", "mlp_post_norm"):
+            layer[b + n + ".weight"], layer[b + n + ".bias"] = w(D), w(D)
+        if i in (0, L - 1):
+            layer.update(per_tensor)
+            layer.update(per_channel)
+        else:
+            for key, wt in per_tensor.items():
+                base = key[: -len(".weight")]
+                layer[key] = fp8(wt)
+                layer[base + ".weight_scale"] = (wt.abs().max() / FP8_MAX).reshape(1)
+                layer[base + ".input_scale"] = torch.full((wt.shape[1],), 0.01, device=dev)
+            for key, wt in per_channel.items():
+                base = key[: -len(".weight")]
+                smooth = 0.5 + 1.5 * torch.rand(wt.shape[1], generator=gen, device=dev)
+                folded = wt * smooth[None, :]
+                layer[key] = fp8(folded)
+                layer[base + ".weight_scale"] = (folded.abs().max() / FP8_MAX).reshape(1)
+                layer[base + ".input_scale"] = torch.full((1,), 0.01, device=dev)
+                layer[base + ".smooth_scale"] = (smooth * 0.01)[None]
+        shards[0 if i < L // 2 else 1].update((k, host(k, v)) for k, v in layer.items())
+    weight_map = {}
+    for j, shard in enumerate(shards):
+        name = f"model-{j + 1:05d}-of-00002.safetensors"
+        save_file(shard, os.path.join(wdir, name))
+        weight_map.update((k, name) for k in shard)
+    with open(os.path.join(wdir, "model.safetensors.index.json"), "w") as f:
+        json.dump({"weight_map": weight_map}, f)
+    return sum(os.path.getsize(os.path.join(wdir, f)) for f in os.listdir(wdir))
+
+
+VAE_DDCONFIG = dict(video_size=256, video_length=16, patch_size=8, patch_length=4, in_chans=3, z_chans=16,
+                    embed_dim=1024, depth=16, num_heads=16)
+
+
+def write_vae_checkpoint(path: str, dev) -> int:
+    """A diffusers-format ViT-VAE directory (config.json with
+    `_class_name: ViTVAE` and the ddconfig of the shape `get_vae` makes,
+    bf16 weights in `diffusion_pytorch_model.safetensors`, the released key
+    names) from the port's seeded random VAE.  Returns the bytes written."""
+    import torch
+
+    from magi_tpu_torch.checkpoint.safetensors_io import save_file
+    from magi_tpu_torch.models.vae.model import VaeConfig, init_vae_params
+
+    cfg = VaeConfig.from_ddconfig(VAE_DDCONFIG)
+    tree = init_vae_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    state = {}
+    for tower in ("encoder", "decoder"):
+        t, p = tree[tower], tower + "."
+        for i in range(cfg.depth):
+            for group, names in (("attn", ("qkv", "proj")), ("mlp", ("fc1", "fc2"))):
+                for n in names:
+                    for leaf, v in t["blocks"][group][n].items():
+                        state[f"{p}blocks.{i}.{group}.{n}.{leaf}"] = v[i].t() if leaf == "weight" else v[i]
+            for n in ("norm1", "norm2"):
+                for leaf, v in t["blocks"][n].items():
+                    state[f"{p}blocks.{i}.{n}.{leaf}"] = v[i]
+        state[p + "pos_embed"], state[p + "cls_token"] = t["pos_embed"], t["cls_token"]
+        for n in ("norm", "proj_in", "final_proj", "final_norm", "patch_embed.proj", "last_layer"):
+            node = t
+            for k in n.split("."):
+                node = node.get(k, {})
+            for leaf, v in node.items():
+                linear = n in ("proj_in", "final_proj") or (n == "last_layer" and tower == "encoder")
+                state[f"{p}{n}.{leaf}"] = v.t() if linear and leaf == "weight" else v
+    os.makedirs(path)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"_class_name": "ViTVAE", "ddconfig": VAE_DDCONFIG}, f)
+    save_file(state, os.path.join(path, "diffusion_pytorch_model.safetensors"))
+    return os.path.getsize(os.path.join(path, "diffusion_pytorch_model.safetensors"))
+
+
+T5_HF_CONFIG = dict(vocab_size=32128, d_model=4096, d_kv=64, num_heads=64, d_ff=10240, num_layers=2,
+                    relative_attention_num_buckets=32, relative_attention_max_distance=128,
+                    feed_forward_proj="gated-gelu")
+
+
+def random_t5_layer_state(cfg, i: int, gen, dev) -> dict:
+    """Layer i of an HF T5 encoder state ([out, in] weights, bf16) drawn at
+    the scales of HF's T5 initialisation, so activations have the sizes of
+    a trained model's."""
+    import torch
+
+    from magi_tpu_torch.models.t5.model import _T5_LAYER_FMTS
+
+    inner, d, f = cfg.num_heads * cfg.d_kv, cfg.d_model, cfg.d_ff
+    shapes = {"q": ((inner, d), (d * cfg.d_kv) ** -0.5), "k": ((inner, d), d**-0.5), "v": ((inner, d), d**-0.5),
+              "o": ((d, inner), inner**-0.5), "wi_0": ((f, d), d**-0.5), "wi_1": ((f, d), d**-0.5),
+              "wo": ((d, f), f**-0.5)}
+    out = {}
+    for key, (fmt, _) in _T5_LAYER_FMTS.items():
+        if key in shapes:
+            shape, std = shapes[key]
+            out[fmt.format(i)] = (torch.randn(shape, generator=gen, device=dev) * std).to(torch.bfloat16)
+        else:
+            out[fmt.format(i)] = torch.ones(d, dtype=torch.bfloat16, device=dev)
+    return out
+
+
+def random_t5_tree(cfg, dev, gen) -> dict:
+    """The port's T5 tree of `cfg` on `dev` in bf16, drawn at HF's
+    initialisation scales (`random_t5_layer_state` layer by layer)."""
+    import torch
+
+    from magi_tpu_torch.models.t5.model import convert_hf_t5_layer
+
+    layers = [convert_hf_t5_layer(random_t5_layer_state(cfg, i, gen, dev).__getitem__, i)
+              for i in range(cfg.num_layers)]
+    return {"shared": {"weight": torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device=dev).bfloat16()},
+            "rel_bias": {"weight": (torch.randn((cfg.rel_buckets, cfg.num_heads), generator=gen, device=dev)
+                                    * cfg.d_model**-0.5).bfloat16()},
+            "blocks": {k: torch.stack([blk[k] for blk in layers]) for k in layers[0]},
+            "final_layer_norm": {"weight": torch.ones(cfg.d_model, dtype=torch.bfloat16, device=dev)}}
+
+
+def write_t5_checkpoint(path: str, dev) -> int:
+    """An HF-layout T5 encoder directory at T5-XXL's width (config.json and
+    `model.safetensors`, bf16) with `T5_HF_CONFIG["num_layers"]` layers, from
+    seeded random weights.  Returns the bytes written."""
+    import torch
+
+    from magi_tpu_torch.checkpoint.safetensors_io import save_file
+    from magi_tpu_torch.models.t5.model import _REL_BIAS, T5Config
+
+    cfg = T5Config.from_hf_config(T5_HF_CONFIG)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    state = {"shared.weight": torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device=dev).bfloat16(),
+             _REL_BIAS: (torch.randn((cfg.rel_buckets, cfg.num_heads), generator=gen, device=dev)
+                         * cfg.d_model**-0.5).bfloat16(),
+             "encoder.final_layer_norm.weight": torch.ones(cfg.d_model, dtype=torch.bfloat16, device=dev)}
+    for i in range(cfg.num_layers):
+        state.update(random_t5_layer_state(cfg, i, gen, dev))
+    os.makedirs(path)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(T5_HF_CONFIG, f)
+    save_file(state, os.path.join(path, "model.safetensors"))
+    return os.path.getsize(os.path.join(path, "model.safetensors"))
+
+
+class StandInTokenizer:
+    """Takes the place of the HF sentencepiece tokenizer (the card has no
+    `transformers`): its call and output format, with ids drawn from a seed
+    of the text, one per word, then EOS (1), padded with 0 to max_length."""
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+
+    def __call__(self, texts, max_length, padding="max_length", truncation=True, return_attention_mask=True,
+                 add_special_tokens=True, return_tensors="np"):
+        import zlib
+
+        import numpy as np
+
+        ids = np.zeros((len(texts), max_length), np.int64)
+        for r, text in enumerate(texts):
+            n = min(len(text.split()), max_length - 1)
+            ids[r, :n] = np.random.default_rng(zlib.crc32(text.encode())).integers(2, self.vocab_size, n)
+            ids[r, n] = 1
+        return {"input_ids": ids, "attention_mask": (ids != 0).astype(np.int64)}
+
+
+def t5_xxl_encode_times(dev, ids, mask, repeats: int = 3):
+    """The full 24-layer T5-XXL encode at `ids`' length on seeded random
+    weights in memory: seconds of a resident encode (weights on the card)
+    and of a staged one (weights pinned on the host, copied over per encode
+    and freed), each the mean of `repeats` after one warm-up."""
+    import torch
+
+    from magi_tpu_torch.models.t5.model import T5Config, t5_encode_staged, t5_encoder_forward
+
+    cfg = T5Config.xxl()
+    resident = random_t5_tree(cfg, dev, torch.Generator(device=dev).manual_seed(6))
+    host = _map(resident, lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(host))
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / repeats, out
+
+    resident_s, a = timed(lambda: t5_encoder_forward(resident, cfg, ids, mask))
+    del resident
+    torch.cuda.empty_cache()
+    staged_s, b = timed(lambda: t5_encode_staged(host, cfg, ids, mask, dev))
+    rel = float((a.cpu().float() - b.float()).norm() / b.float().norm())
+    print(f"  T5-XXL staged encode against the resident one: relative L2 {rel:.3e} (limit 1e-3)")
+    if not rel < 1e-3:
+        fail("the staged T5-XXL encode differs from the resident one")
+    return resident_s, staged_s, n_bytes
+
+
+def run_loaded_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: list, launches5: dict,
+                    stats5: dict) -> dict:
+    """Phase 11: the distill fp8 config from checkpoints written to disk in
+    the released formats (DiT fp8, VAE, T5 at XXL width with 2 layers),
+    through the CLI entry with SKIP_LOAD_MODEL unset.  Checks a loaded
+    middle layer's dequant on the card against the CPU's bit for bit, the
+    2-layer T5 encode on the card against the CPU's f32 encode, the video
+    (via `run_main_path`), and the launch counts against phase 5's (the
+    same request on the same config: the smooth-quant divide replaces no
+    kernel, fc1's K8 runs `plain` instead of `ln`).  Prints load seconds
+    and GB/s, the step time against phase 5's, the divide's ms per step, the
+    T5-XXL encode times and the peak memory.  Returns the launch counts."""
+    import collections
+    import resource
+    import shutil
+
+    import torch
+
+    from magi_tpu_torch.checkpoint import loader, vae_loader
+    from magi_tpu_torch.core.config import MagiConfig
+    from magi_tpu_torch.models.dit import model as TM
+    from magi_tpu_torch.models.t5.model import T5Embedder
+    from magi_tpu_torch.ops import quant as Q
+    from magi_tpu_torch.pipeline import prompt_process
+
+    root = stem + "_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    rc = config["runtime_config"]
+    rc.update(load=os.path.join(root, "dit"), vae_pretrained=os.path.join(root, "vae"),
+              t5_pretrained=os.path.join(root, "t5"), t5_device="auto")
+    cfg = MagiConfig.from_dict(config)
+    old_skip = os.environ.pop("SKIP_LOAD_MODEL", None)
+    plain_divide = TM._smooth_divide
+    patched = {}
+    try:
+        t0 = time.perf_counter()
+        sizes = {"dit": write_dit_fp8_checkpoint(cfg, rc["load"], dev),
+                 "vae": write_vae_checkpoint(rc["vae_pretrained"], dev),
+                 "t5": write_t5_checkpoint(rc["t5_pretrained"], dev)}
+        print(f"  checkpoints written in {time.perf_counter() - t0:.1f} s: " + ", ".join(
+            f"{k} {v / 1e9:.3f} GB" for k, v in sizes.items()))
+
+        # a middle layer's dequant on the card against the CPU's
+        state = loader.load_state_dict(rc["load"], fp8_quant=True, distill=True)
+        on_card, on_cpu = loader._dequant_fp8(state, dev), loader._dequant_fp8(state, "cpu")
+        keys = [k for k in on_cpu if k.startswith("videodit_blocks.layers.1.") and (
+            k.endswith(".act_smooth") or k[: -len(".weight")] + ".weight_scale" in state)]
+        bad = [k for k in keys if not torch.equal(on_card[k].cpu(), on_cpu[k])]
+        print(f"  layer 1's dequantized linears and act_smooth ({len(keys)} tensors), card against CPU: "
+              f"{'bit-equal' if not bad else 'DIFFER ' + str(bad)}")
+        if bad or len(keys) != 12:
+            fail(f"the card's fp8 dequant differs from the CPU's on {bad} (of {len(keys)})")
+        del state, on_card, on_cpu
+
+        # T5: the 2-layer checkpoint staged onto the card against the CPU's f32 encode
+        tok = StandInTokenizer(T5_HF_CONFIG["vocab_size"])
+        L = cfg.model_config.caption_max_length
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t5 = T5Embedder(rc["t5_pretrained"], model_max_length=L, device="auto", pipeline_device=dev, tokenizer=tok)
+        t5_load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, mask = t5.get_text_embeddings([PROMPT])
+        staged_s = time.perf_counter() - t0
+        want, _ = T5Embedder(rc["t5_pretrained"], model_max_length=L, dtype=torch.float32, device="cpu",
+                             tokenizer=tok).get_text_embeddings([PROMPT])
+        rel = float((got.float() - want).norm() / want.norm())
+        print(f"  T5 (XXL width, 2 layers) loaded in {t5_load_s:.2f} s ({sizes['t5'] / t5_load_s / 1e9:.2f} GB/s); "
+              f"staged bf16 encode at L {L} in {staged_s:.3f} s against the CPU's f32 encode: relative L2 "
+              f"{rel:.3e} (tolerance {T5_TOL}) {'ok' if rel < T5_TOL else 'FAILED'}")
+        if not (rel < T5_TOL and bool(torch.isfinite(got).all())):
+            fail("the T5 encode on the card disagrees with the CPU's")
+        ids = torch.as_tensor(tok([PROMPT], L)["input_ids"])
+        resident_s, staged_xxl_s, xxl_bytes = t5_xxl_encode_times(dev, ids, mask)
+        print(f"  T5-XXL (24 layers, {xxl_bytes / 1e9:.2f} GB bf16) encode at L {L}: resident "
+              f"{resident_s * 1e3:.1f} ms, staged {staged_xxl_s * 1e3:.1f} ms ({xxl_bytes / staged_xxl_s / 1e9:.1f} "
+              f"GB/s with the copy)")
+        prompt_process._t5_cache = t5
+
+        # the run: loads timed where the pipeline calls them, the divides recorded
+        timings, divides = {}, collections.Counter()
+        for mod, name in ((loader, "load_dit_params"), (vae_loader, "load_vae"), (Q, "quantize_params_int8")):
+            patched[(mod, name)] = fn = getattr(mod, name)
+
+            def wrapper(*a, _fn=fn, _name=name, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = _fn(*a, **k)
+                torch.cuda.synchronize()
+                timings[_name] = time.perf_counter() - t
+                return out
+
+            setattr(mod, name, wrapper)
+
+        def recording_divide(x, s):
+            divides[(tuple(x.shape), x.dtype)] += 1
+            return plain_divide(x, s)
+
+        TM._smooth_divide = recording_divide
+        launches, stats = run_main_path(dev, config, stem, wrappers, path_kernels)
+    finally:
+        TM._smooth_divide = plain_divide
+        for (mod, name), fn in patched.items():
+            setattr(mod, name, fn)
+        prompt_process._t5_cache = None
+        _set_env("SKIP_LOAD_MODEL", old_skip)
+        shutil.rmtree(root, ignore_errors=True)
+
+    print(f"  DiT fp8 load (dequant + convert on the card) {timings['load_dit_params']:.2f} s "
+          f"({sizes['dit'] / timings['load_dit_params'] / 1e9:.2f} GB/s of checkpoint), smooth-folded int8 "
+          f"quantization {timings['quantize_params_int8']:.2f} s; VAE load {timings['load_vae']:.2f} s "
+          f"({sizes['vae'] / timings['load_vae'] / 1e9:.2f} GB/s)")
+    steps, steps5 = stats["step_seconds"], stats5["step_seconds"]
+    print(f"  seconds per step: mean {sum(steps) / len(steps):.4f} against phase 5's {sum(steps5) / len(steps5):.4f} "
+          f"({len(steps)} and {len(steps5)} steps)")
+    divide_ms, widest = 0.0, None
+    for (shape, dtype), count in sorted(divides.items()):
+        x = torch.randn(shape, device=dev).to(dtype)
+        s_ = 0.5 + torch.rand(shape[-1], device=dev)
+        ms = cuda_ms(lambda: plain_divide(x, s_), 20)
+        divide_ms += count * ms
+        widest = max(widest or (0, shape, ms), (shape[0] * shape[1], shape, ms))
+    step_s = sum(steps) / len(steps)
+    print(f"  smooth divides: {sum(divides.values())} in the run at {len(divides)} shapes (each timed alone, CUDA "
+          f"events), {divide_ms / len(steps):.3f} ms per step, {divide_ms / len(steps) / 1e3 / step_s:.1%} of the "
+          f"step; the largest, {widest[1]}, {widest[2]:.4f} ms")
+    print(f"  peak memory: device {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, host "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB (the process's largest resident set)")
+    per_step = {n: (round(launches[n] / len(steps), 2), round(launches5[n] / len(steps5), 2)) for n in wrappers
+                if launches[n] or launches5[n]}
+    print(f"  launches per step, this run against phase 5's: {json.dumps(per_step)}")
+    if len(steps) != len(steps5) or any(launches[n] != launches5[n] for n in wrappers):
+        fail("the loaded path's launch counts differ from phase 5's")
+    if not divides:
+        fail("the loaded path ran no smooth-quant divide")
+    return launches
+
+
+# The T5 encode of the 2-layer XXL-width checkpoint, bf16 on the card
+# against f32 on the CPU (the same weights): bf16 rounding of the hidden
+# state, the projections and the probabilities through two layers.
+T5_TOL = 2e-2
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else [v])
@@ -1246,6 +1696,18 @@ def main() -> int:
                     TINY_QUANT_TOL, model=dict(num_layers=3, gated_linear_unit=True), engine=dict(attn_int8=True),
                     quantize=lambda p: Q.quantize_params_int4(p, keep_edge_bf16=False), wrappers=wrappers,
                     kernels=["quantized_matmul", "rowquant_swiglu", "quantized_matmul_i8", "rowquant_fused"])
+    # smooth-quant trees, as an fp8 checkpoint loads: the divide before K8
+    # plain on K6, and on K7 in the gated int4 tree (its fc2 without K8s)
+    tiny_walk_check(dev, "tiny distill int8 1-CFG walk on a smooth-folded tree, int8 attention", QUANT_CONFIG,
+                    TINY_QUANT_TOL, model=dict(num_layers=3), engine=dict(attn_int8=True),
+                    quantize=lambda p: Q.quantize_params_int8(with_smooth(p, SMOOTH_LINEARS)), wrappers=wrappers,
+                    kernels=["quantized_matmul_i8", "rowquant_fused"])
+    tiny_walk_check(dev, "tiny distill gated int4 1-CFG walk without blocks_edge, fc2 smoothed, int8 attention",
+                    QUANT_CONFIG, TINY_QUANT_TOL, model=dict(num_layers=3, gated_linear_unit=True),
+                    engine=dict(attn_int8=True),
+                    quantize=lambda p: Q.quantize_params_int4(with_smooth(p, ["mlp/linear_fc2"]), keep_edge_bf16=False),
+                    wrappers=wrappers, kernels=["quantized_matmul", "quantized_matmul_i8", "rowquant_fused"],
+                    idle=["rowquant_swiglu"])
     # v2v walks: a prefix of 3 latent frames (the warm-up forward writes
     # chunk 0, chunk 1 is half pasted), one chunk more
     tiny_walk_check(dev, "tiny 3-CFG v2v walk", CONFIG, 2e-2, prefix_frames=3, wrappers=wrappers,
@@ -1264,7 +1726,7 @@ def main() -> int:
     with open(CONFIG) as f:
         d = json.load(f)
     d["runtime_config"].update(video_size_h=256, video_size_w=256, num_frames=96, num_steps=STEPS)
-    launches4 = run_main_path(dev, d, os.path.join(out_dir, "4.5B_base_256"), wrappers, [
+    launches4, _ = run_main_path(dev, d, os.path.join(out_dir, "4.5B_base_256"), wrappers, [
         "segmented_attention_two_source", "segmented_attention_v2", "segmented_attention", "kv_norm_rope_pack",
         "gate_norm_residual"])
 
@@ -1274,9 +1736,10 @@ def main() -> int:
         d = json.load(f)
     d["runtime_config"].update(video_size_h=256, video_size_w=256, num_frames=96)
     d["engine_config"]["attn_int8"] = True
-    launches5 = run_main_path(dev, d, os.path.join(out_dir, "4.5B_distill_quant_256"), wrappers, [
-        "kv_norm_rope_pack_q8", "segmented_attention_two_source_q8", "quantized_matmul_i8", "rowquant_fused",
-        "gate_norm_residual", "segmented_attention"])
+    distill_kernels = ["kv_norm_rope_pack_q8", "segmented_attention_two_source_q8", "quantized_matmul_i8",
+                       "rowquant_fused", "gate_norm_residual", "segmented_attention"]
+    launches5, stats5 = run_main_path(dev, d, os.path.join(out_dir, "4.5B_distill_quant_256"), wrappers,
+                                      distill_kernels)
 
     # the 24B distill config on one device: cp_size 1 (the config's 8 is its
     # multi-GPU layout), int4 weights, int8 attention
@@ -1288,8 +1751,8 @@ def main() -> int:
                     "rowquant_fused", "rowquant_swiglu", "gate_norm_residual"]
     phase("phase 6: 24B distill w4a8 t2v with int8 attention through the CLI entry (48 layers, 6144 wide, "
           "256x256, 96 frames, the config's 16 steps)")
-    launches6 = run_main_path(dev, d, os.path.join(out_dir, "24B_distill_w4a8_256"), wrappers,
-                              w4a8_kernels + ["segmented_attention"])
+    launches6, _ = run_main_path(dev, d, os.path.join(out_dir, "24B_distill_w4a8_256"), wrappers,
+                                 w4a8_kernels + ["segmented_attention"])
     phase("phase 7: the 24B w4a8 tree without blocks_edge, ArdfSampler.walk of 2 chunks (256x256)")
     d["runtime_config"]["num_frames"] = 48
     launches7 = run_noedge_walk(dev, d, wrappers, w4a8_kernels + ["quantized_matmul"])
@@ -1321,11 +1784,23 @@ def main() -> int:
                                  int8_kernels + [q8_names["dq"]], mode="i2v", scheme="dq",
                                  idle_kernels=[q8_names["qk8"], q8_names["sage"]])
 
+    phase(f"phase 11: 4.5B distill fp8 t2v from checkpoints on disk through the CLI entry, SKIP_LOAD_MODEL "
+          f"unset (DiT fp8 {FP8_CKPT_LAYERS} layers x 3072, VAE 1024 x 16, T5 at XXL width with 2 layers; "
+          f"256x256, 96 frames, the config's 16 steps, int8 attention)")
+    with open(QUANT_CONFIG) as f:
+        d = json.load(f)
+    d["model_config"]["num_layers"] = FP8_CKPT_LAYERS
+    d["runtime_config"].update(video_size_h=256, video_size_w=256, num_frames=96)
+    d["engine_config"]["attn_int8"] = True
+    launches11 = run_loaded_path(dev, d, os.path.join(out_dir, "4.5B_distill_fp8_ckpt_256"), wrappers,
+                                 distill_kernels, launches5, stats5)
+
     for r in results:
         r["launches_by_path"] = {"base": launches4[r["name"]], "distill_int8": launches5[r["name"]],
                                  "24b_w4a8": launches6[r["name"]], "24b_w4a8_noedge": launches7[r["name"]],
                                  "i2v_base": launches8[r["name"]], "v2v_distill_int8_sage": launches9[r["name"]],
-                                 "i2v_distill_int8_dq": launches10[r["name"]]}
+                                 "i2v_distill_int8_dq": launches10[r["name"]],
+                                 "distill_int8_fp8_ckpt": launches11[r["name"]]}
         r["launches"] = sum(r["launches_by_path"].values())
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -56,3 +56,8 @@ def kv_cache_from_jax(cache, device="cpu"):
 def vae_params_from_jax(tree: dict, device="cpu") -> dict:
     """The JAX package's ViT-VAE parameter tree (numpy leaves) as the port's."""
     return _tree(tree, torch.device(device))
+
+
+def t5_params_from_jax(tree: dict, device="cpu") -> dict:
+    """The JAX package's T5 encoder parameter tree (numpy leaves) as the port's."""
+    return _tree(tree, torch.device(device))

@@ -20,7 +20,9 @@
   (`ops.quant.quantized_matmul_i8`) and the dequant GEMMs in K7
   (`ops.quant.quantized_matmul`), always: the JAX package's switches
   between its Pallas kernels and XLA (`MAGI_QMM_IMPL`,
-  `MAGI_FUSED_ACT_QUANT`) are not read here.
+  `MAGI_FUSED_ACT_QUANT`) are not read here.  A tree from a released fp8
+  checkpoint also carries `act_smooth` on its four smooth-quant linears:
+  their inputs are divided by it (a plain op) before the row quantization.
 * The KV cache is one [num_layers, 2, hk, tokens, hd] buffer in the
   attention kernel's layout, updated in place: a forward that writes the
   cache writes the slice of its current chunks and reads only earlier
@@ -118,6 +120,13 @@ def _apply_pre(x, pre, eps):
     return F.silu(x[..., :d].float()).to(x.dtype) * x[..., d:]
 
 
+def _smooth_divide(x, smooth):
+    """x / s per input channel, the JAX package's f32(x) * (1 / s) cast back
+    to x's dtype: a plain PyTorch op, one elementwise pass (the product is
+    taken in f32 and rounded once as it is written in x's dtype)."""
+    return torch.mul(x, 1.0 / smooth.float(), out=torch.empty(x.shape, dtype=x.dtype, device=x.device))
+
+
 def _linears_shared(x, plist, act_ok: bool, high_precision: bool = False, pre=None, eps: float = 1e-6):
     """Several linears on one shared input, the single dispatch of every
     DiT linear (the JAX package's single-device branches): bf16 `weight`,
@@ -128,8 +137,11 @@ def _linears_shared(x, plist, act_ok: bool, high_precision: bool = False, pre=No
     quantized tree without `blocks_edge`, edge layers) each is the bf16 x
     int8 dequant GEMM (K7).  `pre` is the group input's producer (see
     `_apply_pre`); the int8 branch runs it fused with the row quantization
-    (K8, or K8s for SwiGLU), the dequant branch unfused.  The kernels run
-    on CUDA tensors, their plain versions on CPU tensors."""
+    (K8, or K8s for SwiGLU), the dequant branch unfused.  A smooth-quant
+    linear (`act_smooth` s, its weight quantized s·W) runs `pre` unfused,
+    divides its input by s (`_smooth_divide`), then K8 `plain` + K6 or K7:
+    a smoothed gated fc2 launches no K8s.  The kernels run on CUDA tensors,
+    their plain versions on CPU tensors."""
     if "weight_q4" in plist[0]:
         plist = [{**{k: v for k, v in pp.items() if k != "weight_q4"}, "weight_q": unpack_int4(pp["weight_q4"])}
                  for pp in plist]
@@ -137,7 +149,13 @@ def _linears_shared(x, plist, act_ok: bool, high_precision: bool = False, pre=No
         x = _apply_pre(x, pre, eps)
         return tuple(_dot(x, pp["weight"], high_precision) for pp in plist)
     if "act_smooth" in plist[0]:
-        raise NotImplementedError("smooth-quant (act_smooth) linears are ROADMAP queue 1 item 11")
+        # smooth-quant (fp8 checkpoints): the weight is quantized s·W, so the
+        # input divides by s, after its producer and before the row
+        # quantization, in both branches
+        if len(plist) != 1:
+            raise ValueError("smooth-quant linears are groups of one")
+        x = _smooth_divide(_apply_pre(x, pre, eps), plist[0]["act_smooth"])
+        pre = None
     if not act_ok:
         x = _apply_pre(x, pre, eps)
         return tuple(quantized_matmul(x, pp["weight_q"], pp["weight_scale"]).to(x.dtype) for pp in plist)
@@ -152,7 +170,9 @@ def _linears_shared(x, plist, act_ok: bool, high_precision: bool = False, pre=No
 
 def _merge_edge(blk: dict, edge: dict) -> dict:
     """A quantized layer tree with each {weight_q, weight_scale} node
-    replaced by the bf16 {weight} of the `blocks_edge` side tree."""
+    replaced by the bf16 {weight} of the `blocks_edge` side tree; a
+    smooth-quant node's `act_smooth` goes with it (the edge layers'
+    weights are unfolded)."""
     out = {}
     for k, v in blk.items():
         if isinstance(v, dict):

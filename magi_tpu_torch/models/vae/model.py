@@ -46,6 +46,13 @@ class VaeConfig:
     use_final_proj: bool = False
     conv_last_layer: bool = True
 
+    @classmethod
+    def from_ddconfig(cls, dd: dict) -> "VaeConfig":
+        """The config of a released `config.json`'s `ddconfig` (keys this
+        config does not know are ignored)."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in dd.items() if k in known})
+
     @property
     def latent_size(self) -> int:
         return self.video_size // self.patch_size

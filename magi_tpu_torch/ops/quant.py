@@ -32,8 +32,11 @@
 K6 and K7 are CUDA kernels (`csrc/quant.cu`, wgmma fed by TMA from the
 k-major weights) on CUDA tensors and their plain versions on CPU tensors.
 
-Smooth-quant trees (`act_smooth`) wait for the fp8 checkpoint loader
-(ROADMAP queue 1 items 6 and 11) and raise `NotImplementedError`.
+A tree loaded from a released fp8 checkpoint carries `act_smooth` [L, in]
+beside each smooth-quant linear (`checkpoint.loader._dequant_fp8`): its
+weight is quantized smooth-folded, s[in]·W per layer, and the model divides
+that linear's input by s (`models.dit.model._linears_shared`).  The bf16
+edge layers of `blocks_edge` stay unfolded and carry no `act_smooth`.
 """
 
 from __future__ import annotations
@@ -117,10 +120,11 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo, hi], dim=-1).reshape(shape).transpose(-1, -2)
 
 
-def _quantize_stacked(w: torch.Tensor, bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quantize_stacked(w: torch.Tensor, bits: int, smooth=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """[L, in, out] -> (int8 [L, in, out], or uint8 packed [L, in/2, out]
     for int4, k-major; scales [L, out]), one layer at a time so the f32
-    temporaries stay one layer wide."""
+    temporaries stay one layer wide.  With `smooth` [L, in], layer i is
+    quantized smooth-folded: f32(w[i]) * smooth[i][:, None]."""
     L, k, n = w.shape
     if bits == 8:
         q = torch.empty((L, n, k), dtype=torch.int8, device=w.device).transpose(1, 2)
@@ -130,7 +134,7 @@ def _quantize_stacked(w: torch.Tensor, bits: int) -> Tuple[torch.Tensor, torch.T
         one = quantize_int4
     s = torch.empty((L, n), dtype=torch.float32, device=w.device)
     for i in range(L):
-        q[i], s[i] = one(w[i])
+        q[i], s[i] = one(w[i] if smooth is None else w[i].float() * smooth[i].float()[:, None])
     return q, s
 
 
@@ -150,18 +154,18 @@ def _set_path(tree: dict, keys: list, value) -> None:
 
 def _quantize_params(params: dict, bits: int, keep_edge_bf16: bool) -> dict:
     """The quantized tree: each stacked linear's weight becomes `weight_q`
-    (int8) or `weight_q4` (packed int4) plus `weight_scale`, every other
+    (int8) or `weight_q4` (packed int4) plus `weight_scale`, smooth-folded
+    where the linear carries `act_smooth` (kept in the tree), every other
     leaf is shared with `params`, and with `keep_edge_bf16` layers 0 and
-    L-1 keep their bf16 weights, cloned, in `blocks_edge/{first,last}`."""
-    paths = {"/".join(keys) for keys, _ in _leaves(params, [])}
+    L-1 keep their bf16 weights, unfolded and cloned, in
+    `blocks_edge/{first,last}`."""
+    by_path = {"/".join(keys): leaf for keys, leaf in _leaves(params, [])}
     new_tree: dict = {}
     for keys, leaf in _leaves(params, []):
         if not (any("/".join(keys).endswith(sfx) for sfx in QUANTIZABLE_SUFFIXES) and leaf.ndim == 3):
             _set_path(new_tree, keys, leaf)
             continue
-        if "/".join(keys[:-1] + ["act_smooth"]) in paths:
-            raise NotImplementedError("smooth-quant (act_smooth) trees are ROADMAP queue 1 item 11")
-        q, s = _quantize_stacked(leaf, bits)
+        q, s = _quantize_stacked(leaf, bits, by_path.get("/".join(keys[:-1] + ["act_smooth"])))
         _set_path(new_tree, keys[:-1] + ["weight_q" if bits == 8 else "weight_q4"], q)
         _set_path(new_tree, keys[:-1] + ["weight_scale"], s)
         if keep_edge_bf16:

@@ -7,8 +7,11 @@
     ... --mode i2v --image_path first_frame.png
     ... --mode v2v --prefix_video_path prefix.mp4
 
-Runs on CUDA unless `--device cpu` is given.  One `--prompt` per run;
-`--prompts` batching raises `NotImplementedError` naming its ROADMAP item.
+Without SKIP_LOAD_MODEL the DiT, VAE and T5 load from the checkpoints the
+config's `runtime_config` names (`load`, `vae_pretrained`,
+`t5_pretrained`).  Runs on CUDA unless `--device cpu` is given.  One
+`--prompt` per run; `--prompts` batching raises `NotImplementedError`
+naming its ROADMAP item.
 """
 
 from __future__ import annotations

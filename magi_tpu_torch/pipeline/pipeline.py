@@ -1,15 +1,18 @@
 """User-facing pipeline: MagiPipeline.run_{text,image,video}_to_video.
 
-This port runs the single-device paths with random weights
-(SKIP_LOAD_MODEL=1): text-to-video, image-to-video (the image's latent as a
-one-frame prefix) and video-to-video (the latent of a prefix video's first
-32 frames), for the bf16 base model (3-branch CFG) and the distill /
-quantized models (single-branch CFG, `fp8_quant` or `MAGI_INT8=1`): int8
-weights, or nibble-packed int4 weights (w4a8) under `quant_bits: 4` or
-`MAGI_INT4=1`, as the 24B runs on one device, with int8 attention when
-`engine_config.attn_int8` or `MAGI_ATTN_INT8=1` is set (its scheme from
-`MAGI_ATTN_Q8_SCHEME`: qk8, sage or dq).  What it does not cover yet
-raises `NotImplementedError` naming its ROADMAP item.
+This port runs the single-device paths: text-to-video, image-to-video (the
+image's latent as a one-frame prefix) and video-to-video (the latent of a
+prefix video's first 32 frames), for the bf16 base model (3-branch CFG)
+and the distill / quantized models (single-branch CFG, `fp8_quant` or
+`MAGI_INT8=1`): int8 weights, or nibble-packed int4 weights (w4a8) under
+`quant_bits: 4` or `MAGI_INT4=1`, as the 24B runs on one device, with int8
+attention when `engine_config.attn_int8` or `MAGI_ATTN_INT8=1` is set (its
+scheme from `MAGI_ATTN_Q8_SCHEME`: qk8, sage or dq).  The weights come
+from the released checkpoints the config names (`load`, the fp8 variant
+under `fp8_quant`; `vae_pretrained`; `t5_pretrained`, on the host or
+staged onto the device as `t5_device` says), or are random under
+SKIP_LOAD_MODEL=1.  What it does not cover yet raises
+`NotImplementedError` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,17 +38,24 @@ from magi_tpu_torch.sampling.transport import ArdfSampler
 
 
 def get_dit(config: MagiConfig, device: torch.device, generator: torch.Generator) -> dict:
-    """The DiT parameters: random weights under SKIP_LOAD_MODEL=1, then
-    quantized (first/last layers kept bf16) when `fp8_quant`, `MAGI_INT8=1`
-    or `MAGI_INT4=1` is set: to nibble-packed int4 under `quant_bits: 4` or
-    `MAGI_INT4=1`, else to int8."""
-    from magi_tpu_torch.models.dit.model import init_dit_params
+    """The DiT parameters: the checkpoint of `runtime_config.load` (its
+    fp8 variant dequantized on `device`, with the smooth-quant factors),
+    or random weights under SKIP_LOAD_MODEL=1; then quantized (first/last
+    layers kept bf16, smooth-quant linears folded) when `fp8_quant`,
+    `MAGI_INT8=1` or `MAGI_INT4=1` is set: to nibble-packed int4 under
+    `quant_bits: 4` or `MAGI_INT4=1`, else to int8."""
     from magi_tpu_torch.ops.quant import quantize_params_int4, quantize_params_int8
 
-    if not env_is_true("SKIP_LOAD_MODEL"):
-        raise NotImplementedError("loading a DiT checkpoint (checkpoint/loader.py) is ROADMAP queue 1 item 6")
-    print_rank_0("SKIP_LOAD_MODEL set: using random weights")
-    params = init_dit_params(config, device, generator)
+    if env_is_true("SKIP_LOAD_MODEL"):
+        from magi_tpu_torch.models.dit.model import init_dit_params
+
+        print_rank_0("SKIP_LOAD_MODEL set: using random weights")
+        params = init_dit_params(config, device, generator)
+    else:
+        from magi_tpu_torch.checkpoint.loader import load_dit_params
+
+        params = load_dit_params(config, device)
+        print_rank_0("Load checkpoint successfully")
     if config.engine_config.fp8_quant or env_is_true("MAGI_INT8") or env_is_true("MAGI_INT4"):
         if config.engine_config.quant_bits == 4 or env_is_true("MAGI_INT4"):
             params = quantize_params_int4(params)
@@ -92,7 +102,7 @@ class MagiPipeline:
         written, and the host seconds of every denoise step and of every
         chunk decode."""
         t0 = time.perf_counter()
-        caption_embs, emb_masks = get_txt_embeddings(prompt, self.config)
+        caption_embs, emb_masks = get_txt_embeddings(prompt, self.config, self.device)
         params = get_dit(self.config, self.device, self.generator)
         null_caption = params["y_embedder"]["null_caption_embedding"].float().cpu().numpy()
         inp = build_inference_input(self.config, null_caption, caption_embs, emb_masks, self.device, prefix_video)

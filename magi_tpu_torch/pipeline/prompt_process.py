@@ -1,5 +1,5 @@
-"""Prompt processing: special conditioning tokens, text embeddings and the
-assembly of per-chunk captions into an InferenceInput (the port of
+"""Prompt processing: special conditioning tokens, T5 text embeddings and
+the assembly of per-chunk captions into an InferenceInput (the port of
 `magi_tpu.pipeline.prompt_process`)."""
 
 from __future__ import annotations
@@ -103,13 +103,37 @@ def pad_special_token(keys: List[str], embs: np.ndarray, lens: Optional[np.ndarr
     return embs, lens
 
 
-def get_txt_embeddings(prompt: str, config: MagiConfig) -> Tuple[np.ndarray, np.ndarray]:
-    """prompt -> (caption_embs [1, L, C] fp32, mask [1, L]).  Under
+_t5_cache = None
+
+
+def _t5(cache_dir: str, max_len: int, t5_device: str = "cpu", pipeline_device=None):
+    """The T5 embedder of `cache_dir`, kept for later prompts unless
+    OFFLOAD_T5_CACHE=true."""
+    global _t5_cache
+    if _t5_cache is None:
+        from magi_tpu_torch.models.t5.model import T5Embedder
+
+        embedder = T5Embedder(cache_dir=cache_dir, model_max_length=max_len, device=t5_device,
+                              pipeline_device=pipeline_device)
+        if os.environ.get("OFFLOAD_T5_CACHE") == "true":
+            return embedder
+        _t5_cache = embedder
+    return _t5_cache
+
+
+def get_txt_embeddings(prompt: str, config: MagiConfig, device=None) -> Tuple[np.ndarray, np.ndarray]:
+    """prompt -> (caption_embs [1, L, C] fp32, mask [1, L]): the T5 encoder
+    of `runtime_config.t5_pretrained`, on the host or staged onto `device`
+    (the pipeline's) as `runtime_config.t5_device` says.  Under
     SKIP_LOAD_MODEL: deterministic pseudo-embeddings seeded by the prompt
     text (the same numbers as the JAX package's)."""
     L = config.model_config.caption_max_length
     if not env_is_true("SKIP_LOAD_MODEL"):
-        raise NotImplementedError("the T5 text encoder is ROADMAP queue 1 item 9; set SKIP_LOAD_MODEL=1")
+        print_rank_0("Precompute validation prompt embeddings")
+        rc = config.runtime_config
+        t5 = _t5(rc.t5_pretrained, L, rc.t5_device, device)
+        embs, mask = t5.get_text_embeddings([prompt])
+        return embs.float().numpy(), mask.numpy().astype(np.int32)
     print_rank_0("SKIP_LOAD_MODEL set: pseudo text embeddings")
     rng = np.random.default_rng(zlib.crc32(prompt.encode()))
     embs = rng.normal(size=(1, L, config.model_config.caption_channels)).astype(np.float32)

@@ -148,21 +148,29 @@ _vae_cache: dict = {}
 
 
 def get_vae(vae_ckpt: str, device: torch.device, z_chans: int = 16):
-    """The VAE.  Under SKIP_LOAD_MODEL with no checkpoint on disk: a random
-    MAGI-shaped ViT-VAE (8x spatial / 4x temporal, 1024 wide, 16 layers of
-    16 heads, encoder and decoder) in bf16."""
+    """The VAE: the released checkpoint under `vae_ckpt` (its `config.json`
+    and weights) in bf16 on `device`, cached unless OFFLOAD_VAE_CACHE=true.
+    Under SKIP_LOAD_MODEL with no checkpoint on disk: a random MAGI-shaped
+    ViT-VAE (8x spatial / 4x temporal, 1024 wide, 16 layers of 16 heads,
+    encoder and decoder) in bf16."""
     key = (vae_ckpt, str(device), z_chans)
     if key in _vae_cache:
         return _vae_cache[key]
-    if not (env_is_true("SKIP_LOAD_MODEL") and not os.path.exists(os.path.join(vae_ckpt, "config.json"))):
-        raise NotImplementedError("loading a VAE checkpoint (checkpoint/vae_loader.py) is ROADMAP queue 1 item 7")
-    from magi_tpu_torch.models.vae.model import VaeConfig, ViTVAE, init_vae_params
+    if env_is_true("SKIP_LOAD_MODEL") and not os.path.exists(os.path.join(vae_ckpt, "config.json")):
+        from magi_tpu_torch.models.vae.model import VaeConfig, ViTVAE, init_vae_params
 
-    cfg = VaeConfig(
-        video_size=256, video_length=16, patch_size=8, patch_length=4,
-        in_chans=3, z_chans=z_chans, embed_dim=1024, depth=16, num_heads=16,
-    )
-    vae = ViTVAE(cfg, init_vae_params(cfg, seed=0, dtype=torch.bfloat16, device=device))
+        cfg = VaeConfig(
+            video_size=256, video_length=16, patch_size=8, patch_length=4,
+            in_chans=3, z_chans=z_chans, embed_dim=1024, depth=16, num_heads=16,
+        )
+        vae = ViTVAE(cfg, init_vae_params(cfg, seed=0, dtype=torch.bfloat16, device=device))
+        _vae_cache[key] = vae
+        return vae
+    from magi_tpu_torch.checkpoint.vae_loader import load_vae
+
+    vae = load_vae(vae_ckpt, torch.bfloat16, device)
+    if os.environ.get("OFFLOAD_VAE_CACHE") == "true":
+        return vae
     _vae_cache[key] = vae
     return vae
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a denoise step of the PyTorch/CUDA port spends its time on one GPU.
 
-    python3 scripts/profile_torch_step.py [--configs base,distill,24b] [--schemes qk8,sage,dq]
+    python3 scripts/profile_torch_step.py [--configs base,distill,distill_smooth,24b,t5] [--schemes qk8,sage,dq]
 
 Builds the models at full width and depth with random weights: the 4.5B
 base config (example/4.5B/4.5B_base_config.json, bf16, 3-branch CFG), the
@@ -9,7 +9,11 @@ base config (example/4.5B/4.5B_base_config.json, bf16, 3-branch CFG), the
 attention: single-branch CFG, the same weights quantized to int8) and the
 24B distill w4a8 config (example/24B/24B_distill_quant_config.json on one
 device with quant_bits 4 and int8 attention: int4 weights unpacked to
-int8 per layer, bf16 edge layers).  The int8 configs run once per K5
+int8 per layer, bf16 edge layers).  `distill_smooth` is the distill
+config on a smooth-folded int8 tree, as a released fp8 checkpoint loads
+(`chip_smoke.with_smooth`: `act_smooth` in [0.5, 2] on kv_xattn, proj,
+fc1 and fc2, 1 on the edge layers): its step adds the divide of each smoothed linear's input (among
+"other") and runs fc1's LayerNorm unfused.  The int8 configs run once per K5
 scheme of `--schemes` (`MAGI_ATTN_Q8_SCHEME`; default qk8).  For each and
 each video size it runs
 one denoise step of the given ARDF stage (stage 3 is the first step with
@@ -22,7 +26,9 @@ self-attention operations of the step with the rate its attention kernel
 reached.  For the 24B it also times `unpack_int4` of one layer's eight
 linears (CUDA events), which the profile counts among "other".  Then, for
 the base config, one VAE decode of a chunk, the same way.  The KV cache
-holds zeros: timing does not depend on its values.
+holds zeros: timing does not depend on its values.  `t5` profiles the
+24-layer T5-XXL encode of one prompt at L 800 with its weights resident
+on the card (random bf16 weights at HF's initialisation scales, `chip_smoke.random_t5_tree`).
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 SIZES = {"base": ((256, 256), (720, 720)), "distill": ((256, 256), (720, 720)),
+         "distill_smooth": ((256, 256), (720, 720)),
          "24b": ((256, 256), (720, 1280))}  # the smoke's size and each config's own
 STAGE = 3  # ARDF stage of the profiled step: the first with the full window of 4 chunks
 STEPS = 64  # the config's schedule
@@ -95,7 +102,8 @@ def group_of(name: str) -> str:
 
 
 def profile(fn):
-    """Device time by kernel group (ms) and the profiled wall time (ms)."""
+    """Device time by kernel group (ms), launches by group, the profiled
+    wall time (ms) and device time by kernel name (ms)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     torch.cuda.synchronize()
@@ -106,6 +114,7 @@ def profile(fn):
         wall = (time.perf_counter() - t0) * 1e3
     groups = defaultdict(float)
     counts = defaultdict(int)
+    by_name = defaultdict(float)
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
@@ -114,7 +123,8 @@ def profile(fn):
             g = group_of(evt.key)
             groups[g] += dev_us / 1e3
             counts[g] += evt.count
-    return groups, counts, wall
+            by_name[evt.key] += dev_us / 1e3
+    return groups, counts, wall, by_name
 
 
 def attention_flops(sampler, step: int) -> float:
@@ -135,7 +145,7 @@ def attention_flops(sampler, step: int) -> float:
 
 def load_config(name: str) -> dict:
     file = {"base": "4.5B/4.5B_base_config.json", "distill": "4.5B/4.5B_distill_quant_config.json",
-            "24b": "24B/24B_distill_quant_config.json"}[name]
+            "distill_smooth": "4.5B/4.5B_distill_quant_config.json", "24b": "24B/24B_distill_quant_config.json"}[name]
     with open(os.path.join(HERE, "example", file)) as f:
         d = json.load(f)
     if name == "base":
@@ -163,9 +173,49 @@ def build_params(name: str, d: dict, dev, gen, cache: dict) -> dict:
         cache["bf16"] = init_dit_params(MagiConfig.from_dict(d), dev, gen)
     if name == "base":
         return cache["bf16"]
+    if name == "distill_smooth":
+        from chip_smoke import SMOOTH_LINEARS, with_smooth
+
+        return quantize_params_int8(with_smooth(cache["bf16"], SMOOTH_LINEARS))
     if "int8" not in cache:
         cache["int8"] = quantize_params_int8(cache["bf16"])
     return cache["int8"]
+
+
+def profile_t5(dev, gen, length: int = 800) -> dict:
+    """The 24-layer T5-XXL encode of one prompt of `length` tokens, weights
+    resident on the card: host-clock time after a warm-up, then device time
+    by kernel group under the profiler."""
+    from chip_smoke import random_t5_tree
+    from magi_tpu_torch.models.t5.model import T5Config, t5_encoder_forward
+
+    cfg = T5Config.xxl()
+    params = random_t5_tree(cfg, dev, gen)
+    L, d, f, inner = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.num_heads * cfg.d_kv
+    ids = torch.randint(2, cfg.vocab_size, (1, length), generator=gen, device=dev)
+    mask = torch.ones((1, length), dtype=torch.int32, device=dev)
+
+    def encode():
+        return t5_encoder_forward(params, cfg, ids, mask)
+
+    encode()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    encode()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, counts, prof_wall, by_name = profile(encode)
+    busy = sum(groups.values())
+    gemm_flops = 2 * length * L * (4 * d * inner + 3 * d * f)
+    print(f"== t5: T5-XXL encode, {L} layers, L {length}: {wall_ms:.1f} ms (host clock, synchronised, no "
+          f"profiler); under the profiler {prof_wall:.1f} ms, device busy {busy:.1f} ms, idle share "
+          f"{max(0.0, 1 - busy / prof_wall):.3f}; the projections' {gemm_flops:.3e} bf16 FLOP")
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {ms:10.2f} ms  {100 * ms / busy:5.1f}%  {counts[g]:6d} launches  {g}")
+    print("  the kernels taking the most device time:")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms:10.2f} ms  {name[:150]}")
+    return dict(step_ms=wall_ms, busy_ms=busy, profiled_ms=prof_wall, groups=groups)
 
 
 def unpack_ms(params: dict) -> float:
@@ -199,7 +249,8 @@ def unpack_ms(params: dict) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--configs", default="base,distill,24b", help="comma list of base, distill, 24b")
+    ap.add_argument("--configs", default="base,distill,24b",
+                    help="comma list of base, distill, distill_smooth, 24b, t5")
     ap.add_argument("--schemes", default="qk8", help="comma list of the K5 schemes (qk8, sage, dq) of the int8 configs")
     args = ap.parse_args()
     names, schemes = args.configs.split(","), args.schemes.split(",")
@@ -221,6 +272,9 @@ def main() -> int:
     cache: dict = {}
     results = {}
     for name in names:
+        if name == "t5":
+            results["t5"] = profile_t5(dev, gen)
+            continue
         base = load_config(name)
         params = build_params(name, base, dev, gen, cache)
         null = params["y_embedder"]["null_caption_embedding"].float().cpu().numpy()
@@ -248,7 +302,7 @@ def main() -> int:
             torch.cuda.synchronize()
             step_ms = (time.perf_counter() - t0) * 1e3
             p = sampler._plan(step + 2)
-            groups, counts, wall = profile(lambda: sampler.do_step(step + 2))
+            groups, counts, wall, _ = profile(lambda: sampler.do_step(step + 2))
             peak = torch.cuda.max_memory_allocated(dev) / 2**30
             busy = sum(groups.values())
             flops = attention_flops(sampler, step + 2)
@@ -275,7 +329,7 @@ def main() -> int:
                 t0 = time.perf_counter()
                 post_chunk_process(chunk, cfg, dev)
                 dec_ms = (time.perf_counter() - t0) * 1e3
-                vgroups, vcounts, vwall = profile(lambda: post_chunk_process(chunk, cfg, dev))
+                vgroups, vcounts, vwall, _ = profile(lambda: post_chunk_process(chunk, cfg, dev))
                 vbusy = sum(vgroups.values())
                 print(f"  VAE decode of one chunk: {dec_ms:.1f} ms wall (incl. copy to host and uint8 conversion); "
                       f"device busy {vbusy:.1f} ms of {vwall:.1f} ms profiled")

@@ -711,3 +711,110 @@ def test_quantized_matmuls_refuse_row_major_weights(dev):
     with pytest.raises(ValueError, match="k-major.*quantize_int8.*unpack_int4"):
         Q.quantized_matmul(_randn(g, dev, 64, 256), row_major, ws)
     assert (Q.quantized_matmul_i8.launches, Q.quantized_matmul.launches) == before
+
+
+@pytest.mark.parametrize("act_ok", [True, False])
+@pytest.mark.parametrize("pre", ["ln", None, "swiglu"])
+def test_linears_shared_smooth_runs_the_kernels(dev, pre, act_ok):
+    """A smooth-quant linear (`act_smooth` s, weight quantized s·W, k-major)
+    on the card: its producer unfused, the divide by s (the same bits as
+    on the CPU), then one K8 `plain` and one K6 (bit-equal to their plain
+    versions), or one K7 without act_ok; never K8s, a smoothed gated fc2
+    included."""
+    g = _gen(dev)
+    k, n = 256, 128
+    x = _randn(g, dev, 200, 2 * k if pre == "swiglu" else k)
+    s = 0.5 + 1.5 * torch.rand((1, k), generator=g, device=dev)
+    wq, ws = Q._quantize_stacked(0.02 * _randn(g, dev, 1, k, n), 8, s)
+    assert wq.stride()[1] == 1
+    w, b = _ln_affine(g, dev, k)
+    lnp = {"weight": w.to(torch.bfloat16), "bias": b.to(torch.bfloat16)}
+    prod = {"ln": ("ln", lnp), None: None, "swiglu": ("swiglu",)}[pre]
+    pp = {"weight_q": wq[0], "weight_scale": ws[0], "act_smooth": s[0]}
+    counts = lambda: (AQ.rowquant_fused.launches, Q.quantized_matmul_i8.launches, Q.quantized_matmul.launches,
+                      AQ.rowquant_swiglu.launches)
+    before = counts()
+    (out,) = M._linears_shared(x, [pp], act_ok, pre=prod, eps=1e-6)
+    assert tuple(a - c for a, c in zip(counts(), before)) == ((1, 1, 0, 0) if act_ok else (0, 0, 1, 0))
+    xs = M._smooth_divide(M._apply_pre(x, prod, 1e-6), s[0])
+    assert torch.equal(xs.cpu(), M._smooth_divide(M._apply_pre(x, prod, 1e-6).cpu(), s[0].cpu()))
+    if act_ok:
+        xq, rs = AQ.rowquant_fused_reference(xs, "plain")
+        assert torch.equal(out, Q.quantized_matmul_i8_reference(xq, rs, pp["weight_q"], pp["weight_scale"]))
+    else:
+        _close(out, Q.quantized_matmul_reference(xs, pp["weight_q"], pp["weight_scale"]), **K7_TOL)
+
+
+def test_fp8_dequant_on_the_card_matches_the_cpu(dev, tmp_path):
+    """The loader's leaf-by-leaf fp8 dequant (a PerTensor and a smooth-quant
+    linear, as released) on the card: the same bits as on the CPU."""
+    from magi_tpu_torch.checkpoint import loader as L
+    from magi_tpu_torch.checkpoint import safetensors_io as SIO
+
+    g = torch.Generator().manual_seed(0)
+    state = {}
+    for name, (o, i) in (("q", (96, 64)), ("fc2", (64, 160))):
+        w = torch.randn((o, i), generator=g) * 0.02
+        smooth = 0.5 + 1.5 * torch.rand(i, generator=g)
+        if name == "fc2":
+            w = w * smooth[None, :]
+            state[f"{name}.input_scale"] = torch.tensor([0.01])
+            state[f"{name}.smooth_scale"] = (smooth * 0.01)[None]
+        ws = w.abs().max() / 448.0
+        state[f"{name}.weight"] = (w / ws).clamp(-448, 448).to(torch.float8_e4m3fn)[None]
+        state[f"{name}.weight_scale"] = ws.reshape(1)
+    (tmp_path / "inference_weight.fp8").mkdir()
+    SIO.save_file(state, str(tmp_path / "inference_weight.fp8" / "model.safetensors"))
+    loaded = L.load_state_dict(str(tmp_path), fp8_quant=True)
+    on_card, on_cpu = L._dequant_fp8(loaded, dev), L._dequant_fp8(loaded, "cpu")
+    assert sorted(on_card) == ["fc2.act_smooth", "fc2.weight", "q.weight"]
+    for key in on_cpu:
+        got = on_card[key]
+        assert got.device.type == "cuda" and got.dtype == torch.float32, key
+        assert torch.equal(got.cpu(), on_cpu[key]), key
+
+
+class _Tokenizer:
+    def __call__(self, texts, max_length, **kwargs):
+        import numpy as np
+
+        ids = np.zeros((len(texts), max_length), np.int64)
+        ids[:, :4] = [5, 9, 13, 1]
+        return {"input_ids": ids, "attention_mask": (ids != 0).astype(np.int64)}
+
+
+def test_t5_staged_encode_frees_the_card(dev, tmp_path):
+    """A T5 embedder staged onto the card (t5_device "auto"): its weights
+    stay on the host, the device memory after an encode is what it was
+    before, and the output equals the encode of a resident copy."""
+    import json
+
+    from magi_tpu_torch.checkpoint import safetensors_io as SIO
+    from magi_tpu_torch.models.t5 import model as T5
+
+    cfg = dict(vocab_size=64, d_model=64, d_kv=16, num_heads=4, d_ff=128, num_layers=2,
+               relative_attention_num_buckets=8, relative_attention_max_distance=16)
+    (tmp_path / "config.json").write_text(json.dumps(cfg))
+    g = torch.Generator().manual_seed(1)
+    state = {"shared.weight": torch.randn((64, 64), generator=g),
+             T5._REL_BIAS: torch.randn((8, 4), generator=g),
+             "encoder.final_layer_norm.weight": torch.ones(64)}
+    for i in range(2):
+        for key, (fmt, _) in T5._T5_LAYER_FMTS.items():
+            shape = {"ln1": (64,), "ln2": (64,), "o": (64, 64), "wi_0": (128, 64), "wi_1": (128, 64),
+                     "wo": (64, 128)}.get(key, (64, 64))
+            state[fmt.format(i)] = torch.ones(shape) if key.startswith("ln") else 0.1 * torch.randn(shape, generator=g)
+    SIO.save_file(state, str(tmp_path / "model.safetensors"))
+    emb = T5.T5Embedder(str(tmp_path), model_max_length=16, dtype=torch.float32, device="auto",
+                        pipeline_device=dev, tokenizer=_Tokenizer())
+    assert emb.device.type == "cuda" and emb.params["blocks"]["q"].device.type == "cpu"
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    got, mask = emb.get_text_embeddings(["a red cube"])
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) == before
+    assert got.device.type == "cpu" and tuple(got.shape) == (1, 16, 64)
+    resident = T5._tree_to(emb.params, dev)
+    ids = torch.as_tensor(emb.tokenizer(["a red cube"], 16)["input_ids"])
+    want = T5.t5_encoder_forward(resident, emb.config, ids, mask).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)

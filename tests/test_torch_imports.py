@@ -1,5 +1,7 @@
 """Importing every module of magi_tpu_torch pulls in neither jax nor
-magi_tpu (checked in a fresh interpreter)."""
+magi_tpu, nor the packages the port reads checkpoints without
+(`safetensors`, `zstandard`) or needs only for T5's tokenizer
+(`transformers`); checked in a fresh interpreter."""
 
 import os
 import subprocess
@@ -14,7 +16,8 @@ names = [m.name for m in pkgutil.walk_packages(magi_tpu_torch.__path__, "magi_tp
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "magi_tpu"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "magi_tpu", "safetensors", "zstandard", "transformers"))
 print(len(names), bad)
 """
 

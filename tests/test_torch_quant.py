@@ -36,7 +36,14 @@ mode its int8 values are one step apart on under 1e-3 of the elements and
 its scales within one bf16 step (seen: within 1e-6), because the two
 compute silu's f32 value by other formulas (x / (1 + exp(-x)) against
 x * sigmoid(x)), which can differ in the last bit and move an element
-across a bf16 rounding edge."""
+across a bf16 rounding edge.
+
+The smooth-quant fold (s·W quantized per layer, `act_smooth` from an fp8
+checkpoint) is bit-equal to the JAX package's jitted
+`_quantize_stacked_smooth` / `_quantize_stacked4_smooth`, k-major;
+`_linears_shared` with `act_smooth` (producer unfused, the divide, then
+the int8 or the dequant branch) matches within 1e-5, as the other int8
+groups."""
 
 import jax
 import jax.numpy as jnp
@@ -178,19 +185,26 @@ def test_linears_shared_int8_matches(act_ok):
 
 
 def test_paths_not_ported_raise():
-    """Smooth-quant trees and linears (fp8 checkpoints) still raise; K5's
-    sage and dq schemes no longer do (their plain versions run on the CPU,
-    here over empty ranges: zeros), and an unknown scheme is refused."""
-    w = torch.zeros((1, 16, 16))
-    smooth = {"blocks": {"mlp": {"linear_fc1": {"weight": w, "act_smooth": torch.ones((1, 16))}}}}
-    for quantize in (TQ.quantize_params_int8, TQ.quantize_params_int4):
-        with pytest.raises(NotImplementedError, match="act_smooth"):
-            quantize(smooth)
+    """Smooth-quant trees and linears (fp8 checkpoints), which raised before
+    their port, now run and match the JAX package on the same inputs; K5's
+    sage and dq schemes run their plain versions on the CPU (here over
+    empty ranges: zeros), and an unknown scheme is refused."""
+    w = np.zeros((1, 16, 16), np.float32)
+    smooth = {"blocks": {"mlp": {"linear_fc1": {"weight": w, "act_smooth": np.ones((1, 16), np.float32)}}}}
+    for tq, jq in ((TQ.quantize_params_int8, JQ.quantize_params_int8),
+                   (TQ.quantize_params_int4, JQ.quantize_params_int4)):
+        want = _flat(jax.tree.map(np.asarray, jq(jax.tree.map(jnp.asarray, smooth))))
+        got = _flat(tq(dit_params_from_jax(smooth)))
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k].float().numpy(), v.astype(np.float32), err_msg=k)
     q8, sc = TQ.quantize_int8(torch.ones((16, 16)))
     linear = {"weight_q": q8, "weight_scale": sc, "act_smooth": torch.ones(16)}
+    jlinear = {k: jnp.asarray(v.numpy()) for k, v in linear.items()}
     for act_ok in (True, False):
-        with pytest.raises(NotImplementedError, match="act_smooth"):
-            TM._linears_shared(torch.ones((4, 16)), [linear], act_ok)
+        (got,) = TM._linears_shared(torch.ones((4, 16)), [linear], act_ok)
+        (want,) = JM._linears_shared(jnp.ones((4, 16)), [jlinear], act_ok)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     z = torch.zeros(1, dtype=torch.int32)
     kv, ksc = torch.zeros((2, 1, 0, 128), dtype=torch.int8), torch.zeros((2, 1, 0))
     q = torch.zeros((4, 1, 128), dtype=torch.bfloat16)
@@ -199,6 +213,70 @@ def test_paths_not_ported_raise():
         assert out.shape == q.shape and not out.float().any()
     with pytest.raises(ValueError, match="scheme"):
         TA8.segmented_attention_two_source_q8(q, kv, ksc, kv, ksc, z, z, z, z, seg_len=4, scheme="int4")
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_smooth_fold_matches_jax(bits):
+    """The smooth-folded quantization of a stacked bf16 weight, s·W per
+    layer (`act_smooth` in [0.5, 2], a zero column), bit-equal to the JAX
+    package's jitted `_quantize_stacked_smooth` / `_quantize_stacked4_smooth`,
+    and k-major; and the tree of `quantize_params_int*` on a tree carrying
+    `act_smooth`: edge layers unfolded in `blocks_edge`, `act_smooth` kept
+    beside the folded weight only."""
+    rng = np.random.default_rng(8)
+    L, k, n = 3, 64, 48
+    w = jnp.asarray(rng.normal(size=(L, k, n)) * 0.05, jnp.bfloat16)
+    w = w.at[:, :, 5].set(0)
+    s = rng.uniform(0.5, 2.0, size=(L, k)).astype(np.float32)
+    jfold = JQ._quantize_stacked_smooth if bits == 8 else JQ._quantize_stacked4_smooth
+    jq, js = jfold(w, jnp.asarray(s))
+    wt = dit_params_from_jax({"w": np.asarray(w)})["w"]
+    tq, ts = TQ._quantize_stacked(wt, bits, torch.from_numpy(s))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert tq.transpose(1, 2).is_contiguous() and tq.stride(1) == 1
+    # the folded weight dequantizes to s·W
+    deq = (TQ.unpack_int4(tq) if bits == 4 else tq).float() * ts[:, None, :]
+    folded = wt.float() * torch.from_numpy(s)[:, :, None]
+    assert float((deq - folded).abs().max()) <= float(ts.max()) * 0.51
+
+    cfg = tiny_config(model=dict(num_layers=3, params_dtype=jnp.bfloat16))
+    jparams = jax.tree.map(np.asarray, JM.init_dit_params(jax.random.PRNGKey(1), cfg))
+    for node in (jparams["blocks"]["mlp"]["linear_fc2"], jparams["blocks"]["self_attention"]["linear_proj"]):
+        sm = rng.uniform(0.5, 2.0, size=node["weight"].shape[:2]).astype(np.float32)
+        sm[0] = sm[-1] = 1.0
+        node["act_smooth"] = sm
+    jtree = JQ.quantize_params_int8 if bits == 8 else JQ.quantize_params_int4
+    ttree = TQ.quantize_params_int8 if bits == 8 else TQ.quantize_params_int4
+    want = _flat(jax.tree.map(np.asarray, jtree(jax.tree.map(jnp.asarray, jparams))))
+    got = _flat(ttree(dit_params_from_jax(jparams)))
+    assert sorted(got) == sorted(want)
+    assert sum("act_smooth" in k for k in got) == 2 and not any("blocks_edge" in k and "act_smooth" in k for k in got)
+    for key, v in want.items():
+        np.testing.assert_array_equal(got[key].float().numpy(), v.astype(np.float32), err_msg=key)
+
+
+@pytest.mark.parametrize("act_ok", [True, False])
+@pytest.mark.parametrize("pre", ["ln", "plain", "swiglu"])
+def test_linears_shared_smooth_matches(pre, act_ok):
+    """A smooth-quant linear (folded weight, `act_smooth`) in `_linears_shared`:
+    the producer (a LayerNorm, none, or SwiGLU on a gated fc1 output)
+    unfused, the input divided by s, then the int8 branch (K8 plain + K6's
+    plain versions) or the dequant branch (K7's), against the JAX
+    package's."""
+    rng = np.random.default_rng(9)
+    K, N, S = 128, 64, 40
+    x = rng.normal(size=(S, 2 * K if pre == "swiglu" else K)).astype(np.float32)
+    s = rng.uniform(0.5, 2.0, size=(1, K)).astype(np.float32)
+    jw = jnp.asarray(rng.normal(size=(1, K, N)).astype(np.float32) * 0.1)
+    wq, ws = JQ._quantize_stacked_smooth(jw, jnp.asarray(s))
+    pp = {"weight_q": np.asarray(wq[0]), "weight_scale": np.asarray(ws[0]), "act_smooth": s[0]}
+    lnp = {"weight": (rng.normal(size=(K,)) * 0.1 + 1.0).astype(np.float32), "bias": np.zeros((K,), np.float32)}
+    jpre = {"ln": ("ln", jax.tree.map(jnp.asarray, lnp)), "plain": None, "swiglu": ("swiglu",)}[pre]
+    tpre = {"ln": ("ln", dit_params_from_jax(lnp)), "plain": None, "swiglu": ("swiglu",)}[pre]
+    (want,) = JM._linears_shared(jnp.asarray(x), [jax.tree.map(jnp.asarray, pp)], act_ok, pre=jpre, eps=1e-6)
+    (got,) = TM._linears_shared(_t(x), [dit_params_from_jax(pp)], act_ok, pre=tpre, eps=1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
 def test_int4_pack_unpack_matches():

@@ -165,3 +165,79 @@ def test_load_video_matches(tmp_path):
         np.testing.assert_array_equal(got, want)
     assert TVP.load_video(path, fps=24, w=24, h=16, prefix_frame=32).shape[0] == 32
     assert TVP.load_video(None, fps=24, w=24, h=16) is None
+
+
+def vae_state_dict(tree: dict, cfg) -> dict:
+    """The released checkpoint's key names for a VAE tree (numpy leaves):
+    the inverse of `convert_vae_state`, linear weights back to [out, in]."""
+    state = {}
+    for tower in ("encoder", "decoder"):
+        t, p = tree[tower], tower + "."
+        for i in range(cfg.depth):
+            b = f"{p}blocks.{i}."
+            for group, names in (("attn", ("qkv", "proj")), ("mlp", ("fc1", "fc2"))):
+                for n in names:
+                    node = t["blocks"][group][n]
+                    state[f"{b}{group}.{n}.weight"] = node["weight"][i].T
+                    if "bias" in node:
+                        state[f"{b}{group}.{n}.bias"] = node["bias"][i]
+            for n in ("norm1", "norm2"):
+                if n in t["blocks"]:
+                    for leaf in ("weight", "bias"):
+                        state[f"{b}{n}.{leaf}"] = t["blocks"][n][leaf][i]
+        for name in ("pos_embed", "cls_token"):
+            if name in t:
+                state[p + name] = t[name]
+        for n in ("norm", "final_norm"):
+            if n in t:
+                state[f"{p}{n}.weight"], state[f"{p}{n}.bias"] = t[n]["weight"], t[n]["bias"]
+        for n in ("proj_in", "final_proj") + (("last_layer",) if tower == "encoder" else ()):
+            if n in t:
+                state[f"{p}{n}.weight"], state[f"{p}{n}.bias"] = t[n]["weight"].T, t[n]["bias"]
+        if tower == "encoder":
+            state[p + "patch_embed.proj.weight"] = t["patch_embed"]["proj"]["weight"]
+            state[p + "patch_embed.proj.bias"] = t["patch_embed"]["proj"]["bias"]
+        else:
+            for leaf in ("weight", "bias"):
+                state[f"{p}last_layer.{leaf}"] = t["last_layer"][leaf]
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in state.items()}
+
+
+@pytest.mark.parametrize("fmt", ["safetensors", "bin"])
+def test_load_vae_matches(tmp_path, fmt):
+    """`load_vae` of a diffusers-format directory (config.json with the
+    ddconfig; `diffusion_pytorch_model.safetensors`, or a `.bin` when no
+    safetensors file is there): the tree equals the JAX package's
+    `convert_vae_state` of the same state, in f32 and in bf16, and a decode
+    agrees."""
+    import json
+
+    from magi_tpu.checkpoint import vae_loader as JVL
+    from magi_tpu_torch.checkpoint import vae_loader as TVL
+
+    dd = dict(BASE, use_final_proj=True, extra_key_the_config_ignores=1)
+    jcfg = JV.VaeConfig.from_ddconfig(dd)
+    assert TV.VaeConfig.from_ddconfig(dd) == TV.VaeConfig(**dataclasses.asdict(jcfg))
+    state = vae_state_dict(jax.tree.map(np.asarray, JV.init_vae_params(jcfg, seed=9)), jcfg)
+    (tmp_path / "config.json").write_text(json.dumps({"_class_name": "ViTVAE", "ddconfig": dd}))
+    if fmt == "safetensors":
+        from safetensors.numpy import save_file
+
+        save_file(state, str(tmp_path / "diffusion_pytorch_model.safetensors"))
+    else:
+        torch.save({k: torch.from_numpy(np.array(v)) for k, v in state.items()},
+                   str(tmp_path / "diffusion_pytorch_model.bin"))
+    for jdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        want = JVL.convert_vae_state(state, jcfg, jdt)
+        vae = TVL.load_vae(str(tmp_path), tdt, "cpu")
+        assert vae.cfg == TV.VaeConfig(**dataclasses.asdict(jcfg))
+        flat_w = jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, want))[0]
+        flat_g = jax.tree_util.tree_flatten_with_path(vae.params)[0]
+        assert [p for p, _ in flat_w] == [p for p, _ in flat_g]
+        for (path, w), (_, g) in zip(flat_w, flat_g):
+            assert g.dtype == tdt and tuple(g.shape) == w.shape, path
+            np.testing.assert_array_equal(g.float().numpy(), w.astype(np.float32), err_msg=str(path))
+    jvae = JVL.load_vae(str(tmp_path), dtype=jnp.float32)
+    tvae = TVL.load_vae(str(tmp_path), torch.float32, "cpu")
+    z = np.random.default_rng(0).normal(size=(1, jcfg.z_chans, 2, 4, 4)).astype(np.float32)
+    np.testing.assert_allclose(tvae.decode(torch.from_numpy(z)).numpy(), np.asarray(jvae.decode(jnp.asarray(z))), **TOL)
