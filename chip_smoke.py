@@ -13,7 +13,12 @@ Phases, each printed on its own line; any failure exits non-zero:
      graph, `graph_ms`), K2 also with the walk's captions (every one 50
      tokens, every one 7), K2g at the 720x720 decode's segments (timed
      only), K3 at the base 720x720 step's S = 48600 and K3q at the
-     distill one's S = 60750 (checked and timed);
+     distill one's S = 60750 (checked and timed), and K1 and K2 at the
+     packed forward's operands (`pack_uncond`: the window's segments, then
+     uncond segments whose ranges lie in the current source past them;
+     phase 12's widest step and two steps of a 144-frame walk whose window
+     sits over cached chunks, taken from the sampler's own plan; K2 with
+     text and null captions in one launch);
   3. tiny walks with the kernels against the same walks on the CPU in fp32
      (plain versions), same weights and noise: the 3-branch bf16 walk, the
      single-branch distill walk of an int8 tree with int8 attention, the
@@ -23,7 +28,9 @@ Phases, each printed on its own line; any failure exits non-zero:
      int4 walk without blocks_edge with its fc2 smoothed (the divide before
      K8 plain on K6 and K7, no K8s), and walks after a prefix video (v2v):
      the 3-branch walk, and the distill int8 walk under the K5 schemes sage
-     and dq;
+     and dq; the packed 3-branch walk (`pack_uncond`), and under the
+     default kv ranges the host-streamed (`kv_offload`) 3-branch bf16 walk
+     and distill int8 walk;
   4. the 4.5B base config at full width and depth (34 layers, 3072 wide,
      24/8 heads, caption 800 x 4096) through the port's CLI entry with
      random weights (SKIP_LOAD_MODEL=1) and 3-branch CFG, noise2clean kv
@@ -71,7 +78,24 @@ Phases, each printed on its own line; any failure exits non-zero:
      smooth-quant divide is a plain op before K8 plain); prints load
      seconds and GB/s, the step time against phase 5's, the divide's ms a
      step, the T5-XXL encode at L 800 resident and staged, and the peak
-     memory.
+     memory;
+ 12. phase 4's request with `pack_uncond` (the uncond segments packed into
+     the text forward: two DiT forwards a step) through the CLI entry with
+     MAGI_PROFILE_DIR set: K1, K2, K3 launch 68 times a step and K4 136 (2/3
+     of phase 4's), the walk's profiler trace must name K1's symbol; prints
+     the step and the device peak against phase 4's;
+ 13. the host-streamed KV cache (`kv_offload` under the default kv
+     ranges) against the resident cache, `ArdfSampler.walk` of phase 5's
+     request (int8 host buffers: K3q and K5 `qk8` on streamed slabs) and
+     of phase 4's (bf16: K1 and K3), the same weights and noise: latents
+     and caches bit-equal, launches equal; prints the bytes copied a step
+     and the link's rate, the step and the device peak of both;
+ 14. two requests on phase 5's config through the CLI entry, lockstep
+     (`--prompts`) and interleaved (`--interleave`): twice phase 5's
+     launches of every kernel; then each request of `DpBatchedSampler` and
+     of `walk_many` bit-equal to its solo walk, fixed noises; prints the
+     walls against two solo runs and the decode time the interleaved run
+     hid.
 Phases 8-10 check the frame count against the JAX package's for the same
 request (i2v keeps its first chunk whole; v2v drops the prefix frames).
 Phase 2 also checks K7 and K8s at phase 6-7's shapes, K8 at the 24B's
@@ -80,7 +104,7 @@ its 48/8 heads.  Phase 6 holds a
 quantization peak of about 57 GiB (the bf16 tree alive while it is
 packed), so each main path starts from an emptied allocator cache.
 Then the card's name and power limit, one JSON line of per-kernel results
-(`launches_by_path` holds each main path's count, phases 4-11, read just
+(`launches_by_path` holds each main path's count, phases 4-14, read just
 after its run; `launches` is their sum; K5's sage and dq rows come after
 every other), and a last line `{"ok": true, "device": {...}}`.
 
@@ -285,6 +309,38 @@ def kv_pack_inputs(dev, n: int, hk: int, hd: int, rot: int):
     return k, v, torch.sin(ang), torch.cos(ang)
 
 
+def packed_step_ranges(num_frames: int, stage: int, didx: int):
+    """Forward A's operands of one packed step (`pack_uncond`) of phase 12's
+    request (the 4.5B base config at 256x256, 16 steps) at `num_frames`:
+    (n_seg, n_den, cache_sp, the global kv starts and ends of the window's
+    segments and then of the uncond ones), as `_cfg3_step` builds them from
+    the sampler's own plan (a one-layer sampler on the CPU; no forward)."""
+    import numpy as np
+    import torch
+
+    from magi_tpu_torch.core.config import MagiConfig
+    from magi_tpu_torch.sampling.transport import ArdfSampler, InferenceInput
+
+    with open(CONFIG) as f:
+        d = json.load(f)
+    d["model_config"]["num_layers"] = 1
+    d["runtime_config"].update(video_size_h=256, video_size_w=256, num_frames=num_frames, num_steps=STEPS)
+    d["engine_config"]["pack_uncond"] = True
+    cfg = MagiConfig.from_dict(d)
+    rc = cfg.runtime_config
+    T = num_frames // rc.temporal_downsample_factor
+    n_chunks = T // rc.chunk_width
+    inp = InferenceInput(caption_embs=torch.zeros(n_chunks, 1, 1), caption_lens=np.full(n_chunks, 7, np.int32),
+                         null_emb=torch.zeros(1, 1), null_len=50, latent_size=(16, T, 32, 32), num_steps=STEPS,
+                         chunk_num=n_chunks, has_text=True)
+    s = ArdfSampler(cfg, None, inp, noise=torch.zeros(inp.latent_size), device="cpu")
+    p = s._plan(stage * (STEPS // rc.window_size) + didx)
+    n_seg, n_den, cache_sp = p["n_seg"], p["n_den"], p["sp"] - s.cache_base
+    u = (cache_sp + n_seg + np.arange(n_den)) * s.ctn
+    return (n_seg, n_den, cache_sp, s.cache_tokens, np.concatenate([p["kv_start"], u]),
+            np.concatenate([p["kv_end"], u + s.ctn]))
+
+
 def kernel_checks(dev):
     import torch
     import torch.nn.functional as F
@@ -401,6 +457,43 @@ def kernel_checks(dev):
     out_u = A.segmented_attention_two_source(q, empty, kv2, z, z, us, us + ctn, seg_len=ctn, q_prologue=pro)
     ref_u = A.segmented_attention_two_source_reference(qn, empty, kv2, z, z, us, us + ctn, seg_len=ctn)
     err = max(err, check_close("segmented_attention_two_source (empty cache)", out_u, ref_u, *ATTN_TOL))
+    # the packed forward A (`pack_uncond`, phase 12): the window's segments
+    # over the cache, then n_den uncond segments whose ranges lie wholly in
+    # the current source past the window's (source 1 empty for those rows).
+    # Phase 12's widest step (4 chunks, stage 3: no cache before the
+    # window) and, for 144 frames, the steps of stage 5 whose window sits
+    # over 1 and 2 cached chunks (with and without the clean leading
+    # chunk).  The plain version runs a segment at a time (its dense
+    # scores of 9 segments would take 31 GB).
+    packed_ms = {}
+    for frames, stage, didx in ((96, 3, 1), (144, 5, 0), (144, 5, 1)):
+        n_seg, n_den, cache_sp, cache_tok, gs_np, ge_np = packed_step_ranges(frames, stage, didx)
+        n_all, st_p = n_seg + n_den, cache_sp * ctn
+        gs_p, ge_p = (torch.as_tensor(a, dtype=torch.int32, device=dev) for a in (gs_np, ge_np))
+        p1s, p1e = torch.clamp(gs_p, max=st_p), torch.clamp(ge_p, max=st_p)
+        p2s, p2e = torch.clamp(gs_p - st_p, min=0), torch.clamp(ge_p - st_p, min=0)
+        u = slice(n_seg, n_all)
+        if bool((p1e[u] > p1s[u]).any()) or not bool((p2s[u] >= n_seg * ctn).all()):
+            fail(f"packed step ({frames} frames, stage {stage}): an uncond range reaches the cache or the window")
+        q_p = randn(n_all * ctn, hq, hd)
+        ang_p = torch.rand((n_all * ctn, rot), generator=g, device=dev) * 6.28
+        pro_p = (qw, qb, torch.sin(ang_p), torch.cos(ang_p), eps)
+        cache_p = randn(2, hk, cache_tok, hd)  # every token set: a read past r1 would show
+        kv2_p = A.kv_norm_rope_pack(randn(n_all * ctn, hk, hd), randn(n_all * ctn, hk, hd), kw, kb,
+                                    pro_p[2], pro_p[3], eps=eps)
+        call_p = lambda: A.segmented_attention_two_source(q_p, cache_p, kv2_p, p1s, p1e, p2s, p2e, seg_len=ctn,
+                                                          q_prologue=pro_p)
+        qn_p = A.apply_q_prologue(q_p, pro_p)
+        ref_p = torch.cat([A.segmented_attention_two_source_reference(
+            qn_p[i * ctn : (i + 1) * ctn], cache_p, kv2_p, p1s[i : i + 1], p1e[i : i + 1], p2s[i : i + 1],
+            p2e[i : i + 1], seg_len=ctn) for i in range(n_all)])
+        name = (f"segmented_attention_two_source (packed forward A, {frames} frames, stage {stage} step {didx}: "
+                f"{n_seg} + {n_den} segments, window over {cache_sp} cached chunks)")
+        err = max(err, check_close(name, call_p(), ref_p, *ATTN_TOL))
+        packed_ms[f"{n_seg}+{n_den}@{cache_sp}"] = cuda_ms(call_p, 10)
+        del q_p, cache_p, kv2_p, qn_p, ref_p
+    print(f"  segmented_attention_two_source, packed forward A (segments + uncond @ cached chunks): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in packed_ms.items()))
     ms = cuda_ms(call, 10)
     plain_ms = cuda_ms(
         lambda: A.segmented_attention_two_source_reference(
@@ -472,6 +565,21 @@ def kernel_checks(dev):
         n_ms, n_gms = cuda_ms(call_n, 20), graph_ms(call_n)
         print_rate(f"segmented_attention_v2, every caption {n} tokens", n_ops, n_ms, n_bms)
         walk[str(n)] = dict(ms=n_ms, graph_ms=n_gms, bound_ms=n_bms, bound_by=n_by)
+    # the packed forward A's captions in one launch (the 144-frame stage-5
+    # step over 1 cached chunk): the clean leading chunk's null caption,
+    # 4 text captions, then the 4 uncond segments' null captions
+    lens_p = [50] + [7] * 4 + [50] * 4
+    n_p = len(lens_p)
+    q_p, kx_p, vx_p = randn(n_p * ctn, hq, hd), randn(n_p * L, hk, hd), randn(n_p * L, hk, hd)
+    xs_p = torch.arange(n_p, dtype=torch.int32, device=dev) * L
+    xe_p = xs_p + torch.tensor(lens_p, dtype=torch.int32, device=dev)
+    qn_p = A.apply_q_prologue(q_p, pro_x)
+    ref_p = torch.cat([A.segmented_attention_reference(qn_p[i * ctn : (i + 1) * ctn], kx_p, vx_p, xs_p[i : i + 1],
+                                                       xe_p[i : i + 1], seg_len=ctn) for i in range(n_p)])
+    err = max(err, check_close(f"segmented_attention_v2 (packed forward A: {n_p} segments, caption tokens {lens_p})",
+                               A.segmented_attention_v2(q_p, kx_p, vx_p, xs_p, xe_p, seg_len=ctn, q_prologue=pro_x),
+                               ref_p, *SHORT_CAPTION_TOL))
+    del q_p, kx_p, vx_p, qn_p, ref_p
     results.append(dict(name="segmented_attention_v2", route="cuda", source="magi_tpu_torch/csrc/attention.cu",
                         replaces="magi_tpu/ops/attention.py:678", max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bms, bound_by=by, library_ms=lib_ms, graph_ms=g_ms, every_caption_tokens=walk))
@@ -938,7 +1046,7 @@ TINY_RUNTIME = dict(num_steps=8, window_size=2, chunk_width=2, noise2clean_kvran
 
 
 def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quantize=None, wrappers=(), kernels=(),
-                    prefix_frames=0, scheme=None, idle=()):
+                    prefix_frames=0, scheme=None, idle=(), runtime=None):
     """A model at head_dim 128 (so every kernel runs) walks 3 chunks on the
     card in bf16 and on the CPU in fp32 with the same weights and noise;
     the emitted latents must agree to `tol` relative L2 error.  `quantize`
@@ -947,8 +1055,9 @@ def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quanti
     frames comes first (v2v: the chunks it covers whole are written by the
     warm-up forward) and the walk has one chunk more.  `scheme` sets
     `MAGI_ATTN_Q8_SCHEME` for the card's walk (the CPU's takes the dequant
-    reference).  Each of `kernels` (names in `wrappers`) must launch in the
-    card's walk, and none of `idle`."""
+    reference).  `runtime` overrides the tiny runtime config (the default
+    kv ranges of a host-offloaded walk).  Each of `kernels` (names in
+    `wrappers`) must launch in the card's walk, and none of `idle`."""
     import numpy as np
     import torch
 
@@ -959,7 +1068,7 @@ def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quanti
     with open(config_path) as f:
         d = json.load(f)
     d["model_config"].update(TINY_MODEL, **(model or {}))
-    d["runtime_config"].update(TINY_RUNTIME)
+    d["runtime_config"].update(TINY_RUNTIME, **(runtime or {}))
     d["engine_config"].update(engine or {})
     cfg_gpu = MagiConfig.from_dict(d)
     d["model_config"]["params_dtype"] = "torch.float32"
@@ -1040,7 +1149,8 @@ def run_main_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: li
     """Run `config` through the CLI entry (t2v) with every launch count set
     to 0 just before and read just after; checks the video (96 frames of
     256x256, finite latents) and that every kernel of the path launched.
-    Returns the launch counts and the run's stats."""
+    Returns the launch counts and the run's stats (with its wall seconds and
+    device peak)."""
     import torch
 
     from magi_tpu_torch.pipeline import entry
@@ -1057,6 +1167,7 @@ def run_main_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: li
     wall = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
     steps = stats["step_seconds"]
+    stats.update(wall=wall, peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
     print(f"  frames written: {stats['frames']} -> {stats['path']}")
     print(f"  denoise steps: {len(steps)}, seconds per step: mean {sum(steps) / len(steps):.4f}, "
           f"first {steps[0]:.4f}, last {steps[-1]:.4f}; VAE decode seconds per chunk: "
@@ -1625,6 +1736,252 @@ def run_loaded_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
 T5_TOL = 2e-2
 
 
+# ---------------------------------------------------------------------------
+# phases 12-14: packed CFG, the host-streamed KV cache, several requests
+# ---------------------------------------------------------------------------
+
+PACK_KERNELS = ["segmented_attention_two_source", "segmented_attention_v2", "kv_norm_rope_pack", "gate_norm_residual"]
+
+
+def run_packed_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: list, launches4: dict,
+                    stats4: dict) -> dict:
+    """Phase 12: phase 4's request with `pack_uncond` (two DiT forwards a
+    step: the uncond segments ride in the text forward) through the CLI
+    entry with MAGI_PROFILE_DIR set (via `run_main_path`).  Requires K1, K2
+    and K3 to launch twice a layer a step and K4 four times (2/3 of phase
+    4's), and a profiler trace of the walk that names K1's symbol.  Prints
+    the launches a step, the mean step and the device peak against phase
+    4's.  Returns the launch counts."""
+    import shutil
+
+    trace_dir = os.path.join(os.path.dirname(stem), "trace_packed")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    os.environ["MAGI_PROFILE_DIR"] = trace_dir
+    try:
+        launches, stats = run_main_path(dev, config, stem, wrappers, path_kernels)
+    finally:
+        os.environ.pop("MAGI_PROFILE_DIR")
+    L = config["model_config"]["num_layers"]
+    steps, steps4 = stats["step_seconds"], stats4["step_seconds"]
+    per = {n: launches[n] / len(steps) for n in PACK_KERNELS}
+    per4 = {n: launches4[n] / len(steps4) for n in PACK_KERNELS}
+    want = {n: (4 if n == "gate_norm_residual" else 2) * L for n in PACK_KERNELS}
+    print(f"  launches per step, packed {json.dumps(per)} against phase 4's {json.dumps(per4)} (want "
+          f"{json.dumps(want)}, 2/3 of phase 4's)")
+    if per != want or any(3 * per[n] != 2 * per4[n] for n in PACK_KERNELS):
+        fail(f"the packed walk launched {per} a step, expected {want}")
+    print(f"  seconds per step (traced walk): mean {sum(steps) / len(steps):.4f} against phase 4's "
+          f"{sum(steps4) / len(steps4):.4f}; device peak {stats['peak_gib']:.2f} GiB against phase 4's "
+          f"{stats4['peak_gib']:.2f} GiB")
+    trace = os.path.join(trace_dir, "walk", "trace.json")
+    if not os.path.exists(trace):
+        fail(f"MAGI_PROFILE_DIR set, but no trace at {trace}")
+    with open(trace) as f:
+        named = "seg_attn_two_source_kernel" in f.read()
+    print(f"  profiler trace {trace}: {os.path.getsize(trace) / 2**20:.1f} MiB, names seg_attn_two_source_kernel: "
+          f"{named}")
+    if not named:
+        fail("the walk's profiler trace does not name seg_attn_two_source_kernel")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    return launches
+
+
+def _request(cfg, dev, params, prompt: str):
+    from magi_tpu_torch.pipeline.prompt_process import build_inference_input, get_txt_embeddings
+
+    null = params["y_embedder"]["null_caption_embedding"].float().cpu().numpy()
+    return build_inference_input(cfg, null, *get_txt_embeddings(prompt, cfg, dev), dev)
+
+
+def _timed_walk(sampler):
+    import torch
+
+    t0 = time.perf_counter()
+    chunks = [c for _, c in sampler.walk()]
+    torch.cuda.synchronize()
+    return chunks, time.perf_counter() - t0
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    if isinstance(a, dict):
+        return all(_same_bits(a[k], b[k]) for k in a)
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+
+
+def run_offload_pair(dev, config: dict, name: str, wrappers: dict, path_kernels: list):
+    """Phase 13: `config`'s request under the default kv ranges walked by
+    `ArdfSampler.walk` twice, the same weights and noise: the KV cache
+    resident on the device, then in pinned host memory, streamed a layer
+    slab at a time (`kv_offload`).  Requires bit-equal emitted latents and
+    caches (the same kernels on the same bytes), equal launch counts, and
+    every kernel of `path_kernels` launched by the streamed walk.  Prints
+    the bytes copied a step each way beside the link's rate (one layer's
+    slab, CUDA events), the mean step and the device peak, resident against
+    streamed.  Returns the streamed walk's launch counts."""
+    import torch
+
+    from magi_tpu_torch.core.config import MagiConfig
+    from magi_tpu_torch.pipeline.pipeline import get_dit
+    from magi_tpu_torch.sampling.transport import ArdfSampler
+
+    d = json.loads(json.dumps(config))
+    d["runtime_config"]["noise2clean_kvrange"] = []
+    cfg_res = MagiConfig.from_dict(d)
+    d["engine_config"]["kv_offload"] = True
+    cfg_str = MagiConfig.from_dict(d)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg_res.runtime_config.seed)
+    torch.cuda.empty_cache()
+    params = get_dit(cfg_res, dev, gen)
+    inp = _request(cfg_res, dev, params, "a red cube on a table")
+    noise = torch.randn(inp.latent_size, generator=gen, device=dev)
+    runs = {}
+    for mode, cfg in (("resident", cfg_res), ("streamed", cfg_str)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        sampler = ArdfSampler(cfg, params, inp, noise=noise, device=dev)
+        if sampler.host_mode != (mode == "streamed"):
+            fail(f"{name}: the {mode} walk has host_mode {sampler.host_mode}")
+        for w in wrappers.values():
+            w.launches = 0
+        chunks, wall = _timed_walk(sampler)
+        runs[mode] = dict(chunks=chunks, wall=wall, peak=torch.cuda.max_memory_allocated(dev),
+                          launches={n: w.launches for n, w in wrappers.items()}, steps=sampler.step_seconds)
+        if mode == "resident":
+            # the cache as the host buffer lies (kv token-major), kept on the
+            # host: the streamed walk runs without it on the device
+            c = sampler.cache
+            kv, sc = (c["kv"], c["scale"]) if isinstance(c, dict) else (c, None)
+            resident_cache = (kv.movedim(-2, -4).contiguous().cpu(), None if sc is None else sc.cpu())
+            cache_bytes = kv.nbytes + (0 if sc is None else sc.nbytes)
+            del c, kv, sc
+        else:
+            hc = sampler.host_cache
+        del sampler
+    res, st = runs["resident"], runs["streamed"]
+    steps = st["steps"]
+    same_latents = len(res["chunks"]) == len(st["chunks"]) and all(
+        _same_bits(a, b) for a, b in zip(res["chunks"], st["chunks"]))
+    same_cache = _same_bits(resident_cache[0], hc._host_kv) and (
+        resident_cache[1] is None or _same_bits(resident_cache[1], hc._host_sc))
+    slab_bytes = sum(t.nbytes for t in hc._slab_kv + (hc._slab_sc or []))
+    src, dst = hc._host_kv[0], hc._slab_kv[0]
+    h2d_ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), 10)
+    d2h_ms = cuda_ms(lambda: src.copy_(dst, non_blocking=True), 10)
+    h2d_rate, d2h_rate = src.nbytes / h2d_ms / 1e6, src.nbytes / d2h_ms / 1e6
+    per_step_h2d, per_step_d2h = hc.h2d_bytes / len(steps), hc.d2h_bytes / len(steps)
+    mean = {m: sum(r["steps"]) / len(r["steps"]) for m, r in runs.items()}
+    print(f"  {name}: {len(steps)} steps, {len(st['chunks'])} chunks; latents bit-equal, resident against streamed: "
+          f"{same_latents}; cache bit-equal to the host buffer: {same_cache}")
+    print(f"  copies a step: H2D {per_step_h2d / 1e6:.1f} MB, D2H {per_step_d2h / 1e6:.1f} MB; the link, one layer's "
+          f"slab of {src.nbytes / 1e6:.1f} MB: H2D {h2d_rate:.1f} GB/s, D2H {d2h_rate:.1f} GB/s, so "
+          f"{(per_step_h2d / h2d_rate + per_step_d2h / d2h_rate) / 1e9:.4f} s of copies a step")
+    print(f"  seconds per step: resident {mean['resident']:.4f}, streamed {mean['streamed']:.4f}; walk wall "
+          f"{res['wall']:.2f} / {st['wall']:.2f} s; device peak resident {res['peak'] / 2**30:.2f} GiB, streamed "
+          f"{st['peak'] / 2**30:.2f} GiB (the cache {cache_bytes / 2**30:.2f} GiB, two slabs "
+          f"{slab_bytes / 2**30:.3f} GiB)")
+    print(f"  launches per step, streamed: "
+          f"{json.dumps({n: round(st['launches'][n] / len(steps), 2) for n in path_kernels})}")
+    if not same_latents or not same_cache:
+        fail(f"{name}: the streamed walk's latents or cache differ from the resident walk's")
+    if res["launches"] != st["launches"]:
+        fail(f"{name}: launches differ, resident {res['launches']} against streamed {st['launches']}")
+    missing = [n for n in path_kernels if st["launches"][n] == 0]
+    if missing:
+        fail(f"{name}: the streamed walk launched no {missing}")
+    if not all(bool(torch.isfinite(c).all()) for c in st["chunks"]):
+        fail(f"{name}: the streamed walk emitted non-finite latents")
+    return st["launches"]
+
+
+def run_multi_paths(dev, config: dict, stem: str, wrappers: dict, path_kernels: list, launches5: dict,
+                    stats5: dict):
+    """Phase 14: phase 5's config with two prompts through the CLI entry,
+    lockstep (`--prompts a b`) and interleaved (`--interleave`, the decode
+    on a worker thread and its own stream), each with every launch count
+    set to 0 just before and read just after: two videos of phase 5's
+    shape each, and exactly twice phase 5's launches of every kernel.  Then,
+    through the samplers with fixed noises, each request's latents of the
+    lockstep walk (`DpBatchedSampler`) and of `walk_many` against a solo
+    walk of that request, bit for bit.  Prints the walls against two solo
+    runs and the decode time the interleaved run hid.  Returns the launch
+    counts of the two runs."""
+    import torch
+
+    from magi_tpu_torch.core.config import MagiConfig
+    from magi_tpu_torch.pipeline import entry
+    from magi_tpu_torch.pipeline.pipeline import get_dit
+    from magi_tpu_torch.sampling.batched import DpBatchedSampler
+    from magi_tpu_torch.sampling.transport import ArdfSampler, walk_many
+
+    with open(stem + ".json", "w") as f:
+        json.dump(config, f)
+    prompts = ["a red cube on a table", "a blue ball rolls across the grass at dusk"]
+    out, walls = {}, {}
+    for mode, flags in (("lockstep", []), ("interleaved", ["--interleave"])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        stats = entry.main(["--config_file", stem + ".json", "--mode", "t2v", "--prompts", *prompts,
+                            "--output_path", f"{stem}_{mode}.mp4"] + flags)
+        walls[mode] = time.perf_counter() - t0
+        out[mode] = launches = {n: w.launches for n, w in wrappers.items()}
+        decode = sum(sum(s["decode_seconds"]) for s in stats)
+        steps = stats[0]["step_seconds"]
+        print(f"  {mode}: {[s['frames'] for s in stats]} frames -> {[s['path'] for s in stats]}; run wall "
+              f"{walls[mode]:.2f} s, decode {decode:.2f} s in all, {len(steps)} steps of mean "
+              f"{sum(steps) / len(steps):.4f} s; peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        walls[mode + "_decode"] = decode
+        bad = {n: (launches[n], launches5[n]) for n in wrappers if launches[n] != 2 * launches5[n]}
+        if bad:
+            fail(f"{mode}: launches not twice phase 5's (this run, phase 5): {bad}")
+        for s in stats:
+            if s["video_shape"] != (96, 256, 256, 3) or not s["latents_finite"] or s["video_std"] == 0:
+                fail(f"{mode}: expected 96 finite frames of 256x256x3, got {s['video_shape']}, "
+                     f"finite {s['latents_finite']}, std {s['video_std']}")
+        missing = [n for n in path_kernels if launches[n] == 0]
+        if missing:
+            fail(f"{mode}: the run launched no {missing}")
+    print(f"  launches, each run: twice phase 5's for every kernel ({json.dumps(out['lockstep'])})")
+    print(f"  wall for the two requests: lockstep {walls['lockstep']:.2f} s, interleaved {walls['interleaved']:.2f} s, "
+          f"two solo runs (phase 5's wall twice) {2 * stats5['wall']:.2f} s; the interleaved run hid "
+          f"{walls['lockstep'] - walls['interleaved']:.2f} s of its {walls['interleaved_decode']:.2f} s of decode")
+
+    cfg = MagiConfig.from_dict(config)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.runtime_config.seed)
+    torch.cuda.empty_cache()
+    params = get_dit(cfg, dev, gen)
+    inps = [_request(cfg, dev, params, p) for p in prompts]
+    noises = [torch.randn(inp.latent_size, generator=gen, device=dev) for inp in inps]
+    solo, solo_wall = [], 0.0
+    for inp, n in zip(inps, noises):
+        chunks, wall = _timed_walk(ArdfSampler(cfg, params, inp, noise=n, device=dev))
+        solo.append(chunks)
+        solo_wall += wall
+    batched, batch_wall = _timed_walk(DpBatchedSampler(cfg, params, inps, noises=noises, device=dev))
+    many = [[], []]
+    t0 = time.perf_counter()
+    for r, _, chunk in walk_many([ArdfSampler(cfg, params, inp, noise=n, device=dev) for inp, n in zip(inps, noises)]):
+        many[r].append(chunk)
+    torch.cuda.synchronize()
+    many_wall = time.perf_counter() - t0
+    same_batch = all(len(batched) == len(solo[r]) and all(_same_bits(b[r], s) for b, s in zip(batched, solo[r]))
+                     for r in range(2))
+    same_many = all(len(many[r]) == len(solo[r]) and all(_same_bits(m, s) for m, s in zip(many[r], solo[r]))
+                    for r in range(2))
+    print(f"  samplers, fixed noises: each request's latents bit-equal to its solo walk: lockstep {same_batch}, "
+          f"walk_many {same_many}; walk walls (no decode): two solo {solo_wall:.2f} s, lockstep {batch_wall:.2f} s, "
+          f"walk_many {many_wall:.2f} s")
+    if not (same_batch and same_many):
+        fail("a request's latents in a multi-request walk differ from its solo walk")
+    return out["lockstep"], out["interleaved"]
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else [v])
@@ -1717,6 +2074,18 @@ def main() -> int:
                         TINY_QUANT_TOL, model=dict(num_layers=3), engine=dict(attn_int8=True),
                         quantize=Q.quantize_params_int8, prefix_frames=3, scheme=scheme, wrappers=wrappers,
                         kernels=[f"segmented_attention_two_source_q8_{scheme}"])
+    # packed CFG (uncond rows in K1's source 2 only), and the host-streamed
+    # cache under the default kv ranges (K1 and K3, K5 qk8 and K3q on slabs)
+    tiny_walk_check(dev, "tiny packed 3-CFG walk", CONFIG, 2e-2, engine=dict(pack_uncond=True), wrappers=wrappers,
+                    kernels=["segmented_attention_two_source", "kv_norm_rope_pack"])
+    tiny_walk_check(dev, "tiny host-offloaded 3-CFG walk, default kv ranges", CONFIG, 2e-2,
+                    engine=dict(kv_offload=True), runtime=dict(noise2clean_kvrange=[]), wrappers=wrappers,
+                    kernels=["segmented_attention_two_source", "kv_norm_rope_pack"])
+    tiny_walk_check(dev, "tiny host-offloaded distill int8 1-CFG walk with int8 attention, default kv ranges",
+                    QUANT_CONFIG, TINY_QUANT_TOL, model=dict(num_layers=3),
+                    engine=dict(attn_int8=True, kv_offload=True), runtime=dict(noise2clean_kvrange=[]),
+                    quantize=Q.quantize_params_int8, wrappers=wrappers,
+                    kernels=["segmented_attention_two_source_q8", "kv_norm_rope_pack_q8"])
 
     out_dir = os.path.join(_lib.BUILD_DIR, "smoke")
     os.makedirs(out_dir, exist_ok=True)
@@ -1726,9 +2095,9 @@ def main() -> int:
     with open(CONFIG) as f:
         d = json.load(f)
     d["runtime_config"].update(video_size_h=256, video_size_w=256, num_frames=96, num_steps=STEPS)
-    launches4, _ = run_main_path(dev, d, os.path.join(out_dir, "4.5B_base_256"), wrappers, [
-        "segmented_attention_two_source", "segmented_attention_v2", "segmented_attention", "kv_norm_rope_pack",
-        "gate_norm_residual"])
+    base_kernels = ["segmented_attention_two_source", "segmented_attention_v2", "segmented_attention",
+                    "kv_norm_rope_pack", "gate_norm_residual"]
+    launches4, stats4 = run_main_path(dev, d, os.path.join(out_dir, "4.5B_base_256"), wrappers, base_kernels)
 
     phase("phase 5: 4.5B distill + int8 t2v with int8 attention through the CLI entry (256x256, 96 frames, "
           "the config's 16 steps)")
@@ -1795,12 +2164,44 @@ def main() -> int:
     launches11 = run_loaded_path(dev, d, os.path.join(out_dir, "4.5B_distill_fp8_ckpt_256"), wrappers,
                                  distill_kernels, launches5, stats5)
 
+    with open(CONFIG) as f:
+        base = json.load(f)
+    base["runtime_config"].update(video_size_h=256, video_size_w=256, num_frames=96, num_steps=STEPS)
+    phase(f"phase 12: 4.5B base t2v with pack_uncond (2 forwards a step) through the CLI entry, MAGI_PROFILE_DIR "
+          f"set (256x256, 96 frames, {STEPS} steps)")
+    packed = json.loads(json.dumps(base))
+    packed["engine_config"]["pack_uncond"] = True
+    launches12 = run_packed_path(dev, packed, os.path.join(out_dir, "4.5B_base_packed_256"), wrappers, base_kernels,
+                                 launches4, stats4)
+
+    with open(QUANT_CONFIG) as f:
+        d = json.load(f)
+    d["runtime_config"].update(video_size_h=256, video_size_w=256, num_frames=96)
+    d["engine_config"]["attn_int8"] = True
+    phase("phase 13: host-streamed KV cache against the resident one, default kv ranges, ArdfSampler.walk "
+          f"(4.5B distill + int8 with int8 attention, 16 steps; 4.5B base 3-CFG, {STEPS} steps; 256x256, 96 frames)")
+    launches13q = run_offload_pair(dev, d, "distill int8 (int8 host buffers)", wrappers,
+                                   ["kv_norm_rope_pack_q8", "segmented_attention_two_source_q8", "quantized_matmul_i8",
+                                    "rowquant_fused", "gate_norm_residual"])
+    launches13 = run_offload_pair(dev, base, "base bf16 3-CFG", wrappers,
+                                  ["segmented_attention_two_source", "segmented_attention_v2", "kv_norm_rope_pack",
+                                   "gate_norm_residual"])
+
+    phase("phase 14: two requests on the 4.5B distill + int8 config through the CLI entry, lockstep (--prompts) "
+          "and interleaved (--interleave), then each request against its solo walk (256x256, 96 frames)")
+    launches14b, launches14m = run_multi_paths(dev, d, os.path.join(out_dir, "4.5B_distill_quant_two"), wrappers,
+                                               distill_kernels, launches5, stats5)
+
     for r in results:
         r["launches_by_path"] = {"base": launches4[r["name"]], "distill_int8": launches5[r["name"]],
                                  "24b_w4a8": launches6[r["name"]], "24b_w4a8_noedge": launches7[r["name"]],
                                  "i2v_base": launches8[r["name"]], "v2v_distill_int8_sage": launches9[r["name"]],
                                  "i2v_distill_int8_dq": launches10[r["name"]],
-                                 "distill_int8_fp8_ckpt": launches11[r["name"]]}
+                                 "distill_int8_fp8_ckpt": launches11[r["name"]], "base_packed": launches12[r["name"]],
+                                 "distill_int8_host_offload": launches13q[r["name"]],
+                                 "base_host_offload": launches13[r["name"]],
+                                 "distill_int8_batch2": launches14b[r["name"]],
+                                 "distill_int8_many2": launches14m[r["name"]]}
         r["launches"] = sum(r["launches_by_path"].values())
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -471,11 +471,8 @@ def dit_forward(
     )
     if meta.use_kv_cache and kv_cache is None:
         raise ValueError("a forward that reads the KV cache needs one")
-    int8_attn = attn_int8(config)
-    int8_store = attn_int8_store(config)
-    if meta.use_kv_cache and isinstance(kv_cache, dict) != int8_store:
+    if meta.use_kv_cache and isinstance(kv_cache, dict) != attn_int8_store(config):
         raise ValueError("the KV cache's form (int8 dict or bf16 tensor) does not match the int8 attention switches")
-    edge = params.get("blocks_edge")
     for idx in range(mc.num_layers):
         if not meta.use_kv_cache:
             cache_l = None
@@ -483,11 +480,23 @@ def dit_forward(
             cache_l = {"kv": kv_cache["kv"][idx], "scale": kv_cache["scale"][idx]}
         else:
             cache_l = kv_cache[idx]
-        h = _apply_layer_routed(
-            layer_params(params["blocks"], idx), edge, config, idx, h, condition, y_xattn, sin, cos, cache_l, meta,
-            high_precision=config.engine_config.high_precision_matmul, int8_attn=int8_attn, int8_store=int8_store,
-        )
+        h = dit_layer_step(params, config, idx, h, cache_l, condition, y_xattn, sin, cos, meta)
     return dit_epilogue(params, config, h, Tp, Hp, Wp), kv_cache
+
+
+def dit_layer_step(params: dict, config: MagiConfig, idx: int, h: torch.Tensor, cache_l, condition, y_xattn, sin,
+                   cos, meta: ForwardMeta) -> torch.Tensor:
+    """Layer `idx` of the stacked tree (edge routing included) on `cache_l`,
+    that layer's cache slab ([2, hk, tokens, hd], or the int8 {kv, scale}
+    dict; any strides the kernels take; None for a forward without the
+    cache), which a forward with `meta.update_kv_cache` writes in place.
+    The unit of the host-streamed KV cache (`sampling.transport.HostKVCache`),
+    and the body of `dit_forward`'s layer loop."""
+    return _apply_layer_routed(
+        layer_params(params["blocks"], idx), params.get("blocks_edge"), config, idx, h, condition, y_xattn, sin, cos,
+        cache_l, meta, high_precision=config.engine_config.high_precision_matmul, int8_attn=attn_int8(config),
+        int8_store=attn_int8_store(config),
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a denoise step of the PyTorch/CUDA port spends its time on one GPU.
 
-    python3 scripts/profile_torch_step.py [--configs base,distill,distill_smooth,24b,t5] [--schemes qk8,sage,dq]
+    python3 scripts/profile_torch_step.py [--configs base,distill,distill_smooth,24b,t5,base_packed,distill_offload]
+        [--schemes qk8,sage,dq]
 
 Builds the models at full width and depth with random weights: the 4.5B
 base config (example/4.5B/4.5B_base_config.json, bf16, 3-branch CFG), the
@@ -13,7 +14,15 @@ int8 per layer, bf16 edge layers).  `distill_smooth` is the distill
 config on a smooth-folded int8 tree, as a released fp8 checkpoint loads
 (`chip_smoke.with_smooth`: `act_smooth` in [0.5, 2] on kv_xattn, proj,
 fc1 and fc2, 1 on the edge layers): its step adds the divide of each smoothed linear's input (among
-"other") and runs fc1's LayerNorm unfused.  The int8 configs run once per K5
+"other") and runs fc1's LayerNorm unfused.  `base_packed` is the base config
+with `pack_uncond` (two forwards a step) at 256x256.  `distill_offload` is
+the distill config under the default kv ranges on a video of 8 chunks (192
+frames), at 256x256 and 720x720, at stages 3 (no cache before the window)
+and 7 (the window over 4 cached chunks, which every forward uploads), each
+step once with the cache resident and once with `kv_offload` (the cache in
+pinned host memory, streamed a layer slab at a time on a copy stream); the
+copies' device time and bytes are printed apart from the kernels', which
+alone make "device busy" and the idle share.  The int8 configs run once per K5
 scheme of `--schemes` (`MAGI_ATTN_Q8_SCHEME`; default qk8).  For each and
 each video size it runs
 one denoise step of the given ARDF stage (stage 3 is the first step with
@@ -48,9 +57,12 @@ import torch  # noqa: E402
 
 SIZES = {"base": ((256, 256), (720, 720)), "distill": ((256, 256), (720, 720)),
          "distill_smooth": ((256, 256), (720, 720)),
-         "24b": ((256, 256), (720, 1280))}  # the smoke's size and each config's own
+         "24b": ((256, 256), (720, 1280)),  # the smoke's size and each config's own
+         "base_packed": ((256, 256),), "distill_offload": ((256, 256), (720, 720))}
 STAGE = 3  # ARDF stage of the profiled step: the first with the full window of 4 chunks
 STEPS = 64  # the config's schedule
+# distill_offload: 8 chunks; stage 7's window (chunks 4-7) sits over 4 cached chunks
+OFFLOAD_FRAMES, OFFLOAD_STAGES = 192, (3, 7)
 
 K1 = "K1 segmented_attention_two_source (seg_attn_two_source_kernel)"
 K2 = "K2 segmented_attention_v2 (seg_attn_v2_kernel, caption)"
@@ -66,9 +78,12 @@ K6 = "K6 quantized_matmul_i8 (qmm_i8_wgmma_kernel)"
 K7 = "K7 quantized_matmul (qmm_deq_wgmma_kernel)"
 K8 = "K8 rowquant_fused (rowquant_kernel)"
 K8S = "K8s rowquant_swiglu (swiglu_rowquant_kernel)"
+COPIES = "host<->device copies (Memcpy HtoD / DtoH)"
 
 
 def group_of(name: str) -> str:
+    if name.startswith("Memcpy HtoD") or name.startswith("Memcpy DtoH"):
+        return COPIES
     if "seg_attn_q8_sage_kernel" in name:
         return K5S
     if "seg_attn_q8_dq_kernel" in name:
@@ -145,15 +160,20 @@ def attention_flops(sampler, step: int) -> float:
 
 def load_config(name: str) -> dict:
     file = {"base": "4.5B/4.5B_base_config.json", "distill": "4.5B/4.5B_distill_quant_config.json",
-            "distill_smooth": "4.5B/4.5B_distill_quant_config.json", "24b": "24B/24B_distill_quant_config.json"}[name]
+            "24b": "24B/24B_distill_quant_config.json"}[name.split("_")[0]]
     with open(os.path.join(HERE, "example", file)) as f:
         d = json.load(f)
-    if name == "base":
+    if name.startswith("base"):
         d["runtime_config"]["num_steps"] = STEPS
+        d["engine_config"]["pack_uncond"] = name == "base_packed"
     else:
         d["engine_config"]["attn_int8"] = True
     if name == "24b":
         d["engine_config"].update(quant_bits=4, cp_size=1)  # one device
+    if name == "distill_offload":
+        # the default ranges (every earlier chunk attended), where kv_offload
+        # is the host-streamed cache; main() runs each step both ways
+        d["runtime_config"].update(noise2clean_kvrange=[], num_frames=OFFLOAD_FRAMES)
     return d
 
 
@@ -171,7 +191,7 @@ def build_params(name: str, d: dict, dev, gen, cache: dict) -> dict:
         return quantize_params_int4(init_dit_params(MagiConfig.from_dict(d), dev, gen))
     if "bf16" not in cache:
         cache["bf16"] = init_dit_params(MagiConfig.from_dict(d), dev, gen)
-    if name == "base":
+    if name.startswith("base"):
         return cache["bf16"]
     if name == "distill_smooth":
         from chip_smoke import SMOOTH_LINEARS, with_smooth
@@ -250,7 +270,7 @@ def unpack_ms(params: dict) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--configs", default="base,distill,24b",
-                    help="comma list of base, distill, distill_smooth, 24b, t5")
+                    help="comma list of base, distill, distill_smooth, 24b, t5, base_packed, distill_offload")
     ap.add_argument("--schemes", default="qk8", help="comma list of the K5 schemes (qk8, sage, dq) of the int8 configs")
     args = ap.parse_args()
     names, schemes = args.configs.split(","), args.schemes.split(",")
@@ -283,17 +303,22 @@ def main() -> int:
             layers = base["model_config"]["num_layers"] - 2  # the edge layers run bf16 weights
             print(f"== 24b: unpack_int4 of one layer's 8 linears {ums:.3f} ms (CUDA events); x {layers} layers "
                   f"= {ums * layers:.1f} ms per forward")
-        runs = [(hw, sch) for hw in SIZES[name] for sch in (["qk8"] if name == "base" else schemes)]
-        for (size_h, size_w), scheme in runs:
+        modes = [(st, off) for st in OFFLOAD_STAGES for off in (False, True)] if name == "distill_offload" \
+            else [(STAGE, None)]
+        runs = [(hw, sch, st, off) for hw in SIZES[name] for sch in (["qk8"] if name.startswith("base") else schemes)
+                for st, off in modes]
+        for (size_h, size_w), scheme, stage, offload in runs:
             os.environ["MAGI_ATTN_Q8_SCHEME"] = scheme
             d = json.loads(json.dumps(base))
             d["runtime_config"].update(video_size_h=size_h, video_size_w=size_w)
+            if offload is not None:
+                d["engine_config"]["kv_offload"] = offload
             cfg = MagiConfig.from_dict(d)
             emb, mask = get_txt_embeddings("a red cube on a table", cfg)
             inp = build_inference_input(cfg, null, emb, mask, dev)
             sampler = ArdfSampler(cfg, params, inp, gen, device=dev)
             dpss = cfg.runtime_config.num_steps // cfg.runtime_config.window_size
-            step = STAGE * dpss
+            step = stage * dpss
             torch.cuda.reset_peak_memory_stats(dev)
             sampler.do_step(step)  # warm-up (cuBLAS heuristics, allocator)
             torch.cuda.synchronize()
@@ -304,23 +329,37 @@ def main() -> int:
             p = sampler._plan(step + 2)
             groups, counts, wall, _ = profile(lambda: sampler.do_step(step + 2))
             peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            copies_ms = groups.pop(COPIES, 0.0)
             busy = sum(groups.values())
             flops = attention_flops(sampler, step + 2)
-            attn_ms = groups.get(K1 if name == "base" else K5_OF[scheme], 0.0)
-            n_fwd = 3 if cfg.runtime_config.cfg_number == 3 else 1
-            tag = "" if name == "base" else f" K5 {scheme}"
-            print(f"== {name} {size_h}x{size_w}{tag}: stage {STAGE} step of {cfg.runtime_config.num_steps} "
-                  f"(n_seg {p['n_seg']}{' + the ride-along' if p['distill_nearly'] else ''}, seg_len {sampler.ctn} "
-                  f"tokens, {cfg.model_config.num_layers} layers, {n_fwd} forward{'s' if n_fwd > 1 else ''})")
+            attn_ms = groups.get(K1 if name.startswith("base") else K5_OF[scheme], 0.0)
+            n_fwd = 1 if cfg.runtime_config.cfg_number == 1 else 2 if cfg.engine_config.pack_uncond else 3
+            tag = "" if name.startswith("base") else f" K5 {scheme}"
+            if offload is not None:
+                tag += f" stage {stage} {'streamed' if offload else 'resident'}"
+            print(f"== {name} {size_h}x{size_w}{tag}: stage {stage} step of {cfg.runtime_config.num_steps} "
+                  f"(n_seg {p['n_seg']}{' + the ride-along' if p['distill_nearly'] else ''} over {p['sp']} cached "
+                  f"chunks of {inp.chunk_num}, seg_len {sampler.ctn} tokens, {cfg.model_config.num_layers} layers, "
+                  f"{n_fwd} forward{'s' if n_fwd > 1 else ''})")
             print(f"  step wall {step_ms:.1f} ms (host clock, synchronised, no profiler); under the profiler "
                   f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}; "
                   f"peak memory {peak:.2f} GiB")
             for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
                 print(f"  {ms:10.2f} ms  {100 * ms / busy:5.1f}%  {counts[g]:6d} launches  {g}")
+            if sampler.host_mode:
+                hc = sampler.host_cache
+                print(f"  {copies_ms:10.2f} ms of {counts[COPIES]} host<->device copies on the copy stream (beside "
+                      f"the kernels, not in device busy; {100 * copies_ms / wall:.1f}% of the profiled step); "
+                      f"{hc.h2d_bytes / 3e6:.1f} MB up and {hc.d2h_bytes / 3e6:.1f} MB back a step (mean of the "
+                      f"three steps)")
             print(f"  self-attention operations of the step {flops:.3e}; attention kernel device time {attn_ms:.1f} ms "
                   f"-> {flops / (attn_ms * 1e-3) / 1e12:.1f} T/s")
             key = f"{name} {size_h}x{size_w}{tag}"
-            results[key] = dict(step_ms=step_ms, busy_ms=busy, profiled_ms=wall, peak_gib=peak, groups=groups)
+            results[key] = dict(step_ms=step_ms, busy_ms=busy, profiled_ms=wall, peak_gib=peak, groups=groups,
+                                copies_ms=copies_ms)
+            if sampler.host_mode:
+                results[key].update(h2d_mb=sampler.host_cache.h2d_bytes / 3e6,
+                                    d2h_mb=sampler.host_cache.d2h_bytes / 3e6)
             if name == "base":
                 # one VAE decode of a chunk
                 chunk = torch.randn((16, 6, size_h // 8, size_w // 8), generator=gen, device=dev)

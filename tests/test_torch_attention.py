@@ -16,6 +16,7 @@ import torch
 
 from magi_tpu.ops import attention as J
 from magi_tpu_torch.ops import attention as T
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 J2 = functools.partial(J.segmented_attention_two_source, interpret=True, block_q=128, block_k=128)

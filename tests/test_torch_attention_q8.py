@@ -39,6 +39,7 @@ from magi_tpu.ops import attention as JA
 from magi_tpu.ops import attention_q8 as J8
 from magi_tpu_torch.ops import attention as TA
 from magi_tpu_torch.ops import attention_q8 as T8
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 QK8_TOL = dict(atol=2e-3, rtol=1e-2)
 J8K = functools.partial(J8.segmented_attention_two_source_q8, interpret=True, block_q=128, block_k=128)

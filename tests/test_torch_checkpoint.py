@@ -25,6 +25,7 @@ from magi_tpu_torch.checkpoint import safetensors_io as SIO
 from tests.test_checkpoint import make_fp8_state, make_reference_state, write_checkpoint
 from tests.test_torch_dit import torch_config
 from tests.tiny import tiny_config
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DTYPES = {
     "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16, "F8_E4M3": torch.float8_e4m3fn,

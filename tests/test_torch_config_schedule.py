@@ -17,6 +17,7 @@ from magi_tpu_torch.core.config import MagiConfig
 from magi_tpu_torch.core.utils import resolve_device
 from magi_tpu_torch.sampling import kv_ranges as tkvr
 from magi_tpu_torch.sampling import schedule as tsched
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "example", "*", "*.json")))

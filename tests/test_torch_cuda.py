@@ -818,3 +818,139 @@ def test_t5_staged_encode_frees_the_card(dev, tmp_path):
     ids = torch.as_tensor(emb.tokenizer(["a red cube"], 16)["input_ids"])
     want = T5.t5_encoder_forward(resident, emb.config, ids, mask).cpu()
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the walk's modes on the card: packed CFG, the host-streamed cache, several
+# requests (tiny models at head_dim 128, so every kernel of the path runs)
+# ---------------------------------------------------------------------------
+
+
+def test_packed_forward_two_source_kernel(dev):
+    """K1 on the packed forward's operands: window segments over 2 cached
+    chunks, then uncond segments whose ranges lie past the window's in the
+    current source (source 1 empty at the split, as `attention_forward`
+    clamps them)."""
+    g = _gen(dev)
+    hq, hk, hd, rot, ctn, n_seg, n_den, cache_sp = 24, 8, 128, 48, 192, 3, 2, 2
+    S, start = (n_seg + n_den) * ctn, cache_sp * ctn
+    q = _randn(g, dev, S, hq, hd)
+    kv1, kv2 = _randn(g, dev, 2, hk, 4 * ctn, hd), _randn(g, dev, 2, hk, S, hd)
+    gs = torch.tensor([0, ctn, start] + [start + (n_seg + i) * ctn for i in range(n_den)], dtype=torch.int32,
+                      device=dev)
+    ge = torch.tensor([start + (i + 1) * ctn for i in range(n_seg)] + [start + (n_seg + i + 1) * ctn
+                                                                       for i in range(n_den)], dtype=torch.int32,
+                      device=dev)
+    ranges = (gs.clamp(max=start), ge.clamp(max=start), (gs - start).clamp(min=0), (ge - start).clamp(min=0))
+    assert (ranges[0][n_seg:] == ranges[1][n_seg:]).all()
+    qw, qb = _ln_affine(g, dev, hd)
+    pro = (qw, qb, torch.sin(_randn(g, dev, S, rot, dtype=torch.float32)),
+           torch.cos(_randn(g, dev, S, rot, dtype=torch.float32)), 1e-6)
+    out = A.segmented_attention_two_source(q, kv1, kv2, *ranges, seg_len=ctn, q_prologue=pro)
+    ref = A.segmented_attention_two_source_reference(A.apply_q_prologue(q, pro), kv1, kv2, *ranges, seg_len=ctn)
+    _close(out, ref, **ATTN_TOL)
+
+
+def _tiny_card_dict(name: str, **engine) -> dict:
+    """An example config at head_dim 128 with 3 layers (one middle layer),
+    its default kv ranges, a 16x16 latent and 3 chunks of 2 frames."""
+    import json
+    import os
+
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "example", "4.5B", name)) as f:
+        d = json.load(f)
+    d["model_config"].update(num_layers=3, hidden_size=768, ffn_hidden_size=1536, num_attention_heads=6,
+                             num_query_groups=2, caption_channels=64, caption_max_length=32)
+    d["runtime_config"].update(num_steps=8, window_size=2, chunk_width=2, noise2clean_kvrange=[],
+                               video_size_h=128, video_size_w=128, num_frames=24)
+    d["engine_config"].update(engine)
+    return d
+
+
+def _tiny_card_input(cfg, dev, g):
+    from magi_tpu_torch.sampling.transport import InferenceInput
+
+    mc = cfg.model_config
+    L, n = mc.caption_max_length, 3
+    return InferenceInput(caption_embs=torch.randn((n, L, mc.caption_channels), generator=g, device=dev),
+                          caption_lens=[9, 20, 5], null_emb=torch.randn((L, mc.caption_channels), generator=g,
+                                                                        device=dev),
+                          null_len=5, latent_size=(mc.in_channels, 2 * n, 16, 16), num_steps=8, chunk_num=n,
+                          has_text=True)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_streamed_walk_is_bit_equal_to_the_resident_walk(dev, int8):
+    """The host-streamed KV cache (`kv_offload`, default kv ranges) on the
+    card: K1 and K3 (bf16), K5 and K3q (the int8 dict) read and write
+    token-major slabs copied up from pinned host memory, and the walk emits
+    the resident walk's latents bit for bit and leaves the resident cache's
+    bits in the host buffer."""
+    from magi_tpu_torch.core.config import MagiConfig
+    from magi_tpu_torch.models.dit.model import init_dit_params
+    from magi_tpu_torch.sampling.transport import ArdfSampler
+
+    name = "4.5B_distill_quant_config.json" if int8 else "4.5B_base_config.json"
+    cfgs = [MagiConfig.from_dict(_tiny_card_dict(name, attn_int8=int8, kv_offload=offload))
+            for offload in (False, True)]
+    g = _gen(dev)
+    params = init_dit_params(cfgs[0], dev, g)
+    if int8:
+        params = Q.quantize_params_int8(params)
+    inp = _tiny_card_input(cfgs[0], dev, g)
+    noise = torch.randn(inp.latent_size, generator=g, device=dev)
+    attn = A8.segmented_attention_two_source_q8 if int8 else A.segmented_attention_two_source
+    runs = []
+    for cfg in cfgs:
+        s = ArdfSampler(cfg, params, inp, noise=noise, device=dev)
+        before = attn.launches
+        chunks = [c for _, c in s.walk()]
+        torch.cuda.synchronize()
+        runs.append((s, chunks, attn.launches - before))
+    (res, a, na), (st, b, nb) = runs
+    assert st.host_mode and st.cache is None and not res.host_mode and na == nb > 0
+    assert len(a) == len(b) == 3 and all(torch.equal(x, y) for x, y in zip(a, b))
+    buf = st.host_cache.buf
+    for k in (("kv", "scale") if int8 else (None,)):
+        host, dense = (buf, res.cache) if k is None else (buf[k], res.cache[k])
+        assert host.is_pinned() and torch.equal(host, dense.cpu())
+
+
+def test_interleaved_decode_on_its_stream_matches_solo_runs(dev, tmp_path, monkeypatch):
+    """`run_text_to_video_many` decodes each chunk on a worker thread on its
+    own stream while the walk goes on: its frames equal those of solo
+    `_run`s of the same requests (the same weights, each request's
+    generator)."""
+    import json
+
+    import numpy as np
+
+    from magi_tpu_torch.pipeline import pipeline as P
+
+    monkeypatch.setenv("SKIP_LOAD_MODEL", "1")
+    path = tmp_path / "tiny.json"
+    path.write_text(json.dumps(_tiny_card_dict("4.5B_base_config.json")))
+    pipe = P.MagiPipeline(str(path), device=dev)
+    frames, params = {}, {}
+    real_get, real_save = P.get_dit, P.save_video_to_disk
+
+    def keep(*args):
+        params["tree"] = real_get(*args)
+        return params["tree"]
+
+    def capture(video, out, fps):
+        frames[out] = video.copy()
+        return real_save(video, out, fps)
+
+    monkeypatch.setattr(P, "get_dit", keep)
+    monkeypatch.setattr(P, "save_video_to_disk", capture)
+    prompts = ["a red cube", "a blue ball on the grass"]
+    many = [str(tmp_path / f"many_{i}.mp4") for i in range(2)]
+    stats = pipe.run_text_to_video_many(prompts, many)
+    assert [s["mode"] for s in stats] == ["interleaved"] * 2
+    monkeypatch.setattr(P, "get_dit", lambda *args: params["tree"])
+    for i, prompt in enumerate(prompts):
+        pipe.generator = pipe._request_generator(i)
+        solo = str(tmp_path / f"solo_{i}.mp4")
+        pipe._run(prompt, None, solo)
+        assert np.array_equal(frames[solo], frames[many[i]])

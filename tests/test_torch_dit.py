@@ -44,6 +44,7 @@ from magi_tpu_torch.models.dit import model as TM
 from magi_tpu_torch.models.dit import rope as TR
 from magi_tpu_torch.sampling.transport import _meta as torch_meta
 from tests.tiny import tiny_config
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

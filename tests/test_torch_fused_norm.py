@@ -13,6 +13,7 @@ import torch
 
 from magi_tpu.ops.fused_norm import gate_norm_residual as jax_gnr
 from magi_tpu_torch.ops.fused_norm import gate_norm_residual, gate_norm_residual_reference
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -13,6 +13,7 @@ SCRIPT = """
 import importlib, pkgutil, sys
 import magi_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(magi_tpu_torch.__path__, "magi_tpu_torch.")]
+assert "magi_tpu_torch.sampling.batched" in names, names
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -34,6 +34,7 @@ from tests.test_t5 import _fake_hf_checkpoint
 from tests.test_torch_checkpoint import write_fp8_pair
 from tests.test_torch_t5 import StubTokenizer
 from tests.test_torch_vae import vae_state_dict
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROMPT = "A red cube on a wooden table"

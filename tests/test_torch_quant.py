@@ -60,6 +60,7 @@ from magi_tpu_torch.ops import act_quant as TA
 from magi_tpu_torch.ops import attention_q8 as TA8
 from magi_tpu_torch.ops import quant as TQ
 from tests.tiny import tiny_config
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(a):

@@ -16,6 +16,7 @@ from magi_tpu.models.t5 import model as JT
 from magi_tpu_torch.checkpoint.from_jax import t5_params_from_jax
 from magi_tpu_torch.models.t5 import model as TT
 from tests.test_t5 import _GOLDEN_CAPTIONS, _fake_hf_checkpoint
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 CFG = dict(vocab_size=50, d_model=16, d_kv=4, num_heads=4, d_ff=32, num_layers=4, rel_buckets=8, rel_max_distance=16)

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from magi_tpu_torch.ops.attention import token_major_view
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 

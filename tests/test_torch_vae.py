@@ -27,6 +27,7 @@ from magi_tpu_torch.checkpoint.from_jax import vae_params_from_jax
 from magi_tpu_torch.models.vae import model as TV
 from magi_tpu_torch.pipeline import video_process as TVP
 from magi_tpu_torch.pipeline.video_process import tiled_decode as torch_tiled_decode
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

@@ -5,7 +5,9 @@ kv_offload under noise2clean), so do walks after a prefix video (an i2v
 walk of one prefix frame; a v2v walk whose prefix covers a chunk and a
 half, with the warm-up forward and the sliding window), the prompt
 assembly is the same with and without a prefix, and the CLI writes a
-video in each mode with `--device cpu`.
+video in each mode with `--device cpu`.  The packed walk (`pack_uncond`:
+the uncond segments in the text forward) follows JAX's packed walk at the
+walk tolerance in three cases and the port's 3-forward walk at 1e-5.
 
 Tolerance for the walk: 1e-4 absolute and relative (8 steps of 3 fp32
 forwards each, in another summation order).
@@ -36,6 +38,7 @@ from magi_tpu_torch.pipeline import prompt_process as tpp
 from magi_tpu_torch.sampling.transport import ArdfSampler, InferenceInput
 from tests.test_torch_dit import torch_config
 from tests.tiny import tiny_config
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H = W = 8
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -343,3 +346,122 @@ def test_prefix_pipelines_write_videos_on_the_cpu(tmp_path, monkeypatch):
                         "--output_path", str(tmp_path / "v2v.mp4"), "--device", "cpu"])
     assert stats["frames"] == 64 and stats["latents_finite"] and stats["video_std"] > 0
     assert len(stats["step_seconds"]) == 2 * (4 + 2 - 1 - 1)
+
+
+# ---------------------------------------------------------------------------
+# helpers shared with test_torch_offload.py and test_torch_multi_request.py
+# ---------------------------------------------------------------------------
+
+NULL_SEED = 99  # every request's null caption slab (a model's, shared by a batch)
+
+
+def make_inputs(cfg, chunk_num, seed=0, prefix_frames=0, has_text=True):
+    """One request's numpy-seeded inputs for both packages: (JAX input, port input)."""
+    mc, rc = cfg.model_config, cfg.runtime_config
+    rng = np.random.default_rng(seed)
+    L = mc.caption_max_length
+    cap = rng.normal(size=(chunk_num, L, mc.caption_channels)).astype(np.float32)
+    null = np.random.default_rng(NULL_SEED).normal(size=(L, mc.caption_channels)).astype(np.float32)
+    prefix = None
+    if prefix_frames:
+        prefix = rng.normal(size=(mc.in_channels, prefix_frames, H, W)).astype(np.float32)
+    offset = prefix_frames // rc.chunk_width
+    lens = np.array([0] * offset + [L // 2, 3, L, 7, 9, 5, 11, 13][: chunk_num - offset], np.int32)
+    common = dict(caption_lens=lens, null_len=8, latent_size=(mc.in_channels, chunk_num * rc.chunk_width, H, W),
+                  num_steps=rc.num_steps, chunk_num=chunk_num, has_text=has_text)
+    jinp = JaxInput(caption_embs=jax.numpy.asarray(cap), null_emb=jax.numpy.asarray(null),
+                    prefix_video=None if prefix is None else jax.numpy.asarray(prefix), **common)
+    tinp = InferenceInput(caption_embs=torch.from_numpy(cap), null_emb=torch.from_numpy(null),
+                          prefix_video=None if prefix is None else torch.from_numpy(prefix), **common)
+    return jinp, tinp
+
+
+def port_params(params):
+    return dit_params_from_jax(jax.tree.map(np.asarray, params))
+
+
+def jax_walk(cfg, params, jinp, key=7):
+    """(sampler, its initial noise, emitted chunks as numpy) of JAX's walk."""
+    s = JaxSampler(cfg, params, jinp, jax.random.PRNGKey(key))
+    noise = np.array(s.xs)
+    return s, noise, [np.asarray(c) for _, c in s.walk()]
+
+
+def port_walk(tcfg, tparams, tinp, noise):
+    """(sampler, emitted chunks as numpy) of the port's walk on the CPU."""
+    s = ArdfSampler(tcfg, tparams, tinp, noise=torch.from_numpy(noise), device="cpu")
+    return s, [c.numpy() for _, c in s.walk()]
+
+
+PACKED_WALKS = {
+    "default_ranges": (dict(engine={"pack_uncond": True}), 2, 0),
+    # a cache window of 1 + 2 + 1 = 4 chunks for 5: cache_sp trails sp
+    "sliding_cache": (dict(runtime={"noise2clean_kvrange": [1, 1], "clean_chunk_kvrange": 1},
+                           engine={"kv_offload": True, "pack_uncond": True}), 5, 0),
+    # a prefix of 3 latent frames: chunk 0 written by the warm-up, chunk 1 half pasted
+    "v2v_prefix": (dict(runtime={"noise2clean_kvrange": [3, 2], "clean_chunk_kvrange": 1},
+                        engine={"pack_uncond": True}), 3, 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PACKED_WALKS))
+def test_packed_walk_emits_same_chunks(case):
+    """`pack_uncond`: the uncond segments ride in the text forward (two
+    forwards a step).  The port's packed walk against JAX's at the walk
+    tolerance (1e-4), and against the port's own 3-forward walk at 1e-5
+    (JAX's `test_packed_uncond_matches_unpacked`)."""
+    overrides, chunk_num, t_pre = PACKED_WALKS[case]
+    cfg = tiny_config(**overrides)
+    params = init_dit_params(jax.random.PRNGKey(0), cfg)
+    jinp, tinp = make_inputs(cfg, chunk_num, seed=3, prefix_frames=t_pre)
+    js, noise, want = jax_walk(cfg, params, jinp)
+    tcfg = torch_config(cfg)
+    assert tcfg.engine_config.pack_uncond
+    ts, got = port_walk(tcfg, port_params(params), tinp, noise)
+    assert len(got) == len(want) == chunk_num - t_pre // cfg.runtime_config.chunk_width
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+    assert ts.cache_base == js.cache_base
+    if case == "sliding_cache":
+        assert ts.cache_base > 0
+    tcfg.engine_config.pack_uncond = False
+    _, unpacked = port_walk(tcfg, port_params(params), tinp, noise)
+    for a, b in zip(got, unpacked):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5)
+
+
+def test_packed_forward_splits_uncond_ranges_into_the_current_source(monkeypatch):
+    """In the packed forward the uncond segments' ranges lie past the
+    window's segments: their cache range (source 1) is empty and their
+    current range (source 2) is their own tokens, also when the sliding
+    cache puts cache_sp below sp."""
+    from magi_tpu_torch.models.dit import model as M
+
+    cfg = tiny_config(runtime={"noise2clean_kvrange": [1, 1], "clean_chunk_kvrange": 1},
+                      engine={"kv_offload": True, "pack_uncond": True})
+    _, tinp = make_inputs(cfg, 5, seed=3)
+    ts = ArdfSampler(torch_config(cfg), port_params(init_dit_params(jax.random.PRNGKey(0), cfg)), tinp,
+                     device="cpu")
+    seen = []
+    plain = M.segmented_attention_two_source
+
+    def spy(q, kv1, kv2, r1s, r1e, r2s, r2e, *, seg_len, q_prologue):
+        seen.append((q.shape[0] // seg_len, r1s.clone(), r1e.clone(), r2s.clone(), r2e.clone(), seg_len))
+        return plain(q, kv1, kv2, r1s, r1e, r2s, r2e, seg_len=seg_len, q_prologue=q_prologue)
+
+    monkeypatch.setattr(M, "segmented_attention_two_source", spy)
+    checked = 0
+    for step in range(ts.total_forward_steps()):
+        p = ts._plan(step)
+        seen.clear()
+        ts.do_step(step)
+        n_seg, n_den = p["n_seg"], p["n_den"]
+        packed = [s for s in seen if s[0] == n_seg + n_den]
+        assert len(packed) == cfg.model_config.num_layers  # forward A, once a layer
+        for n, r1s, r1e, r2s, r2e, ctn in packed:
+            u = slice(n_seg, n_seg + n_den)
+            assert (r1s[u] == r1e[u]).all()
+            np.testing.assert_array_equal(r2s[u].numpy(), (n_seg + np.arange(n_den)) * ctn)
+            np.testing.assert_array_equal(r2e[u].numpy(), (n_seg + np.arange(n_den) + 1) * ctn)
+        checked += ts.cache_base > 0
+    assert checked > 0  # steps under a rolled window (cache_sp < sp) were checked
