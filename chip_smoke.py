@@ -95,7 +95,16 @@ Phases, each printed on its own line; any failure exits non-zero:
      launches of every kernel; then each request of `DpBatchedSampler` and
      of `walk_many` bit-equal to its solo walk, fixed noises; prints the
      walls against two solo runs and the decode time the interleaved run
-     hid.
+     hid;
+ 15. phase 4's and phase 5's requests through `ArdfSampler.walk`, eager
+     (`capture=False`) and with the steps replayed from CUDA graphs, the
+     same weights and noise: chunks bit-equal, launches equal kernel by
+     kernel, one graph a step variant; prints the variants, graphs and
+     capture seconds, the mean step, the idle share of a stage-3 step
+     under torch.profiler and the device peak of each.
+Phases 3-14 run as a user runs the port on the card: every denoise step
+and every VAE encode and decode replayed from a CUDA graph (`core.graphs`,
+captured before the walk; the capture's own launches are not counted).
 Phases 8-10 check the frame count against the JAX package's for the same
 request (i2v keeps its first chunk whole; v2v drops the prefix frames).
 Phase 2 also checks K7 and K8s at phase 6-7's shapes, K8 at the 24B's
@@ -104,7 +113,7 @@ its 48/8 heads.  Phase 6 holds a
 quantization peak of about 57 GiB (the bf16 tree alive while it is
 packed), so each main path starts from an emptied allocator cache.
 Then the card's name and power limit, one JSON line of per-kernel results
-(`launches_by_path` holds each main path's count, phases 4-14, read just
+(`launches_by_path` holds each main path's count, phases 4-15, read just
 after its run; `launches` is their sum; K5's sage and dq rows come after
 every other), and a last line `{"ok": true, "device": {...}}`.
 
@@ -120,6 +129,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(HERE, "example", "4.5B", "4.5B_base_config.json")
@@ -1902,7 +1912,8 @@ def run_multi_paths(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
     lockstep (`--prompts a b`) and interleaved (`--interleave`, the decode
     on a worker thread and its own stream), each with every launch count
     set to 0 just before and read just after: two videos of phase 5's
-    shape each, and exactly twice phase 5's launches of every kernel.  Then,
+    shape each, the same in both runs (their standard deviations), and
+    exactly twice phase 5's launches of every kernel.  Then,
     through the samplers with fixed noises, each request's latents of the
     lockstep walk (`DpBatchedSampler`) and of `walk_many` against a solo
     walk of that request, bit for bit.  Prints the walls against two solo
@@ -1919,7 +1930,7 @@ def run_multi_paths(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
     with open(stem + ".json", "w") as f:
         json.dump(config, f)
     prompts = ["a red cube on a table", "a blue ball rolls across the grass at dusk"]
-    out, walls = {}, {}
+    out, walls, stds = {}, {}, {}
     for mode, flags in (("lockstep", []), ("interleaved", ["--interleave"])):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1936,6 +1947,7 @@ def run_multi_paths(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
               f"{walls[mode]:.2f} s, decode {decode:.2f} s in all, {len(steps)} steps of mean "
               f"{sum(steps) / len(steps):.4f} s; peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
         walls[mode + "_decode"] = decode
+        stds[mode] = [s["video_std"] for s in stats]
         bad = {n: (launches[n], launches5[n]) for n in wrappers if launches[n] != 2 * launches5[n]}
         if bad:
             fail(f"{mode}: launches not twice phase 5's (this run, phase 5): {bad}")
@@ -1946,6 +1958,10 @@ def run_multi_paths(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
         missing = [n for n in path_kernels if launches[n] == 0]
         if missing:
             fail(f"{mode}: the run launched no {missing}")
+    if stds["lockstep"] != stds["interleaved"]:
+        fail(f"the interleaved videos differ from the lockstep ones (std {stds['interleaved']} against "
+             f"{stds['lockstep']}): the same requests, the same latents")
+    print(f"  videos: the same for every request, lockstep and interleaved (std {stds['lockstep']})")
     print(f"  launches, each run: twice phase 5's for every kernel ({json.dumps(out['lockstep'])})")
     print(f"  wall for the two requests: lockstep {walls['lockstep']:.2f} s, interleaved {walls['interleaved']:.2f} s, "
           f"two solo runs (phase 5's wall twice) {2 * stats5['wall']:.2f} s; the interleaved run hid "
@@ -1982,6 +1998,105 @@ def run_multi_paths(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
     return out["lockstep"], out["interleaved"]
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the steps replayed from CUDA graphs against the eager walk
+# ---------------------------------------------------------------------------
+
+
+def _profiled_idle(fn):
+    """fn() under torch.profiler: (host wall ms with a synchronise, device
+    busy ms: the kernels' and copies' device time summed, idle share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return wall, busy, max(0.0, 1 - busy / wall)
+
+
+def run_capture_pair(dev, config: dict, name: str, wrappers: dict, path_kernels: list):
+    """Phase 15: `config`'s request walked by `ArdfSampler` eagerly
+    (`capture=False`) and with its steps replayed from CUDA graphs (the
+    default), the same weights and noise, each with every launch count set
+    to 0 just before and read just after.  Requires bit-equal chunks,
+    launches equal kernel by kernel, and one graph a variant.  Prints the
+    variants and graphs and the seconds spent capturing them, the mean step
+    (the profiled step left out), the idle share of the walk's second
+    stage-3 step under torch.profiler (1 - device busy / its host wall),
+    and the device peak of each.  Returns the launch counts of the eager
+    and the captured walk."""
+    import torch
+
+    from magi_tpu_torch.core.config import MagiConfig
+    from magi_tpu_torch.pipeline.pipeline import get_dit
+    from magi_tpu_torch.sampling.transport import ArdfSampler
+
+    cfg = MagiConfig.from_dict(config)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.runtime_config.seed)
+    torch.cuda.empty_cache()
+    params = get_dit(cfg, dev, gen)
+    inp = _request(cfg, dev, params, "a red cube on a table")
+    noise = torch.randn(inp.latent_size, generator=gen, device=dev)
+    rc = cfg.runtime_config
+    target = 3 * (rc.num_steps // rc.window_size) + 1
+    runs = {}
+    for mode in ("eager", "captured"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        s = ArdfSampler(cfg, params, inp, noise=noise, device=dev, capture=mode == "captured")
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        variants = s.warm_step_variants()
+        capture_s = time.perf_counter() - t0
+        s.prepare()
+        chunks, prof = [], None
+        for step in range(s.total_forward_steps()):
+            if step == target:
+                prof = _profiled_idle(lambda: chunks.append(s.timed_step(step)))
+            else:
+                chunks.append(s.timed_step(step))
+        torch.cuda.synchronize()
+        steps = [t for i, t in enumerate(s.step_seconds) if i != target]
+        runs[mode] = dict(chunks=[c[1] for c in chunks if c is not None], launches={n: w.launches for n, w in
+                                                                                 wrappers.items()},
+                          step=sum(steps) / len(steps), prof=prof, peak=torch.cuda.max_memory_allocated(dev) / 2**30,
+                          variants=variants, graphs=s.graphs, capture_s=capture_s, arena=s._arena.nbytes / 2**20,
+                          n_steps=s.total_forward_steps(), breakdown=s.capture_breakdown())
+        del s
+    e, c = runs["eager"], runs["captured"]
+    same = len(e["chunks"]) == len(c["chunks"]) > 0 and all(_same_bits(a, b) for a, b in zip(e["chunks"], c["chunks"]))
+    print(f"  {name}: {len(c['chunks'])} chunks bit-equal, eager against captured: {same}; launches equal kernel by "
+          f"kernel: {e['launches'] == c['launches']}")
+    b = c["breakdown"]
+    print(f"  captured: {c['variants']} step variants, {c['graphs']} CUDA graphs, captured in {c['capture_s']:.3f} s "
+          f"(eager warm-up runs {b['warm']:.3f} s, ending the captures {b['instantiate']:.3f} s; arena "
+          f"{c['arena']:.1f} MiB)")
+    for mode, r in runs.items():
+        wall, busy, idle = r["prof"]
+        print(f"  {mode}: seconds per step mean {r['step']:.4f}; step {target} under the profiler {wall:.1f} ms, device "
+              f"busy {busy:.1f} ms, idle share {idle:.3f}; device peak {r['peak']:.2f} GiB")
+    print(f"  launches per step, captured: "
+          f"{json.dumps({n: round(c['launches'][n] / c['n_steps'], 2) for n in path_kernels})}")
+    if not same:
+        fail(f"{name}: the captured walk's chunks differ from the eager walk's")
+    if e["launches"] != c["launches"]:
+        fail(f"{name}: launches differ, eager {e['launches']} against captured {c['launches']}")
+    if c["graphs"] != c["variants"] or c["variants"] < 2:
+        fail(f"{name}: {c['graphs']} graphs for {c['variants']} step variants")
+    missing = [n for n in path_kernels if c["launches"][n] == 0]
+    if missing:
+        fail(f"{name}: the captured walk launched no {missing}")
+    return e["launches"], c["launches"]
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else [v])
@@ -2007,6 +2122,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    # a NaN in a decoded video (cast to uint8 without a trace otherwise) fails the run
+    warnings.filterwarnings("error", message="invalid value encountered in cast", category=RuntimeWarning)
 
     from magi_tpu_torch.ops import _lib
     from magi_tpu_torch.ops import act_quant as AQ
@@ -2192,6 +2309,15 @@ def main() -> int:
     launches14b, launches14m = run_multi_paths(dev, d, os.path.join(out_dir, "4.5B_distill_quant_two"), wrappers,
                                                distill_kernels, launches5, stats5)
 
+    phase(f"phase 15: the steps replayed from CUDA graphs against the eager walk, ArdfSampler.walk of phase 4's "
+          f"request ({STEPS} steps) and of phase 5's (256x256, 96 frames)")
+    launches15be, launches15bc = run_capture_pair(dev, base, "4.5B base 3-CFG", wrappers,
+                                                  ["segmented_attention_two_source", "segmented_attention_v2",
+                                                   "kv_norm_rope_pack", "gate_norm_residual"])
+    launches15de, launches15dc = run_capture_pair(dev, d, "4.5B distill + int8", wrappers,
+                                                  ["kv_norm_rope_pack_q8", "segmented_attention_two_source_q8",
+                                                   "quantized_matmul_i8", "rowquant_fused", "gate_norm_residual"])
+
     for r in results:
         r["launches_by_path"] = {"base": launches4[r["name"]], "distill_int8": launches5[r["name"]],
                                  "24b_w4a8": launches6[r["name"]], "24b_w4a8_noedge": launches7[r["name"]],
@@ -2201,7 +2327,10 @@ def main() -> int:
                                  "distill_int8_host_offload": launches13q[r["name"]],
                                  "base_host_offload": launches13[r["name"]],
                                  "distill_int8_batch2": launches14b[r["name"]],
-                                 "distill_int8_many2": launches14m[r["name"]]}
+                                 "distill_int8_many2": launches14m[r["name"]],
+                                 "base_eager": launches15be[r["name"]], "base_captured": launches15bc[r["name"]],
+                                 "distill_int8_eager": launches15de[r["name"]],
+                                 "distill_int8_captured": launches15dc[r["name"]]}
         r["launches"] = sum(r["launches_by_path"].values())
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -133,6 +133,11 @@ class EngineConfig:
 
     # Optimization
     kv_offload: bool = False
+    # accepted and ignored, as in the JAX package ("jit subsumes this"): on
+    # the card the port always captures its steps and VAE forwards in CUDA
+    # graphs, its counterpart of jit (`core.graphs`), and only the
+    # constructor argument `capture=False` (samplers, pipeline, VAE) runs
+    # eagerly
     enable_cuda_graph: bool = False
 
     # Extensions of the JAX package (absent fields default)

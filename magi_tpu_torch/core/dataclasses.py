@@ -2,9 +2,12 @@
 
 MAGI's packed sequences are equal-length chunks (`seg_len` tokens each),
 so a forward carries a few ints and small int32 range tensors instead of
-per-token cu_seqlens.  The ranges live on the model's device: the
-attention kernels read them there.  `slice_point` stays a Python int: it
-addresses the KV-cache write, which is host arithmetic.
+per-token cu_seqlens.  The ranges, the caption lengths and
+`slice_point` are int32 tensors on the model's device, as in the JAX
+package, where they are traced values: the kernels read the ranges there,
+and the KV-cache write and the split of the ranges per source read
+`slice_point` there, so no host value of a step is baked into a captured
+CUDA graph.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ class ForwardMeta:
     distill_nearly_clean_chunk: bool  # last segment is the ride-along copy
     fwd_extra_1st_chunk: bool  # first segment is a clean chunk (t=clean_t)
 
-    slice_point: int  # chunks already in the cache (cache write offset)
+    slice_point: torch.Tensor  # int32 []: chunks already in the cache (cache write offset)
     self_attn: SegmentAttnSpec  # ranges into the kv view (token units)
     y_lens: torch.Tensor  # int32 [n_segments]: valid caption tokens per segment
 

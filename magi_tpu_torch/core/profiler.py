@@ -21,7 +21,8 @@ def maybe_trace(label: str, device: torch.device) -> Iterator[None]:
     """A `torch.profiler` trace of the block (CPU activity, and CUDA
     activity when `device` is a card) written as a Chrome trace to
     `$MAGI_PROFILE_DIR/<label>/trace.json` when MAGI_PROFILE_DIR is set;
-    nothing otherwise."""
+    nothing otherwise.  The kernels of a replayed CUDA graph show one by
+    one, each under its own symbol, as eager launches do."""
     trace_dir = os.environ.get("MAGI_PROFILE_DIR")
     if not trace_dir:
         yield

@@ -261,26 +261,26 @@ def attention_forward(
     if meta.use_kv_cache:
         # The global ranges span cache tokens [0, start_tok) followed by the
         # current window; split them per source so the cache stays a
-        # read-only buffer for the attention.
+        # read-only buffer for the attention.  start_tok is a device scalar:
+        # the write is an indexed copy at it and the split clamps against it
+        # (the caller keeps the write inside the cache).
         start_tok = meta.slice_point * ctn
         if meta.update_kv_cache:
             # the distill ride-along chunk is not written
             clip = S - ctn if meta.distill_nearly_clean_chunk else S
-            cache_tokens = (cache_l["kv"] if isinstance(cache_l, dict) else cache_l).shape[2]
-            if start_tok + clip > cache_tokens:
-                raise ValueError(f"cache write [{start_tok}, {start_tok + clip}) overflows {cache_tokens} tokens")
+            idx = start_tok.long() + torch.arange(clip, device=x.device)
             if isinstance(cache_l, dict):
                 # int8-stored cache: only the written slice is quantized
                 if isinstance(kv, dict):
                     kv8_w, sc_w = kv["kv"][:, :, :clip], kv["scale"][:, :, :clip]
                 else:
                     kv8_w, sc_w = quantize_kv_per_token(kv[:, :, :clip])
-                cache_l["kv"][:, :, start_tok : start_tok + clip] = kv8_w
-                cache_l["scale"][:, :, start_tok : start_tok + clip] = sc_w
+                cache_l["kv"].index_copy_(2, idx, kv8_w)
+                cache_l["scale"].index_copy_(2, idx, sc_w)
             else:
-                cache_l[:, :, start_tok : start_tok + clip] = kv[:, :, :clip].to(cache_l.dtype)
-        r1s = torch.clamp(gs, max=start_tok)
-        r1e = torch.clamp(ge, max=start_tok)
+                cache_l.index_copy_(2, idx, kv[:, :, :clip].to(cache_l.dtype))
+        r1s = torch.minimum(gs, start_tok)
+        r1e = torch.minimum(ge, start_tok)
         r2s = torch.clamp(gs - start_tok, min=0)
         r2e = torch.clamp(ge - start_tok, min=0)
         cache_in = cache_l if isinstance(cache_l, dict) else cache_l.to(x.dtype)
@@ -389,10 +389,11 @@ def unpatchify(x: torch.Tensor, cfg: ModelConfig, T_patch: int, H: int, W: int) 
 
 
 def dit_prologue(params: dict, config: MagiConfig, x, t, y, caption_dropout, meta: ForwardMeta, t_offsets,
-                 distill_factor: Optional[float] = None):
+                 distill_factor=None):
     """Embedding stage in fp32.  Returns (h [S, D], condition, y_xattn, sin,
     cos).  A distilled model (`engine_config.distill`) adds the timestep
-    embedding of its step size `distill_factor` to the condition."""
+    embedding of its step size `distill_factor` (a float, or an f32 device
+    scalar) to the condition."""
     mc = config.model_config
     x = x.float() * mc.x_rescale_factor
     if mc.half_channel_vae:
@@ -407,7 +408,7 @@ def dit_prologue(params: dict, config: MagiConfig, x, t, y, caption_dropout, met
     if config.engine_config.distill:
         if distill_factor is None:
             raise ValueError("a distill model's forward needs distill_factor")
-        dt = torch.full(t.shape, float(distill_factor), dtype=torch.float32, device=t.device)
+        dt = torch.as_tensor(distill_factor, dtype=torch.float32, device=t.device).expand(t.shape)
         t_emb = t_emb + t_embedder_forward(params["t_embedder"], dt)
     y_xattn, y_adaln = y_embedder_forward(params["y_embedder"], y, caption_dropout)
     if y_adaln.ndim == 1:
@@ -457,7 +458,7 @@ def dit_forward(
     kv_cache,  # [num_layers, 2, hk, max_tok, hd] or the int8 dict; None when unused
     meta: ForwardMeta,
     t_offsets: torch.Tensor,  # int [n_seg] temporal patch-grid offsets
-    distill_factor: Optional[float] = None,
+    distill_factor=None,  # float or f32 device scalar (distill models)
 ):
     """Full DiT forward.  Returns (velocity [C_out, T, H, W], kv_cache); a
     forward with `meta.update_kv_cache` has written its slice of the cache

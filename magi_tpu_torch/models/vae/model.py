@@ -13,12 +13,14 @@ embed and the final conv weights in OIDHW).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from magi_tpu_torch.core import graphs as G
 from magi_tpu_torch.models.dit.model import layer_norm, layer_params
 from magi_tpu_torch.ops.attention import segmented_attention_v2
 
@@ -66,9 +68,11 @@ class VaeConfig:
         return self.embed_dim // self.num_heads
 
 
+@functools.lru_cache(maxsize=32)
 def vae_rope(feat_shape, head_dim, dtype=torch.float32, device=None, ref_feat_shape=(4, 16, 16)):
     """3-axis rotary sin/cos, interleaved layout.  Returns (sin, cos),
-    each [prod(feat_shape), head_dim]."""
+    each [prod(feat_shape), head_dim].  Cached per shape (a forward's
+    captured graph reads the tensors; they are never written)."""
     num_bands = head_dim // (len(feat_shape) * 2)
     bands = 1.0 / (10000.0 ** (np.arange(num_bands, dtype=np.float64) / num_bands))
     axes = []
@@ -156,10 +160,16 @@ def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], w, 0).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=32)
+def _resize_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
+    """`_resize_weights` on `device`, cached (a captured forward reads it)."""
+    return torch.as_tensor(_resize_weights(n_in, n_out), device=device)
+
+
 def _resize_pos_embed(posemb, src_shape, tgt_shape):
     D = posemb.shape[-1]
     p = posemb.float().reshape(*src_shape, D)
-    mats = [torch.as_tensor(_resize_weights(a, b), device=posemb.device) for a, b in zip(src_shape, tgt_shape)]
+    mats = [_resize_matrix(a, b, posemb.device) for a, b in zip(src_shape, tgt_shape)]
     p = torch.einsum("thwd,ta,hb,wc->abcd", p, *mats)
     return p.reshape(int(np.prod(tgt_shape)), D).to(posemb.dtype)
 
@@ -251,11 +261,45 @@ def gaussian_sample(stats: torch.Tensor, generator: Optional[torch.Generator] = 
 
 
 class ViTVAE:
-    """ViT-VAE with the released model's encode / decode surface."""
+    """ViT-VAE with the released model's encode / decode surface.
 
-    def __init__(self, cfg: VaeConfig, params: dict):
+    On the card (`capture`, the default) the encoder and decoder forwards
+    run as CUDA graphs keyed by the input's shape and dtype, the
+    counterpart of the JAX package's jitted `_encode` / `_decode`: the first
+    call of a shape captures (`core.graphs.StepGraph`, in the VAE's own
+    memory pool, on its own capture stream); every call copies the input
+    into the graph's input buffer, replays and returns a copy of its
+    output.  Calls may come from another thread and stream (the
+    interleaved decode), one at a time; a first call captures on the
+    calling thread, so a shape a worker will decode is decoded once before
+    the worker starts."""
+
+    def __init__(self, cfg: VaeConfig, params: dict, capture: bool = True):
         self.cfg = cfg
         self.params = params
+        self.capture = capture
+        self._graphs: dict = {}  # (kind, shape, dtype) -> (input buffer, StepGraph)
+
+    def _forward(self, kind: str, fn, x: torch.Tensor) -> torch.Tensor:
+        """fn(x) eagerly, or through the graph of (kind, x's shape and dtype)."""
+        if not (self.capture and x.device.type == "cuda"):
+            return fn(x)
+        key = (kind, tuple(x.shape), x.dtype)
+        entry = self._graphs.get(key)
+        if entry is None:
+            static = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            graph = G.StepGraph(f"VAE {kind} of {tuple(x.shape)} {x.dtype}",
+                                lambda run: run.piece(kind, fn, static), x.device, "vae", G.Arena(x.device),
+                                warm_key=(self.cfg,) + key)
+            entry = self._graphs[key] = (static, graph)
+        static, graph = entry
+        static.copy_(x)
+        return graph().clone()
+
+    @property
+    def graphs(self) -> int:
+        """CUDA graphs captured by this VAE."""
+        return G.graph_count(g for _, g in self._graphs.values())
 
     @property
     def spatial_downsample_factor(self) -> int:
@@ -274,13 +318,13 @@ class ViTVAE:
         single = T == 1 and self.cfg.patch_length > 1
         if single:
             x = x.expand(B, C, 4, H, W)
-        stats = encoder_forward(self.params["encoder"], self.cfg, x)
+        stats = self._forward("encode", functools.partial(encoder_forward, self.params["encoder"], self.cfg), x)
         z = gaussian_sample(stats, generator) if sample_posterior else gaussian_mode(stats)
         return z[:, :, :1] if single else z
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """latent [B, z, T', H', W'] -> video [B, 3, T, H, W]."""
-        return decoder_forward(self.params["decoder"], self.cfg, z)
+        return self._forward("decode", functools.partial(decoder_forward, self.params["decoder"], self.cfg), z)
 
 
 def init_vae_params(cfg: VaeConfig, seed: int = 0, dtype=torch.float32, device=None) -> dict:

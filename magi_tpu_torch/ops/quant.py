@@ -62,8 +62,9 @@ QUANTIZABLE_SUFFIXES = (
 
 def div127(t: torch.Tensor) -> torch.Tensor:
     """t / 127 as a true f32 quotient on every backend (PyTorch's CUDA
-    division by a Python scalar multiplies by its reciprocal instead)."""
-    return t / torch.tensor(127.0, dtype=t.dtype, device=t.device)
+    division by a Python scalar multiplies by its reciprocal instead).  The
+    divisor is filled on the device (no host copy: capturable)."""
+    return t / torch.full((), 127.0, dtype=t.dtype, device=t.device)
 
 
 def _scale_of(amax: torch.Tensor) -> torch.Tensor:

@@ -17,8 +17,10 @@ checkpoints the config names (`load`, the fp8 variant under `fp8_quant`;
 `vae_pretrained`; `t5_pretrained`, on the host or staged onto the device
 as `t5_device` says), or are random under SKIP_LOAD_MODEL=1.  With
 MAGI_PROFILE_DIR set, each walk is traced (`core.profiler.maybe_trace`).
-Multi-device parallelism raises `NotImplementedError` naming its ROADMAP
-item.
+On the card the denoise steps and the VAE run as CUDA graphs (`core.graphs`,
+the counterpart of the JAX package's jit); `MagiPipeline(capture=False)`
+walks eagerly.  Multi-device parallelism raises `NotImplementedError`
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from magi_tpu_torch.core.config import MagiConfig
+from magi_tpu_torch.core.graphs import uncounted
 from magi_tpu_torch.core.logger import print_rank_0
 from magi_tpu_torch.core.profiler import log_memory, maybe_trace
 from magi_tpu_torch.core.timer import event_path_timer
@@ -85,10 +88,11 @@ def _check_supported(config: MagiConfig) -> None:
 
 
 class MagiPipeline:
-    def __init__(self, config_path: str, device=None):
+    def __init__(self, config_path: str, device=None, capture: bool = True):
         self.config = MagiConfig.from_json(config_path)
         _check_supported(self.config)
         self.device = resolve_device(device)
+        self.capture = capture  # the samplers' (`ArdfSampler`): CUDA graphs on the card
         self.generator = set_random_seed(self.config.runtime_config.seed, self.device)
         print_rank_0(self.config)
 
@@ -134,7 +138,7 @@ class MagiPipeline:
         if why is not None:
             print_rank_0(f"lockstep batch impossible ({why}); falling back to interleaved mode")
             return self._walk_many(params, inps, gens, output_paths, t0)
-        sampler = DpBatchedSampler(self.config, params, inps, gens, device=self.device)
+        sampler = DpBatchedSampler(self.config, params, inps, gens, device=self.device, capture=self.capture)
         R = len(prompts)
         segments, decode_seconds, finite = [[] for _ in range(R)], [[] for _ in range(R)], [True] * R
         with maybe_trace("walk_batch", self.device):
@@ -161,11 +165,20 @@ class MagiPipeline:
         return self._walk_many(*self._prepare_requests(prompts, output_paths), output_paths, t0)
 
     def _walk_many(self, params, inps, gens, output_paths, t0: float) -> List[dict]:
-        samplers = [ArdfSampler(self.config, params, inp, gen, device=self.device) for inp, gen in zip(inps, gens)]
+        samplers = [ArdfSampler(self.config, params, inp, gen, device=self.device, capture=self.capture)
+                    for inp, gen in zip(inps, gens)]
         R = len(samplers)
         segments, decode_seconds, finite = [[] for _ in range(R)], [[] for _ in range(R)], [True] * R
         on_card = self.device.type == "cuda"
         decode_stream = torch.cuda.Stream(self.device) if on_card else None
+        if on_card:
+            # capture every step variant and the decode of the chunks' shape
+            # here, before the worker decodes on its own thread and stream
+            for s in samplers:
+                s.warm_step_variants()
+            with uncounted():
+                for shape in {tuple(s.xs[..., : s.cw, :, :].shape) for s in samplers}:
+                    post_chunk_process(torch.zeros(shape, device=self.device), self.config, self.device)
 
         def decode(ridx, chunk_idx, chunk, ready):
             td = time.perf_counter()
@@ -232,7 +245,7 @@ class MagiPipeline:
         null_caption = params["y_embedder"]["null_caption_embedding"].float().cpu().numpy()
         inp = build_inference_input(self.config, null_caption, caption_embs, emb_masks, self.device, prefix_video)
 
-        sampler = ArdfSampler(self.config, params, inp, self.generator, device=self.device)
+        sampler = ArdfSampler(self.config, params, inp, self.generator, device=self.device, capture=self.capture)
         event_path_timer().synced_record("begin_walk")
         segments, decode_seconds, finite = [], [], True
         with maybe_trace("walk", self.device):

@@ -4,11 +4,14 @@ scheduler for all.
 
 The per-request state is stacked on a leading request axis: the latent
 `xs` [R, C, T, H, W], the KV cache [R, L, 2, hk, tok, hd] (the int8 dict's
-leaves too), the captions and their lengths, and the prefix buffer.  Each
-step runs the single-request step function once per request on that
-request's views, which it writes in place: the counterpart of the JAX
-package's `lax.map` over the requests, which likewise keeps every kernel
-at its unbatched shape.  `walk()` yields `(chunk_idx, [R, C, <=cw, H, W])`.
+leaves too), the captions and their lengths (`StepInputs.y_lens` has a row
+per request), and the prefix buffer.  Each step runs the single-request
+step function once per request on that request's views, which it writes
+in place: the counterpart of the JAX package's `lax.map` over the
+requests, which likewise keeps every kernel at its unbatched shape.  On
+the card a step variant's R request steps are captured as one CUDA graph,
+as the JAX package jits the mapped step once (`_batched_steps`' single-
+device half).  `walk()` yields `(chunk_idx, [R, C, <=cw, H, W])`.
 
 Requests must share latent geometry, step count, chunk count and prefix
 length (`check_lockstep`); mixed text / no text is fine.  The
@@ -28,13 +31,13 @@ import torch
 
 from magi_tpu_torch.core.config import MagiConfig
 from magi_tpu_torch.core.utils import resolve_device
-from magi_tpu_torch.sampling.transport import ArdfSampler, InferenceInput, _leaf_map, _prefix_warmup_step
+from magi_tpu_torch.sampling.transport import ArdfSampler, InferenceInput, _leaf_map
 
 
 class DpBatchedSampler(ArdfSampler):
     """ArdfSampler over a stack of requests with identical host scheduling.
     Initial noise is one `noises[r]` or one draw from `generators[r]` per
-    request."""
+    request; `capture` as `ArdfSampler`'s."""
 
     _token_axis = 4  # [R, L, 2, hk, tok, hd] and the scale leaf [R, L, 2, hk, tok]
 
@@ -63,7 +66,7 @@ class DpBatchedSampler(ArdfSampler):
 
     def __init__(self, config: MagiConfig, params, inps: Sequence[InferenceInput],
                  generators: Optional[Sequence[torch.Generator]] = None, *,
-                 noises: Optional[Sequence[torch.Tensor]] = None, device=None):
+                 noises: Optional[Sequence[torch.Tensor]] = None, device=None, capture: bool = True):
         R = len(inps)
         if R == 0 or len(generators if noises is None else noises) != R:
             raise ValueError(f"{R} requests need as many generators or noises")
@@ -85,8 +88,8 @@ class DpBatchedSampler(ArdfSampler):
         dev = resolve_device(device)
         if noises is None:
             noises = [torch.randn(base.latent_size, generator=g, device=dev, dtype=torch.float32) for g in generators]
-        super().__init__(config, params, base, noise=noises[0], device=dev)
         self.R = R
+        super().__init__(config, params, base, noise=noises[0], device=dev, capture=capture)
         self.xs = torch.stack([n.to(device=dev, dtype=torch.float32) for n in noises])
         self.cache = _leaf_map(self.cache, lambda c: torch.zeros((R,) + c.shape, dtype=c.dtype, device=dev))
         caps = [self._captions(inp) for inp in inps]
@@ -95,17 +98,6 @@ class DpBatchedSampler(ArdfSampler):
         if base.prefix_video is not None:
             self.prefix_buf = torch.stack([self._padded_prefix(inp.prefix_video) for inp in inps])
 
-    def _request_cache(self, r: int):
-        return {k: v[r] for k, v in self.cache.items()} if isinstance(self.cache, dict) else self.cache[r]
-
-    def _run_prefix_warmup(self) -> None:
-        args, n = self._warmup_args()
-        for r in range(self.R):
-            _prefix_warmup_step(self.config, self._forward(self._request_cache(r)),
-                                self.prefix_buf[r, :, : n * self.cw], *args, n_chunks=n)
-
-    def _step_requests(self, p: dict, kv_start_r, kv_end_r) -> None:
-        for r in range(self.R):
-            self._request_step(p, kv_start_r, kv_end_r, self.xs[r], self._forward(self._request_cache(r)),
-                               self._text_embs[r], self._lens_eff[r],
-                               None if self.prefix_buf is None else self.prefix_buf[r])
+    def _request_state(self, r: int):
+        cache = {k: v[r] for k, v in self.cache.items()} if isinstance(self.cache, dict) else self.cache[r]
+        return self.xs[r], cache, self._text_embs[r], None if self.prefix_buf is None else self.prefix_buf[r]

@@ -2,22 +2,34 @@
 port of `magi_tpu.sampling.transport`).
 
 The host loop does the scheduling arithmetic (windows, timesteps, kv
-ranges, CFG scales: small numpy); each denoise step runs the CFG forwards
-of the DiT eagerly on the device, combines them, Euler-integrates and
-writes the window back into the latent state in place.
+ranges, CFG scales: small numpy) and writes each step's values into fixed
+device buffers (`StepInputs`: one pinned staging buffer, one non-blocking
+copy); the step then runs the CFG forwards of the DiT on the device,
+combines them, Euler-integrates and writes the window back into the
+latent state in place, reading every step-dependent value from those
+buffers.  So a step is a function of its variant alone (`_variant`: the
+JAX package's static arguments), and on the card each variant is captured
+once in a CUDA graph and replayed (`core.graphs`), the counterpart of the
+JAX package's jitted steps (`_jitted_steps`, `_stream_jits`): keyed by the
+config's content and the environment the step reads (`_config_key`) and
+the variant, captured before the walk (`warm_step_variants`), replayed
+from the same buffers.  `ArdfSampler(capture=False)` runs the same steps
+eagerly (the yardstick); on the CPU nothing is captured.
 
 It covers the 3-branch CFG walk, with three forwards a step or, under
 `engine_config.pack_uncond`, two (the uncond segments packed into the
 text forward), and the single-branch (distill / quantized) walk with its
 nearly-clean ride-along chunk.  The KV cache lives in device memory (the
 bf16 tensor, or the int8 {kv, scale} dict of int8 attention), with a
-sliding cache window when `kv_offload` is set under noise2clean kv ranges;
-`kv_offload` under the default kv ranges keeps the whole cache in pinned
-host memory instead (`HostKVCache`) and streams one layer's slab at a
-time to the device around `dit_layer_step`.  A prefix video (i2v, v2v) is
-pasted over the window's frames it covers at every step, the chunks it
-covers whole run as clean (t = 1), and those chunks' KV is written into
-the cache by one warm-up forward before the first step.  `walk_many`
+sliding cache window when `kv_offload` is set under noise2clean kv ranges
+(rolled in place); `kv_offload` under the default kv ranges keeps the
+whole cache in pinned host memory instead (`HostKVCache`) and streams one
+layer's slab at a time to the device around `dit_layer_step` (captured
+piece by piece: prologue, each layer, epilogue, with the copies and
+events between them on the host).  A prefix video (i2v, v2v) is pasted
+over the window's frames it covers at every step, the chunks it covers
+whole run as clean (t = 1), and those chunks' KV is written into the
+cache by one warm-up forward before the first step.  `walk_many`
 round-robins several requests step by step; `sampling.batched` walks them
 in lockstep.
 """
@@ -26,13 +38,16 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 import time
+import weakref
 from collections import Counter, deque
 from typing import Callable, Generator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from magi_tpu_torch.core import graphs as G
 from magi_tpu_torch.core.config import MagiConfig
 from magi_tpu_torch.core.dataclasses import ForwardMeta, SegmentAttnSpec
 from magi_tpu_torch.core.utils import resolve_device, round_up
@@ -65,8 +80,83 @@ class InferenceInput:
     prev_chunks_scale: float = 0.7
 
 
+# Every environment variable a step reads while it runs (the model's int8
+# attention switches and K5's scheme), with its default: part of the key
+# of a captured step, so flipping one never replays a stale graph.
+STEP_ENV = (("MAGI_ATTN_INT8", "0"), ("MAGI_ATTN_INT8_STORE", "1"), ("MAGI_ATTN_Q8_SCHEME", "qk8"))
+
+
+def _config_key(config: MagiConfig) -> str:
+    """Deterministic content key over every config field and `STEP_ENV`
+    (the JAX package's `_config_key`): equal-content configs share it, and
+    a config object whose id is recycled cannot alias another's."""
+    return repr((dataclasses.asdict(config.model_config), dataclasses.asdict(config.runtime_config),
+                 dataclasses.asdict(config.engine_config), tuple(os.environ.get(k, d) for k, d in STEP_ENV)))
+
+
+class StepInputs:
+    """A walk's per-step values in fixed device buffers: every value the
+    JAX package passes its jitted steps as a traced argument.  int32: `sp`
+    (first chunk of the window), `cache_sp` (its cache slot), `null_len`,
+    `prefix_len`, the kv ranges `kv_start` / `kv_end` [width] and the
+    window's caption lengths `y_lens` [requests, width]; f32: `tvec`, `dt`,
+    the CFG scales `ps` / `ts` [width], `dfac` (the distill step size) and
+    `pcs` (prev_chunks_scale).  `stage` writes them into one pinned host
+    buffer and copies it to the device in one non-blocking copy on the
+    current stream; a step reads leading slices of the fields."""
+
+    _I32 = ("sp", "cache_sp", "null_len", "prefix_len", "kv_start", "kv_end", "y_lens")
+    _F32 = ("tvec", "dt", "ps", "ts", "dfac", "pcs")
+
+    def __init__(self, width: int, requests: int, device: torch.device):
+        shapes = dict(sp=(), cache_sp=(), null_len=(), prefix_len=(), kv_start=(width,), kv_end=(width,),
+                      y_lens=(requests, width), tvec=(width,), dt=(width,), ps=(width,), ts=(width,), dfac=(),
+                      pcs=())
+        sizes = {k: int(np.prod(v)) for k, v in shapes.items()}
+        total = 4 * sum(sizes.values())
+        on_card = device.type == "cuda"
+        self.device = device
+        self._dev = torch.zeros(total, dtype=torch.uint8, device=device)
+        self._host = torch.zeros(total, dtype=torch.uint8, pin_memory=on_card)
+        host = self._host.numpy()
+        self._views = {}
+        off = 0
+        for name in self._I32 + self._F32:
+            dtype = torch.int32 if name in self._I32 else torch.float32
+            n = 4 * sizes[name]
+            setattr(self, name, self._dev[off : off + n].view(dtype).view(shapes[name]))
+            self._views[name] = host[off : off + n].view(np.int32 if dtype == torch.int32 else np.float32).reshape(
+                shapes[name])
+            off += n
+        self._copied = torch.cuda.Event() if on_card else None
+        self._pending = False
+
+    def stage(self, **values) -> None:
+        """Write `values` (scalars, or arrays filling a field's leading
+        entries; `y_lens` [requests, n]) and copy them to the device."""
+        if self._pending:
+            self._copied.synchronize()  # the last copy has read the staging buffer
+        for name, v in values.items():
+            view = self._views[name]
+            if view.ndim == 0:
+                view[...] = v
+            else:
+                a = np.asarray(v, view.dtype)
+                if name == "y_lens":
+                    a = a.reshape(view.shape[0], -1)
+                    view[:, : a.shape[1]] = a
+                else:
+                    view[: a.shape[0]] = a
+        self._dev.copy_(self._host, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record(torch.cuda.current_stream(self.device))
+            self._pending = True
+
+
 def _meta(n_seg, ctn, HP, WP, slice_point, kv_start, kv_end, y_lens, *, update, use_cache, device,
           extra=False, distill_nearly=False) -> ForwardMeta:
+    """A forward's metadata from host values (ints, numpy arrays), copied to
+    `device`; the steps build theirs from `StepInputs` (`_step_meta`)."""
     def i32(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
@@ -80,29 +170,58 @@ def _meta(n_seg, ctn, HP, WP, slice_point, kv_start, kv_end, y_lens, *, update, 
         use_kv_cache=use_cache,
         distill_nearly_clean_chunk=distill_nearly,
         fwd_extra_1st_chunk=extra,
-        slice_point=int(slice_point),
+        slice_point=i32(slice_point),
         self_attn=SegmentAttnSpec(kv_start=i32(kv_start), kv_end=i32(kv_end)),
         y_lens=i32(y_lens),
     )
 
 
 # A cache-touching DiT forward of one request: (x, t, y, caption_dropout,
-# meta, t_offsets, distill_factor=None) -> velocity.  The resident cache's
-# is `dit_forward` on it; the host-streamed cache's is
-# `ArdfSampler._streamed_forward`.
+# meta, t_offsets, distill_factor=None, tag=...) -> velocity.  The resident
+# cache's is `dit_forward` on it; the host-streamed cache's is
+# `ArdfSampler._streamed_forward`, whose pieces `tag` names.
 Forward = Callable[..., torch.Tensor]
 
 
 def _resident_forward(params, config: MagiConfig, cache) -> Forward:
-    def forward(x, t, y, caption_dropout, meta, t_offsets, distill_factor=None):
+    def forward(x, t, y, caption_dropout, meta, t_offsets, distill_factor=None, tag=""):
         return dit_forward(params, config, x, t, y, caption_dropout, cache, meta, t_offsets,
                            distill_factor=distill_factor)[0]
 
     return forward
 
 
+def _signature(tree) -> tuple:
+    """The parameter tree's structure: every leaf's path, dtype and shape
+    (which kernels a step launches, at which shapes)."""
+    def leaf(v):
+        if isinstance(v, dict):
+            return _signature(v)
+        return (str(v.dtype), tuple(v.shape)) if isinstance(v, torch.Tensor) else (repr(v),)
+
+    return tuple((k,) + leaf(v) for k, v in sorted(tree.items()))
+
+
 def _leaf_map(tree, fn):
     return {k: fn(v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def _roll_left(t: torch.Tensor, shift: int, axis: int) -> torch.Tensor:
+    """`t` rolled left by `shift` along `axis` (torch.roll's values) in its
+    own storage, as the JAX package's donated roll: captured steps keep
+    their pointers into the cache.  Moves one block of `shift` tokens at a
+    time, so no copy's source and destination overlap, with the first
+    block as the only scratch."""
+    n = t.shape[axis]
+    shift %= n
+    if shift == 0:
+        return t
+    head = t.narrow(axis, 0, shift).clone()
+    for lo in range(0, n - shift, shift):
+        m = min(shift, n - shift - lo)
+        t.narrow(axis, lo, m).copy_(t.narrow(axis, lo + shift, m))
+    t.narrow(axis, n - shift, shift).copy_(head)
+    return t
 
 
 class ArdfSampler:
@@ -110,17 +229,20 @@ class ArdfSampler:
 
     `noise` (optional, [C, T, H, W]) replaces the initial latent noise that
     `generator` would draw, so a test can give this walk and the JAX
-    package's the same start."""
+    package's the same start.  `capture` (default True) runs the steps as
+    CUDA graphs on the card; False runs them eagerly."""
 
     # token axis of the cache leaves ([L, 2, hk, tok, hd], scale [L, 2, hk, tok])
     _token_axis = 3
+    R = 1  # requests walked together (`sampling.batched` walks several)
 
     def __init__(self, config: MagiConfig, params, inp: InferenceInput, generator: Optional[torch.Generator] = None,
-                 *, noise: Optional[torch.Tensor] = None, device=None):
+                 *, noise: Optional[torch.Tensor] = None, device=None, capture: bool = True):
         self.config = config
         self.params = params
         self.inp = inp
         self.device = resolve_device(device)
+        self.capture = bool(capture)
         mc, rc, ec = config.model_config, config.runtime_config, config.engine_config
         if rc.cfg_number not in (1, 3):
             raise NotImplementedError(f"cfg_number={rc.cfg_number}")
@@ -177,10 +299,14 @@ class ArdfSampler:
             self.prefix_len = int(inp.prefix_video.shape[1])
         self._warmed = False
         self.step_seconds: list = []  # host wall time of each denoise step, device work included
+        self.capture_seconds = 0.0  # host seconds `warm_step_variants` spent warming and capturing
 
         dev = self.device
         self._null_emb = inp.null_emb.to(dev)
         self._text_embs, self._lens_eff = self._captions(inp)
+        self.inputs = StepInputs(max(self.window + 1, self.chunk_offset), self.R, dev)
+        self._steps: dict = {}  # (_config_key, variant) -> step callable (a StepGraph on the card)
+        self._arena = G.Arena(dev)
 
     def _padded_prefix(self, prefix_video: torch.Tensor) -> torch.Tensor:
         pv = prefix_video.to(device=self.device, dtype=torch.float32)
@@ -225,6 +351,7 @@ class ArdfSampler:
         """Yields (chunk_idx, clean latent [C, <=cw, H, W] on the device) as
         chunks finish; chunk_idx counts from the first chunk after the
         prefix chunks."""
+        self.warm_step_variants()
         self.prepare()
         for step in range(self.total_forward_steps()):
             emitted = self.timed_step(step)
@@ -244,32 +371,9 @@ class ArdfSampler:
     def prepare(self) -> None:
         """Write the prefix chunks' KV into the cache, once."""
         if self.chunk_offset > 0 and not self._warmed:
-            self._run_prefix_warmup()
+            self._stage_warmup()
+            self._run(("warmup", self.chunk_offset), 0)
             self._warmed = True
-
-    def _forward(self, cache) -> Forward:
-        """The cache-touching forward of a request whose cache is `cache`: a
-        `HostKVCache` in host mode, else the device cache."""
-        if self.host_mode:
-            return functools.partial(self._streamed_forward, cache)
-        return _resident_forward(self.params, self.config, cache)
-
-    def _request_cache(self, r: int):
-        return self.host_cache if self.host_mode else self.cache
-
-    def _warmup_args(self):
-        rc, ec = self.config.runtime_config, self.config.engine_config
-        n = self.chunk_offset
-        kv_s, kv_e = kvr.prefix_kvrange(rc, n, self.ctn)
-        dfac = sched.distill_dt_factor(self.num_steps, float(self.interval[0])) if ec.distill else None
-        return (self._null_emb, self.inp.null_len, kv_s, kv_e, rc.clean_t, dfac), n
-
-    def _run_prefix_warmup(self) -> None:
-        """One forward of the clean prefix chunks that writes their KV into
-        the cache."""
-        args, n = self._warmup_args()
-        _prefix_warmup_step(self.config, self._forward(self._request_cache(0)), self.prefix_buf[:, : n * self.cw],
-                            *args, n_chunks=n)
 
     def _plan(self, step: int) -> dict:
         """Pure host arithmetic for one step: schedule, ranges, flags."""
@@ -305,6 +409,27 @@ class ArdfSampler:
             use_prefix=use_prefix, distill_nearly=distill_nearly,
         )
 
+    def _variant(self, p: dict) -> tuple:
+        """A step's variant: the JAX package's static arguments of its jitted
+        step (`_cfg3_step`: n_den, extra, use_prefix, pack; `_cfg1_step`:
+        n_den, extra, use_prefix, distill_nearly).  The streamed step never
+        packs, as the JAX package's."""
+        if self.config.runtime_config.cfg_number == 3:
+            pack = bool(self.config.engine_config.pack_uncond and not self.host_mode)
+            return ("cfg3", p["n_den"], p["extra"], p["use_prefix"], pack)
+        return ("cfg1", p["n_den"], p["extra"], p["use_prefix"], p["distill_nearly"])
+
+    def step_variants(self) -> list:
+        """The variants of this walk's steps in the order they first come,
+        after the prefix warm-up's ("warmup", n_chunks) when there is one:
+        the functions the JAX package compiles for it."""
+        out = [("warmup", self.chunk_offset)] if self.chunk_offset > 0 else []
+        for step in range(self.total_forward_steps()):
+            v = self._variant(self._plan(step))
+            if v not in out:
+                out.append(v)
+        return out
+
     def do_step(self, step: int) -> Optional[Tuple[int, torch.Tensor]]:
         """Run one denoise step; returns (chunk_idx, latent) if a chunk finished."""
         p = self._plan(step)
@@ -314,7 +439,7 @@ class ArdfSampler:
         new_base = max(0, sp + n_seg - self.cache_chunks)
         if new_base > self.cache_base:
             shift = (new_base - self.cache_base) * self.ctn
-            self.cache = _leaf_map(self.cache, lambda c: torch.roll(c, -shift, dims=self._token_axis))
+            _leaf_map(self.cache, lambda c: _roll_left(c, shift, self._token_axis))
             self.cache_base = new_base
         kv_start_r = p["kv_start"] - self.cache_base * self.ctn
         kv_end_r = p["kv_end"] - self.cache_base * self.ctn
@@ -322,7 +447,12 @@ class ArdfSampler:
             raise RuntimeError(
                 f"kv range {p['kv_start'].min()} fell behind the sliding cache window (base {self.cache_base})"
             )
-        self._step_requests(p, kv_start_r, kv_end_r)
+        cache_sp = sp - self.cache_base
+        if (cache_sp + n_seg) * self.ctn > self.cache_tokens:
+            raise ValueError(f"cache write [{cache_sp * self.ctn}, {(cache_sp + n_seg) * self.ctn}) overflows "
+                             f"{self.cache_tokens} tokens")
+        self._stage_step(p, sp, cache_sp, kv_start_r, kv_end_r)
+        self._run(self._variant(p), cache_sp)
 
         for ci in range(c_start, c_end):
             self.counts[ci] += 1
@@ -332,53 +462,213 @@ class ArdfSampler:
                 return c_start - self.chunk_offset, chunk
         return None
 
-    def _step_requests(self, p: dict, kv_start_r, kv_end_r) -> None:
-        self._request_step(p, kv_start_r, kv_end_r, self.xs, self._forward(self._request_cache(0)), self._text_embs,
-                           self._lens_eff, self.prefix_buf)
+    # ----- step inputs, step callables ----------------------------------
 
-    def _request_step(self, p: dict, kv_start_r, kv_end_r, xs, forward: Forward, text_embs, lens_eff,
-                      prefix_buf) -> None:
-        """One request's denoise step on its state (`xs` and the cache behind
-        `forward` are written in place)."""
-        ec = self.config.engine_config
-        n_den, extra, sp = p["n_den"], p["extra"], p["sp"]
-        common = (self.config, self.params, forward, xs, sp, sp - self.cache_base, text_embs,
-                  lens_eff[p["c_start"]:p["c_end"]], self._null_emb, self.inp.null_len, p["tvec"], kv_start_r,
-                  kv_end_r, p["dt"])
+    def _stage_step(self, p: dict, sp: int, cache_sp: int, kv_start, kv_end) -> None:
+        """The step's values into `self.inputs` (the CFG scales of a 3-CFG
+        step, the distill step size of a 1-CFG one)."""
+        ec, inp = self.config.engine_config, self.inp
+        extra = {}
         if self.config.runtime_config.cfg_number == 3:
-            ps, ts_ = self._cfg_scales(p["tvec_padded"][-n_den:])
-            # the streamed step never packs (as the JAX package's)
-            _cfg3_step(*common, ps, ts_, prefix_buf, self.prefix_len, n_den=n_den, extra=extra,
-                       use_prefix=p["use_prefix"], pack=ec.pack_uncond and not self.host_mode)
-        else:
-            dfac = sched.distill_dt_factor(self.num_steps, float(self.interval[p["didx"]])) if ec.distill else None
-            _cfg1_step(*common, dfac, self.inp.prev_chunks_scale, prefix_buf, self.prefix_len, n_den=n_den,
-                       extra=extra, use_prefix=p["use_prefix"], distill_nearly=p["distill_nearly"])
+            extra["ps"], extra["ts"] = self._cfg_scales(p["tvec_padded"][-p["n_den"]:])
+        elif ec.distill:
+            extra["dfac"] = sched.distill_dt_factor(self.num_steps, float(self.interval[p["didx"]]))
+        self.inputs.stage(sp=sp, cache_sp=cache_sp, null_len=inp.null_len, prefix_len=self.prefix_len,
+                          kv_start=kv_start, kv_end=kv_end, y_lens=self._lens_eff[..., p["c_start"]:p["c_end"]],
+                          tvec=p["tvec"], dt=p["dt"], pcs=inp.prev_chunks_scale, **extra)
 
-    def _streamed_forward(self, hc: HostKVCache, x, t, y, caption_dropout, meta: ForwardMeta, t_offsets,
-                          distill_factor=None):
-        """`dit_forward` with the layer loop here: each layer runs on its
-        cache slab as `hc` streams it in (the next layer's upload issued
-        before this layer's compute) and, in a forward that writes the
-        cache, back out (only the written token range).  No host sync in the
-        loop."""
+    def _stage_warmup(self) -> None:
+        rc, ec = self.config.runtime_config, self.config.engine_config
+        kv_s, kv_e = kvr.prefix_kvrange(rc, self.chunk_offset, self.ctn)
+        extra = {}
+        if ec.distill:
+            extra["dfac"] = sched.distill_dt_factor(self.num_steps, float(self.interval[0]))
+        self.inputs.stage(sp=0, cache_sp=0, null_len=self.inp.null_len, prefix_len=self.prefix_len, kv_start=kv_s,
+                          kv_end=kv_e, **extra)
+
+    def _run(self, variant: tuple, cache_sp: int) -> None:
+        """Run a step of `variant` on the staged inputs: a new eager step
+        when `capture` is off, else the variant's callable, built (and on
+        the card captured) at its first use.  `cache_sp` (the window's cache
+        slot) is read on the host only, for the streamed cache's copies."""
+        if not self.capture:
+            self._body(variant)(G.PLAIN, cache_sp)
+            return
+        key = (_config_key(self.config), variant)
+        fn = self._steps.get(key)
+        if fn is None:
+            fn = self._steps[key] = self._callable(key)
+        fn(cache_sp)
+
+    def _callable(self, key: tuple):
+        """The step callable of (config key, variant); its first run in the
+        process for this cache mode and parameter tree warms eagerly
+        (`core.graphs`)."""
+        return G.make_callable(f"step variant {key[1]}", self._body(key[1]), self.device, self._arena,
+                               key + (self.host_mode, _signature(self.params)))
+
+    def _body(self, variant: tuple) -> Callable:
+        """The step of `variant` as `body(run, cache_sp)`: with the resident
+        cache, one piece (one graph); with the host-streamed one, the pieces
+        of `_stream_jits` (see `_streamed_forward`).  It holds the sampler
+        weakly: the sampler owns its step callables, and its buffers go
+        with it."""
+        me = weakref.proxy(self)
+
+        def requests(run, cache_sp):
+            for r in range(me.R):
+                me._request_step(run, variant, r, cache_sp)
+
+        if self.host_mode:
+            return requests
+        return lambda run, cache_sp: run.piece("step", requests, run, cache_sp)
+
+    def _request_state(self, r: int):
+        """Request r's (latent state, cache, caption slabs, prefix buffer)."""
+        return self.xs, self.host_cache if self.host_mode else self.cache, self._text_embs, self.prefix_buf
+
+    def _request_step(self, run, variant: tuple, r: int, cache_sp: int) -> None:
+        """One request's step of `variant` on its state (the latent state and
+        the cache behind its forward are written in place)."""
+        ec, si = self.config.engine_config, self.inputs
+        xs, cache, text_embs, prefix = self._request_state(r)
+        if self.host_mode:
+            forward = functools.partial(self._streamed_forward, run, cache_sp)
+        else:
+            forward = _resident_forward(self.params, self.config, cache)
+        dfac = si.dfac if ec.distill else None
+        if variant[0] == "warmup":
+            n = variant[1]
+            _prefix_warmup_step(run, self.config, forward, prefix[:, : n * self.cw], self._null_emb, si, dfac,
+                                n_chunks=n)
+            return
+        _, n_den, extra, use_prefix, flag = variant
+        common = (run, self.config, self.params, forward, xs, si, si.y_lens[r], text_embs, self._null_emb, prefix)
+        if variant[0] == "cfg3":
+            _cfg3_step(*common, n_den=n_den, extra=extra, use_prefix=use_prefix, pack=flag)
+        else:
+            _cfg1_step(*common, dfac, n_den=n_den, extra=extra, use_prefix=use_prefix, distill_nearly=flag)
+
+    def _streamed_forward(self, run, cache_sp: int, x, t, y, caption_dropout, meta: ForwardMeta, t_offsets,
+                          distill_factor=None, tag=""):
+        """`dit_forward` with the layer loop here, the JAX package's
+        `_stream_jits`: pieces `prologue`, `layer` (one graph per layer: each
+        reads its own weights and slab) and `epilogue_<tag>`; between them
+        each layer runs on its cache slab as `HostKVCache` streams it in (the
+        next layer's upload issued before this layer's compute) and, in a
+        forward that writes the cache, back out (only the written token
+        range, from the host's `cache_sp`).  No host sync in the loop; while
+        the pieces are captured no copy is issued."""
         mc = self.config.model_config
+        hc = self.host_cache
         C, T, H, W = x.shape
-        h, condition, y_xattn, sin, cos = dit_prologue(
-            self.params, self.config, x, t, y, caption_dropout, meta, t_offsets, distill_factor
-        )
-        start_tok = meta.slice_point * meta.seg_len
+        h, condition, y_xattn, sin, cos = run.piece(
+            "prologue", dit_prologue, self.params, self.config, x, t, y, caption_dropout, meta, t_offsets,
+            distill_factor)
+        start_tok = cache_sp * meta.seg_len
         written = 0
         if meta.update_kv_cache:
             # the distill ride-along chunk is not written
             written = (meta.n_segments - int(meta.distill_nearly_clean_chunk)) * meta.seg_len
-        hc.begin(start_tok)
+        live = run.copies_live
+        if live:
+            hc.begin(start_tok)
         for idx in range(mc.num_layers):
-            cache_l = hc.fetch(idx)
-            h = dit_layer_step(self.params, self.config, idx, h, cache_l, condition, y_xattn, sin, cos, meta)
-            hc.release(idx, start_tok, start_tok + written)
-        return dit_epilogue(self.params, self.config, h, T // mc.t_patch_size, H // mc.patch_size,
-                            W // mc.patch_size)
+            cache_l = hc.fetch(idx) if live else hc.slab(idx)
+            run.piece("layer", _layer_in_place, self.params, self.config, idx, h, cache_l, condition, y_xattn, sin,
+                      cos, meta)
+            if live:
+                hc.release(idx, start_tok, start_tok + written)
+        return run.piece("epilogue_" + tag, dit_epilogue, self.params, self.config, h, T // mc.t_patch_size,
+                         H // mc.patch_size, W // mc.patch_size)
+
+    # ----- capture before the walk ---------------------------------------
+
+    def _variant_size(self, variant: tuple, plan: Optional[dict]) -> int:
+        """Segments of the variant's widest forward (captures go widest
+        first, so the arena's buffers are allocated at their largest)."""
+        if variant[0] == "warmup":
+            return variant[1]
+        n = plan["n_seg"]
+        return n + (plan["n_den"] if variant[0] == "cfg3" and variant[4] else int(variant[0] == "cfg1" and variant[4]))
+
+    def warm_step_variants(self) -> int:
+        """Build every step variant of the walk before its first step and
+        return their count.  On the card each is captured on synthetic
+        values (the first graph of a variant in the process runs once
+        eagerly before, as the JAX package's warm-up compiles each); the
+        walk's state (latents, cache, host cache and its byte counts) and
+        the launch counts are left as they were found.  Without `capture`
+        nothing is built (returns 0)."""
+        if not self.capture:
+            return 0
+        variants = self.step_variants()
+        key = _config_key(self.config)
+        plans = {}
+        for step in range(self.total_forward_steps()):
+            p = self._plan(step)
+            plans.setdefault(self._variant(p), p)
+        todo = [v for v in variants if (key, v) not in self._steps]
+        if not todo:
+            return len(variants)
+        for v in todo:
+            self._steps[(key, v)] = self._callable((key, v))
+        if self.device.type != "cuda":
+            return len(variants)
+        t0 = time.perf_counter()
+        todo.sort(key=lambda v: -self._variant_size(v, plans.get(v)))
+        written = max(self._variant_size(v, plans.get(v)) for v in todo) * self.ctn
+        restore = self._save_state(written)
+        with G.uncounted():
+            try:
+                for v in todo:
+                    if v[0] == "warmup":
+                        self._stage_warmup()
+                    else:
+                        p = plans[v]
+                        ks = np.zeros(p["n_seg"], np.int32)
+                        ke = (np.arange(p["n_seg"], dtype=np.int32) + 1) * self.ctn
+                        self._stage_step(p, 0, 0, ks, ke)
+                    self._steps[(key, v)].build(0)
+            finally:
+                restore()
+        torch.cuda.synchronize(self.device)
+        self.capture_seconds += time.perf_counter() - t0
+        return len(variants)
+
+    def _save_state(self, tokens: int) -> Callable[[], None]:
+        """What the warm-up steps write (they run at `sp` 0: the latent state
+        and cache tokens [0, tokens)), saved; returns its restore."""
+        tokens = min(tokens, self.cache_tokens)
+        xs = self.xs.clone()
+        pristine = not self.counts and not self._warmed
+        if self.host_mode:
+            hc = self.host_cache
+            leaves = [(hc._host_kv, 1)] + ([(hc._host_sc, 3)] if hc._host_sc is not None else [])
+            moved = (hc.h2d_bytes, hc.d2h_bytes)
+        else:
+            cache = self.cache
+            leaves = [(c, self._token_axis) for c in (cache.values() if isinstance(cache, dict) else [cache])]
+        kept = None if pristine else [c.narrow(ax, 0, tokens).clone() for c, ax in leaves]
+
+        def restore():
+            self.xs.copy_(xs)
+            for i, (c, ax) in enumerate(leaves):
+                region = c.narrow(ax, 0, tokens)
+                region.zero_() if kept is None else region.copy_(kept[i])
+            if self.host_mode:
+                self.host_cache.h2d_bytes, self.host_cache.d2h_bytes = moved
+
+        return restore
+
+    @property
+    def graphs(self) -> int:
+        """CUDA graphs captured for this walk (0 off the card)."""
+        return G.graph_count(self._steps.values())
+
+    def capture_breakdown(self) -> dict:
+        """Host seconds spent building this walk's graphs (`core.graphs`)."""
+        return G.capture_breakdown(self._steps.values())
 
     def _emit(self, chunk_idx: int) -> Optional[torch.Tensor]:
         """The chunk's latent frames after the prefix (None when the prefix
@@ -459,6 +749,10 @@ class HostKVCache:
         kv = self._logical(self._slab_kv[s])
         return kv if self._slab_sc is None else {"kv": kv, "scale": self._slab_sc[s]}
 
+    def slab(self, l: int):
+        """Layer l's slab views, with no copy (what a captured layer reads)."""
+        return self._slab(l % 2)
+
     def _upload(self, l: int) -> None:
         s, n = l % 2, self._read
         self._slab_kv[s][:n].copy_(self._host_kv[l, :n], non_blocking=True)
@@ -523,10 +817,13 @@ class HostKVCache:
 def walk_many(samplers: Sequence[ArdfSampler]) -> Generator[Tuple[int, int, torch.Tensor], None, None]:
     """Round-robin several requests through their denoise steps, one step
     of each in turn, yielding (request_idx, chunk_idx, latent on the
-    device) as chunks finish.  Each step waits only for its own stream
-    (`ArdfSampler.timed_step`), so a consumer's decode on another stream
-    overlaps the next steps."""
+    device) as chunks finish.  Every request's step variants are built (on
+    the card: captured) before the first step.  Each step waits only for
+    its own stream (`ArdfSampler.timed_step`), so a consumer's decode on
+    another stream overlaps the next steps."""
     queue = deque()
+    for s in samplers:
+        s.warm_step_variants()
     for idx, s in enumerate(samplers):
         s.prepare()
         queue.append((idx, 0))
@@ -543,182 +840,230 @@ def walk_many(samplers: Sequence[ArdfSampler]) -> Generator[Tuple[int, int, torc
 # ---------------------------------------------------------------------------
 # device steps
 # ---------------------------------------------------------------------------
+#
+# Each step reads its step-dependent values from `StepInputs` (`si`) and
+# takes only the variant's statics as Python values; its device work lies
+# in `run.piece` regions (`core.graphs`), with nothing between two pieces
+# but views, metadata and the streamed cache's host-side copies.
 
 
-def _slice_window(xs, sp, n_seg, cw):
-    return xs[:, sp * cw : (sp + n_seg) * cw]
+def _frames(start: torch.Tensor, n: int) -> torch.Tensor:
+    """Indices [start, start + n) from a device start: int64 on its device."""
+    return start.long() + torch.arange(n, device=start.device)
 
 
-def _apply_prefix(x_chunk, tvec, prefix_buf, prefix_len, sp, cw, n_seg):
+def _apply_prefix(x_chunk, tvec, prefix_buf, prefix_len, frames, start_f, cw, n_seg):
     """The prefix video's latents pasted over the window's frames they
     cover; the chunks they cover whole get t = 1 (clean).  Returns a new
-    window (x_chunk, a view of the latent state, is not written) and tvec."""
-    C, Tw, H, W = x_chunk.shape
-    start_f = sp * cw
-    covered = (start_f + torch.arange(Tw, device=x_chunk.device) < prefix_len)[None, :, None, None]
-    x_chunk = torch.where(covered, prefix_buf[:, start_f : start_f + Tw], x_chunk)
-    tvec = np.where(np.arange(n_seg) < max(prefix_len - start_f, 0) // cw, 1.0, tvec).astype(tvec.dtype)
+    window and tvec."""
+    pwin = prefix_buf.index_select(1, frames)
+    x_chunk = torch.where((frames < prefix_len)[None, :, None, None], pwin, x_chunk)
+    nclean = torch.clamp(prefix_len - start_f, min=0) // cw
+    tvec = torch.where(torch.arange(n_seg, device=tvec.device) < nclean, 1.0, tvec)
     return x_chunk, tvec
 
 
 def _build_y(caption_embs, null_emb, null_len, y_lens_win, sp, extra, n_den):
     """Per-segment captions: an optional leading clean chunk gets the null caption."""
-    c_start = sp + (1 if extra else 0)
-    y_win = caption_embs[c_start : c_start + n_den]
+    y_win = caption_embs.index_select(0, _frames(sp + int(extra), n_den))
     if extra:
-        return (torch.cat([null_emb[None], y_win], dim=0),
-                np.concatenate([np.asarray([null_len], np.int32), y_lens_win]).astype(np.int32))
-    return y_win, np.asarray(y_lens_win, np.int32)
+        return torch.cat([null_emb[None], y_win], dim=0), torch.cat([null_len.reshape(1), y_lens_win])
+    return y_win, y_lens_win
+
+
+def _window_inputs(config, xs, si, y_lens, caption_embs, null_emb, prefix_buf, n_den, extra, use_prefix):
+    """The window's latents [C, n_seg * cw, H, W] (prefix pasted), timesteps,
+    captions, caption lengths and temporal offsets of a step at `si.sp`."""
+    cw = config.runtime_config.chunk_width
+    n_seg = n_den + int(extra)
+    start_f = si.sp * cw
+    frames = _frames(start_f, n_seg * cw)
+    x_chunk = xs.index_select(1, frames)
+    tvec = si.tvec[:n_seg]
+    if use_prefix:
+        x_chunk, tvec = _apply_prefix(x_chunk, tvec, prefix_buf, si.prefix_len, frames, start_f, cw, n_seg)
+    y_text, lens_text = _build_y(caption_embs, null_emb, si.null_len, y_lens[:n_den], si.sp, extra, n_den)
+    t_off = (si.sp + torch.arange(n_seg, dtype=torch.int32, device=xs.device)) * (
+        cw // config.model_config.t_patch_size)
+    return x_chunk, tvec, y_text, lens_text, t_off
+
+
+def _pre3(config, xs, si, y_lens, caption_embs, null_emb, prefix_buf, n_den, extra, use_prefix):
+    """`_window_inputs` and the null captions' lengths [n_seg]."""
+    n_seg = n_den + int(extra)
+    return _window_inputs(config, xs, si, y_lens, caption_embs, null_emb, prefix_buf, n_den, extra, use_prefix) + (
+        si.null_len.reshape(1).expand(n_seg).contiguous(),)
 
 
 def _integrate_and_store(xs, x_chunk_den, velocity, dt, c_start, cw, n_den):
-    """Per-chunk Euler step x += v*dt, written back into the latent state (in place)."""
+    """Per-chunk Euler step x += v*dt, written back into the latent state
+    (in place) from chunk `c_start` (a device scalar) on."""
     C, Tw, H, W = x_chunk_den.shape
     v = velocity.reshape(C, n_den, cw, H, W)
     x = x_chunk_den.reshape(C, n_den, cw, H, W) + v * dt[None, :, None, None, None]
-    xs[:, c_start * cw : c_start * cw + Tw] = x.reshape(C, Tw, H, W)
-    return xs
+    xs.index_copy_(1, _frames(c_start * cw, Tw), x.reshape(C, Tw, H, W))
 
 
-def _cfg3_step(config, params, forward: Forward, xs, sp, cache_sp, caption_embs, y_lens_win, null_emb, null_len,
-               tvec, kv_start, kv_end, dt, ps, ts_, prefix_buf, prefix_len, *, n_den: int, extra: bool,
-               use_prefix: bool, pack: bool):
-    """One denoise step with 3-branch CFG: (1) text + previous chunks,
-    (3) unconditional (self-only ranges, fresh positions, no cache),
-    (2) null caption + previous chunks, which writes the cache.  `pack`
-    runs (1) and (3) as one forward: the uncond segments follow the
-    window's with null captions, their own caption dropout, temporal
-    offsets from 0 and ranges over their own tokens, which lie past the
-    window's in the current source."""
-    mc, rc = config.model_config, config.runtime_config
-    dev = xs.device
-    cw = rc.chunk_width
-    n_seg = n_den + int(extra)
-    HP = xs.shape[2] // mc.patch_size
-    WP = xs.shape[3] // mc.patch_size
-    chunk_patches = cw // mc.t_patch_size
-    ctn = chunk_patches * HP * WP
-    L = caption_embs.shape[1]
+def _step_meta(si, n, ctn, HP, WP, lens, ks, ke, *, update, use_cache, extra, distill_nearly=False) -> ForwardMeta:
+    return ForwardMeta(n_segments=n, seg_len=ctn, H=HP, W=WP, T_total=0, update_kv_cache=update,
+                       use_kv_cache=use_cache, distill_nearly_clean_chunk=distill_nearly, fwd_extra_1st_chunk=extra,
+                       slice_point=si.cache_sp, self_attn=SegmentAttnSpec(kv_start=ks, kv_end=ke), y_lens=lens)
 
-    x_chunk = _slice_window(xs, sp, n_seg, cw)
-    if use_prefix:
-        x_chunk, tvec = _apply_prefix(x_chunk, tvec, prefix_buf, prefix_len, sp, cw, n_seg)
-    t_vec = torch.as_tensor(tvec, dtype=torch.float32, device=dev)
-    y_text, lens_text = _build_y(caption_embs, null_emb, null_len, y_lens_win, sp, extra, n_den)
-    y_null = null_emb[None].expand(n_seg, L, null_emb.shape[-1])
-    lens_null = np.full((n_seg,), null_len, np.int32)
-    t_off = (sp + torch.arange(n_seg, dtype=torch.int32, device=dev)) * chunk_patches
+
+def _geometry(config, xs):
+    mc = config.model_config
+    HP, WP = xs.shape[2] // mc.patch_size, xs.shape[3] // mc.patch_size
+    return HP, WP, config.runtime_config.chunk_width // mc.t_patch_size * HP * WP
+
+
+def _pack_inputs(x_chunk, t_vec, y_text, y_null, lens_text, lens_null, t_off, ks, ke, cache_sp, n_seg, n_den, cw,
+                 ctn):
+    """Forward A of a packed step: the window's segments, then the uncond
+    segments (null captions, their own caption dropout, temporal offsets
+    from 0, ranges over their own tokens past the window's in the current
+    source)."""
     dw = n_den * cw
+    dev = x_chunk.device
+    u_start = (cache_sp + n_seg) * ctn + torch.arange(n_den, dtype=torch.int32, device=dev) * ctn
+    return (torch.cat([x_chunk, x_chunk[:, -dw:]], dim=1), torch.cat([t_vec, t_vec[-n_den:]]),
+            torch.cat([y_text, y_null[:n_den]], dim=0), torch.arange(n_seg + n_den, device=dev) >= n_seg,
+            torch.cat([ks, u_start]), torch.cat([ke, u_start + ctn]), torch.cat([lens_text, lens_null[:n_den]]),
+            torch.cat([t_off, torch.zeros(n_den, dtype=torch.int32, device=dev)]))
 
-    def meta(n, slice_point, ks, ke, lens, update, use_cache):
-        return _meta(n, ctn, HP, WP, slice_point, ks, ke, lens, update=update, use_cache=use_cache,
-                     device=dev, extra=extra and use_cache)
 
-    if pack:
-        # forward A: text branch and uncond segments, no cache write
-        u_start = (cache_sp + n_seg) * ctn + np.arange(n_den, dtype=np.int32) * ctn
-        dropout = torch.tensor([False] * n_seg + [True] * n_den, device=dev)
-        va = forward(torch.cat([x_chunk, x_chunk[:, -dw:]], dim=1), torch.cat([t_vec, t_vec[-n_den:]]),
-                     torch.cat([y_text, y_null[:n_den]], dim=0), dropout,
-                     meta(n_seg + n_den, cache_sp, np.concatenate([kv_start, u_start]),
-                          np.concatenate([kv_end, u_start + ctn]), np.concatenate([lens_text, lens_null[:n_den]]),
-                          False, True),
-                     torch.cat([t_off, torch.zeros(n_den, dtype=torch.int32, device=dev)]))
-        v1, v3 = va[:, : n_seg * cw], va[:, n_seg * cw :]
-    else:
-        # branch 1: conditioned on previous chunks + text, no cache write
-        v1 = forward(x_chunk, t_vec, y_text, False, meta(n_seg, cache_sp, kv_start, kv_end, lens_text, False, True),
-                     t_off)
-        # branch 3: unconditional
-        u_start, u_end = kvr.self_only_kvrange(n_den, ctn)
-        v3, _ = dit_forward(params, config, x_chunk[:, -dw:], t_vec[-n_den:], y_null[:n_den], True, None,
-                            meta(n_den, 0, u_start, u_end, lens_null[:n_den], False, False),
-                            torch.zeros(n_den, dtype=torch.int32, device=dev))
-    # branch 2: conditioned on previous chunks, null caption; writes the cache
-    v2 = forward(x_chunk, t_vec, y_null, True, meta(n_seg, cache_sp, kv_start, kv_end, lens_null, True, True), t_off)
+def _uncond(config, params, x_chunk, t_vec, y_null, lens_null, si, n_den, ctn, HP, WP):
+    """Branch 3 of a 3-CFG step: the denoised chunks alone, unconditional
+    (self-only ranges, fresh positions, no cache)."""
+    dw = n_den * config.runtime_config.chunk_width
+    dev = x_chunk.device
+    u_start = torch.arange(n_den, dtype=torch.int32, device=dev) * ctn
+    meta = _step_meta(si, n_den, ctn, HP, WP, lens_null[:n_den], u_start, u_start + ctn, update=False,
+                      use_cache=False, extra=False)
+    return dit_forward(params, config, x_chunk[:, -dw:], t_vec[-n_den:], y_null[:n_den], True, None, meta,
+                       torch.zeros(n_den, dtype=torch.int32, device=dev))[0]
+
+
+def _combine3(xs, si, x_chunk, v1, v2, v3, n_den, extra, cw):
+    """The 3-CFG combination of the branches, integrated into `xs`."""
+    dw = n_den * cw
 
     def per_chunk(o):
         return o.reshape(o.shape[0], n_den, cw, *o.shape[2:])
 
-    c1 = per_chunk(v1[:, -dw:])
-    c2 = per_chunk(v2[:, -dw:])
-    u = per_chunk(v3)
-    scale_p = torch.as_tensor(ps, device=dev)[None, :, None, None, None]
-    scale_t = torch.as_tensor(ts_, device=dev)[None, :, None, None, None]
+    c1, c2, u = per_chunk(v1[:, -dw:]), per_chunk(v2[:, -dw:]), per_chunk(v3)
+    scale_p = si.ps[:n_den][None, :, None, None, None]
+    scale_t = si.ts[:n_den][None, :, None, None, None]
     velocity = (1 - scale_p) * u + (scale_p - scale_t) * c2 + scale_t * c1
     velocity = velocity.reshape(velocity.shape[0], dw, *velocity.shape[3:])
-    dt_t = torch.as_tensor(dt, dtype=torch.float32, device=dev)
-    return _integrate_and_store(xs, x_chunk[:, -dw:], velocity, dt_t, sp + int(extra), cw, n_den)
+    _integrate_and_store(xs, x_chunk[:, -dw:], velocity, si.dt[:n_den], si.sp + int(extra), cw, n_den)
 
 
-def _cfg1_step(config, params, forward: Forward, xs, sp, cache_sp, caption_embs, y_lens_win, null_emb, null_len,
-               tvec, kv_start, kv_end, dt, distill_factor, prev_chunks_scale, prefix_buf, prefix_len, *, n_den: int,
-               extra: bool, use_prefix: bool, distill_nearly: bool):
-    """One denoise step with single-branch CFG (the distill and quantized
-    models): one forward on text + previous chunks, which writes the cache.
-    With `distill_nearly`, a copy of the first denoised chunk rides along as
-    one more segment that attends only itself (text-only, never written to
-    the cache), and that chunk's velocity is the blend
-    prev_chunks_scale * (with previous chunks) + (1 - prev_chunks_scale) *
-    (text only)."""
-    mc, rc = config.model_config, config.runtime_config
-    dev = xs.device
-    cw = rc.chunk_width
+def _cfg3_step(run, config, params, forward: Forward, xs, si, y_lens, caption_embs, null_emb, prefix_buf, *,
+               n_den: int, extra: bool, use_prefix: bool, pack: bool) -> None:
+    """One denoise step with 3-branch CFG: (1) text + previous chunks,
+    (3) unconditional (self-only ranges, fresh positions, no cache),
+    (2) null caption + previous chunks, which writes the cache.  `pack`
+    runs (1) and (3) as one forward (`_pack_inputs`).  Pieces: pre3,
+    [pack], the forwards, uncond, combine3."""
+    cw = config.runtime_config.chunk_width
     n_seg = n_den + int(extra)
-    HP = xs.shape[2] // mc.patch_size
-    WP = xs.shape[3] // mc.patch_size
-    chunk_patches = cw // mc.t_patch_size
-    ctn = chunk_patches * HP * WP
+    HP, WP, ctn = _geometry(config, xs)
+    L = caption_embs.shape[1]
+    x_chunk, t_vec, y_text, lens_text, t_off, lens_null = run.piece(
+        "pre3", _pre3, config, xs, si, y_lens, caption_embs, null_emb, prefix_buf, n_den, extra, use_prefix)
+    y_null = null_emb[None].expand(n_seg, L, null_emb.shape[-1])
+    ks, ke = si.kv_start[:n_seg], si.kv_end[:n_seg]
+    meta = functools.partial(_step_meta, si, ctn=ctn, HP=HP, WP=WP, use_cache=True, extra=extra)
+    if pack:
+        xa, ta, ya, drop, ksa, kea, lensa, toffa = run.piece(
+            "pack", _pack_inputs, x_chunk, t_vec, y_text, y_null, lens_text, lens_null, t_off, ks, ke, si.cache_sp,
+            n_seg, n_den, cw, ctn)
+        va = forward(xa, ta, ya, drop, meta(n=n_seg + n_den, lens=lensa, ks=ksa, ke=kea, update=False), toffa,
+                     tag="pack")
+        v1, v3 = va[:, : n_seg * cw], va[:, n_seg * cw :]
+    else:
+        v1 = forward(x_chunk, t_vec, y_text, False, meta(n=n_seg, lens=lens_text, ks=ks, ke=ke, update=False), t_off,
+                     tag="text")
+        v3 = run.piece("uncond", _uncond, config, params, x_chunk, t_vec, y_null, lens_null, si, n_den, ctn, HP, WP)
+    v2 = forward(x_chunk, t_vec, y_null, True, meta(n=n_seg, lens=lens_null, ks=ks, ke=ke, update=True), t_off,
+                 tag="null")
+    run.piece("combine3", _combine3, xs, si, x_chunk, v1, v2, v3, n_den, extra, cw)
 
-    x_chunk = _slice_window(xs, sp, n_seg, cw)
-    if use_prefix:
-        x_chunk, tvec = _apply_prefix(x_chunk, tvec, prefix_buf, prefix_len, sp, cw, n_seg)
-    y_text, lens_text = _build_y(caption_embs, null_emb, null_len, y_lens_win, sp, extra, n_den)
-    t_off = (sp + torch.arange(n_seg, dtype=torch.int32, device=dev)) * chunk_patches
 
+def _pre1_nearly(config, xs, si, y_lens, caption_embs, null_emb, prefix_buf, n_den, extra, use_prefix, ctn):
+    """`_window_inputs` with the ride-along chunk: a copy of the first
+    denoised chunk as one more segment that attends only itself (text
+    only, never written to the cache).  Returns the window, then the
+    forward's latents, timesteps, captions, lengths, offsets and ranges."""
+    cw = config.runtime_config.chunk_width
+    n_seg = n_den + int(extra)
+    ss = int(extra)
+    x_chunk, tvec, y_text, lens_text, t_off = _window_inputs(config, xs, si, y_lens, caption_embs, null_emb,
+                                                             prefix_buf, n_den, extra, use_prefix)
+    vmax = ((si.cache_sp + n_seg) * ctn).reshape(1)
+    chunk_patches = cw // config.model_config.t_patch_size
+    return (x_chunk, torch.cat([x_chunk, x_chunk[:, ss * cw : (ss + 1) * cw]], dim=1),
+            torch.cat([tvec, tvec[ss : ss + 1]]), torch.cat([y_text, y_text[ss : ss + 1]], dim=0),
+            torch.cat([lens_text, lens_text[ss : ss + 1]]), torch.cat([t_off, ((si.sp + n_seg) * chunk_patches).reshape(1)]),
+            torch.cat([si.kv_start[:n_seg], vmax]), torch.cat([si.kv_end[:n_seg], vmax + ctn]))
+
+
+def _post1(xs, si, x_chunk, out, n_den, extra, cw, distill_nearly):
+    """The ride-along chunk's blend prev_chunks_scale * (with previous
+    chunks) + (1 - prev_chunks_scale) * (text only), then the Euler step
+    into `xs`."""
+    n_seg = n_den + int(extra)
     if distill_nearly:
         ss = int(extra)
-        x_in = torch.cat([x_chunk, x_chunk[:, ss * cw : (ss + 1) * cw]], dim=1)
-        vmax = (cache_sp + n_seg) * ctn
-        ks = np.concatenate([kv_start, [vmax]]).astype(np.int32)
-        ke = np.concatenate([kv_end, [vmax + ctn]]).astype(np.int32)
-        t_in = np.concatenate([tvec, tvec[ss : ss + 1]])
-        y_in = torch.cat([y_text, y_text[ss : ss + 1]], dim=0)
-        lens = np.concatenate([lens_text, lens_text[ss : ss + 1]])
-        t_off = torch.cat([t_off, torch.tensor([(sp + n_seg) * chunk_patches], dtype=torch.int32, device=dev)])
-        n_fwd = n_seg + 1
-    else:
-        x_in, ks, ke, t_in, y_in, lens, n_fwd = x_chunk, kv_start, kv_end, tvec, y_text, lens_text, n_seg
-
-    meta = _meta(n_fwd, ctn, HP, WP, cache_sp, ks, ke, lens, update=True, use_cache=True, device=dev,
-                 extra=extra, distill_nearly=distill_nearly)
-    out = forward(x_in, torch.as_tensor(t_in, dtype=torch.float32, device=dev), y_in, False, meta, t_off,
-                  distill_factor=distill_factor)
-    if distill_nearly:
         near_pre_text = out[:, ss * cw : (ss + 1) * cw]
         near_text = out[:, -cw:]
-        blended = near_pre_text * prev_chunks_scale + near_text * (1 - prev_chunks_scale)
+        blended = near_pre_text * si.pcs + near_text * (1 - si.pcs)
         out = torch.cat([out[:, : ss * cw], blended, out[:, (ss + 1) * cw : n_seg * cw]], dim=1)
-
     dw = n_den * cw
-    dt_t = torch.as_tensor(dt, dtype=torch.float32, device=dev)
-    return _integrate_and_store(xs, x_chunk[:, -dw:], out[:, -dw:], dt_t, sp + int(extra), cw, n_den)
+    _integrate_and_store(xs, x_chunk[:, -dw:], out[:, -dw:], si.dt[:n_den], si.sp + int(extra), cw, n_den)
 
 
-def _prefix_warmup_step(config, forward: Forward, prefix_latent, null_emb, null_len, kv_start, kv_end, clean_t,
-                        distill_factor, *, n_chunks: int) -> None:
+def _cfg1_step(run, config, params, forward: Forward, xs, si, y_lens, caption_embs, null_emb, prefix_buf,
+               distill_factor, *, n_den: int, extra: bool, use_prefix: bool, distill_nearly: bool) -> None:
+    """One denoise step with single-branch CFG (the distill and quantized
+    models): one forward on text + previous chunks, which writes the cache,
+    with the ride-along chunk under `distill_nearly` (`_pre1_nearly`,
+    `_post1`).  Pieces: pre1, the forward, post1."""
+    cw = config.runtime_config.chunk_width
+    n_seg = n_den + int(extra)
+    HP, WP, ctn = _geometry(config, xs)
+    args = (config, xs, si, y_lens, caption_embs, null_emb, prefix_buf, n_den, extra, use_prefix)
+    if distill_nearly:
+        x_chunk, x_in, t_in, y_in, lens, t_off, ks, ke = run.piece("pre1", _pre1_nearly, *args, ctn)
+    else:
+        x_chunk, t_in, y_in, lens, t_off = run.piece("pre1", _window_inputs, *args)
+        x_in, ks, ke = x_chunk, si.kv_start[:n_seg], si.kv_end[:n_seg]
+    meta = _step_meta(si, n_seg + int(distill_nearly), ctn, HP, WP, lens, ks, ke, update=True, use_cache=True,
+                      extra=extra, distill_nearly=distill_nearly)
+    out = forward(x_in, t_in, y_in, False, meta, t_off, distill_factor=distill_factor, tag="text")
+    run.piece("post1", _post1, xs, si, x_chunk, out, n_den, extra, cw, distill_nearly)
+
+
+def _warmup_inputs(config, si, n_chunks, device):
+    chunk_patches = config.runtime_config.chunk_width // config.model_config.t_patch_size
+    return (si.null_len.reshape(1).expand(n_chunks).contiguous(),
+            torch.full((n_chunks,), float(config.runtime_config.clean_t), dtype=torch.float32, device=device),
+            torch.arange(n_chunks, dtype=torch.int32, device=device) * chunk_patches)
+
+
+def _prefix_warmup_step(run, config, forward: Forward, prefix_latent, null_emb, si, distill_factor, *,
+                        n_chunks: int) -> None:
     """Forward the clean prefix chunks (prefix_latent [C, n_chunks * cw, H,
     W]) once with null captions at t = clean_t; the forward writes their
-    KV into the cache."""
-    mc, rc = config.model_config, config.runtime_config
-    dev = prefix_latent.device
-    HP = prefix_latent.shape[2] // mc.patch_size
-    WP = prefix_latent.shape[3] // mc.patch_size
-    chunk_patches = rc.chunk_width // mc.t_patch_size
-    ctn = chunk_patches * HP * WP
+    KV into the cache from slot `si.cache_sp` (0) over `si`'s kv ranges."""
+    HP, WP, ctn = _geometry(config, prefix_latent)
+    lens, t, t_off = run.piece("warmup_pre", _warmup_inputs, config, si, n_chunks, prefix_latent.device)
     y = null_emb[None].expand(n_chunks, *null_emb.shape)
-    lens = np.full((n_chunks,), null_len, np.int32)
-    t = torch.full((n_chunks,), float(clean_t), dtype=torch.float32, device=dev)
-    t_off = torch.arange(n_chunks, dtype=torch.int32, device=dev) * chunk_patches
-    meta = _meta(n_chunks, ctn, HP, WP, 0, kv_start, kv_end, lens, update=True, use_cache=True, device=dev)
-    forward(prefix_latent, t, y, True, meta, t_off, distill_factor=distill_factor)
+    meta = _step_meta(si, n_chunks, ctn, HP, WP, lens, si.kv_start[:n_chunks], si.kv_end[:n_chunks], update=True,
+                      use_cache=True, extra=False)
+    forward(prefix_latent, t, y, True, meta, t_off, distill_factor=distill_factor, tag="warmup")
+
+
+def _layer_in_place(params, config, idx, h, cache_l, condition, y_xattn, sin, cos, meta) -> None:
+    """Layer `idx` of the streamed forward, its output written over `h`."""
+    h.copy_(dit_layer_step(params, config, idx, h, cache_l, condition, y_xattn, sin, cos, meta))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Walls of two requests on one GPU: two solo runs, lockstep and interleaved.
 
-    python3 scripts/multi_request_wall.py [--sizes 256,720] [--repeats 2]
+    python3 scripts/multi_request_wall.py [--sizes 256,720] [--repeats 2] [--arms captured,eager]
 
 Builds the 4.5B distill + int8 config (example/4.5B/4.5B_distill_quant_config.json
 with int8 attention, the config's 16 steps, 96 frames) once at full width
@@ -14,10 +14,14 @@ video size, times through `MagiPipeline` the same two prompts as
                round-robin, each chunk decoded on a worker thread on its
                own CUDA stream.
 The weights are built once and handed to every run, so a wall is the
-prompts' embedding, the walk, the decodes and the video writes.  The modes
-run in the order solo, lockstep, interleaved and then reversed, `--repeats`
-times.  Prints each run's wall, its steps' and decodes' host seconds, the
-card's name and power limit, and one JSON line of every run.
+prompts' embedding, the walk (the steps' capture included), the decodes
+and the video writes.  Each arm runs every mode: "captured" as the port
+runs by default (steps and VAE forwards replayed from CUDA graphs),
+"eager" with `MagiPipeline(capture=False)` and the VAE's graphs off.  The
+modes run in the order solo, lockstep, interleaved and then reversed,
+`--repeats` times, each arm in turn.  Prints each run's wall, its steps'
+and decodes' host seconds, the card's name and power limit, and one JSON
+line of every run.
 """
 
 from __future__ import annotations
@@ -41,12 +45,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--sizes", default="256,720", help="comma list of square video sizes")
     ap.add_argument("--repeats", type=int, default=2, help="rounds of the three modes (each round reversed)")
+    ap.add_argument("--arms", default="captured,eager", help="comma list of captured, eager")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
     os.environ["SKIP_LOAD_MODEL"] = "1"
     from magi_tpu_torch.pipeline import pipeline as P
+    from magi_tpu_torch.pipeline.video_process import get_vae
 
     out_dir = os.path.join(HERE, "build", "multi_request_wall")
     os.makedirs(out_dir, exist_ok=True)
@@ -72,9 +78,13 @@ def main() -> int:
             "lockstep": lambda: pipe.run_text_to_video_batch(PROMPTS, [f"{stem}_batch_{i}.mp4" for i in range(2)]),
             "interleaved": lambda: pipe.run_text_to_video_many(PROMPTS, [f"{stem}_many_{i}.mp4" for i in range(2)]),
         }
-        pipe.run_text_to_video(PROMPTS[0], f"{stem}_warm.mp4")  # warm-up: allocator, cuBLAS, the VAE
+        vae = get_vae(pipe.config.runtime_config.vae_pretrained, pipe.device)
+        for arm in args.arms.split(","):  # warm-up: allocator, cuBLAS, the VAE, the first capture
+            pipe.capture = vae.capture = arm == "captured"
+            pipe.run_text_to_video(PROMPTS[0], f"{stem}_warm.mp4")
         order = list(modes)
-        for rep in range(args.repeats):
+        for rep, arm in ((rep, arm) for rep in range(args.repeats) for arm in args.arms.split(",")):
+            pipe.capture = vae.capture = arm == "captured"
             for mode in order if rep % 2 == 0 else order[::-1]:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -85,9 +95,9 @@ def main() -> int:
                 steps = sum(stats[0]["step_seconds"]) if mode == "lockstep" else \
                     sum(sum(s["step_seconds"]) for s in stats)
                 decode = sum(sum(s["decode_seconds"]) for s in stats)
-                runs.append(dict(size=size, round=rep, mode=mode, wall=wall, step_seconds=steps, decode_seconds=decode,
-                                 frames=[s["frames"] for s in stats]))
-                print(f"{size}x{size} round {rep} {mode:11s}: wall {wall:.3f} s, steps {steps:.3f} s, decodes "
+                runs.append(dict(size=size, round=rep, arm=arm, mode=mode, wall=wall, step_seconds=steps,
+                                 decode_seconds=decode, frames=[s["frames"] for s in stats]))
+                print(f"{size}x{size} round {rep} {arm:8s} {mode:11s}: wall {wall:.3f} s, steps {steps:.3f} s, decodes "
                       f"{decode:.3f} s (host seconds, both requests)", flush=True)
         del pipe
         torch.cuda.empty_cache()

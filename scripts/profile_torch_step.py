@@ -15,7 +15,7 @@ config on a smooth-folded int8 tree, as a released fp8 checkpoint loads
 (`chip_smoke.with_smooth`: `act_smooth` in [0.5, 2] on kv_xattn, proj,
 fc1 and fc2, 1 on the edge layers): its step adds the divide of each smoothed linear's input (among
 "other") and runs fc1's LayerNorm unfused.  `base_packed` is the base config
-with `pack_uncond` (two forwards a step) at 256x256.  `distill_offload` is
+with `pack_uncond` (two forwards a step) at 256x256 and 720x720.  `distill_offload` is
 the distill config under the default kv ranges on a video of 8 chunks (192
 frames), at 256x256 and 720x720, at stages 3 (no cache before the window)
 and 7 (the window over 4 cached chunks, which every forward uploads), each
@@ -25,16 +25,22 @@ copies' device time and bytes are printed apart from the kernels', which
 alone make "device busy" and the idle share.  The int8 configs run once per K5
 scheme of `--schemes` (`MAGI_ATTN_Q8_SCHEME`; default qk8).  For each and
 each video size it runs
-one denoise step of the given ARDF stage (stage 3 is the first step with
-the full window of 4 chunks) twice: once timed on the host clock with a
-device synchronise (after one warm-up step), once under torch.profiler.
-It prints the device time summed by kernel group (the port's hand-written
-kernels one by one, cuBLAS GEMMs, the rest), the device-busy and idle
-share of the step, the peak device memory of the step, and the
-self-attention operations of the step with the rate its attention kernel
-reached.  For the 24B it also times `unpack_int4` of one layer's eight
+the steps of the given ARDF stage (stage 3 is the first step with the
+full window of 4 chunks) twice, eager (`ArdfSampler(capture=False)`) and
+replayed from CUDA graphs (the default): two steps to warm up (and
+capture: the stage's first step, with the extra clean chunk, and its
+second are different variants), the third timed on the host clock with a
+device synchronise, the fourth under torch.profiler.  It prints the
+device time summed by kernel group (the port's hand-written kernels one
+by one, cuBLAS GEMMs, the rest), the device-busy time and the idle share
+of the profiled step (1 - busy / its host wall under the profiler, which
+adds its own host time to every launch, so an eager step's share is
+larger than 1 - busy / the unprofiled step wall), the peak device memory
+of the steps, and the self-attention operations of the step with the
+rate its attention kernel reached.  For the 24B it also times `unpack_int4` of one layer's eight
 linears (CUDA events), which the profile counts among "other".  Then, for
-the base config, one VAE decode of a chunk, the same way.  The KV cache
+the base config, one VAE decode of a chunk, the same way, eager and
+replayed.  The KV cache
 holds zeros: timing does not depend on its values.  `t5` profiles the
 24-layer T5-XXL encode of one prompt at L 800 with its weights resident
 on the card (random bf16 weights at HF's initialisation scales, `chip_smoke.random_t5_tree`).
@@ -58,7 +64,7 @@ import torch  # noqa: E402
 SIZES = {"base": ((256, 256), (720, 720)), "distill": ((256, 256), (720, 720)),
          "distill_smooth": ((256, 256), (720, 720)),
          "24b": ((256, 256), (720, 1280)),  # the smoke's size and each config's own
-         "base_packed": ((256, 256),), "distill_offload": ((256, 256), (720, 720))}
+         "base_packed": ((256, 256), (720, 720)), "distill_offload": ((256, 256), (720, 720))}
 STAGE = 3  # ARDF stage of the profiled step: the first with the full window of 4 chunks
 STEPS = 64  # the config's schedule
 # distill_offload: 8 chunks; stage 7's window (chunks 4-7) sits over 4 cached chunks
@@ -283,7 +289,8 @@ def main() -> int:
 
     from magi_tpu_torch.core.config import MagiConfig
     from magi_tpu_torch.pipeline.prompt_process import build_inference_input, get_txt_embeddings
-    from magi_tpu_torch.pipeline.video_process import post_chunk_process
+    from magi_tpu_torch.models.vae.model import ViTVAE
+    from magi_tpu_torch.pipeline.video_process import f32_cthw_to_u8_thwc, get_vae, tiled_decode
     from magi_tpu_torch.sampling.transport import ArdfSampler
 
     dev = torch.device("cuda", 0)
@@ -305,9 +312,10 @@ def main() -> int:
                   f"= {ums * layers:.1f} ms per forward")
         modes = [(st, off) for st in OFFLOAD_STAGES for off in (False, True)] if name == "distill_offload" \
             else [(STAGE, None)]
-        runs = [(hw, sch, st, off) for hw in SIZES[name] for sch in (["qk8"] if name.startswith("base") else schemes)
-                for st, off in modes]
-        for (size_h, size_w), scheme, stage, offload in runs:
+        runs = [(hw, sch, st, off, cap) for hw in SIZES[name]
+                for sch in (["qk8"] if name.startswith("base") else schemes) for st, off in modes
+                for cap in (False, True)]
+        for (size_h, size_w), scheme, stage, offload, capture in runs:
             os.environ["MAGI_ATTN_Q8_SCHEME"] = scheme
             d = json.loads(json.dumps(base))
             d["runtime_config"].update(video_size_h=size_h, video_size_w=size_w)
@@ -316,12 +324,16 @@ def main() -> int:
             cfg = MagiConfig.from_dict(d)
             emb, mask = get_txt_embeddings("a red cube on a table", cfg)
             inp = build_inference_input(cfg, null, emb, mask, dev)
-            sampler = ArdfSampler(cfg, params, inp, gen, device=dev)
+            sampler = ArdfSampler(cfg, params, inp, gen, device=dev, capture=capture)
             dpss = cfg.runtime_config.num_steps // cfg.runtime_config.window_size
             step = stage * dpss
             torch.cuda.reset_peak_memory_stats(dev)
-            sampler.do_step(step)  # warm-up (cuBLAS heuristics, allocator)
+            t0 = time.perf_counter()
+            for warm in (step, step + 1):  # warm-up (cuBLAS heuristics, allocator) and the variants' capture
+                sampler.do_step(warm)
             torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            step += 1
             t0 = time.perf_counter()
             sampler.do_step(step + 1)
             torch.cuda.synchronize()
@@ -337,44 +349,58 @@ def main() -> int:
             tag = "" if name.startswith("base") else f" K5 {scheme}"
             if offload is not None:
                 tag += f" stage {stage} {'streamed' if offload else 'resident'}"
+            tag += " captured" if capture else " eager"
             print(f"== {name} {size_h}x{size_w}{tag}: stage {stage} step of {cfg.runtime_config.num_steps} "
                   f"(n_seg {p['n_seg']}{' + the ride-along' if p['distill_nearly'] else ''} over {p['sp']} cached "
                   f"chunks of {inp.chunk_num}, seg_len {sampler.ctn} tokens, {cfg.model_config.num_layers} layers, "
                   f"{n_fwd} forward{'s' if n_fwd > 1 else ''})")
             print(f"  step wall {step_ms:.1f} ms (host clock, synchronised, no profiler); under the profiler "
                   f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}; "
-                  f"peak memory {peak:.2f} GiB")
+                  f"peak memory {peak:.2f} GiB; the two warm-up steps {warm_s:.2f} s"
+                  + (f" ({sampler.graphs} CUDA graphs captured)" if capture else ""))
             for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
                 print(f"  {ms:10.2f} ms  {100 * ms / busy:5.1f}%  {counts[g]:6d} launches  {g}")
             if sampler.host_mode:
                 hc = sampler.host_cache
                 print(f"  {copies_ms:10.2f} ms of {counts[COPIES]} host<->device copies on the copy stream (beside "
                       f"the kernels, not in device busy; {100 * copies_ms / wall:.1f}% of the profiled step); "
-                      f"{hc.h2d_bytes / 3e6:.1f} MB up and {hc.d2h_bytes / 3e6:.1f} MB back a step (mean of the "
-                      f"three steps)")
+                      f"{hc.h2d_bytes / 4e6:.1f} MB up and {hc.d2h_bytes / 4e6:.1f} MB back a step (mean of the "
+                      f"four steps)")
             print(f"  self-attention operations of the step {flops:.3e}; attention kernel device time {attn_ms:.1f} ms "
                   f"-> {flops / (attn_ms * 1e-3) / 1e12:.1f} T/s")
             key = f"{name} {size_h}x{size_w}{tag}"
             results[key] = dict(step_ms=step_ms, busy_ms=busy, profiled_ms=wall, peak_gib=peak, groups=groups,
-                                copies_ms=copies_ms)
+                                copies_ms=copies_ms, idle=max(0.0, 1 - busy / wall), warm_s=warm_s,
+                                graphs=sampler.graphs)
             if sampler.host_mode:
-                results[key].update(h2d_mb=sampler.host_cache.h2d_bytes / 3e6,
-                                    d2h_mb=sampler.host_cache.d2h_bytes / 3e6)
+                results[key].update(h2d_mb=sampler.host_cache.h2d_bytes / 4e6,
+                                    d2h_mb=sampler.host_cache.d2h_bytes / 4e6)
             if name == "base":
-                # one VAE decode of a chunk
+                # one VAE decode of a chunk (`decode_chunk` with the cached
+                # VAE, replayed, or an eager twin on the same weights)
+                vae = get_vae(cfg.runtime_config.vae_pretrained, dev, z_chans=16)
+                if not capture:
+                    vae = ViTVAE(vae.cfg, vae.params, capture=False)
                 chunk = torch.randn((16, 6, size_h // 8, size_w // 8), generator=gen, device=dev)
-                post_chunk_process(chunk, cfg, dev)
+
+                def decode():
+                    z = chunk.to(torch.bfloat16)[None] / cfg.runtime_config.scale_factor
+                    video = tiled_decode(vae, z, tile_frames=cfg.runtime_config.fps // 2)
+                    return f32_cthw_to_u8_thwc(video[0].float().cpu().numpy())
+
+                decode()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                post_chunk_process(chunk, cfg, dev)
+                decode()
                 dec_ms = (time.perf_counter() - t0) * 1e3
-                vgroups, vcounts, vwall, _ = profile(lambda: post_chunk_process(chunk, cfg, dev))
+                vgroups, vcounts, vwall, _ = profile(decode)
                 vbusy = sum(vgroups.values())
                 print(f"  VAE decode of one chunk: {dec_ms:.1f} ms wall (incl. copy to host and uint8 conversion); "
-                      f"device busy {vbusy:.1f} ms of {vwall:.1f} ms profiled")
+                      f"device busy {vbusy:.1f} ms of {vwall:.1f} ms profiled"
+                      + (f" ({vae.graphs} CUDA graphs)" if capture else ""))
                 for g, ms in sorted(vgroups.items(), key=lambda kv: -kv[1]):
                     print(f"  {ms:10.2f} ms  {100 * ms / vbusy:5.1f}%  {vcounts[g]:6d} launches  {g}")
-                results[key]["decode_ms"] = dec_ms
+                results[key].update(decode_ms=dec_ms, decode_busy_ms=vbusy, decode_profiled_ms=vwall)
             del sampler
             torch.cuda.empty_cache()
         del params

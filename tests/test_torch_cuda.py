@@ -40,7 +40,14 @@ tokens, clipped and empty ranges (exactly 0), hq / hk of 1, 2, 3 and 6,
 the prologue at head_dim 64 and with rotary, and the VAE's 3073-token
 segments, and q rows whose mean is large against their spread (the
 LayerNorm's variance taken about the mean, as the plain version does);
-views of a fused qkv or kv give their contiguous copies' bits."""
+views of a fused qkv or kv give their contiguous copies' bits.
+
+Step capture (`core.graphs`): tiny walks replayed from CUDA graphs (base,
+packed, distill + int8, host-streamed bf16 and int8, two requests lockstep
+and interleaved) are bit-equal to their eager walks with equal launches
+of every kernel, a second sampler of an equal config gives the same
+chunks, a host read inside a captured step raises naming the variant, and
+the VAE's encode and decode graphs give the eager forwards' bits."""
 
 import pytest
 import torch
@@ -954,3 +961,136 @@ def test_interleaved_decode_on_its_stream_matches_solo_runs(dev, tmp_path, monke
         solo = str(tmp_path / f"solo_{i}.mp4")
         pipe._run(prompt, None, solo)
         assert np.array_equal(frames[solo], frames[many[i]])
+
+
+# ---------------------------------------------------------------------------
+# step capture: CUDA graphs against the eager walk
+# ---------------------------------------------------------------------------
+
+# (config file, engine overrides, K5 scheme): the tiny walks captured and
+# eager; "streamed" is the host-streamed cache (default kv ranges)
+CAPTURE_WALKS = {
+    "base": ("4.5B_base_config.json", {}),
+    "packed": ("4.5B_base_config.json", dict(pack_uncond=True)),
+    "distill_int8": ("4.5B_distill_quant_config.json", dict(attn_int8=True)),
+    "streamed": ("4.5B_base_config.json", dict(kv_offload=True)),
+    "streamed_int8": ("4.5B_distill_quant_config.json", dict(attn_int8=True, kv_offload=True)),
+}
+
+
+def _capture_setup(dev, case):
+    from magi_tpu_torch.core.config import MagiConfig
+    from magi_tpu_torch.models.dit.model import init_dit_params
+
+    name, engine = CAPTURE_WALKS[case]
+    cfg = MagiConfig.from_dict(_tiny_card_dict(name, **engine))
+    g = _gen(dev)
+    params = init_dit_params(cfg, dev, g)
+    if cfg.engine_config.attn_int8:
+        params = Q.quantize_params_int8(params)
+    inp = _tiny_card_input(cfg, dev, g)
+    return cfg, params, inp, torch.randn(inp.latent_size, generator=g, device=dev)
+
+
+def _counted_walk(walk):
+    """The chunks of `walk()` and the launches of every kernel it made."""
+    from magi_tpu_torch.core import graphs as G
+
+    before = G.launch_counts()
+    chunks = [c for _, c in walk()]
+    torch.cuda.synchronize()
+    return chunks, [a - b for a, b in zip(G.launch_counts(), before)]
+
+
+@pytest.mark.parametrize("case", list(CAPTURE_WALKS))
+def test_captured_walk_is_bit_equal_to_the_eager_walk(dev, case, monkeypatch):
+    """A walk's steps replayed from CUDA graphs (the default on the card)
+    emit the eager walk's latents bit for bit with the same launches of
+    every kernel; `warm_step_variants` captures one step callable per
+    variant of the walk (the JAX package's compiled variants: CPU test
+    `test_step_variants_match_the_jax_compiled_ones`), and a second
+    sampler of an equal config gives the same chunks."""
+    from magi_tpu_torch.sampling.transport import ArdfSampler
+
+    monkeypatch.setenv("MAGI_ATTN_Q8_SCHEME", "qk8")
+    cfg, params, inp, noise = _capture_setup(dev, case)
+    eager, n_eager = _counted_walk(ArdfSampler(cfg, params, inp, noise=noise, device=dev, capture=False).walk)
+    s = ArdfSampler(cfg, params, inp, noise=noise, device=dev)
+    assert s.warm_step_variants() == len(s.step_variants()) == len(s._steps) > 1
+    assert s.graphs >= len(s._steps) and s.capture_seconds > 0
+    captured, n_captured = _counted_walk(s.walk)
+    assert s.host_mode == case.startswith("streamed")
+    assert len(eager) == len(captured) == 3 and all(torch.equal(a, b) for a, b in zip(eager, captured))
+    assert n_captured == n_eager and sum(n_eager) > 0
+    again, n_again = _counted_walk(ArdfSampler(cfg, params, inp, noise=noise, device=dev).walk)
+    assert all(torch.equal(a, b) for a, b in zip(eager, again)) and n_again == n_eager
+
+
+def test_captured_requests_are_bit_equal_to_eager_ones(dev):
+    """Two requests, lockstep (one graph a variant for both) and interleaved
+    (`walk_many`, each sampler its own graphs, captured before the first
+    step): each request's latents and the launches equal the eager walks'."""
+    from magi_tpu_torch.sampling.batched import DpBatchedSampler
+    from magi_tpu_torch.sampling.transport import ArdfSampler, walk_many
+
+    cfg, params, inp, noise = _capture_setup(dev, "distill_int8")
+    noises = [noise, torch.flip(noise, dims=[1])]
+    runs = {}
+    for capture in (False, True):
+        batched, n_b = _counted_walk(
+            DpBatchedSampler(cfg, params, [inp, inp], noises=noises, device=dev, capture=capture).walk)
+
+        def many():
+            samplers = [ArdfSampler(cfg, params, inp, noise=n, device=dev, capture=capture) for n in noises]
+            return ((r, c) for r, _, c in walk_many(samplers))
+
+        many_chunks, n_m = _counted_walk(many)
+        runs[capture] = (batched, n_b, many_chunks, n_m)
+    (b0, nb0, m0, nm0), (b1, nb1, m1, nm1) = runs[False], runs[True]
+    assert all(torch.equal(x, y) for x, y in zip(b0, b1)) and nb0 == nb1
+    assert all(torch.equal(x, y) for x, y in zip(m0, m1)) and nm0 == nm1 and len(m1) == 6
+
+
+def test_host_sync_in_a_captured_step_raises(dev, monkeypatch):
+    """A host read of a device value inside a step's captured region fails
+    its capture: the walk raises, naming the step variant, and runs no step
+    eagerly in its place."""
+    from magi_tpu_torch.sampling import transport as T
+
+    cfg, params, inp, noise = _capture_setup(dev, "base")
+    real = T._combine3
+
+    def synced(xs, si, *args):
+        if int(si.sp) < 0:  # a host read of a device value
+            raise AssertionError
+        return real(xs, si, *args)
+
+    monkeypatch.setattr(T, "_combine3", synced)
+    s = T.ArdfSampler(cfg, params, inp, noise=noise, device=dev)
+    with pytest.raises(RuntimeError, match="step variant"):
+        s.warm_step_variants()
+    assert not s.step_seconds and not s.counts
+
+
+def test_vae_graphs_match_eager(dev):
+    """The VAE's encode and decode replayed from shape-keyed CUDA graphs
+    give the eager forwards' bits with K2g's launches, a second call of a
+    shape replaying the first call's graph."""
+    from magi_tpu_torch.models.vae.model import VaeConfig, ViTVAE, init_vae_params
+
+    cfg = VaeConfig(video_size=64, video_length=8, patch_size=8, patch_length=4, z_chans=4, embed_dim=256, depth=2,
+                    num_heads=4)
+    params = init_vae_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    eager, graphs = ViTVAE(cfg, params, capture=False), ViTVAE(cfg, params)
+    g = _gen(dev)
+    x = torch.rand((2, 3, 8, 64, 64), generator=g, device=dev).bfloat16() * 2 - 1
+    z = torch.randn((2, 4, 2, 8, 8), generator=g, device=dev).bfloat16()
+    for fn, arg in (("encode", x), ("decode", z), ("decode", z * 0.5)):
+        before = A.segmented_attention.launches
+        want = getattr(eager, fn)(arg)
+        n_eager = A.segmented_attention.launches - before
+        before = A.segmented_attention.launches
+        got = getattr(graphs, fn)(arg)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and A.segmented_attention.launches - before == n_eager > 0
+    assert graphs.graphs == 2

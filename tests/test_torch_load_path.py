@@ -103,10 +103,10 @@ def test_loaded_distill_fp8_pipeline_matches_jax(tmp_path, monkeypatch):
     got = []
 
     class Sampler(tpipe.ArdfSampler):
-        def __init__(self, config, params, inp, generator=None, *, device=None):
+        def __init__(self, config, params, inp, generator=None, *, device=None, capture=True):
             assert "act_smooth" in params["blocks"]["mlp"]["linear_fc2"]
             assert params["blocks"]["mlp"]["linear_fc2"]["weight_q"].stride()[1] == 1  # folded, k-major
-            super().__init__(config, params, inp, noise=noise, device=device)
+            super().__init__(config, params, inp, noise=noise, device=device, capture=capture)
 
         def walk(self):
             for i, chunk in super().walk():
