@@ -99,12 +99,33 @@ Phases, each printed on its own line; any failure exits non-zero:
  15. phase 4's and phase 5's requests through `ArdfSampler.walk`, eager
      (`capture=False`) and with the steps replayed from CUDA graphs, the
      same weights and noise: chunks bit-equal, launches equal kernel by
-     kernel, one graph a step variant; prints the variants, graphs and
-     capture seconds, the mean step, the idle share of a stage-3 step
-     under torch.profiler and the device peak of each.
+     kernel, one graph a step variant; then a second captured walk of each
+     through a new sampler, which takes the first one's workspace: it
+     captures no step graph, and decoding its chunks with the cached VAE
+     no VAE graph, its chunks, frames and launches equal the first's;
+     prints the variants, graphs and capture seconds of both captured
+     walks, the mean step, the idle share of a stage-3 step under
+     torch.profiler and the device peak of each;
+ 16. the port's HTTP service on the card (its handler in a thread, each
+     request an engine subprocess running phase 5's request, traced),
+     through the port's client: health reports the card ready; of three
+     t2v requests in flight at once (chat completions, /generate, one
+     more) the third is refused 429 and the two served run one after the
+     other, downloads byte-equal to the engines' files; a two-prompt
+     /generate (lockstep); every engine's trace names K5 qk8 and K6; then
+     the ComfyUI `MagiProcess` node twice in this process under the
+     service's conditioning environment: its video equals the served one
+     of the same prompt, its second call captures no step graph and equals
+     the first, the two launch twice phase 5's kernels; prints each
+     request's wall and set-up seconds and the phase's.
 Phases 3-14 run as a user runs the port on the card: every denoise step
 and every VAE encode and decode replayed from a CUDA graph (`core.graphs`,
 captured before the walk; the capture's own launches are not counted).
+A walk's buffers and graphs outlive it in the process's workspace pool;
+each main path starts with `release_workspaces()` and an emptied
+allocator cache.  Phase 1 also builds the native IO runtime, and phase 11
+loads the DiT through it and through the Python reader (bit-equal trees,
+GB/s of each).
 Phases 8-10 check the frame count against the JAX package's for the same
 request (i2v keeps its first chunk whole; v2v drops the prefix frames).
 Phase 2 also checks K7 and K8s at phase 6-7's shapes, K8 at the 24B's
@@ -113,7 +134,7 @@ its 48/8 heads.  Phase 6 holds a
 quantization peak of about 57 GiB (the bf16 tree alive while it is
 packed), so each main path starts from an emptied allocator cache.
 Then the card's name and power limit, one JSON line of per-kernel results
-(`launches_by_path` holds each main path's count, phases 4-15, read just
+(`launches_by_path` holds each main path's count, phases 4-16, read just
 after its run; `launches` is their sum; K5's sage and dq rows come after
 every other), and a last line `{"ok": true, "device": {...}}`.
 
@@ -148,6 +169,7 @@ SHORT_ITERS = 200
 
 
 T0 = time.perf_counter()
+DEFAULT_TF32: dict = {}  # PyTorch's TF32 flags as a process starts with them (phase 16's node runs under them)
 
 
 def phase(msg: str) -> None:
@@ -1155,6 +1177,19 @@ def _map(tree, fn):
     return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
+def fresh_card() -> None:
+    """Free the earlier phases' workspaces (their buffers and step graphs)
+    and resident DiT trees, then the allocator's cached blocks: each main
+    path starts from an emptied allocator cache (phase 6's quantization
+    peak needs the room)."""
+    import torch
+
+    from magi_tpu_torch.core.graphs import release_workspaces
+
+    release_workspaces()
+    torch.cuda.empty_cache()
+
+
 def run_main_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: list) -> dict:
     """Run `config` through the CLI entry (t2v) with every launch count set
     to 0 just before and read just after; checks the video (96 frames of
@@ -1167,7 +1202,7 @@ def run_main_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: li
 
     with open(stem + ".json", "w") as f:
         json.dump(config, f)
-    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    fresh_card()
     torch.cuda.reset_peak_memory_stats(dev)
     for w in wrappers.values():
         w.launches = 0
@@ -1225,7 +1260,7 @@ def run_prefix_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
         os.environ["MAGI_ATTN_Q8_SCHEME"] = scheme
     try:
         pipeline = MagiPipeline(stem + ".json", device=dev)
-        torch.cuda.empty_cache()  # the earlier phases' cached blocks
+        fresh_card()
         torch.cuda.reset_peak_memory_stats(dev)
         for wr in wrappers.values():
             wr.launches = 0
@@ -1283,7 +1318,7 @@ def run_noedge_walk(dev, config: dict, wrappers: dict, path_kernels: list) -> di
     from magi_tpu_torch.sampling.transport import ArdfSampler
 
     cfg = MagiConfig.from_dict(config)
-    torch.cuda.empty_cache()
+    fresh_card()
     torch.cuda.reset_peak_memory_stats(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(cfg.runtime_config.seed)
@@ -1620,6 +1655,7 @@ def run_loaded_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
 
     import torch
 
+    from magi_tpu_torch import runtime_native
     from magi_tpu_torch.checkpoint import loader, vae_loader
     from magi_tpu_torch.core.config import MagiConfig
     from magi_tpu_torch.models.dit import model as TM
@@ -1702,6 +1738,27 @@ def run_loaded_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
 
         TM._smooth_divide = recording_divide
         launches, stats = run_main_path(dev, config, stem, wrappers, path_kernels)
+        route = dict(loader.last_read)
+        # the same load through each reader, timed alone: the native runtime
+        # (threaded reads into host memory, where it builds) against the
+        # Python reader's maps
+        reads, trees = {}, {}
+        old_disable = os.environ.get("MAGI_DISABLE_NATIVE")
+        try:
+            for native in (True, False)[not runtime_native.available():]:
+                _set_env("MAGI_DISABLE_NATIVE", None if native else "1")
+                fresh_card()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trees[native] = patched[(loader, "load_dit_params")](cfg, dev)
+                torch.cuda.synchronize()
+                reads[loader.last_read["route"]] = (time.perf_counter() - t0, dict(loader.last_read))
+        finally:
+            _set_env("MAGI_DISABLE_NATIVE", old_disable)
+        same_tree = True not in trees or all(
+            torch.equal(a, b) for a, b in zip(_leaves(trees[True]), _leaves(trees[False])))
+        del trees
+        fresh_card()
     finally:
         TM._smooth_divide = plain_divide
         for (mod, name), fn in patched.items():
@@ -1710,6 +1767,15 @@ def run_loaded_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
         _set_env("SKIP_LOAD_MODEL", old_skip)
         shutil.rmtree(root, ignore_errors=True)
 
+    native_s = (f"native {reads['native'][0]:.2f} s ({sizes['dit'] / reads['native'][0] / 1e9:.2f} GB/s, shards read "
+                f"in {reads['native'][1]['seconds']:.3f} s), trees bit-equal: {same_tree}" if "native" in reads else
+                "native: not available here (phase 1 says why)")
+    print(f"  the pipeline's DiT load read its shards through the {route['route']} reader "
+          f"({route['bytes'] / 1e9:.3f} GB in {route['seconds']:.3f} s); alone, to the tree on the card: Python "
+          f"{reads['python'][0]:.2f} s ({sizes['dit'] / reads['python'][0] / 1e9:.2f} GB/s, mapped in "
+          f"{reads['python'][1]['seconds']:.3f} s), {native_s}")
+    if not same_tree:
+        fail("the DiT loaded through the native reader differs from the Python reader's")
     print(f"  DiT fp8 load (dequant + convert on the card) {timings['load_dit_params']:.2f} s "
           f"({sizes['dit'] / timings['load_dit_params'] / 1e9:.2f} GB/s of checkpoint), smooth-folded int8 "
           f"quantization {timings['quantize_params_int8']:.2f} s; VAE load {timings['load_vae']:.2f} s "
@@ -1728,7 +1794,7 @@ def run_loaded_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
     print(f"  smooth divides: {sum(divides.values())} in the run at {len(divides)} shapes (each timed alone, CUDA "
           f"events), {divide_ms / len(steps):.3f} ms per step, {divide_ms / len(steps) / 1e3 / step_s:.1%} of the "
           f"step; the largest, {widest[1]}, {widest[2]:.4f} ms")
-    print(f"  peak memory: device {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, host "
+    print(f"  peak memory: device {stats['peak_gib']:.2f} GiB (the run's), host "
           f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB (the process's largest resident set)")
     per_step = {n: (round(launches[n] / len(steps), 2), round(launches5[n] / len(steps5), 2)) for n in wrappers
                 if launches[n] or launches5[n]}
@@ -1843,7 +1909,7 @@ def run_offload_pair(dev, config: dict, name: str, wrappers: dict, path_kernels:
     cfg_str = MagiConfig.from_dict(d)
     gen = torch.Generator(device=dev)
     gen.manual_seed(cfg_res.runtime_config.seed)
-    torch.cuda.empty_cache()
+    fresh_card()
     params = get_dit(cfg_res, dev, gen)
     inp = _request(cfg_res, dev, params, "a red cube on a table")
     noise = torch.randn(inp.latent_size, generator=gen, device=dev)
@@ -1932,7 +1998,7 @@ def run_multi_paths(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
     prompts = ["a red cube on a table", "a blue ball rolls across the grass at dusk"]
     out, walls, stds = {}, {}, {}
     for mode, flags in (("lockstep", []), ("interleaved", ["--interleave"])):
-        torch.cuda.empty_cache()
+        fresh_card()
         torch.cuda.reset_peak_memory_stats(dev)
         for w in wrappers.values():
             w.launches = 0
@@ -1970,7 +2036,7 @@ def run_multi_paths(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
     cfg = MagiConfig.from_dict(config)
     gen = torch.Generator(device=dev)
     gen.manual_seed(cfg.runtime_config.seed)
-    torch.cuda.empty_cache()
+    fresh_card()
     params = get_dit(cfg, dev, gen)
     inps = [_request(cfg, dev, params, p) for p in prompts]
     noises = [torch.randn(inp.latent_size, generator=gen, device=dev) for inp in inps]
@@ -2022,35 +2088,43 @@ def _profiled_idle(fn):
 
 def run_capture_pair(dev, config: dict, name: str, wrappers: dict, path_kernels: list):
     """Phase 15: `config`'s request walked by `ArdfSampler` eagerly
-    (`capture=False`) and with its steps replayed from CUDA graphs (the
-    default), the same weights and noise, each with every launch count set
-    to 0 just before and read just after.  Requires bit-equal chunks,
-    launches equal kernel by kernel, and one graph a variant.  Prints the
-    variants and graphs and the seconds spent capturing them, the mean step
-    (the profiled step left out), the idle share of the walk's second
-    stage-3 step under torch.profiler (1 - device busy / its host wall),
-    and the device peak of each.  Returns the launch counts of the eager
-    and the captured walk."""
+    (`capture=False`), with its steps replayed from CUDA graphs (the
+    default), and again captured through a new sampler (the second walk of
+    the config in the process), the same weights and noise, each with every
+    launch count set to 0 just before and read just after.  Requires
+    bit-equal chunks, launches equal kernel by kernel, one graph a
+    variant; the second walk takes the first captured walk's workspace and
+    captures no graph, and decoding its chunks with the cached VAE
+    captures no VAE graph (both captured walks' chunks are decoded, to the
+    same frames).  Prints the variants and graphs, each captured walk's
+    seconds capturing, the mean step (the profiled step left out), the
+    idle share of the walk's second stage-3 step under torch.profiler (1 -
+    device busy / its host wall), and the device peak of each.  Returns the
+    launch counts of the eager, the captured and the second walk."""
+    import numpy as np
     import torch
 
+    from magi_tpu_torch.core import graphs as G
     from magi_tpu_torch.core.config import MagiConfig
     from magi_tpu_torch.pipeline.pipeline import get_dit
+    from magi_tpu_torch.pipeline.video_process import post_chunk_process
     from magi_tpu_torch.sampling.transport import ArdfSampler
 
     cfg = MagiConfig.from_dict(config)
     gen = torch.Generator(device=dev)
     gen.manual_seed(cfg.runtime_config.seed)
-    torch.cuda.empty_cache()
+    fresh_card()
     params = get_dit(cfg, dev, gen)
     inp = _request(cfg, dev, params, "a red cube on a table")
     noise = torch.randn(inp.latent_size, generator=gen, device=dev)
     rc = cfg.runtime_config
     target = 3 * (rc.num_steps // rc.window_size) + 1
     runs = {}
-    for mode in ("eager", "captured"):
+    for mode in ("eager", "captured", "second"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-        s = ArdfSampler(cfg, params, inp, noise=noise, device=dev, capture=mode == "captured")
+        walk_graphs = G.captures("walk")
+        s = ArdfSampler(cfg, params, inp, noise=noise, device=dev, capture=mode != "eager")
         for w in wrappers.values():
             w.launches = 0
         t0 = time.perf_counter()
@@ -2065,20 +2139,33 @@ def run_capture_pair(dev, config: dict, name: str, wrappers: dict, path_kernels:
                 chunks.append(s.timed_step(step))
         torch.cuda.synchronize()
         steps = [t for i, t in enumerate(s.step_seconds) if i != target]
-        runs[mode] = dict(chunks=[c[1] for c in chunks if c is not None], launches={n: w.launches for n, w in
-                                                                                 wrappers.items()},
+        chunks = [c[1] for c in chunks if c is not None]
+        runs[mode] = dict(chunks=chunks, launches={n: w.launches for n, w in wrappers.items()},
                           step=sum(steps) / len(steps), prof=prof, peak=torch.cuda.max_memory_allocated(dev) / 2**30,
                           variants=variants, graphs=s.graphs, capture_s=capture_s, arena=s._arena.nbytes / 2**20,
-                          n_steps=s.total_forward_steps(), breakdown=s.capture_breakdown())
+                          n_steps=s.total_forward_steps(), breakdown=s.capture_breakdown(),
+                          captured=G.captures("walk") - walk_graphs, workspace=id(s._ws))
+        if mode != "eager":
+            vae_graphs = G.captures("vae")
+            runs[mode]["frames"] = np.concatenate([post_chunk_process(c, cfg, dev) for c in chunks], axis=0)
+            runs[mode]["vae_captured"] = G.captures("vae") - vae_graphs
+        s.release()
         del s
-    e, c = runs["eager"], runs["captured"]
+    e, c, sw = runs["eager"], runs["captured"], runs["second"]
     same = len(e["chunks"]) == len(c["chunks"]) > 0 and all(_same_bits(a, b) for a, b in zip(e["chunks"], c["chunks"]))
+    same2 = len(sw["chunks"]) == len(c["chunks"]) and all(_same_bits(a, b) for a, b in zip(c["chunks"], sw["chunks"]))
     print(f"  {name}: {len(c['chunks'])} chunks bit-equal, eager against captured: {same}; launches equal kernel by "
           f"kernel: {e['launches'] == c['launches']}")
     b = c["breakdown"]
     print(f"  captured: {c['variants']} step variants, {c['graphs']} CUDA graphs, captured in {c['capture_s']:.3f} s "
           f"(eager warm-up runs {b['warm']:.3f} s, ending the captures {b['instantiate']:.3f} s; arena "
           f"{c['arena']:.1f} MiB)")
+    print(f"  second walk, a new sampler: its workspace the first captured walk's: "
+          f"{sw['workspace'] == c['workspace']}; graphs captured {sw['captured']} (first walk {c['captured']}), seconds capturing {sw['capture_s']:.4f} "
+          f"(first walk {c['capture_s']:.4f}); chunks bit-equal to the first captured walk's: {same2}; launches equal "
+          f"kernel by kernel: {sw['launches'] == c['launches']}; decoded with the cached VAE: VAE graphs captured "
+          f"{sw['vae_captured']} (first walk {c['vae_captured']}), frames equal: "
+          f"{bool(np.array_equal(sw['frames'], c['frames']))}")
     for mode, r in runs.items():
         wall, busy, idle = r["prof"]
         print(f"  {mode}: seconds per step mean {r['step']:.4f}; step {target} under the profiler {wall:.1f} ms, device "
@@ -2094,7 +2181,260 @@ def run_capture_pair(dev, config: dict, name: str, wrappers: dict, path_kernels:
     missing = [n for n in path_kernels if c["launches"][n] == 0]
     if missing:
         fail(f"{name}: the captured walk launched no {missing}")
-    return e["launches"], c["launches"]
+    if sw["captured"] or sw["vae_captured"] or sw["workspace"] != c["workspace"]:
+        fail(f"{name}: the second walk captured {sw['captured']} step graphs and {sw['vae_captured']} VAE graphs "
+             f"(its workspace the first walk's: {sw['workspace'] == c['workspace']})")
+    if not same2 or sw["launches"] != c["launches"] or not np.array_equal(sw["frames"], c["frames"]):
+        fail(f"{name}: the second walk's chunks, frames or launches differ from the first captured walk's")
+    return e["launches"], c["launches"], sw["launches"]
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the service on the card, and the ComfyUI node in this process
+# ---------------------------------------------------------------------------
+
+SERVICE_PROMPTS = ("a red cube on a table", "a blue ball rolls across the grass at dusk", "a paper boat on a pond")
+# the conditioning the service's generator sets around its engine
+SERVICE_ENV = dict(PAD_HQ="true", PAD_DURATION="true", OFFLOAD_T5_CACHE="true", OFFLOAD_VAE_CACHE="true")
+# K5 qk8 and K6: the symbols an engine's trace must name
+ENGINE_SYMBOLS = ("seg_attn_q8_kernel", "qmm_i8_wgmma_kernel")
+
+
+def _file_names(path: str, symbols) -> dict:
+    """Which of `symbols` the file at `path` holds, read a block at a time."""
+    found, tail = dict.fromkeys(symbols, False), b""
+    with open(path, "rb") as f:
+        while block := f.read(1 << 24):
+            buf = tail + block
+            for sym in symbols:
+                found[sym] = found[sym] or sym.encode() in buf
+            tail = buf[-256:]
+    return found
+
+
+def _file_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _video_content(path: str):
+    """What a written video holds: an .npz's frames, else the file's bytes."""
+    import numpy as np
+
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return z["video"]
+    return _file_bytes(path)
+
+
+def _same_content(a, b) -> bool:
+    import numpy as np
+
+    return type(a) is type(b) and (np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b)
+
+
+def run_service_phase(dev, config: dict, stem: str, wrappers: dict, path_kernels: list, launches5: dict) -> dict:
+    """Phase 16: the port's service (`magi_tpu_torch.serve.service`'s handler
+    on 127.0.0.1:0 in a thread; `MAGI_CONFIG_FILE` phase 5's request,
+    `MAGI_MAX_QUEUE` 2, each engine subprocess traced under its own
+    `MAGI_PROFILE_DIR`), driven by the port's client: ping and health (ready,
+    the card); three t2v requests in flight at once (phase 5's prompt
+    through /v1/chat/completions, one through /generate, one more, arriving
+    in that order): the third refused with 429, the two served one after
+    the other, each download byte-equal to the file the engine wrote; then
+    /generate with two prompts (the lockstep engine): two videos.  Every
+    engine's trace must name K5 qk8 and K6.  Then the ComfyUI `MagiProcess`
+    node twice in this process on the same config, prompt and seed, its
+    overrides the config's values, under the generator's conditioning
+    environment and PyTorch's default TF32 flags (with a VAE built under
+    them), as the engines run: the first call's video equals the served one of that
+    prompt, the second captures no DiT step graph and equals the first, and
+    the two calls launch twice phase 5's kernels (counts set to 0 just
+    before, read just after).  Prints each request's wall and set-up seconds
+    (the engine's start to its first step, with its log's load and capture
+    lines) and the phase's seconds.  Returns the node calls' launch
+    counts."""
+    import shutil
+    import threading
+    import urllib.error
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from magi_tpu_torch.core import graphs as G
+
+    t_phase = time.perf_counter()
+    fresh_card()
+    cfg_path, out_dir, dl_dir, trace_root = stem + ".json", stem + "_out", stem + "_dl", stem + "_traces"
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+    for d in (out_dir, dl_dir, trace_root):
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+    names = ("MAGI_CONFIG_FILE", "OUT_DIR", "MAGI_MAX_QUEUE", "MAGI_PROFILE_DIR") + tuple(SERVICE_ENV)
+    saved_env = {k: os.environ.get(k) for k in names}
+    os.environ.update(MAGI_CONFIG_FILE=cfg_path, OUT_DIR=out_dir, MAGI_MAX_QUEUE="2")
+    from magi_tpu_torch.serve import generator, service
+    from magi_tpu_torch.serve.client import MagiVideoClient
+
+    saved_service = {k: getattr(service, k) for k in ("OUT_DIR", "MAGI_CONFIG_FILE", "ENGINE_GATE",
+                                                      "generate_magi_video")}
+    saved_batch = generator.generate_magi_video_batch
+    service.OUT_DIR, service.MAGI_CONFIG_FILE, service.ENGINE_GATE = out_dir, cfg_path, service.EngineGate(2)
+    engines, engine_started = [], threading.Event()
+
+    def traced(fn):
+        """`fn` (called inside the engine gate, one at a time) with a trace
+        directory of its own, timed and kept."""
+        def call(*a, **k):
+            label = f"engine{len(engines)}"
+            os.environ["MAGI_PROFILE_DIR"] = os.path.join(trace_root, label)
+            engine_started.set()
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **k)
+            finally:
+                os.environ.pop("MAGI_PROFILE_DIR", None)
+            engines.append(dict(label=label, result=out, start=t0, end=time.perf_counter()))
+            return out
+        return call
+
+    service.generate_magi_video = traced(saved_service["generate_magi_video"])
+    generator.generate_magi_video_batch = traced(saved_batch)
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), service.MagiHandler)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    got, codes = {}, {}
+    try:
+        client = MagiVideoClient(f"http://127.0.0.1:{srv.server_port}", timeout=600)
+        ping, health = client.ping(), client.health()
+        deps = health["dependencies"]
+        print(f"  ping {ping}; health {health['status']}: ready {deps['ready']}, {deps.get('devices')} device(s), "
+              f"{deps.get('device_name')}, torch {deps.get('torch_version')}")
+        if not deps["ready"] or deps.get("device_name") != torch.cuda.get_device_name(0):
+            fail(f"the service's health does not report the card ready: {deps}")
+
+        def request(key, fn):
+            try:
+                got[key] = fn()
+                codes[key] = 200
+            except urllib.error.HTTPError as e:
+                codes[key] = e.code
+
+        a = threading.Thread(target=request, args=("chat", lambda: client.generate_video_openai(
+            SERVICE_PROMPTS[0], output_path=os.path.join(dl_dir, "chat"))))
+        b = threading.Thread(target=request, args=("generate", lambda: client.generate_video_direct(
+            SERVICE_PROMPTS[1], output_path=os.path.join(dl_dir, "generate"))))
+        a.start()
+        if not engine_started.wait(60):
+            fail("the first request started no engine within 60 s")
+        b.start()
+        t0 = time.perf_counter()
+        while service.ENGINE_GATE._next_ticket < 2 and time.perf_counter() - t0 < 30:
+            time.sleep(0.01)  # the second request waits in the gate
+        request("third", lambda: client.generate_video_direct(SERVICE_PROMPTS[2],
+                                                              output_path=os.path.join(dl_dir, "third")))
+        a.join()
+        b.join()
+        batch = client.generate_video_batch(list(SERVICE_PROMPTS[:2]), output_dir=dl_dir)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        server.join()
+        service.__dict__.update(saved_service)
+        generator.generate_magi_video_batch = saved_batch
+    print(f"  three requests at once: HTTP {codes} (MAGI_MAX_QUEUE 2)")
+    if sorted(codes.values()) != [200, 200, 429] or codes["third"] != 429:
+        fail(f"expected the third request refused with 429 and the others served, got {codes}")
+    if len(engines) != 3 or not all(e["result"].get("success") for e in engines):
+        fail(f"expected three engine runs, all successful: {[e['result'].get('error') for e in engines]}")
+    served_one, served_two = engines[0], engines[1]
+    overlap = served_one["end"] > served_two["start"]
+    print(f"  the two served requests ran one after the other: {not overlap} (first {served_one['start'] - t_phase:.2f}"
+          f"-{served_one['end'] - t_phase:.2f} s, second {served_two['start'] - t_phase:.2f}-"
+          f"{served_two['end'] - t_phase:.2f} s into the phase)")
+    if overlap:
+        fail("the engine gate let two engines run at once")
+    pairs = [(got["chat"], served_one["result"]["output_path"]), (got["generate"], served_two["result"]["output_path"])]
+    pairs += [(p, os.path.join(out_dir, os.path.basename(p))) for p in batch]
+    same_downloads = len(batch) == 2 and all(_file_bytes(d) == _file_bytes(w) for d, w in pairs)
+    print(f"  downloads byte-equal to the engines' files ({len(pairs)}: chat, generate, batch of "
+          f"{len(batch)}): {same_downloads}; {', '.join(os.path.basename(w) for _, w in pairs)}")
+    if not same_downloads:
+        fail("a download differs from the file the engine wrote")
+    for e in engines:
+        res = e["result"]
+        log = res["log"]
+        first = next((t for t, line in log if "first step" in line), None)
+        notes = [line.split("[magi_tpu_torch] ", 1)[-1].strip() for _, line in log
+                 if "DiT built" in line or "walk:" in line]
+        traces = [os.path.join(dp, f) for dp, _, fs in os.walk(os.path.join(trace_root, e["label"])) for f in fs
+                  if f == "trace.json"]
+        named = {sym: any(_file_names(t, [sym])[sym] for t in traces) for sym in ENGINE_SYMBOLS}
+        print(f"  {e['label']}: wall {res['duration']:.2f} s, set-up (engine start to its first step) "
+              f"{first if first is None else round(first, 2)} s; {' | '.join(notes)}; trace "
+              f"{sum(os.path.getsize(t) for t in traces) / 2**20:.1f} MiB names {named}")
+        if first is None or not traces or not all(named.values()):
+            fail(f"{e['label']}: no first step in its log, or its trace does not name {ENGINE_SYMBOLS}")
+
+    # the ComfyUI node in this process: the reference run of phase 5's prompt,
+    # as the engines ran it: their environment, PyTorch's default TF32 flags
+    # (the smoke turns cuDNN's off for its fp32 checks, and the VAE's last
+    # convolution follows them) and a VAE built and captured under them
+    from magi_tpu_torch.comfyui import NODE_CLASS_MAPPINGS
+    from magi_tpu_torch.pipeline import video_process
+
+    os.environ.update(SERVICE_ENV)
+    rc = config["runtime_config"]
+    node = NODE_CLASS_MAPPINGS["MagiProcess"]()
+    videos, captured, vae_captured, walls, written = [], [], [], [], []
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = DEFAULT_TF32["matmul"]
+    torch.backends.cudnn.allow_tf32 = DEFAULT_TF32["cudnn"]
+    video_process._vae_cache.clear()
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        for _ in range(2):
+            before, vae_before = G.captures("walk"), G.captures("vae")
+            t0 = time.perf_counter()
+            (path,) = node.process(SERVICE_PROMPTS[0], cfg_path, "t2v", seed=rc["seed"],
+                                   video_size_h=rc["video_size_h"], video_size_w=rc["video_size_w"],
+                                   num_frames=rc["num_frames"], num_steps=rc["num_steps"], fps=rc["fps"])
+            walls.append(time.perf_counter() - t0)
+            captured.append(G.captures("walk") - before)
+            vae_captured.append(G.captures("vae") - vae_before)
+            videos.append(_video_content(path))
+            written.append(path)
+    finally:
+        for k, v in saved_env.items():
+            _set_env(k, v)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        video_process._vae_cache.clear()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    served = _video_content(served_one["result"]["output_path"])
+    print(f"  ComfyUI MagiProcess twice in this process (TF32 as a process starts: {DEFAULT_TF32}): walls "
+          f"{walls[0]:.2f} / {walls[1]:.2f} s, step graphs captured {captured[0]} / {captured[1]}, VAE graphs "
+          f"{vae_captured[0]} / {vae_captured[1]}; -> {written[0]}; first call equal to the served video of the "
+          f"same prompt: {_same_content(videos[0], served)}; second equal to the first: "
+          f"{_same_content(videos[1], videos[0])}")
+    bad = {n: (launches[n], 2 * launches5[n]) for n in wrappers if launches[n] != 2 * launches5[n]}
+    print(f"  launches of the two node calls: twice phase 5's for every kernel: {not bad}")
+    for p in set(written):
+        os.remove(p)
+    if not _same_content(videos[0], served) or not _same_content(videos[1], videos[0]):
+        fail("the in-process ComfyUI run differs from the served video, or its second call from its first")
+    if captured[1]:
+        fail(f"the second ComfyUI call captured {captured[1]} step graphs")
+    if bad:
+        fail(f"the node calls' launches are not twice phase 5's: {bad}")
+    missing = [n for n in path_kernels if launches[n] == 0]
+    if missing:
+        fail(f"the ComfyUI node's runs launched no {missing}")
+    for d in (out_dir, dl_dir, trace_root):
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def _leaves(tree):
@@ -2119,6 +2459,7 @@ def main() -> int:
     if any(m == "jax" or m.startswith("jax.") or m == "magi_tpu" or m.startswith("magi_tpu.") for m in sys.modules):
         fail("the port imported jax or magi_tpu")
 
+    DEFAULT_TF32.update(matmul=torch.backends.cuda.matmul.allow_tf32, cudnn=torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2140,6 +2481,14 @@ def main() -> int:
         for line in f:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("  ptxas:", line.strip().split("ptxas info    : ")[-1])
+    from magi_tpu_torch import runtime_native
+
+    t0 = time.perf_counter()
+    native = runtime_native.available()
+    print(f"  native IO runtime (runtime/magi_io.cpp, g++ and libzstd): "
+          f"{'built ' + runtime_native.lib_path() if native else 'NOT available (no toolchain or libzstd)'} in "
+          f"{time.perf_counter() - t0:.2f} s; checkpoint shards load through the "
+          f"{'native' if native else 'Python'} reader")
 
     phase("phase 2: kernels against their plain versions (CUDA events)")
     warm_card(dev)
@@ -2309,14 +2658,20 @@ def main() -> int:
     launches14b, launches14m = run_multi_paths(dev, d, os.path.join(out_dir, "4.5B_distill_quant_two"), wrappers,
                                                distill_kernels, launches5, stats5)
 
-    phase(f"phase 15: the steps replayed from CUDA graphs against the eager walk, ArdfSampler.walk of phase 4's "
-          f"request ({STEPS} steps) and of phase 5's (256x256, 96 frames)")
-    launches15be, launches15bc = run_capture_pair(dev, base, "4.5B base 3-CFG", wrappers,
-                                                  ["segmented_attention_two_source", "segmented_attention_v2",
-                                                   "kv_norm_rope_pack", "gate_norm_residual"])
-    launches15de, launches15dc = run_capture_pair(dev, d, "4.5B distill + int8", wrappers,
-                                                  ["kv_norm_rope_pack_q8", "segmented_attention_two_source_q8",
-                                                   "quantized_matmul_i8", "rowquant_fused", "gate_norm_residual"])
+    phase(f"phase 15: the steps replayed from CUDA graphs against the eager walk, then a second captured walk of "
+          f"each config, ArdfSampler.walk of phase 4's request ({STEPS} steps) and of phase 5's (256x256, 96 frames)")
+    launches15be, launches15bc, launches15bs = run_capture_pair(
+        dev, base, "4.5B base 3-CFG", wrappers,
+        ["segmented_attention_two_source", "segmented_attention_v2", "kv_norm_rope_pack", "gate_norm_residual"])
+    launches15de, launches15dc, launches15ds = run_capture_pair(
+        dev, d, "4.5B distill + int8", wrappers,
+        ["kv_norm_rope_pack_q8", "segmented_attention_two_source_q8", "quantized_matmul_i8", "rowquant_fused",
+         "gate_norm_residual"])
+
+    phase("phase 16: the service on the card (engine subprocesses, phase 5's request) through the port's client, "
+          "then the ComfyUI MagiProcess node twice in this process")
+    launches16 = run_service_phase(dev, d, os.path.join(out_dir, "4.5B_distill_quant_service"), wrappers,
+                                   distill_kernels, launches5)
 
     for r in results:
         r["launches_by_path"] = {"base": launches4[r["name"]], "distill_int8": launches5[r["name"]],
@@ -2329,8 +2684,11 @@ def main() -> int:
                                  "distill_int8_batch2": launches14b[r["name"]],
                                  "distill_int8_many2": launches14m[r["name"]],
                                  "base_eager": launches15be[r["name"]], "base_captured": launches15bc[r["name"]],
+                                 "base_second": launches15bs[r["name"]],
                                  "distill_int8_eager": launches15de[r["name"]],
-                                 "distill_int8_captured": launches15dc[r["name"]]}
+                                 "distill_int8_captured": launches15dc[r["name"]],
+                                 "distill_int8_second": launches15ds[r["name"]],
+                                 "distill_int8_comfyui": launches16[r["name"]]}
         r["launches"] = sum(r["launches_by_path"].values())
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,10 +1,14 @@
 """DiT checkpoint loading (the port of `magi_tpu.checkpoint.loader`):
 sharded safetensors (plain or `.zst`) -> the port's parameter tree.
 
-* `load_state_dict` resolves the variant subdirectory
-  (`inference_weight[.fp8][.distill]`) and maps every shard
-  (`checkpoint.safetensors_io`): the tensors stay on disk, in their stored
-  dtypes, until a leaf is read.
+* `shard_paths` resolves the variant subdirectory
+  (`inference_weight[.fp8][.distill]`) and its shards; `load_state_dict`
+  reads every shard: with the native runtime (`runtime_native.read_files`:
+  threaded reads, zstd in C++) when it builds, as the JAX package's loader
+  does, else mapped (`checkpoint.safetensors_io`: the tensors stay on
+  disk, in their stored dtypes, until a leaf is read).  MAGI_DISABLE_NATIVE=1
+  picks the mapped route.  `last_read` says which route the last load
+  took, its bytes and seconds.
 * `_dequant_fp8` inverts the released fp8 checkpoints' execution math to
   the effective weights, leaf by leaf and on the target device when each
   is read, and emits the smooth-quant factor `act_smooth`.
@@ -18,23 +22,27 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from collections.abc import Mapping
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
-from magi_tpu_torch.checkpoint.safetensors_io import load_file
+from magi_tpu_torch import runtime_native
+from magi_tpu_torch.checkpoint.safetensors_io import load_buffer, load_file
 from magi_tpu_torch.core.config import MagiConfig
 from magi_tpu_torch.core.logger import print_rank_0
 from magi_tpu_torch.core.utils import resolve_device
 
 _AUX = (".weight_scale", ".smooth_scale", ".input_scale")
+last_read: dict = {}  # the last load_state_dict's route ("native" or "python"), shard bytes and read seconds
 
 
-def load_state_dict(load_dir: str, fp8_quant: bool = False, distill: bool = False) -> Dict[str, torch.Tensor]:
-    """{name: CPU tensor} of every shard of the variant subdirectory, listed
-    by `model.safetensors.index.json` or else by the directory."""
+def shard_paths(load_dir: str, fp8_quant: bool = False, distill: bool = False) -> List[str]:
+    """The shard files of the variant subdirectory
+    (`inference_weight[.fp8][.distill]`), listed by
+    `model.safetensors.index.json` or else by the directory."""
     subdir = "inference_weight" + (".fp8" if fp8_quant else "") + (".distill" if distill else "")
     weight_dir = os.path.join(load_dir, subdir)
     if not os.path.isdir(weight_dir):
@@ -47,11 +55,27 @@ def load_state_dict(load_dir: str, fp8_quant: bool = False, distill: bool = Fals
         shard_files = sorted(f for f in os.listdir(weight_dir) if f.endswith((".safetensors", ".safetensors.zst")))
     if not shard_files:
         raise FileNotFoundError(f"no safetensors shards under {weight_dir}")
+    return [os.path.join(weight_dir, s) for s in shard_files]
+
+
+def load_state_dict(load_dir: str, fp8_quant: bool = False, distill: bool = False) -> Dict[str, torch.Tensor]:
+    """{name: CPU tensor} of every shard of `shard_paths`: read by the
+    native runtime when it is available, else mapped by the Python
+    reader."""
+    paths = shard_paths(load_dir, fp8_quant, distill)
+    native = runtime_native.available()
     state: Dict[str, torch.Tensor] = {}
-    with ThreadPoolExecutor(max_workers=min(8, len(shard_files))) as ex:
-        for shard in ex.map(lambda s: load_file(os.path.join(weight_dir, s)), shard_files):
-            state.update(shard)
-    print_rank_0(f"loaded {len(state)} tensors from {weight_dir}")
+    t0 = time.perf_counter()
+    if native:
+        for path, raw in zip(paths, runtime_native.read_arrays(paths)):
+            state.update(load_buffer(raw, path))
+    else:
+        with ThreadPoolExecutor(max_workers=min(8, len(paths))) as ex:
+            for shard in ex.map(load_file, paths):
+                state.update(shard)
+    last_read.update(route="native" if native else "python", seconds=time.perf_counter() - t0,
+                     bytes=sum(t.numel() * t.element_size() for t in state.values()))
+    print_rank_0(f"loaded {len(state)} tensors from {os.path.dirname(paths[0])} ({last_read['route']} reader)")
     return state
 
 

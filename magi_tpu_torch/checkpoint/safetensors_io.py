@@ -11,6 +11,9 @@ their offsets counted from the end of the header.
   time to the card never holds the file in host memory); a
   `.safetensors.zst` shard is decompressed whole through the `zstandard`
   module, and raises an ImportError naming it when it is missing.
+* `load_buffer(raw, name)`: the same from a file's bytes already in host
+  memory (a uint8 tensor or numpy array, as the native reader gives
+  them); the tensors are views of it.
 * `save_file(tensors, path)`: the inverse, for the same dtypes.
 
 The dtypes are F32, F16, BF16, F8_E4M3 (`torch.float8_e4m3fn`), I8, U8 and
@@ -59,7 +62,16 @@ def _raw_bytes(path: str) -> torch.Tensor:
 
 def load_file(path: str) -> Dict[str, torch.Tensor]:
     """{name: CPU tensor in its stored dtype} of one safetensors file."""
-    raw = _raw_bytes(path)
+    return load_buffer(_raw_bytes(path), path)
+
+
+def load_buffer(raw, path: str = "<buffer>") -> Dict[str, torch.Tensor]:
+    """{name: CPU tensor in its stored dtype} of a safetensors file's bytes
+    `raw` (uint8, a tensor or a numpy array); `path` names it in errors."""
+    if isinstance(raw, np.ndarray):
+        raw = torch.from_numpy(raw)
+    if raw.numel() < 8:
+        raise ValueError(f"{path} is too short to be a safetensors file")
     n = int.from_bytes(raw[:8].numpy().tobytes(), "little")
     header = json.loads(raw[8 : 8 + n].numpy().tobytes())
     base = 8 + n

@@ -24,11 +24,13 @@ step's kernels from the device with the host out of the loop.
   (the latent state, the KV cache, the per-step inputs) and its `Arena`,
   where a piece's outputs are copied so the next piece finds them at the
   same address.
-* One memory pool and one capture stream per device and role
-  (`graph_pool`, `_capture_stream`): the walk's live graphs share one;
-  the VAE's share another, since the interleaved decode replays on its
-  own stream beside the walk's, and two graphs of one pool reuse each
-  other's memory, two of one capture stream cuBLAS's workspace.
+* Memory pools and capture streams: a walk's graphs share its
+  workspace's pool, so dropping the workspace frees their memory; the
+  VAE's graphs share one pool per device (`graph_pool`).  Graphs of one
+  pool reuse each other's memory, and graphs captured on one stream
+  cuBLAS's workspace, so the walk and the VAE capture on a stream each
+  (`_capture_stream`): the interleaved decode replays on its own stream
+  beside the walk's.
 * A kernel wrapper counts its launches when its Python runs; a replay runs
   none of it.  Each piece records, while it is captured, how many launches
   of each wrapper it holds, and adds them on every replay; the capture's
@@ -36,6 +38,17 @@ step's kernels from the device with the host out of the loop.
   that ran, eager or replayed.
 * No fallback: a capture or a replay that fails raises a `RuntimeError`
   naming the graph.
+* Graphs outlive the walk that captured them, as the JAX package's
+  compiled steps outlive a request (`_JIT_CACHE`): a `Workspace` holds a
+  walk's fixed buffers and the step callables captured against them, and
+  the process's pool (`WORKSPACES`) hands an idle one to the next sampler
+  of an equal key, which copies its request into the buffers and
+  captures nothing.  Samplers alive at once never share one.  Capturing a
+  workspace of a new key frees the idle ones of other keys;
+  `release_workspaces()` frees them all, and runs the hooks given to
+  `on_release` (the pipeline's resident DiT tree, whose addresses the
+  graphs bake, goes there).  `captures(role)` counts the graphs the
+  process captured.
 
 On the CPU nothing is captured: `PLAIN` runs every piece as a call.
 """
@@ -47,6 +60,7 @@ import gc
 import threading
 import time
 import weakref
+from collections import Counter
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
@@ -55,6 +69,14 @@ _lock = threading.Lock()
 _pools = weakref.WeakValueDictionary()  # (device index, role) -> the live graphs' torch.cuda.MemPool
 _capture_streams: Dict[tuple, torch.cuda.Stream] = {}
 _warmed: set = set()  # (device index, warm key) of the graphs whose first call ran eagerly
+_captured: Counter = Counter()  # role -> graphs captured in the process
+
+
+def captures(role: Optional[str] = None) -> int:
+    """CUDA graphs the process has captured, of `role` ("walk", "vae") or
+    of every role: a walk or a decode that adds none replayed graphs
+    captured before."""
+    return _captured[role] if role is not None else sum(_captured.values())
 
 
 def launch_counters() -> Tuple[Callable, ...]:
@@ -177,25 +199,26 @@ class StepGraph:
     """One jitted function's counterpart on the card (see the module's
     docstring).  `name` names it in errors; `body(run, *args)` returns what
     the call returns (pieces' outputs live in `arena`); `role` picks its
-    pool and capture stream.  `warm_key` names
+    capture stream, and its pool unless `pool` is given.  `warm_key` names
     what the first call's eager run warms: the first graph of a key in the
     process runs the body eagerly before it captures, as the JAX package
     compiles a variant once a process; later ones capture at once and
     replay for their first call's result."""
 
     def __init__(self, name: str, body: Callable, device: torch.device, role: str, arena: Arena,
-                 warm_key: Optional[tuple] = None):
+                 warm_key: Optional[tuple] = None, pool: Optional["torch.cuda.MemPool"] = None):
+        self._pieces: List[tuple] = []  # (name, graph, launch deltas, outputs); goes before `pool` does
         self.name = name
         self.body = body
         self.device = device
-        self.pool = graph_pool(device, role)
+        self.role = role
+        self.pool = graph_pool(device, role) if pool is None else pool
         self._stream = _capture_stream(device, role)
         self.arena = arena
         self.warm_key = warm_key
         self._mode = "new"
         self._depth = 0
         self._i = 0
-        self._pieces: List[tuple] = []  # (name, graph, launch deltas, outputs)
         self.capture_seconds = 0.0  # host seconds of the first call: its warm-up (if any) and capture
         self.warm_seconds = 0.0  # of which the eager warm-up run
         self.instantiate_seconds = 0.0  # of which ending the captures (CUDA instantiates the graphs there)
@@ -203,6 +226,10 @@ class StepGraph:
     @property
     def copies_live(self) -> bool:
         return self._mode != "capture"
+
+    @property
+    def failed(self) -> bool:
+        return self._mode == "failed"
 
     @property
     def graphs(self) -> int:
@@ -305,7 +332,13 @@ class StepGraph:
                     try:  # end the broken capture; the first error is the one to report
                         graph.capture_end()
                     except RuntimeError:
-                        pass
+                        # it raised before the allocator stopped sending allocations to
+                        # the pool: left so, the allocator counts a capture underway, and
+                        # the next release of cached memory (a pool's end) aborts
+                        try:
+                            torch._C._cuda_endAllocateToPool(_index(self.device), self.pool.id)
+                        except RuntimeError:
+                            pass
                     raise
                 t0 = time.perf_counter()
                 graph.capture_end()
@@ -318,6 +351,8 @@ class StepGraph:
         torch.cuda.current_stream(self.device).wait_stream(stream)
         deltas = [(w, a - b) for w, a, b in zip(launch_counters(), launch_counts(), before) if a != b]
         self._pieces.append((name, graph, deltas, out))
+        with _lock:
+            _captured[self.role] += 1
         self._i += 1
         return out
 
@@ -334,10 +369,112 @@ def capture_breakdown(graphs) -> dict:
                 instantiate=sum(g.instantiate_seconds for g in sg))
 
 
-def make_callable(name: str, body: Callable, device: torch.device, arena: Arena, warm_key: tuple,
-                  role: str = "walk"):
-    """`body` as a step callable: a `StepGraph` on a card, else `body` run
-    with `PLAIN`."""
+def make_callable(name: str, body: Callable, device: torch.device, workspace: "Workspace", warm_key: tuple):
+    """`body` as a step callable of `workspace`: a `StepGraph` in its arena
+    and memory pool on a card, else `body` run with `PLAIN`."""
     if device.type == "cuda":
-        return StepGraph(name, body, device, role, arena, warm_key)
+        return StepGraph(name, body, device, "walk", workspace.arena, warm_key, workspace.graph_pool())
     return lambda *args: body(PLAIN, *args)
+
+
+class Workspace:
+    """A walk's fixed buffers (the sampler sets them as attributes: the
+    latent state, the KV cache, the step inputs, the captions, the prefix
+    buffer) with the `arena`, the step callables (`steps`) captured
+    against them and their memory pool, and the parameter `tree` they
+    read, held so its addresses stay valid.  One sampler at a time leases it (`lease`); the
+    steps find that sampler through `sampler`."""
+
+    def __init__(self, key: tuple, tree, device: torch.device):
+        self.key = key
+        self.tree = tree
+        self.device = device
+        self.arena = Arena(device)
+        self.steps: dict = {}
+        self.sampler: Callable[[], object] = lambda: None
+        self._pool: Optional["torch.cuda.MemPool"] = None
+        self._ticket: Optional[object] = None
+        self._generation = -1
+
+    def graph_pool(self) -> "torch.cuda.MemPool":
+        """The memory pool of the workspace's graphs: theirs alone, so the
+        memory goes when the workspace does (at the next
+        `torch.cuda.empty_cache()`, or when the allocator needs it)."""
+        if self._pool is None:
+            with torch.cuda.device(_index(self.device)):
+                self._pool = torch.cuda.MemPool()
+        return self._pool
+
+    def lease(self, sampler) -> object:
+        """Give the workspace to `sampler`; returns the ticket that gives it back."""
+        self._ticket = object()
+        self.sampler = weakref.ref(sampler)
+        return self._ticket
+
+    @property
+    def broken(self) -> bool:
+        """A capture failed: its callables cannot run again."""
+        return any(getattr(fn, "failed", False) for fn in self.steps.values())
+
+
+class WorkspacePool:
+    """The process's workspaces by key.  `take(key)` leases out an idle
+    workspace of `key` (None if there is none: the caller builds one and
+    `add`s it, which frees the idle workspaces of other keys);
+    `give_back(ws, ticket)` returns a workspace when its sampler's walk
+    ends or the sampler is collected (only its current lessee's ticket
+    counts); `release()` frees every idle workspace, and keeps out the
+    leased ones."""
+
+    def __init__(self):
+        self._idle: Dict[tuple, List[Workspace]] = {}
+        self._generation = 0
+
+    def take(self, key: tuple) -> Optional[Workspace]:
+        with _lock:
+            idle = self._idle.get(key)
+            return idle.pop() if idle else None
+
+    def add(self, ws: Workspace) -> None:
+        with _lock:
+            self._idle = {k: v for k, v in self._idle.items() if k == ws.key}
+            ws._generation = self._generation
+
+    def give_back(self, ws: Workspace, ticket: object) -> None:
+        with _lock:
+            if ws._ticket is not ticket:
+                return
+            ws._ticket = None
+            ws.sampler = lambda: None
+            if ws._generation == self._generation and not ws.broken:
+                self._idle.setdefault(ws.key, []).append(ws)
+
+    def idle(self, key: Optional[tuple] = None) -> int:
+        """Idle workspaces, of `key` or in all."""
+        with _lock:
+            return len(self._idle.get(key, ())) if key is not None else sum(map(len, self._idle.values()))
+
+    def release(self) -> None:
+        with _lock:
+            self._idle.clear()
+            self._generation += 1
+
+
+WORKSPACES = WorkspacePool()
+_release_hooks: List[Callable[[], None]] = []
+
+
+def on_release(hook: Callable[[], None]) -> None:
+    """Run `hook` in every `release_workspaces()`: a cache of what the
+    workspaces' graphs read frees it there."""
+    _release_hooks.append(hook)
+
+
+def release_workspaces() -> None:
+    """Free every idle workspace (its buffers and graphs) and run the
+    `on_release` hooks; workspaces leased now are dropped when their
+    samplers give them back.  Their memory returns to the device at the
+    next `torch.cuda.empty_cache()`."""
+    WORKSPACES.release()
+    for hook in _release_hooks:
+        hook()

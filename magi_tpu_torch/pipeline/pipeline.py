@@ -19,13 +19,21 @@ as `t5_device` says), or are random under SKIP_LOAD_MODEL=1.  With
 MAGI_PROFILE_DIR set, each walk is traced (`core.profiler.maybe_trace`).
 On the card the denoise steps and the VAE run as CUDA graphs (`core.graphs`,
 the counterpart of the JAX package's jit); `MagiPipeline(capture=False)`
-walks eagerly.  Multi-device parallelism raises `NotImplementedError`
-naming its ROADMAP item.
+walks eagerly.  The graphs outlive a request, as the JAX package's compiled
+steps do: on the card the DiT tree stays resident for later requests of an
+equal model (`get_dit`), and a later walk of an equal config takes the
+earlier walk's workspace and replays its graphs, through this pipeline or a
+new one.  Each request draws its weights (under SKIP_LOAD_MODEL) and its
+noise from the seed again, as the JAX pipeline does from `PRNGKey(seed)`,
+so equal requests give equal videos.  Multi-device parallelism raises
+`NotImplementedError` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import os
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -35,7 +43,7 @@ import numpy as np
 import torch
 
 from magi_tpu_torch.core.config import MagiConfig
-from magi_tpu_torch.core.graphs import uncounted
+from magi_tpu_torch.core.graphs import on_release, release_workspaces, uncounted
 from magi_tpu_torch.core.logger import print_rank_0
 from magi_tpu_torch.core.profiler import log_memory, maybe_trace
 from magi_tpu_torch.core.timer import event_path_timer
@@ -57,7 +65,56 @@ def get_dit(config: MagiConfig, device: torch.device, generator: torch.Generator
     or random weights under SKIP_LOAD_MODEL=1; then quantized (first/last
     layers kept bf16, smooth-quant linears folded) when `fp8_quant`,
     `MAGI_INT8=1` or `MAGI_INT4=1` is set: to nibble-packed int4 under
-    `quant_bits: 4` or `MAGI_INT4=1`, else to int8."""
+    `quant_bits: 4` or `MAGI_INT4=1`, else to int8.
+
+    On the card the tree stays resident (`_dit_cache`, beside
+    `video_process.get_vae`'s cache) for later calls of an equal
+    `_dit_key`, and under SKIP_LOAD_MODEL a call then leaves `generator`
+    where the draw left it: the captured steps read the tree's addresses,
+    so a later request replays them.  A new key first frees the resident
+    tree and the workspaces (`core.graphs.release_workspaces`), whose
+    graphs read it."""
+    if device.type != "cuda":
+        return _build_dit(config, device, generator)
+    skip = env_is_true("SKIP_LOAD_MODEL")
+    key = _dit_key(config, device, generator)
+    if key not in _dit_cache:
+        release_workspaces()
+        t0 = time.perf_counter()
+        params = _build_dit(config, device, generator)
+        torch.cuda.synchronize(device)
+        print_rank_0(f"DiT built in {time.perf_counter() - t0:.2f} s (kept resident)")
+        _dit_cache[key] = (params, generator.get_state() if skip else None)
+    params, after = _dit_cache[key]
+    if skip:
+        generator.set_state(after)
+    return params
+
+
+_dit_cache: dict = {}  # _dit_key -> (the DiT tree on the card, the generator's state after its draw)
+on_release(_dit_cache.clear)
+
+
+def _dit_key(config: MagiConfig, device: torch.device, generator: torch.Generator) -> tuple:
+    """What the tree `get_dit` builds depends on: the device, the model and
+    engine configs and the quantization switches; under SKIP_LOAD_MODEL
+    the generator's state, else the checkpoint's shard files and index
+    (path, size and modification time of each), so a checkpoint rewritten
+    in place is read again."""
+    ec = config.engine_config
+    if env_is_true("SKIP_LOAD_MODEL"):
+        source = bytes(generator.get_state().numpy())
+    else:
+        from magi_tpu_torch.checkpoint.loader import shard_paths
+
+        paths = shard_paths(config.runtime_config.load, ec.fp8_quant, ec.distill)
+        paths.append(os.path.join(os.path.dirname(paths[0]), "model.safetensors.index.json"))
+        source = tuple((p, st.st_size, st.st_mtime_ns) for p in paths if os.path.exists(p) for st in [os.stat(p)])
+    return (str(device), repr((dataclasses.asdict(config.model_config), dataclasses.asdict(ec))),
+            tuple(env_is_true(k) for k in ("SKIP_LOAD_MODEL", "MAGI_INT8", "MAGI_INT4")), source)
+
+
+def _build_dit(config: MagiConfig, device: torch.device, generator: torch.Generator) -> dict:
     from magi_tpu_torch.ops.quant import quantize_params_int4, quantize_params_int8
 
     if env_is_true("SKIP_LOAD_MODEL"):
@@ -116,9 +173,15 @@ class MagiPipeline:
         gen.manual_seed(int(np.random.SeedSequence([self.config.runtime_config.seed, i]).generate_state(1)[0]))
         return gen
 
+    def _reseed(self) -> None:
+        """Start a request's draws from the seed, as a new pipeline's first
+        request does."""
+        self.generator.manual_seed(self.config.runtime_config.seed)
+
     def _prepare_requests(self, prompts: Sequence[str], output_paths: Sequence[str]):
         if not prompts or len(prompts) != len(output_paths):
             raise ValueError(f"{len(prompts)} prompts need as many output paths, got {len(output_paths)}")
+        self._reseed()
         params = get_dit(self.config, self.device, self.generator)
         null_caption = params["y_embedder"]["null_caption_embedding"].float().cpu().numpy()
         inps = [build_inference_input(self.config, null_caption, *get_txt_embeddings(p, self.config, self.device),
@@ -234,12 +297,14 @@ class MagiPipeline:
 
     def _run(self, prompt: str, prefix_video, output_path: str) -> dict:
         """Generate from `prompt` after the latent `prefix_video` ([C, T_pre,
-        H', W'] or None) and write the video to `output_path`.  Returns
-        what the run measured: the decoded video's shape and standard
-        deviation, whether every emitted latent was finite, the path
-        written, and the host seconds of every denoise step and of every
-        chunk decode."""
+        H', W'] or None) and write the video to `output_path`, the weights'
+        draw and then the noise from the pipeline's generator, seeded anew.
+        Returns what the run measured: the decoded video's shape and
+        standard deviation, whether every emitted latent was finite, the
+        path written, and the host seconds of every denoise step and of
+        every chunk decode."""
         t0 = time.perf_counter()
+        self._reseed()
         caption_embs, emb_masks = get_txt_embeddings(prompt, self.config, self.device)
         params = get_dit(self.config, self.device, self.generator)
         null_caption = params["y_embedder"]["null_caption_embedding"].float().cpu().numpy()

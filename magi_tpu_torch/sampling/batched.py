@@ -31,6 +31,7 @@ import torch
 
 from magi_tpu_torch.core.config import MagiConfig
 from magi_tpu_torch.core.utils import resolve_device
+from magi_tpu_torch.models.dit.model import init_kv_cache
 from magi_tpu_torch.sampling.transport import ArdfSampler, InferenceInput, _leaf_map
 
 
@@ -89,14 +90,21 @@ class DpBatchedSampler(ArdfSampler):
         if noises is None:
             noises = [torch.randn(base.latent_size, generator=g, device=dev, dtype=torch.float32) for g in generators]
         self.R = R
-        super().__init__(config, params, base, noise=noises[0], device=dev, capture=capture)
-        self.xs = torch.stack([n.to(device=dev, dtype=torch.float32) for n in noises])
-        self.cache = _leaf_map(self.cache, lambda c: torch.zeros((R,) + c.shape, dtype=c.dtype, device=dev))
+        self._setup(config, params, inps, noises, dev, capture)
+
+    def _request_tensors(self, inps: Sequence[InferenceInput], noises: Sequence[torch.Tensor]) -> dict:
         caps = [self._captions(inp) for inp in inps]
-        self._text_embs = torch.stack([c for c, _ in caps])  # [R, n_chunks, L, C]
         self._lens_eff = np.stack([lens for _, lens in caps])  # [R, n_chunks]
-        if base.prefix_video is not None:
-            self.prefix_buf = torch.stack([self._padded_prefix(inp.prefix_video) for inp in inps])
+        prefix = None
+        if inps[0].prefix_video is not None:
+            prefix = torch.stack([self._padded_prefix(inp.prefix_video) for inp in inps])
+        return dict(xs=torch.stack([n.to(device=self.device, dtype=torch.float32) for n in noises]),
+                    text_embs=torch.stack([c for c, _ in caps]),  # [R, n_chunks, L, C]
+                    null_emb=inps[0].null_emb, prefix_buf=prefix)
+
+    def _new_cache(self):
+        one = init_kv_cache(self.config, self.cache_tokens, torch.device("meta"))  # a request's shapes and dtypes
+        return _leaf_map(one, lambda c: torch.zeros((self.R,) + c.shape, dtype=c.dtype, device=self.device)), None
 
     def _request_state(self, r: int):
         cache = {k: v[r] for k, v in self.cache.items()} if isinstance(self.cache, dict) else self.cache[r]

@@ -50,6 +50,7 @@ import torch
 from magi_tpu_torch.core import graphs as G
 from magi_tpu_torch.core.config import MagiConfig
 from magi_tpu_torch.core.dataclasses import ForwardMeta, SegmentAttnSpec
+from magi_tpu_torch.core.logger import print_rank_0
 from magi_tpu_torch.core.utils import resolve_device, round_up
 from magi_tpu_torch.models.dit.model import (
     attn_int8_store,
@@ -193,7 +194,10 @@ def _resident_forward(params, config: MagiConfig, cache) -> Forward:
 
 def _signature(tree) -> tuple:
     """The parameter tree's structure: every leaf's path, dtype and shape
-    (which kernels a step launches, at which shapes)."""
+    (which kernels a step launches, at which shapes); () for no tree (a
+    sampler that only plans)."""
+    if tree is None:
+        return ()
     def leaf(v):
         if isinstance(v, dict):
             return _signature(v)
@@ -230,7 +234,16 @@ class ArdfSampler:
     `noise` (optional, [C, T, H, W]) replaces the initial latent noise that
     `generator` would draw, so a test can give this walk and the JAX
     package's the same start.  `capture` (default True) runs the steps as
-    CUDA graphs on the card; False runs them eagerly."""
+    CUDA graphs on the card; False runs them eagerly.
+
+    The walk's state (latents, KV cache, step inputs, captions, prefix
+    buffer) and its step callables live in a `core.graphs.Workspace` of
+    the process's pool, keyed by the config, the shapes, the requests, the
+    cache mode and the parameter tree: a sampler takes an idle one of its
+    key (the graphs an earlier walk captured, replayed with this request
+    copied into their buffers) or builds one, and gives it back when its
+    walk ends or it is collected.  After its walk a sampler's state is the
+    pool's: read it before building the next sampler of an equal key."""
 
     # token axis of the cache leaves ([L, 2, hk, tok, hd], scale [L, 2, hk, tok])
     _token_axis = 3
@@ -238,10 +251,23 @@ class ArdfSampler:
 
     def __init__(self, config: MagiConfig, params, inp: InferenceInput, generator: Optional[torch.Generator] = None,
                  *, noise: Optional[torch.Tensor] = None, device=None, capture: bool = True):
+        dev = resolve_device(device)
+        if noise is not None:
+            if tuple(noise.shape) != tuple(inp.latent_size):
+                raise ValueError(f"noise shape {tuple(noise.shape)} != latent size {inp.latent_size}")
+        else:
+            noise = torch.randn(inp.latent_size, generator=generator, device=dev, dtype=torch.float32)
+        self._setup(config, params, [inp], [noise], dev, capture)
+
+    def _setup(self, config: MagiConfig, params, inps: Sequence[InferenceInput], noises: Sequence[torch.Tensor],
+               device: torch.device, capture: bool) -> None:
+        """The walk's geometry and schedule from the first request, then its
+        state in a workspace, the requests' loaded into it."""
+        inp = inps[0]
         self.config = config
         self.params = params
         self.inp = inp
-        self.device = resolve_device(device)
+        self.device = device
         self.capture = bool(capture)
         mc, rc, ec = config.model_config, config.runtime_config, config.engine_config
         if rc.cfg_number not in (1, 3):
@@ -259,13 +285,6 @@ class ArdfSampler:
 
         self.t_total = sched.init_t(inp.num_steps, shortcut_mode=ec.shortcut_mode)
         self.interval = sched.init_interval(inp.num_steps, shortcut_mode=ec.shortcut_mode)
-
-        if noise is not None:
-            if tuple(noise.shape) != tuple(inp.latent_size):
-                raise ValueError(f"noise shape {tuple(noise.shape)} != latent size {inp.latent_size}")
-            self.xs = noise.to(device=self.device, dtype=torch.float32).clone()
-        else:
-            self.xs = torch.randn(inp.latent_size, generator=generator, device=self.device, dtype=torch.float32)
 
         # KV memory, two regimes under kv_offload: noise2clean kv ranges
         # bound the attended span, so the device keeps a sliding cache
@@ -285,28 +304,77 @@ class ArdfSampler:
         self.cache_base = 0  # chunk index of cache slot 0
         self.counts: Counter = Counter()
         self.cache_tokens = round_up(self.cache_chunks * self.ctn, 1024)
-        if self.host_mode:
-            self.cache = None
-            self.host_cache = HostKVCache(config, self.cache_tokens, self.device)
-        else:
-            self.cache = init_kv_cache(config, self.cache_tokens, self.device)
-            self.host_cache = None
-        # the prefix video's latent, zero-padded to the chunk grid
         self.chunk_offset = offset_chunks
-        self.prefix_buf, self.prefix_len = None, 0
-        if inp.prefix_video is not None:
-            self.prefix_buf = self._padded_prefix(inp.prefix_video)
-            self.prefix_len = int(inp.prefix_video.shape[1])
+        self.prefix_len = 0 if inp.prefix_video is None else int(inp.prefix_video.shape[1])
         self._warmed = False
         self.step_seconds: list = []  # host wall time of each denoise step, device work included
         self.capture_seconds = 0.0  # host seconds `warm_step_variants` spent warming and capturing
+        self._take_workspace(inps, noises)
 
-        dev = self.device
-        self._null_emb = inp.null_emb.to(dev)
-        self._text_embs, self._lens_eff = self._captions(inp)
-        self.inputs = StepInputs(max(self.window + 1, self.chunk_offset), self.R, dev)
-        self._steps: dict = {}  # (_config_key, variant) -> step callable (a StepGraph on the card)
-        self._arena = G.Arena(dev)
+    # ----- the workspace ------------------------------------------------
+
+    def _workspace_key(self, inps: Sequence[InferenceInput]) -> tuple:
+        """What fixes the workspace's buffers and graphs: the config (and the
+        step environment), the requests' count and shapes, the cache mode
+        and size, and the parameter tree (its identity: the graphs read its
+        addresses; the workspace holds it, so the id stays its own)."""
+        inp = inps[0]
+        pv = inp.prefix_video
+        return (str(self.device), _config_key(self.config), self.R, tuple(inp.latent_size),
+                tuple(inp.caption_embs.shape), str(inp.caption_embs.dtype), tuple(inp.null_emb.shape),
+                str(inp.null_emb.dtype), None if pv is None else tuple(pv.shape), self.host_mode, self.cache_tokens,
+                id(self.params), _signature(self.params))
+
+    def _take_workspace(self, inps: Sequence[InferenceInput], noises: Sequence[torch.Tensor]) -> None:
+        """Lease an idle workspace of this walk's key and copy the requests
+        into it, or build one from them."""
+        key = self._workspace_key(inps)
+        ws = G.WORKSPACES.take(key)
+        state = self._request_tensors(inps, noises)
+        if ws is None:
+            ws = G.Workspace(key, self.params, self.device)
+            G.WORKSPACES.add(ws)  # frees other keys' idle workspaces before these buffers
+            for name, t in state.items():
+                setattr(ws, name, None if t is None else t.to(self.device, copy=True))
+            ws.cache, ws.host_cache = self._new_cache()
+            ws.inputs = StepInputs(max(self.window + 1, self.chunk_offset), self.R, self.device)
+        else:
+            for name, t in state.items():
+                if t is not None:
+                    getattr(ws, name).copy_(t)
+            if ws.cache is not None:
+                _leaf_map(ws.cache, torch.Tensor.zero_)
+            if ws.host_cache is not None:
+                ws.host_cache.reset()
+        self._ws = ws
+        self._ticket = ws.lease(self)
+        weakref.finalize(self, G.WORKSPACES.give_back, ws, self._ticket)
+        self.xs, self.cache, self.host_cache = ws.xs, ws.cache, ws.host_cache
+        self._text_embs, self._null_emb, self.prefix_buf = ws.text_embs, ws.null_emb, ws.prefix_buf
+        self.inputs, self._steps, self._arena = ws.inputs, ws.steps, ws.arena
+
+    def _request_tensors(self, inps: Sequence[InferenceInput], noises: Sequence[torch.Tensor]) -> dict:
+        """The request's state as the workspace holds it (sets the host's
+        caption lengths `_lens_eff`): the latents, the caption slabs, the
+        null caption, the prefix video's latent zero-padded to the chunk
+        grid (None without one)."""
+        inp = inps[0]
+        text, self._lens_eff = self._captions(inp)
+        prefix = None if inp.prefix_video is None else self._padded_prefix(inp.prefix_video)
+        return dict(xs=noises[0].to(device=self.device, dtype=torch.float32), text_embs=text, null_emb=inp.null_emb,
+                    prefix_buf=prefix)
+
+    def _new_cache(self):
+        """(device cache, host cache) of a new workspace, zeroed."""
+        if self.host_mode:
+            return None, HostKVCache(self.config, self.cache_tokens, self.device)
+        return init_kv_cache(self.config, self.cache_tokens, self.device), None
+
+    def release(self) -> None:
+        """Give the workspace back to the pool (the walk is over): the next
+        sampler of this key may take it.  Also done when the sampler is
+        collected."""
+        G.WORKSPACES.give_back(self._ws, self._ticket)
 
     def _padded_prefix(self, prefix_video: torch.Tensor) -> torch.Tensor:
         pv = prefix_video.to(device=self.device, dtype=torch.float32)
@@ -351,12 +419,15 @@ class ArdfSampler:
         """Yields (chunk_idx, clean latent [C, <=cw, H, W] on the device) as
         chunks finish; chunk_idx counts from the first chunk after the
         prefix chunks."""
-        self.warm_step_variants()
+        variants = self.warm_step_variants()
         self.prepare()
+        print_rank_0(f"walk: {variants} step variants, {self.graphs} graphs ({self.capture_seconds:.3f} s capturing, "
+                     f"{G.captures('walk')} captured in the process); first step")
         for step in range(self.total_forward_steps()):
             emitted = self.timed_step(step)
             if emitted is not None:
                 yield emitted
+        self.release()
 
     def timed_step(self, step: int) -> Optional[Tuple[int, torch.Tensor]]:
         """`do_step`, then wait for the current stream's work (other streams,
@@ -504,18 +575,20 @@ class ArdfSampler:
         """The step callable of (config key, variant); its first run in the
         process for this cache mode and parameter tree warms eagerly
         (`core.graphs`)."""
-        return G.make_callable(f"step variant {key[1]}", self._body(key[1]), self.device, self._arena,
+        return G.make_callable(f"step variant {key[1]}", self._body(key[1]), self.device, self._ws,
                                key + (self.host_mode, _signature(self.params)))
 
     def _body(self, variant: tuple) -> Callable:
         """The step of `variant` as `body(run, cache_sp)`: with the resident
         cache, one piece (one graph); with the host-streamed one, the pieces
-        of `_stream_jits` (see `_streamed_forward`).  It holds the sampler
-        weakly: the sampler owns its step callables, and its buffers go
-        with it."""
-        me = weakref.proxy(self)
+        of `_stream_jits` (see `_streamed_forward`).  It finds its sampler
+        through the workspace, which holds the step callables and outlives
+        the sampler: the sampler leasing it now, whose state is the
+        workspace's buffers."""
+        ws = weakref.ref(self._ws)
 
         def requests(run, cache_sp):
+            me = ws().sampler()
             for r in range(me.R):
                 me._request_step(run, variant, r, cache_sp)
 
@@ -736,6 +809,17 @@ class HostKVCache:
             for t in self._slab_kv + (self._slab_sc or []):
                 t.record_stream(self._copy)
 
+    def reset(self) -> None:
+        """Empty the cache for a new walk, as a new one starts: every buffer
+        zeroed, the byte counts too (the copy stream drained first)."""
+        if self.device.type == "cuda":
+            self._copy.synchronize()
+        for t in [self._host_kv, self._host_sc] + self._slab_kv + (self._slab_sc or []):
+            if t is not None:
+                t.zero_()
+        self._read = 0
+        self.h2d_bytes = self.d2h_bytes = 0
+
     @staticmethod
     def _logical(kv: torch.Tensor) -> torch.Tensor:
         return kv.movedim(-4, -2)  # [.., tok, 2, hk, hd] -> [.., 2, hk, tok, hd]
@@ -835,6 +919,8 @@ def walk_many(samplers: Sequence[ArdfSampler]) -> Generator[Tuple[int, int, torc
             yield (idx,) + emitted
         if step + 1 < s.total_forward_steps():
             queue.append((idx, step + 1))
+        else:
+            s.release()
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,7 @@ same converted tree, bit for bit: the port takes the same f32 operations in
 the same order and casts once."""
 
 import json
+import os
 
 import jax
 import ml_dtypes
@@ -115,6 +116,50 @@ def test_missing_and_variant_dirs_raise(tmp_path):
         TL.load_state_dict(str(tmp_path), fp8_quant=True, distill=True)
     with pytest.raises(FileNotFoundError, match="weight dir not found"):
         TL.load_state_dict(str(tmp_path), fp8_quant=True)
+
+
+def test_resident_dit_rebuilt_when_its_checkpoint_changes(tmp_path, monkeypatch):
+    """`pipeline.get_dit` keeps the tree resident on the card for later
+    requests of an equal key.  It reads the checkpoint again once a shard is
+    rewritten at the same path, builds again under SKIP_LOAD_MODEL when the
+    draw's generator state differs, and after `release_workspaces()`.
+    Checked without a card: the builds are counted, not run."""
+    from safetensors.numpy import save_file
+
+    from magi_tpu_torch.core.graphs import release_workspaces
+    from magi_tpu_torch.pipeline import pipeline as P
+
+    cfg = tiny_config()
+    write_checkpoint(tmp_path, make_reference_state(cfg, np.random.default_rng(0)))
+    tcfg = torch_config(cfg)
+    tcfg.runtime_config.load = str(tmp_path)
+    built = []
+    monkeypatch.setattr(P, "_build_dit", lambda *args: built.append({"tree": len(built)}) or built[-1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: None)
+    monkeypatch.delenv("SKIP_LOAD_MODEL", raising=False)
+    card, gen = torch.device("cuda", 0), torch.Generator()
+    release_workspaces()
+    try:
+        first = P.get_dit(tcfg, card, gen)
+        assert P.get_dit(tcfg, card, gen) is first and len(built) == 1
+        shard = tmp_path / "inference_weight" / "model-00001.safetensors"
+        mtime = shard.stat().st_mtime_ns
+        index = json.loads((shard.parent / "model.safetensors.index.json").read_text())["weight_map"]
+        other = make_reference_state(cfg, np.random.default_rng(1))
+        save_file({k: v for k, v in other.items() if index[k] == shard.name}, str(shard))
+        os.utime(shard, ns=(mtime + 10**9, mtime + 10**9))  # written a second later
+        second = P.get_dit(tcfg, card, gen)
+        assert second is not first and len(built) == 2
+        assert P.get_dit(tcfg, card, gen) is second and len(built) == 2
+        release_workspaces()
+        assert P.get_dit(tcfg, card, gen) is not second and len(built) == 3
+
+        monkeypatch.setenv("SKIP_LOAD_MODEL", "1")
+        drawn = P.get_dit(tcfg, card, gen.manual_seed(0))
+        assert P.get_dit(tcfg, card, gen.manual_seed(0)) is drawn and len(built) == 4
+        assert P.get_dit(tcfg, card, gen.manual_seed(1)) is not drawn and len(built) == 5
+    finally:
+        release_workspaces()
 
 
 def write_fp8_pair(tmp_path, cfg, seed=3, subdir="inference_weight.fp8"):

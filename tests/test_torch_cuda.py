@@ -956,6 +956,7 @@ def test_interleaved_decode_on_its_stream_matches_solo_runs(dev, tmp_path, monke
     stats = pipe.run_text_to_video_many(prompts, many)
     assert [s["mode"] for s in stats] == ["interleaved"] * 2
     monkeypatch.setattr(P, "get_dit", lambda *args: params["tree"])
+    monkeypatch.setattr(pipe, "_reseed", lambda: None)  # each solo run walks with its request's generator
     for i, prompt in enumerate(prompts):
         pipe.generator = pipe._request_generator(i)
         solo = str(tmp_path / f"solo_{i}.mp4")
@@ -1094,3 +1095,118 @@ def test_vae_graphs_match_eager(dev):
         torch.cuda.synchronize()
         assert torch.equal(got, want) and A.segmented_attention.launches - before == n_eager > 0
     assert graphs.graphs == 2
+
+
+# ---------------------------------------------------------------------------
+# workspaces: step graphs that outlive a walk; the service on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["resident", "streamed", "lockstep", "walk_many"])
+def test_second_walk_of_an_equal_config_captures_nothing(dev, case, monkeypatch):
+    """A second walk of an equal config through new samplers (the same
+    weights and noise) takes the first walk's workspace: it captures no
+    graph, and its chunks and every kernel's launches equal the first
+    walk's, with the cache resident or host-streamed, lockstep and
+    interleaved."""
+    from magi_tpu_torch.core import graphs as G
+    from magi_tpu_torch.sampling.batched import DpBatchedSampler
+    from magi_tpu_torch.sampling.transport import ArdfSampler, walk_many
+
+    monkeypatch.setenv("MAGI_ATTN_Q8_SCHEME", "qk8")
+    cfg, params, inp, noise = _capture_setup(dev, {"resident": "base", "streamed": "streamed_int8"}.get(
+        case, "distill_int8"))
+    noises = [noise, torch.flip(noise, dims=[1])]
+
+    def walk():
+        if case == "lockstep":
+            return DpBatchedSampler(cfg, params, [inp, inp], noises=noises, device=dev).walk()
+        if case == "walk_many":
+            return ((r, c) for r, _, c in walk_many([ArdfSampler(cfg, params, inp, noise=n, device=dev)
+                                                     for n in noises]))
+        return ArdfSampler(cfg, params, inp, noise=noise, device=dev).walk()
+
+    runs = []
+    for _ in range(2):
+        before = G.captures("walk")
+        chunks, launches = _counted_walk(walk)
+        runs.append((chunks, launches, G.captures("walk") - before))
+    (a, na, ca), (b, nb, cb) = runs
+    assert ca > 0 and cb == 0
+    assert len(a) == len(b) > 0 and all(torch.equal(x, y) for x, y in zip(a, b))
+    assert na == nb and sum(na) > 0
+
+
+def _tiny_pipeline_config(tmp_path) -> str:
+    import json
+
+    path = tmp_path / "tiny_distill.json"
+    path.write_text(json.dumps(_tiny_card_dict("4.5B_distill_quant_config.json", attn_int8=True)))
+    return str(path)
+
+
+def test_pipeline_requests_replay_the_first_requests_graphs(dev, tmp_path, monkeypatch):
+    """Two requests on one pipeline, then one on a new pipeline of the same
+    config (as the ComfyUI node builds one per call): the DiT tree stays
+    resident, the later walks capture no step graph, and all three videos
+    are equal (each request draws its weights and noise from the seed)."""
+    import numpy as np
+
+    from magi_tpu_torch.core import graphs as G
+    from magi_tpu_torch.pipeline import pipeline as P
+
+    monkeypatch.setenv("SKIP_LOAD_MODEL", "1")
+    G.release_workspaces()
+    path = _tiny_pipeline_config(tmp_path)
+    frames = []
+    monkeypatch.setattr(P, "save_video_to_disk", lambda video, out, fps: frames.append(video.copy()) or out)
+    first = P.MagiPipeline(path, device=dev)
+    captured = []
+    for i, pipe in enumerate((first, first, P.MagiPipeline(path, device=dev))):
+        before = G.captures("walk")
+        pipe.run_text_to_video("a red cube", str(tmp_path / f"v{i}.mp4"))
+        captured.append(G.captures("walk") - before)
+    assert captured[0] > 0 and captured[1:] == [0, 0]
+    assert frames[0].std() > 0 and all(np.array_equal(frames[0], f) for f in frames[1:])
+    G.release_workspaces()
+
+
+def test_service_round_trip_on_the_card(dev, tmp_path, monkeypatch):
+    """The port's service on a tiny distill int8 config: health says ready
+    with the card, a direct request and a two-prompt batch each run an
+    engine subprocess on the card, and every download equals the file the
+    engine wrote."""
+    import os
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from magi_tpu_torch.serve import service
+    from magi_tpu_torch.serve.client import MagiVideoClient
+
+    monkeypatch.setenv("SKIP_LOAD_MODEL", "1")
+    out_dir, dl = tmp_path / "out", tmp_path / "dl"
+    out_dir.mkdir()
+    dl.mkdir()
+    monkeypatch.setattr(service, "OUT_DIR", str(out_dir))
+    monkeypatch.setattr(service, "MAGI_CONFIG_FILE", _tiny_pipeline_config(tmp_path))
+    served = []
+    real = service.generate_magi_video
+    monkeypatch.setattr(service, "generate_magi_video", lambda *a, **k: served.append(real(*a, **k)) or served[-1])
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), service.MagiHandler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        client = MagiVideoClient(f"http://127.0.0.1:{srv.server_port}", timeout=600)
+        health = client.health()
+        assert health["status"] == "healthy" and health["dependencies"]["devices"] >= 1
+        assert health["dependencies"]["device_name"] == torch.cuda.get_device_name(0)
+        direct = client.generate_video_direct("a red cube", output_path=str(dl / "direct"))
+        batch = client.generate_video_batch(["a red cube", "a blue ball"], output_dir=str(dl))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert len(served) == 1 and served[0]["success"] and len(batch) == 2
+    pairs = [(direct, served[0]["output_path"])] + [(p, str(out_dir / os.path.basename(p))) for p in batch]
+    for got, written in pairs:
+        with open(got, "rb") as f, open(written, "rb") as g:
+            data = f.read()
+            assert len(data) > 0 and data == g.read()

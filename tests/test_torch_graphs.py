@@ -199,3 +199,140 @@ def test_step_inputs_stage_one_copy():
     assert si.tvec[0].item() == 0.5 and si.pcs.item() == np.float32(0.7)
     si.stage(kv_start=[9])
     assert si.kv_start.tolist() == [9, 2, 0, 0] and int(si.sp) == 3
+
+
+# ---------------------------------------------------------------------------
+# workspaces: a walk's buffers and step callables, kept for the next walk
+# ---------------------------------------------------------------------------
+
+from magi_tpu_torch.core import graphs as G  # noqa: E402
+
+WS_WALKS = {
+    "base": ({}, 3, 0, 1),
+    "distill": ({"runtime": {"cfg_number": 1}, "engine": {"distill": True}}, 3, 0, 1),
+    "v2v_prefix": ({"runtime": {"noise2clean_kvrange": [2, 1], "clean_chunk_kvrange": 1}}, 4, 3, 1),
+    "streamed": ({"engine": {"kv_offload": True}}, 3, 0, 1),
+    "lockstep": ({}, 3, 0, 2),
+}
+
+
+@pytest.fixture()
+def empty_pool():
+    G.release_workspaces()
+    yield
+    G.release_workspaces()
+
+
+def _ws_setup(case):
+    overrides, chunks, prefix_frames, R = WS_WALKS[case]
+    cfg = tiny_config(**overrides)
+    params = dit_params_from_jax(jax.tree.map(np.asarray, init_dit_params(jax.random.PRNGKey(0), cfg)))
+    return torch_config(cfg), params, chunks, prefix_frames, R
+
+
+def _ws_sampler(setup, seed, R=None):
+    """A sampler of the walk `setup` on request(s) drawn from `seed`."""
+    tcfg, params, chunks, prefix_frames, R0 = setup
+    R = R0 if R is None else R
+    mc, rc = tcfg.model_config, tcfg.runtime_config
+    rng = np.random.default_rng(seed)
+    L = mc.caption_max_length
+    latent = (mc.in_channels, chunks * rc.chunk_width, H, W)
+    null = torch.from_numpy(np.random.default_rng(0).normal(size=(L, mc.caption_channels)).astype(np.float32))
+    inps, noises = [], []
+    for r in range(R):
+        pv = rng.normal(size=(mc.in_channels, prefix_frames, H, W)).astype(np.float32) if prefix_frames else None
+        inps.append(T.InferenceInput(
+            caption_embs=torch.from_numpy(rng.normal(size=(chunks, L, mc.caption_channels)).astype(np.float32)),
+            caption_lens=np.array([5 + r, L // 2, 3, 9][:chunks], np.int32), null_emb=null, null_len=6,
+            latent_size=latent, num_steps=rc.num_steps, chunk_num=chunks, has_text=bool(r % 2 == 0),
+            prefix_video=None if pv is None else torch.from_numpy(pv)))
+        noises.append(torch.from_numpy(rng.normal(size=latent).astype(np.float32)))
+    if R > 1:
+        return DpBatchedSampler(tcfg, params, inps, noises=noises, device="cpu")
+    return T.ArdfSampler(tcfg, params, inps[0], noise=noises[0], device="cpu")
+
+
+def _chunks(sampler):
+    return [c.clone() for _, c in sampler.walk()]
+
+
+@pytest.mark.parametrize("case", sorted(WS_WALKS))
+def test_adopted_workspace_walks_equal_fresh_walks(case, empty_pool):
+    """A second sampler of an equal key takes the first one's workspace
+    (its buffers and step callables: nothing built), and its walk equals a
+    walk on a fresh workspace, bit for bit; so does a third walk of the
+    first request after another request's (nothing carries over)."""
+    setup = _ws_setup(case)
+    a = _ws_sampler(setup, 1)
+    built = dict(a._steps)
+    first = _chunks(a)
+    assert built == {} and len(a._steps) == len(a.step_variants()) and G.WORKSPACES.idle(a._ws.key) == 1
+    b = _ws_sampler(setup, 2)
+    assert b._ws is a._ws and b.xs is a.xs and G.WORKSPACES.idle() == 0
+    steps = dict(b._steps)
+    second = _chunks(b)
+    assert b._steps == steps  # the callables of the first walk ran, no new one
+    c = _ws_sampler(setup, 1)
+    assert c._ws is a._ws
+    again = _chunks(c)
+    G.release_workspaces()
+    fresh = _ws_sampler(setup, 2)
+    assert fresh._ws is not a._ws and not fresh._steps
+    fresh_second = _chunks(fresh)
+    assert len(first) == len(again) == len(second) > 0
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    assert all(torch.equal(x, y) for x, y in zip(second, fresh_second))
+    assert not all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_concurrent_samplers_get_different_workspaces(empty_pool):
+    """Samplers alive at once never share a workspace; `walk_many` walks
+    each request on its own and leaves both workspaces for the next
+    round, which takes them and walks equally."""
+    setup = _ws_setup("base")
+    a, b = _ws_sampler(setup, 1), _ws_sampler(setup, 2)
+    assert a._ws is not b._ws and a._ws.key == b._ws.key and a.xs.data_ptr() != b.xs.data_ptr()
+    rounds = []
+    for _ in range(2):
+        outs = [[], []]
+        for r, _, chunk in T.walk_many([a, b]):
+            outs[r].append(chunk)
+        rounds.append((outs, {id(a._ws), id(b._ws)}))
+        assert G.WORKSPACES.idle(a._ws.key) == 2
+        a, b = _ws_sampler(setup, 1), _ws_sampler(setup, 2)
+    assert rounds[0][1] == rounds[1][1] == {id(a._ws), id(b._ws)}
+    for r in range(2):
+        assert all(torch.equal(x, y) for x, y in zip(rounds[0][0][r], rounds[1][0][r]))
+
+
+def test_workspace_keys_and_release(empty_pool):
+    """A sampler gives its workspace back when its walk ends or when it is
+    collected; another key, another parameter tree or another request
+    count takes a workspace of its own; a new key frees the idle
+    workspaces of the others; `release_workspaces()` empties the pool, and
+    a workspace leased before it is not taken back after."""
+    import gc
+
+    setup = _ws_setup("base")
+    a = _ws_sampler(setup, 1)
+    key = a._ws.key
+    assert G.WORKSPACES.idle() == 0
+    del a
+    gc.collect()
+    assert G.WORKSPACES.idle(key) == 1  # given back by its finalizer
+    other_tree = (setup[0], dit_params_from_jax(jax.tree.map(np.asarray, init_dit_params(
+        jax.random.PRNGKey(0), tiny_config()))),) + setup[2:]
+    b = _ws_sampler(other_tree, 1)
+    assert b._ws.key != key and G.WORKSPACES.idle(key) == 0  # the new key freed the other key's idle one
+    _chunks(b)
+    c = _ws_sampler(setup, 1, R=2)
+    assert c._ws.key[2] == 2 and G.WORKSPACES.idle() == 0
+    _chunks(c)
+    assert G.WORKSPACES.idle(c._ws.key) == 1
+    d = _ws_sampler(setup, 1, R=2)
+    assert d._ws is c._ws
+    G.release_workspaces()
+    assert G.WORKSPACES.idle() == 0
+    _chunks(d)  # its walk ends after the release: the workspace is not taken back
+    assert G.WORKSPACES.idle() == 0 and _ws_sampler(setup, 1, R=2)._ws is not c._ws

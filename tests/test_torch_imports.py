@@ -13,12 +13,14 @@ SCRIPT = """
 import importlib, pkgutil, sys
 import magi_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(magi_tpu_torch.__path__, "magi_tpu_torch.")]
-assert "magi_tpu_torch.sampling.batched" in names, names
+assert {"magi_tpu_torch.sampling.batched", "magi_tpu_torch.serve.service", "magi_tpu_torch.comfyui.comfy_nodes",
+        "magi_tpu_torch.runtime_native"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "magi_tpu", "safetensors", "zstandard", "transformers"))
+             if m.split(".")[0] in ("jax", "jaxlib", "magi_tpu", "safetensors", "zstandard", "transformers", "requests",
+                                    "PIL"))
 print(len(names), bad)
 """
 

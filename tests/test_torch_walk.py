@@ -465,3 +465,41 @@ def test_packed_forward_splits_uncond_ranges_into_the_current_source(monkeypatch
             np.testing.assert_array_equal(r2e[u].numpy(), (n_seg + np.arange(n_den) + 1) * ctn)
         checked += ts.cache_base > 0
     assert checked > 0  # steps under a rolled window (cache_sp < sp) were checked
+
+
+def test_successive_requests_on_one_pipeline_give_equal_videos(tmp_path, monkeypatch):
+    """Two `run_text_to_video` calls on one pipeline (random weights) give
+    equal videos, as two calls of the JAX pipeline do: each request draws
+    its weights and noise from the seed again.  The first call's video is
+    the one a generator seeded once gives when it draws the weights and
+    then the noise, as the first request drew them before."""
+    monkeypatch.setenv("SKIP_LOAD_MODEL", "1")
+    import magi_tpu.pipeline.pipeline as JP
+    from magi_tpu_torch.core.config import MagiConfig
+    from magi_tpu_torch.core.utils import set_random_seed
+    from magi_tpu_torch.pipeline import pipeline as P
+    from magi_tpu_torch.pipeline.video_process import post_chunk_process
+
+    path = _tiny_json(tmp_path)
+    saved = {"jax": [], "torch": []}
+    for name, mod in (("jax", JP), ("torch", P)):
+        monkeypatch.setattr(mod, "save_video_to_disk", lambda video, p, fps, name=name: saved[name].append(
+            np.array(video)) or p)
+    jpipe = JP.MagiPipeline(path)
+    pipe = P.MagiPipeline(path, device="cpu")
+    for i in range(2):
+        jpipe.run_text_to_video("a red cube", str(tmp_path / f"j{i}.mp4"))
+        pipe.run_text_to_video("a red cube", str(tmp_path / f"t{i}.mp4"))
+    for name in ("jax", "torch"):
+        a, b = saved[name]
+        assert a.shape[0] == 48 and a.std() > 0 and np.array_equal(a, b), name
+
+    cfg = MagiConfig.from_json(path)
+    gen = set_random_seed(cfg.runtime_config.seed, "cpu")
+    dev = torch.device("cpu")
+    params = P.get_dit(cfg, dev, gen)
+    inp = tpp.build_inference_input(cfg, params["y_embedder"]["null_caption_embedding"].float().numpy(),
+                                    *tpp.get_txt_embeddings("a red cube", cfg, dev), dev)
+    s = ArdfSampler(cfg, params, inp, gen, device=dev)
+    first = np.concatenate([post_chunk_process(c, cfg, dev) for _, c in s.walk()], axis=0)
+    np.testing.assert_array_equal(saved["torch"][0], first)
