@@ -118,6 +118,29 @@ Phases, each printed on its own line; any failure exits non-zero:
      of the same prompt, its second call captures no step graph and equals
      the first, the two launch twice phase 5's kernels; prints each
      request's wall and set-up seconds and the phase's.
+ 17. meshes of several ranks on this one card, each rank a process on
+     cuda:0 started by `python -m torch.distributed.run` on a free port,
+     the config's distributed_backend gloo (NCCL refuses two ranks on one
+     device; gloo moves CUDA tensors through host memory, so no number of
+     this phase speaks to scaling), each rank through the CLI entry
+     (`--mesh-worker`, every launch count set to 0 just before): 17a phase
+     5's request with cp_size 2 (full width and depth; the VAE decode
+     tile-parallel over the 2 ranks): every rank's launches equal phase
+     5's kernel by kernel, rank 0's chunks and video against phase 5's
+     (`MESH_CHUNK_TOL`, `MESH_FRAME_TOL`), only rank 0 writes; 17b the
+     4.5B base config cut to 4 layers (widths full), 2 chunks, cp 2 x tp 2
+     on 4 ranks (K1, K2, K3, K4 at 6 / 2 heads a rank); 17c the distill +
+     int8 config cut to 4 layers on pp 2 x tp 2 (layer broadcasts, the
+     row-parallel K6 with f32 out, which must launch, and the all-reduced
+     row maximum); 17d two prompts on the 17c tree with dp 2 on 2 ranks,
+     each rank's request bit-equal to the single process's lockstep walk
+     and rank 0 writing both videos.  17b-d are held against the same
+     request through the CLI entry in this process (equal launches, but in
+     17c the row-parallel linears quantize in plain ops, so K8 loses one
+     launch for each f32 K6 launch; 17d half of the lockstep's).  Each run prints its backend, ranks, wall,
+     seconds a step, the bytes each rank handed to collectives a step, its
+     difference to the single process and whether its steps were captured
+     (model-parallel meshes walk eagerly: ROADMAP item 17).
 Phases 3-14 run as a user runs the port on the card: every denoise step
 and every VAE encode and decode replayed from a CUDA graph (`core.graphs`,
 captured before the walk; the capture's own launches are not counted).
@@ -134,8 +157,9 @@ its 48/8 heads.  Phase 6 holds a
 quantization peak of about 57 GiB (the bf16 tree alive while it is
 packed), so each main path starts from an emptied allocator cache.
 Then the card's name and power limit, one JSON line of per-kernel results
-(`launches_by_path` holds each main path's count, phases 4-16, read just
-after its run; `launches` is their sum; K5's sage and dq rows come after
+(`launches_by_path` holds each main path's count, phases 4-17 (17: rank
+0's), read just after its run; `launches` is their sum; K6's row adds its
+f32 epilogue's time at 17c's shapes and launches in 17c; K5's sage and dq rows come after
 every other), and a last line `{"ok": true, "device": {...}}`.
 
 TF32 is off for matmuls and convolutions (the VAE's final Conv3d would
@@ -860,11 +884,29 @@ def int8_kernel_checks(dev):
         tot["library_ms"] += count * tl
         tot["bound_s"] += count * t_ops
         tot["bytes_s"] += count * nbytes / PEAK_BYTES
+    # the f32 epilogue (a row-parallel linear's partial sums at tp 2): proj
+    # and fc2 of phase 17c's pp2 x tp2 mesh, on a rank's S / 2 rows
+    f32_rows = []
+    for m, kk_, n in ((S // 2, hq * hd, D), (S // 2, ffn // 2, D)):
+        xq, rs = Q.act_quant_rowwise(randn(m, kk_))
+        wq = torch.randint(-127, 128, (n, kk_), generator=g, device=dev, dtype=torch.int8).t()
+        ws = torch.rand((n,), generator=g, device=dev) * 1e-3
+        out = Q.quantized_matmul_i8(xq, rs, wq, ws, out_dtype=torch.float32)
+        ref = Q.quantized_matmul_i8_reference(xq, rs, wq, ws, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        if out.dtype != torch.float32 or not torch.equal(out, ref):
+            fail(f"quantized_matmul_i8 with f32 out [{m}x{kk_}] @ [{kk_}x{n}] is not bit-equal to its plain version")
+        t = cuda_ms(lambda: Q.quantized_matmul_i8(xq, rs, wq, ws, out_dtype=torch.float32), 20)
+        tp = cuda_ms(lambda: Q.quantized_matmul_i8_reference(xq, rs, wq, ws, out_dtype=torch.float32), 3)
+        bms, by = bound(m * kk_ + kk_ * n + 4 * (m + n) + 4 * m * n, (2 * m * n * kk_, PEAK_INT8_OPS))
+        print(f"  quantized_matmul_i8 with f32 out [{m}x{kk_}] @ [{kk_}x{n}]: bit-equal; {t:.4f} ms "
+              f"({bms / t:.0%} of the bound {bms:.4f} ms by {by}), plain {tp:.4f} ms")
+        f32_rows.append(dict(shape=[m, kk_, n], ms=t, plain_ms=tp, bound_ms=bms, bound_by=by))
     results.append(dict(name="quantized_matmul_i8", route="cuda", source="magi_tpu_torch/csrc/quant.cu",
                         replaces="magi_tpu/ops/quant.py:199", max_abs_err=0.0, ms=tot["ms"] / n_launch,
                         plain_ms=tot["plain_ms"] / n_launch, library_ms=tot["library_ms"] / n_launch,
                         bound_ms=max(tot["bound_s"], tot["bytes_s"]) * 1e3 / n_launch,
-                        bound_by="operations" if tot["bound_s"] >= tot["bytes_s"] else "bytes"))
+                        bound_by="operations" if tot["bound_s"] >= tot["bytes_s"] else "bytes", f32_out=f32_rows))
     print(f"  quantized_matmul_i8, per launch over one layer's {n_launch}: bit-equal everywhere")
 
     # ---- K8 rowquant_fused: one middle layer's 5 row quantizations ---------
@@ -912,6 +954,11 @@ def int8_kernel_checks(dev):
 # bf16 step, so they round to the same bf16 value or to neighbours: one bf16
 # step is at most 2**-7 of |ref|, plus 1e-3 absolute for outputs near 0.
 K7_TOL = (1e-3, 2**-7)
+# K7 with f32 out against the same plain version, unrounded: the two f32
+# sums differ in order and in where the scale is applied, about 1e-6 at
+# outputs of about 1; the bf16 rounding of the f32 output is also held bit
+# for bit against the bf16 kernel's.
+K7_F32_TOL = (1e-4, 1e-4)
 
 
 def w4a8_kernel_checks(dev):
@@ -968,11 +1015,33 @@ def w4a8_kernel_checks(dev):
         tot["ops_s"] += count * ops / PEAK_BF16_FLOPS
         tot["bytes_s"] += count * nbytes / PEAK_BYTES
         del x, wq, ws
+    # the f32 epilogue (a row-parallel linear's partial sums): proj and fc2
+    # of an edge layer without blocks_edge at tp 2, on all S rows
+    f32_rows = []
+    for m, k, n in ((S, hq * hd, D), (S, ffn // 2, D)):
+        x = randn(m, k)
+        q4, ws = Q.quantize_int4(0.02 * randn(k, n, dtype=torch.float32))
+        wq = Q.unpack_int4(q4)
+        del q4
+        out = Q.quantized_matmul(x, wq, ws, out_dtype=torch.float32)
+        if out.dtype != torch.float32 or not torch.equal(out.bfloat16(), Q.quantized_matmul(x, wq, ws)):
+            fail(f"quantized_matmul with f32 out [{m}x{k}] @ [{k}x{n}]: its bf16 rounding is not the bf16 kernel's")
+        e32 = check_close(f"quantized_matmul with f32 out [{m}x{k}] @ [{k}x{n}]", out,
+                          Q.quantized_matmul_reference(x, wq, ws, out_dtype=torch.float32), *K7_F32_TOL)
+        err = max(err, e32)
+        del out
+        t = cuda_ms(lambda: Q.quantized_matmul(x, wq, ws, out_dtype=torch.float32), 10)
+        tp = cuda_ms(lambda: Q.quantized_matmul_reference(x, wq, ws, out_dtype=torch.float32), 2)
+        bms, by = bound(2 * m * k + k * n + 4 * n + 4 * m * n, (2 * m * n * k, PEAK_BF16_FLOPS))
+        print(f"  quantized_matmul with f32 out [{m}x{k}] @ [{k}x{n}]: {t:.4f} ms ({bms / t:.0%} of the bound "
+              f"{bms:.4f} ms by {by}), plain {tp:.4f} ms")
+        f32_rows.append(dict(shape=[m, k, n], ms=t, plain_ms=tp, bound_ms=bms, bound_by=by, max_abs_err=e32))
+        del x, wq, ws
     results.append(dict(name="quantized_matmul", route="cuda", source="magi_tpu_torch/csrc/quant.cu",
                         replaces="magi_tpu/ops/quant.py:106", max_abs_err=err, ms=tot["ms"] / n_launch,
                         plain_ms=tot["plain_ms"] / n_launch, library_ms=tot["library_ms"] / n_launch,
                         bound_ms=max(tot["ops_s"], tot["bytes_s"]) * 1e3 / n_launch,
-                        bound_by="operations" if tot["ops_s"] >= tot["bytes_s"] else "bytes"))
+                        bound_by="operations" if tot["ops_s"] >= tot["bytes_s"] else "bytes", f32_out=f32_rows))
     print(f"  quantized_matmul, per launch over one edge layer's {n_launch}: within the tolerance everywhere")
 
     # ---- K8s rowquant_fused(mode="swiglu"): a gated MLP's fc2 input --------
@@ -1719,7 +1788,9 @@ def run_loaded_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
 
         # the run: loads timed where the pipeline calls them, the divides recorded
         timings, divides = {}, collections.Counter()
-        for mod, name in ((loader, "load_dit_params"), (vae_loader, "load_vae"), (Q, "quantize_params_int8")):
+        # the quantization runs inside the load, one stacked linear at a time
+        # as it arrives (ops.quant.TreeSink): its calls are summed
+        for mod, name in ((loader, "load_dit_params"), (vae_loader, "load_vae"), (Q, "_quantize_stacked")):
             patched[(mod, name)] = fn = getattr(mod, name)
 
             def wrapper(*a, _fn=fn, _name=name, **k):
@@ -1727,7 +1798,7 @@ def run_loaded_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
                 t = time.perf_counter()
                 out = _fn(*a, **k)
                 torch.cuda.synchronize()
-                timings[_name] = time.perf_counter() - t
+                timings[_name] = timings.get(_name, 0.0) + time.perf_counter() - t
                 return out
 
             setattr(mod, name, wrapper)
@@ -1776,9 +1847,9 @@ def run_loaded_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
           f"{reads['python'][1]['seconds']:.3f} s), {native_s}")
     if not same_tree:
         fail("the DiT loaded through the native reader differs from the Python reader's")
-    print(f"  DiT fp8 load (dequant + convert on the card) {timings['load_dit_params']:.2f} s "
-          f"({sizes['dit'] / timings['load_dit_params'] / 1e9:.2f} GB/s of checkpoint), smooth-folded int8 "
-          f"quantization {timings['quantize_params_int8']:.2f} s; VAE load {timings['load_vae']:.2f} s "
+    print(f"  DiT fp8 load (dequant + convert + quantize on the card) {timings['load_dit_params']:.2f} s "
+          f"({sizes['dit'] / timings['load_dit_params'] / 1e9:.2f} GB/s of checkpoint), of which smooth-folded int8 "
+          f"quantization {timings['_quantize_stacked']:.2f} s; VAE load {timings['load_vae']:.2f} s "
           f"({sizes['vae'] / timings['load_vae'] / 1e9:.2f} GB/s)")
     steps, steps5 = stats["step_seconds"], stats5["step_seconds"]
     print(f"  seconds per step: mean {sum(steps) / len(steps):.4f} against phase 5's {sum(steps5) / len(steps5):.4f} "
@@ -2437,13 +2508,333 @@ def run_service_phase(dev, config: dict, stem: str, wrappers: dict, path_kernels
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: meshes of several ranks on the one card, over gloo
+# ---------------------------------------------------------------------------
+
+# Rank 0's video of 17a (cp 2) against phase 5's, the same request on one
+# process.  cp alone leaves K3q, K4, K5, K6 and K8 row for row and head for
+# head as they are; the bf16 edge layers' cuBLAS GEMMs and the f32 final
+# linear run on half the rows (another algorithm may sum in another order),
+# and an int8 rounding that this moves carries on through the walk, as the
+# tiny int8 walks of phase 3 show.  17b (bf16) and 17c (int8) add tp's f32
+# partial sums, 17c pp's layer broadcasts (exact).  Limits: the relative L2
+# of each emitted chunk, and the mean |difference| of the decoded frames in
+# levels of 255.  Seen (H100 80GB HBM3, 700 W): 17a 6.98e-3 to 7.70e-3 and
+# 0.320 levels (max 3), 17b 5.51e-3, 17c 4.73e-3.
+MESH_CHUNK_TOL = {"17a": 2e-2, "17b": 2e-2, "17c": 2e-2}
+MESH_FRAME_TOL = 1.0
+MESH_PROMPTS = ["a red cube on a table", "a blue ball rolls across the grass at dusk"]
+
+
+class Recorder:
+    """Keeps what the pipeline emits: each chunk it decodes (a CPU copy) and
+    each video it writes (uint8 frames), in order."""
+
+    def __init__(self):
+        from magi_tpu_torch.pipeline import pipeline as P
+
+        self.chunks, self.videos = [], []
+        self._p = P
+        self._decode, self._save = P.post_chunk_process, P.save_video_to_disk
+
+    def __enter__(self):
+        def decode(chunk, *a, **k):
+            self.chunks.append(chunk.float().cpu().clone())
+            return self._decode(chunk, *a, **k)
+
+        def save(video, *a, **k):
+            self.videos.append(video.copy())
+            return self._save(video, *a, **k)
+
+        self._p.post_chunk_process, self._p.save_video_to_disk = decode, save
+        return self
+
+    def __exit__(self, *exc):
+        self._p.post_chunk_process, self._p.save_video_to_disk = self._decode, self._save
+
+
+def mesh_worker(spec_path: str) -> int:
+    """One rank of a phase-17 run (started by torchrun from `run_mesh`): the
+    CLI entry with the spec's arguments, every launch count set to 0 just
+    before; writes the rank's launches, collective traffic, step seconds,
+    and the chunks (rank 0: also the videos) it emitted."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    from magi_tpu_torch.core import graphs as G
+    from magi_tpu_torch.ops import quant as Q
+    from magi_tpu_torch.parallel import comm
+    from magi_tpu_torch.pipeline import entry
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["SKIP_LOAD_MODEL"] = "1"
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    Q.quantized_matmul_i8.launches_f32 = 0
+    comm.reset_traffic()
+    t0 = time.perf_counter()
+    with Recorder() as rec:
+        stats = entry.main(spec["argv"])
+    wall = time.perf_counter() - t0
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    stats = stats if isinstance(stats, list) else [stats]
+    steps = [x for st in stats for x in st["step_seconds"]]
+    out = dict(rank=rank, world=dist.get_world_size(), backend=dist.get_backend(), wall=wall,
+               launches={n: w.launches for n, w in wrappers.items()}, launches_f32=Q.quantized_matmul_i8.launches_f32,
+               traffic=dict(comm.traffic), steps=max(len(st["step_seconds"]) for st in stats),
+               mean_step=sum(steps) / max(len(steps), 1), captured=G.captures("walk") > 0,
+               device=str(torch.cuda.current_device()), peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    np.savez(f"{spec['out']}.rank{rank}.npz", chunks=np.stack([c.numpy() for c in rec.chunks]),
+             **({"videos": np.stack(rec.videos)} if rec.videos else {}))
+    with open(f"{spec['out']}.rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_mesh(name: str, ranks: int, config: dict, stem: str, extra_args: list) -> list:
+    """`config` (gloo, `ranks` ranks on cuda:0) through the CLI entry under
+    torchrun on a free port, this script's `--mesh-worker` in each rank;
+    fails unless every rank exits 0.  Returns each rank's record and
+    arrays."""
+    import numpy as np
+
+    config = json.loads(json.dumps(config))
+    config["engine_config"]["distributed_backend"] = "gloo"
+    with open(stem + ".json", "w") as f:
+        json.dump(config, f)
+    spec = dict(argv=["--config_file", stem + ".json", "--mode", "t2v", *extra_args], out=stem)
+    with open(stem + ".spec.json", "w") as f:
+        json.dump(spec, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(ranks), "--master_addr",
+           "localhost", "--master_port", str(_free_port()), os.path.abspath(__file__), "--mesh-worker",
+           stem + ".spec.json"]
+    t0 = time.perf_counter()
+    with open(stem + ".log", "w") as log:
+        p = subprocess.run(cmd, stdout=log, stderr=subprocess.STDOUT, timeout=900, cwd=HERE)
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        with open(stem + ".log") as f:
+            print(f.read()[-6000:])
+        fail(f"{name}: a rank exited {p.returncode} (log {stem}.log)")
+    recs = []
+    for r in range(ranks):
+        with open(f"{stem}.rank{r}.json") as f:
+            rec = json.load(f)
+        arrs = np.load(f"{stem}.rank{r}.npz")
+        rec.update(chunks=arrs["chunks"], videos=arrs["videos"] if "videos" in arrs else None)
+        recs.append(rec)
+    print(f"  {name}: backend {recs[0]['backend']}, {ranks} ranks on cuda:{recs[0]['device']}, torchrun wall "
+          f"{wall:.1f} s (entry {max(r['wall'] for r in recs):.1f} s), {recs[0]['mean_step']:.4f} s a step over "
+          f"{recs[0]['steps']} steps, peak {max(r['peak_gib'] for r in recs):.2f} GiB a rank, "
+          f"\"captured\": {json.dumps(recs[0]['captured'])}")
+    for r in recs:
+        moved = {k[:-6]: round(v / r["steps"]) for k, v in r["traffic"].items() if k.endswith("_bytes")}
+        print(f"    rank {r['rank']}: bytes handed to collectives a step {json.dumps(moved)} "
+              f"({sum(moved.values()) / 2**20:.1f} MiB)")
+    return recs
+
+
+def _rel(a, b) -> float:
+    import numpy as np
+
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _check_chunks(name: str, got, want, tol) -> float:
+    if len(got) != len(want):
+        fail(f"{name}: {len(got)} chunks emitted, the single process emitted {len(want)}")
+    errs = [_rel(g, w) for g, w in zip(got, want)]
+    ok = tol is None and all(e == 0 for e in errs) or tol is not None and max(errs) <= tol
+    limit = "bit-equal" if tol is None else f"limit {tol:g}"
+    print(f"    {name}: relative L2 of each chunk to the single process {', '.join(f'{e:.3e}' for e in errs)} "
+          f"({limit}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"{name}: chunks differ from the single-process walk beyond the limit")
+    return max(errs)
+
+
+def _check_launches(name: str, got: dict, want: dict, scale: int = 1) -> None:
+    bad = {n: (got[n] * scale, want[n]) for n in want if got[n] * scale != want[n]}
+    if bad:
+        fail(f"{name}: launches differ from the single process (got, want): {bad}")
+
+
+def run_mesh_phase(dev, out_dir: str, launches5: dict, rec5) -> dict:
+    """Phase 17: meshes of several ranks on this one card, each rank a
+    process on cuda:0 and the collectives on gloo (NCCL refuses two ranks
+    on one device): a, phase 5's request on cp 2 (full width and depth),
+    every rank's launches equal to phase 5's and rank 0's video and chunks
+    against phase 5's; b, the 4.5B base config (3-branch CFG, bf16) cut to
+    4 layers on cp 2 x tp 2; c, the distill + int8 config cut to 4 layers
+    on pp 2 x tp 2 (layer broadcasts, the row-parallel K6 with f32 out and
+    the all-reduced row maximum); d, two prompts on the 17c tree with dp 2,
+    each rank walking its request as one device does.  b-d are held against
+    the same request through the CLI entry in this process (d: its two
+    requests in lockstep), chunk by chunk, with launches equal (c: K8's
+    launches of the row-parallel linears are K6's f32 launches; d: half).
+    Returns each run's launch counts (rank 0's) by path name."""
+    import numpy as np
+
+    fresh_card()
+    out = {}
+    with open(QUANT_CONFIG) as f:
+        q = json.load(f)
+    q["runtime_config"].update(video_size_h=256, video_size_w=256, num_frames=96)
+    q["engine_config"]["attn_int8"] = True
+
+    # 17a: phase 5's request on cp 2
+    a = json.loads(json.dumps(q))
+    a["engine_config"]["cp_size"] = 2
+    recs = run_mesh("17a 4.5B distill + int8, cp 2 (34 layers, 256x256, 96 frames)", 2, a,
+                    os.path.join(out_dir, "mesh_17a"),
+                    ["--prompt", "a red cube on a table", "--output_path", os.path.join(out_dir, "mesh_17a.mp4")])
+    for r in recs:
+        _check_launches(f"17a rank {r['rank']}", r["launches"], launches5)
+    print(f"    17a: every rank's launches equal phase 5's, kernel by kernel: {json.dumps(recs[0]['launches'])}")
+    err = _check_chunks("17a rank 0", list(recs[0]["chunks"]), [c.numpy() for c in rec5.chunks],
+                        MESH_CHUNK_TOL["17a"])
+    v, w = recs[0]["videos"][0].astype(np.float32), rec5.videos[0].astype(np.float32)
+    mad = float(np.abs(v - w).mean())
+    print(f"    17a rank 0's video {tuple(v.shape)} against phase 5's: mean |difference| {mad:.3f} of 255 "
+          f"(limit {MESH_FRAME_TOL}), max {float(np.abs(v - w).max()):.0f}; chunks' largest relative L2 {err:.3e}")
+    if v.shape != w.shape or mad > MESH_FRAME_TOL:
+        fail("17a: rank 0's video differs from phase 5's beyond the limit")
+    if recs[1]["videos"] is not None:
+        fail("17a: a rank other than 0 wrote a video")
+    out["mesh_cp2_distill_int8"] = recs[0]["launches"]
+
+    def reference(cfg: dict, stem: str, args: list):
+        fresh_card()
+        from magi_tpu_torch.core import graphs as G
+        from magi_tpu_torch.pipeline import entry
+
+        with open(stem + ".json", "w") as f:
+            json.dump(cfg, f)
+        wrappers = kernel_wrappers()
+        for wr in wrappers.values():
+            wr.launches = 0
+        with Recorder() as rec:
+            entry.main(["--config_file", stem + ".json", "--mode", "t2v", *args])
+        G.release_workspaces()
+        return rec, {n: wr.launches for n, wr in wrappers.items()}
+
+    # 17b: the base config, 4 layers, cp 2 x tp 2
+    with open(CONFIG) as f:
+        b = json.load(f)
+    b["model_config"]["num_layers"] = 4
+    b["runtime_config"].update(video_size_h=256, video_size_w=256, num_frames=48, num_steps=STEPS)
+    args = ["--prompt", "a red cube on a table"]
+    ref, ref_l = reference(b, os.path.join(out_dir, "mesh_17b_single"),
+                           args + ["--output_path", os.path.join(out_dir, "mesh_17b_single.mp4")])
+    bm = json.loads(json.dumps(b))
+    bm["engine_config"].update(cp_size=2, tp_size=2)
+    recs = run_mesh("17b 4.5B base bf16 3-CFG, cp 2 x tp 2 (4 of 34 layers, 256x256, 48 frames)", 4, bm,
+                    os.path.join(out_dir, "mesh_17b"), args + ["--output_path", os.path.join(out_dir, "mesh_17b.mp4")])
+    for r in recs:
+        _check_launches(f"17b rank {r['rank']}", r["launches"], ref_l)
+    _check_chunks("17b rank 0", list(recs[0]["chunks"]), [c.numpy() for c in ref.chunks], MESH_CHUNK_TOL["17b"])
+    out["mesh_cp2_tp2_base"] = recs[0]["launches"]
+
+    # 17c: the distill + int8 config, 4 layers, pp 2 x tp 2
+    c = json.loads(json.dumps(q))
+    c["model_config"]["num_layers"] = 4
+    c["runtime_config"]["num_frames"] = 48
+    ref, ref_l = reference(c, os.path.join(out_dir, "mesh_17c_single"),
+                           args + ["--output_path", os.path.join(out_dir, "mesh_17c_single.mp4")])
+    cm = json.loads(json.dumps(c))
+    cm["engine_config"].update(pp_size=2, tp_size=2)
+    recs = run_mesh("17c 4.5B distill + int8, pp 2 x tp 2 (4 of 34 layers, 256x256, 48 frames)", 4, cm,
+                    os.path.join(out_dir, "mesh_17c"), args + ["--output_path", os.path.join(out_dir, "mesh_17c.mp4")])
+    for r in recs:
+        # a row-parallel linear at tp 2 quantizes its input against the
+        # all-reduced row maximum in plain ops, not K8, and its K6 writes
+        # f32: one K8 launch of the single process becomes one f32 K6 launch
+        if r["launches_f32"] == 0:
+            fail(f"17c rank {r['rank']}: no K6 launch with the f32 epilogue (row-parallel linears)")
+        _check_launches(f"17c rank {r['rank']}",
+                        dict(r["launches"], rowquant_fused=r["launches"]["rowquant_fused"] + r["launches_f32"]), ref_l)
+    print(f"    17c: K6 launches with the f32 epilogue a rank: {[r['launches_f32'] for r in recs]} "
+          f"of {recs[0]['launches']['quantized_matmul_i8']}")
+    _check_chunks("17c rank 0", list(recs[0]["chunks"]), [ch.numpy() for ch in ref.chunks], MESH_CHUNK_TOL["17c"])
+    out["mesh_pp2_tp2_distill_int8"] = recs[0]["launches"]
+    out["mesh_pp2_tp2_distill_int8_f32"] = recs[0]["launches_f32"]
+
+    # 17d: two prompts on the 17c tree, dp 2
+    two = ["--prompts", *MESH_PROMPTS]
+    ref, ref_l = reference(c, os.path.join(out_dir, "mesh_17d_single"),
+                           two + ["--output_paths", *(os.path.join(out_dir, f"mesh_17d_single_{i}.mp4")
+                                                      for i in range(2))])
+    dm = json.loads(json.dumps(c))
+    dm["engine_config"]["dp_size"] = 2
+    recs = run_mesh("17d 4.5B distill + int8, dp 2, two prompts (4 of 34 layers, 256x256, 48 frames)", 2, dm,
+                    os.path.join(out_dir, "mesh_17d"),
+                    two + ["--output_paths", *(os.path.join(out_dir, f"mesh_17d_{i}.mp4") for i in range(2))])
+    for r in recs:
+        _check_launches(f"17d rank {r['rank']}", r["launches"], ref_l, scale=2)
+        _check_chunks(f"17d request {r['rank']} (rank {r['rank']})", list(r["chunks"]),
+                      [ch.numpy() for ch in ref.chunks[r["rank"]::2]], None)
+    if recs[0]["videos"] is None or len(recs[0]["videos"]) != 2 or recs[1]["videos"] is not None:
+        fail("17d: rank 0 must write both requests' videos, and only rank 0")
+    for i in range(2):
+        if not np.array_equal(recs[0]["videos"][i], ref.videos[i]):
+            fail(f"17d: request {i}'s video differs from the single process's")
+    print("    17d: both videos, written by rank 0, equal the single process's")
+    out["mesh_dp2_distill_int8"] = recs[0]["launches"]
+    return out
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel's wrapper, by name (each counts its launches)."""
+    from magi_tpu_torch.ops import act_quant as AQ
+    from magi_tpu_torch.ops import attention as A
+    from magi_tpu_torch.ops import attention_q8 as A8
+    from magi_tpu_torch.ops import fused_norm as FN
+    from magi_tpu_torch.ops import quant as Q
+
+    return {
+        "segmented_attention_two_source": A.segmented_attention_two_source,
+        "segmented_attention_v2": A.segmented_attention_v2,
+        "segmented_attention": A.segmented_attention,
+        "kv_norm_rope_pack": A.kv_norm_rope_pack,
+        "gate_norm_residual": FN.gate_norm_residual,
+        "kv_norm_rope_pack_q8": A.kv_norm_rope_pack_q8,
+        "segmented_attention_two_source_q8": A8.segmented_attention_two_source_q8,
+        "quantized_matmul_i8": Q.quantized_matmul_i8,
+        "rowquant_fused": AQ.rowquant_fused,
+        "quantized_matmul": Q.quantized_matmul,
+        "rowquant_swiglu": AQ.rowquant_swiglu,
+        "segmented_attention_two_source_q8_sage": A8.segmented_attention_two_source_q8_sage,
+        "segmented_attention_two_source_q8_dq": A8.segmented_attention_two_source_q8_dq,
+    }
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else [v])
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--mesh-worker", default=None, help=argparse.SUPPRESS)  # one rank of phase 17 (torchrun)
+    cli = ap.parse_args()
+    if cli.mesh_worker:
+        return mesh_worker(cli.mesh_worker)
 
     import torch
 
@@ -2495,21 +2886,7 @@ def main() -> int:
     int8_results, scheme_results = int8_kernel_checks(dev)
     results = kernel_checks(dev) + int8_results + w4a8_kernel_checks(dev) + scheme_results
 
-    wrappers = {
-        "segmented_attention_two_source": A.segmented_attention_two_source,
-        "segmented_attention_v2": A.segmented_attention_v2,
-        "segmented_attention": A.segmented_attention,
-        "kv_norm_rope_pack": A.kv_norm_rope_pack,
-        "gate_norm_residual": FN.gate_norm_residual,
-        "kv_norm_rope_pack_q8": A.kv_norm_rope_pack_q8,
-        "segmented_attention_two_source_q8": A8.segmented_attention_two_source_q8,
-        "quantized_matmul_i8": Q.quantized_matmul_i8,
-        "rowquant_fused": AQ.rowquant_fused,
-        "quantized_matmul": Q.quantized_matmul,
-        "rowquant_swiglu": AQ.rowquant_swiglu,
-        "segmented_attention_two_source_q8_sage": A8.segmented_attention_two_source_q8_sage,
-        "segmented_attention_two_source_q8_dq": A8.segmented_attention_two_source_q8_dq,
-    }
+    wrappers = kernel_wrappers()
 
     phase("phase 3: tiny walks, card against CPU")
     tiny_walk_check(dev, "tiny 3-CFG walk", CONFIG, 2e-2)
@@ -2573,8 +2950,9 @@ def main() -> int:
     d["engine_config"]["attn_int8"] = True
     distill_kernels = ["kv_norm_rope_pack_q8", "segmented_attention_two_source_q8", "quantized_matmul_i8",
                        "rowquant_fused", "gate_norm_residual", "segmented_attention"]
-    launches5, stats5 = run_main_path(dev, d, os.path.join(out_dir, "4.5B_distill_quant_256"), wrappers,
-                                      distill_kernels)
+    with Recorder() as rec5:  # its chunks and video, for phase 17a
+        launches5, stats5 = run_main_path(dev, d, os.path.join(out_dir, "4.5B_distill_quant_256"), wrappers,
+                                          distill_kernels)
 
     # the 24B distill config on one device: cp_size 1 (the config's 8 is its
     # multi-GPU layout), int4 weights, int8 attention
@@ -2673,8 +3051,16 @@ def main() -> int:
     launches16 = run_service_phase(dev, d, os.path.join(out_dir, "4.5B_distill_quant_service"), wrappers,
                                    distill_kernels, launches5)
 
+    phase("phase 17: meshes of 2 and 4 ranks on this one card over gloo (torchrun, every rank on cuda:0; gloo "
+          "moves CUDA tensors through host memory, so no number here speaks to scaling): 17a cp 2, 17b cp 2 x tp 2, "
+          "17c pp 2 x tp 2, 17d dp 2")
+    launches17 = run_mesh_phase(dev, out_dir, launches5, rec5)
+
     for r in results:
-        r["launches_by_path"] = {"base": launches4[r["name"]], "distill_int8": launches5[r["name"]],
+        if r["name"] == "quantized_matmul_i8":
+            r["launches_f32_by_path"] = {"mesh_pp2_tp2_distill_int8": launches17["mesh_pp2_tp2_distill_int8_f32"]}
+        r["launches_by_path"] = {**{k: v[r["name"]] for k, v in launches17.items() if isinstance(v, dict)},
+                                 "base": launches4[r["name"]], "distill_int8": launches5[r["name"]],
                                  "24b_w4a8": launches6[r["name"]], "24b_w4a8_noedge": launches7[r["name"]],
                                  "i2v_base": launches8[r["name"]], "v2v_distill_int8_sage": launches9[r["name"]],
                                  "i2v_distill_int8_dq": launches10[r["name"]],
@@ -2699,7 +3085,8 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
     keys = ["name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"]
-    extra = ["graph_ms", "every_caption_tokens", "decode_720", "base_720", "distill_720"]  # K2, K2g, K3, K3q
+    extra = ["graph_ms", "every_caption_tokens", "decode_720", "base_720", "distill_720",  # K2, K2g, K3, K3q
+             "f32_out", "launches_f32_by_path"]  # K6
     print(json.dumps({"kernels": [{k: r[k] for k in keys + [x for x in extra if x in r]} for r in results]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

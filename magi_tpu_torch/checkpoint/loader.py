@@ -34,6 +34,7 @@ from magi_tpu_torch.checkpoint.safetensors_io import load_buffer, load_file
 from magi_tpu_torch.core.config import MagiConfig
 from magi_tpu_torch.core.logger import print_rank_0
 from magi_tpu_torch.core.utils import resolve_device
+from magi_tpu_torch.ops.quant import TreeSink
 
 _AUX = (".weight_scale", ".smooth_scale", ".input_scale")
 last_read: dict = {}  # the last load_state_dict's route ("native" or "python"), shard bytes and read seconds
@@ -168,16 +169,21 @@ def _fold_tp8_interleave(arr: torch.Tensor) -> torch.Tensor:
     return arr[..., _tp8_perm(arr.shape[-2]).to(arr.device), :]
 
 
-def convert_dit_state(state: Mapping, config: MagiConfig, device="cpu") -> dict:
+def convert_dit_state(state: Mapping, config: MagiConfig, device="cpu", sink=None) -> dict:
     """torch key names -> the port's tree on `device`, the layout of
     `init_dit_params`: linear weights transposed to [in, out] and stacked
     [L, in, out] in the parameter dtype, the Conv3d patch embed flattened
     to a matmul, linear_proj's input rows (and its `act_smooth`) folded by
     `_fold_tp8_interleave`; `act_smooth` stacked per smooth-quant linear,
-    1 on the layers that carry none (the bf16 edge layers)."""
+    1 on the layers that carry none (the bf16 edge layers).  Each leaf goes
+    to `sink` as it is built, as in `init_dit_params` (an `ops.quant.
+    TreeSink` that keeps it whole by default), and the sink's tree comes
+    back."""
     mc = config.model_config
     L, dtype = mc.num_layers, mc.params_dtype
     device = torch.device(device)
+    sink = TreeSink() if sink is None else sink
+    put = sink.leaf
 
     def g(name: str) -> torch.Tensor:
         return state[name].to(device=device, dtype=torch.float32, copy=True)
@@ -198,9 +204,6 @@ def convert_dit_state(state: Mapping, config: MagiConfig, device="cpu") -> dict:
             out[i].copy_(m)
         return out
 
-    def stacked_norm(fmt: str, dt=torch.float32) -> dict:
-        return {"weight": stacked(fmt + ".weight", False, dt), "bias": stacked(fmt + ".bias", False, dt)}
-
     def stacked_smooth(fmt: str, fold: bool = False):
         present = [i for i in range(L) if fmt.format(i) in state]
         if not present:
@@ -211,74 +214,62 @@ def convert_dit_state(state: Mapping, config: MagiConfig, device="cpu") -> dict:
         # the smooth vector indexes the linear's input rows: permuted as they are
         return _fold_tp8_interleave(arr[..., None])[..., 0] if fold else arr
 
+    def norm(path: str, fmt: str, dt=torch.float32) -> None:
+        put(path + "/weight", stacked(fmt + ".weight", False, dt))
+        put(path + "/bias", stacked(fmt + ".bias", False, dt))
+
+    def lin(path: str, fmt: str, fold: bool = False, smooth: str = "") -> None:
+        # smooth-quant factors (fp8 checkpoints only), on the four PerChannel linears
+        sm = stacked_smooth(smooth, fold) if smooth else None
+        sink.linear(path, stacked(fmt, True, dtype, fold=fold), sm)
+
+    def lin_b(path: str, name: str) -> None:
+        put(path + "/weight", lin_T(name + ".weight"))
+        put(path + "/bias", g(name + ".bias"))
+
     blk = "videodit_blocks.layers.{}."
     att = blk + "self_attention."
-    blocks = {
-        "ada_modulate_layer": {"proj": {"0": {
-            "weight": stacked(blk + "ada_modulate_layer.proj.0.weight", True, dtype),
-            "bias": stacked(blk + "ada_modulate_layer.proj.0.bias", False, dtype),
-        }}},
-        "self_attention": {
-            "linear_qkv": {
-                "layer_norm": stacked_norm(att + "linear_qkv.layer_norm", dtype),
-                **{n: {"weight": stacked(att + f"linear_qkv.{n}.weight", True, dtype)} for n in ("q", "qx", "k", "v")},
-            },
-            # fp32 islands
-            "q_layernorm": stacked_norm(att + "q_layernorm"),
-            "k_layernorm": stacked_norm(att + "k_layernorm"),
-            "q_layernorm_xattn": stacked_norm(att + "q_layernorm_xattn", dtype),
-            "k_layernorm_xattn": stacked_norm(att + "k_layernorm_xattn", dtype),
-            "linear_kv_xattn": {"weight": stacked(att + "linear_kv_xattn.weight", True, dtype)},
-            "linear_proj": {"weight": stacked(att + "linear_proj.weight", True, dtype, fold=True)},
-        },
-        "self_attn_post_norm": stacked_norm(blk + "self_attn_post_norm"),
-        "mlp": {
-            "layer_norm": stacked_norm(blk + "mlp.layer_norm", dtype),
-            "linear_fc1": {"weight": stacked(blk + "mlp.linear_fc1.weight", True, dtype)},
-            "linear_fc2": {"weight": stacked(blk + "mlp.linear_fc2.weight", True, dtype)},
-        },
-        "mlp_post_norm": stacked_norm(blk + "mlp_post_norm"),
-    }
-    # smooth-quant factors (fp8 checkpoints only), on the four PerChannel linears
-    for node, fmt, fold in (
-        (blocks["self_attention"]["linear_kv_xattn"], att + "linear_kv_xattn.act_smooth", False),
-        (blocks["self_attention"]["linear_proj"], att + "linear_proj.act_smooth", True),
-        (blocks["mlp"]["linear_fc1"], blk + "mlp.linear_fc1.act_smooth", False),
-        (blocks["mlp"]["linear_fc2"], blk + "mlp.linear_fc2.act_smooth", False),
-    ):
-        sm = stacked_smooth(fmt, fold)
-        if sm is not None:
-            node["act_smooth"] = sm
-
-    def lin_b(name: str) -> dict:
-        return {"weight": lin_T(name + ".weight"), "bias": g(name + ".bias")}
+    a = "blocks/self_attention/"
+    lin("blocks/ada_modulate_layer/proj/0", blk + "ada_modulate_layer.proj.0.weight")
+    put("blocks/ada_modulate_layer/proj/0/bias", stacked(blk + "ada_modulate_layer.proj.0.bias", False, dtype))
+    norm(a + "linear_qkv/layer_norm", att + "linear_qkv.layer_norm", dtype)
+    for n in ("q", "qx", "k", "v"):
+        lin(a + f"linear_qkv/{n}", att + f"linear_qkv.{n}.weight")
+    # fp32 islands
+    norm(a + "q_layernorm", att + "q_layernorm")
+    norm(a + "k_layernorm", att + "k_layernorm")
+    norm(a + "q_layernorm_xattn", att + "q_layernorm_xattn", dtype)
+    norm(a + "k_layernorm_xattn", att + "k_layernorm_xattn", dtype)
+    lin(a + "linear_kv_xattn", att + "linear_kv_xattn.weight", smooth=att + "linear_kv_xattn.act_smooth")
+    lin(a + "linear_proj", att + "linear_proj.weight", fold=True, smooth=att + "linear_proj.act_smooth")
+    norm("blocks/self_attn_post_norm", blk + "self_attn_post_norm")
+    norm("blocks/mlp/layer_norm", blk + "mlp.layer_norm", dtype)
+    lin("blocks/mlp/linear_fc1", blk + "mlp.linear_fc1.weight", smooth=blk + "mlp.linear_fc1.act_smooth")
+    lin("blocks/mlp/linear_fc2", blk + "mlp.linear_fc2.weight", smooth=blk + "mlp.linear_fc2.act_smooth")
+    norm("blocks/mlp_post_norm", blk + "mlp_post_norm")
 
     xw = g("x_embedder.weight")  # [D, C, tp, p, p]
-    return {
-        "x_embedder": {"weight": xw.reshape(xw.shape[0], -1).t().contiguous()},
-        "rope": {"bands": g("rope.bands")},
-        "t_embedder": {"mlp": {"0": lin_b("t_embedder.mlp.0"), "2": lin_b("t_embedder.mlp.2")}},
-        "y_embedder": {
-            "y_proj_xattn": {"0": lin_b("y_embedder.y_proj_xattn.0")},
-            "y_proj_adaln": {"0": lin_b("y_embedder.y_proj_adaln.0")},
-            "null_caption_embedding": g("y_embedder.null_caption_embedding"),
-        },
-        "blocks": blocks,
-        "final_layernorm": {
-            "weight": g("videodit_blocks.final_layernorm.weight"),
-            "bias": g("videodit_blocks.final_layernorm.bias"),
-        },
-        "final_linear": {"linear": {"weight": lin_T("final_linear.linear.weight")}},
-    }
+    put("x_embedder/weight", xw.reshape(xw.shape[0], -1).t().contiguous())
+    put("rope/bands", g("rope.bands"))
+    lin_b("t_embedder/mlp/0", "t_embedder.mlp.0")
+    lin_b("t_embedder/mlp/2", "t_embedder.mlp.2")
+    lin_b("y_embedder/y_proj_xattn/0", "y_embedder.y_proj_xattn.0")
+    lin_b("y_embedder/y_proj_adaln/0", "y_embedder.y_proj_adaln.0")
+    put("y_embedder/null_caption_embedding", g("y_embedder.null_caption_embedding"))
+    put("final_layernorm/weight", g("videodit_blocks.final_layernorm.weight"))
+    put("final_layernorm/bias", g("videodit_blocks.final_layernorm.bias"))
+    put("final_linear/linear/weight", lin_T("final_linear.linear.weight"))
+    return sink.tree()
 
 
-def load_dit_params(config: MagiConfig, device=None) -> dict:
+def load_dit_params(config: MagiConfig, device=None, sink=None) -> dict:
     """`runtime_config.load` -> the DiT tree on `device` (CUDA unless the
     CPU is asked for; fp8 checkpoints, `engine_config.fp8_quant`,
-    dequantized leaf by leaf there)."""
+    dequantized leaf by leaf there), built through `sink`
+    (`convert_dit_state`)."""
     device = resolve_device(device)
     ec = config.engine_config
     state = load_state_dict(config.runtime_config.load, ec.fp8_quant, ec.distill)
     if ec.fp8_quant:
         state = _dequant_fp8(state, device)
-    return convert_dit_state(state, config, device)
+    return convert_dit_state(state, config, device, sink)

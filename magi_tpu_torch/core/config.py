@@ -110,9 +110,11 @@ class RuntimeConfig:
 
 @dataclasses.dataclass
 class EngineConfig:
-    """Execution strategy.  Parallelism, quantization, distill and offload
-    fields are read from the file; this slice of the port runs the bf16
-    single-device path and refuses the others in `MagiPipeline`."""
+    """Execution strategy: parallelism (dp, pp, cp, tp sizes and the
+    torch.distributed backend and timeout, `parallel.mesh`), quantization,
+    distillation and offload.  `cp_strategy` "cp_shuffle_overlap" runs
+    the same Ulysses path as "cp_ulysses", as in the JAX package;
+    `ulysses_overlap_degree` is read and not used."""
 
     distributed_backend: str = "nccl"
     distributed_timeout_minutes: int = 10

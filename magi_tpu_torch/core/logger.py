@@ -1,5 +1,5 @@
-"""Process logger.  The port runs one process on one device, so every
-message is process 0's."""
+"""Process logger.  Under torchrun each rank is a process: `print_rank_0`
+logs on rank 0 only, `print_per_process` on every rank with its index."""
 
 from __future__ import annotations
 
@@ -30,5 +30,21 @@ class GlobalLogger:
 magi_logger = GlobalLogger.get_logger()
 
 
+def _process_index() -> int:
+    """This process's rank: the process group's once it is joined, else
+    torchrun's RANK (0 without a launcher)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return int(os.environ.get("RANK", "0"))
+
+
+def print_per_process(message: str) -> None:
+    magi_logger.info(f"[process {_process_index()}] {message}")
+
+
 def print_rank_0(message) -> None:
-    magi_logger.info(message)
+    """Log only on rank 0."""
+    if _process_index() == 0:
+        magi_logger.info(message)

@@ -40,3 +40,25 @@ def set_random_seed(seed: int, device=None) -> torch.Generator:
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
     return gen
+
+
+def tree_leaves(tree: dict, prefix: str = ""):
+    """(path "a/b/c", leaf) of every leaf of a nested dict, in order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from tree_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def nest(items) -> dict:
+    """(path "a/b/c", leaf) pairs (or a {path: leaf} dict) -> the nested
+    dict `tree_leaves` walks."""
+    out: dict = {}
+    for path, v in items.items() if isinstance(items, dict) else items:
+        node = out
+        keys = path.split("/")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = v
+    return out

@@ -312,11 +312,11 @@ __device__ float block_sum(float v, float* red) {
 __global__ void __launch_bounds__(256) gate_norm_residual_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ res, const float* __restrict__ gate,
     const float* __restrict__ w, const float* __restrict__ b, __nv_bfloat16* __restrict__ out, int D, int seg_len,
-    float eps, float w_offset) {
+    int row0, float eps, float w_offset) {
   extern __shared__ float g[];  // [D] gated row, fp32
   __shared__ float red[32];
   const long long row = blockIdx.x;
-  const int seg = (int)(row / seg_len);
+  const int seg = (int)((row + row0) / seg_len);
   const __nv_bfloat16* xr = x + row * D;
   const float* gr = gate + (long long)seg * D;
   const int nv = D / 4;
@@ -422,18 +422,21 @@ int magi_kv_norm_rope_pack_q8(const void* k, const void* v, const float* kw, con
                              static_cast<cudaStream_t>(stream));
 }
 
-// x, residual, out: [S, D] bf16; gate: [n_seg, D] f32; w, b: [D] f32
+// x, residual, out: [S, D] bf16; gate: [n_seg, D] f32; w, b: [D] f32.  Row r
+// takes gate row (r + row0) / seg_len: a shard of the token axis that starts
+// row0 tokens into its first segment (0 <= row0 < seg_len)
 int magi_gate_norm_residual(const void* x, const void* residual, const float* gate, const float* w, const float* b,
-                            void* out, long long S, int D, int seg_len, float eps, int zero_centered, void* stream) {
+                            void* out, long long S, int D, int seg_len, int row0, float eps, int zero_centered,
+                            void* stream) {
   if (S == 0) return 0;
-  if (D % 4) return (int)cudaErrorInvalidValue;
+  if (D % 4 || row0 < 0 || row0 >= seg_len) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)D * sizeof(float);
   cudaError_t err =
       cudaFuncSetAttribute(gate_norm_residual_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   gate_norm_residual_kernel<<<(unsigned)S, 256, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(residual), gate, w, b,
-      static_cast<__nv_bfloat16*>(out), D, seg_len, eps, zero_centered ? 1.f : 0.f);
+      static_cast<__nv_bfloat16*>(out), D, seg_len, row0, eps, zero_centered ? 1.f : 0.f);
   return (int)cudaGetLastError();
 }
 

@@ -5,15 +5,17 @@
 // magi_qmm_i8 replaces magi_tpu/ops/quant.py quantized_matmul_i8
 //   (_qmm_i8_kernel, K6):
 //   out[m, n] = bf16(((float)(sum_k x_q[m, k] * w_q[k, n]) * row_scale[m])
-//                    * col_scale[n]),
+//                    * col_scale[n]), or the same f32 product unrounded
+//                    (out_f32: a row-parallel linear's partial sums),
 //   x_q [M, K] int8 row-major, w_q logically [K, N] int8 as in the JAX
 //   package but stored k-major ([N, K] in memory: ops/quant.py makes the
 //   weights so), int32 accumulation (exact), the epilogue in the plain
 //   version's f32 multiply order, so the kernel gives its bits.
 // magi_qmm_deq replaces magi_tpu/ops/quant.py quantized_matmul
 //   (_qmm_kernel, K7):
-//   out[m, n] = bf16((sum_k x[m, k] * w_q[k, n]) * col_scale[n]),
-//   x [M, K] bf16, w_q k-major int8 as for K6, f32 accumulation, the scale
+//   out[m, n] = bf16((sum_k x[m, k] * w_q[k, n]) * col_scale[n]), or the
+//   same f32 product unrounded (out_f32: a row-parallel linear's partial
+//   sums), x [M, K] bf16, w_q k-major int8 as for K6, f32 accumulation, the scale
 //   applied after the sum as the Pallas kernel does (its plain version
 //   applies it to the weight first; the two differ by about one bf16 step).
 // magi_rowquant replaces magi_tpu/ops/act_quant.py rowquant_fused, modes
@@ -169,9 +171,12 @@ __device__ __forceinline__ void produce(uint64_t* full, uint64_t* empty, int til
   }
 }
 
+// OutT: __nv_bfloat16, or float for the f32 partial sums of a row-parallel
+// (tensor-parallel) linear, which are summed across ranks before the cast
+template <typename OutT>
 __global__ void __launch_bounds__(kGemmThreads, 1)
     qmm_i8_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
-                        const float* __restrict__ rs, const float* __restrict__ cs, __nv_bfloat16* __restrict__ out,
+                        const float* __restrict__ rs, const float* __restrict__ cs, OutT* __restrict__ out,
                         int M, int N, int K) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sA = align1024(smem_raw);        // [stage][128 rows of x_q][128 B]
@@ -226,13 +231,13 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
       wgmma_hold(acc);
       if (lane == 0) mbar_arrive(&empty[prev]);  // the producer loads the next tile meanwhile
 
-      // epilogue: ((float)acc * row_scale) * col_scale -> bf16, two columns a store
+      // epilogue: ((float)acc * row_scale) * col_scale -> OutT, two columns a store
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int m = m0 + wg * 64 + warp * 16 + g + 8 * i;
         if (m >= M) continue;
         const float rsm = rs[m];
-        __nv_bfloat16* orow = out + (long long)m * N;
+        OutT* orow = out + (long long)m * N;
 #pragma unroll
         for (int j = 0; j < kI8BN / 8; ++j) {
           const int n = n0 + 8 * j + 2 * q;
@@ -240,16 +245,21 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
           const float2 c = *reinterpret_cast<const float2*>(cs + n);
           const float v0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * i]), rsm), c.x);
           const float v1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * i + 1]), rsm), c.y);
-          *reinterpret_cast<uint32_t*>(orow + n) = pack_bf16(v0, v1);
+          if constexpr (sizeof(OutT) == 4)
+            *reinterpret_cast<float2*>(orow + n) = make_float2(v0, v1);
+          else
+            *reinterpret_cast<uint32_t*>(orow + n) = pack_bf16(v0, v1);
         }
       }
     }
   }
 }
 
+// OutT: __nv_bfloat16, or float for a row-parallel linear's partial sums (as K6)
+template <typename OutT>
 __global__ void __launch_bounds__(kGemmThreads, 1)
     qmm_deq_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
-                         const float* __restrict__ cs, __nv_bfloat16* __restrict__ out, int M, int N, int K) {
+                         const float* __restrict__ cs, OutT* __restrict__ out, int M, int N, int K) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sW = align1024(smem_raw);        // [stage][128 weight rows][64 B], 64-byte swizzle
   uint8_t* sX = sW + kDqStages * kDqWBytes;  // [stage][256 tokens][64 bf16], 128-byte swizzle
@@ -336,7 +346,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
       wgmma_hold(acc);
       if (lane == 0) mbar_arrive(&empty[prev]);  // the producer loads the next tile meanwhile
 
-      // epilogue: row n of out^T times col_scale[n] -> bf16, stored as out[m, n]
+      // epilogue: row n of out^T times col_scale[n] -> OutT, stored as out[m, n]
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int n = n0 + wg * 64 + warp * 16 + g + 8 * i;
@@ -347,7 +357,12 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int m = m0 + 8 * j + 2 * q + e;
-            if (m < M) out[(long long)m * N + n] = __float2bfloat16_rn(__fmul_rn(acc[4 * j + 2 * i + e], c));
+            if (m >= M) continue;
+            const float v = __fmul_rn(acc[4 * j + 2 * i + e], c);
+            if constexpr (sizeof(OutT) == 4)
+              out[(long long)m * N + n] = v;
+            else
+              out[(long long)m * N + n] = __float2bfloat16_rn(v);
           }
       }
     }
@@ -555,24 +570,32 @@ __global__ void __launch_bounds__(kRowThreads) swiglu_rowquant_kernel(const __nv
 extern "C" {
 
 // x_q: [M, K] int8; row_scale: [M] f32; w_q: the weight [K, N] int8 stored
-// k-major, [N, K] in memory; col_scale: [N] f32; out: [M, N] bf16.  K and N
-// multiples of 16, every pointer 16-byte aligned.
+// k-major, [N, K] in memory; col_scale: [N] f32; out: [M, N] bf16, or f32
+// when out_f32.  K and N multiples of 16, every pointer 16-byte aligned.
 int magi_qmm_i8(const void* xq, const float* row_scale, const void* wq, const float* col_scale, void* out, int M,
-                int N, int K, void* stream) {
+                int N, int K, int out_f32, void* stream) {
   if (M == 0 || N == 0) return 0;
   if (K % 16 || N % 16) return (int)cudaErrorInvalidValue;
-  static int sm_count[64];
+  static int sm_bf16[64], sm_f32[64];
   int sms = 0;
   CUtensorMap tx, tw;
   cudaError_t err = tensor_map(&tx, xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, M, K, kI8BM, kI8BK,
                                CU_TENSOR_MAP_SWIZZLE_128B);
   if (err == cudaSuccess)
     err = tensor_map(&tw, wq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K, kI8BN, kI8BK, CU_TENSOR_MAP_SWIZZLE_128B);
-  if (err == cudaSuccess) err = prepare(qmm_i8_wgmma_kernel, kI8Smem, sm_count, &sms);
+  if (err == cudaSuccess)
+    err = out_f32 ? prepare(qmm_i8_wgmma_kernel<float>, kI8Smem, sm_f32, &sms)
+                  : prepare(qmm_i8_wgmma_kernel<__nv_bfloat16>, kI8Smem, sm_bf16, &sms);
   if (err != cudaSuccess) return (int)err;
   const int tiles = ((M + kI8BM - 1) / kI8BM) * ((N + kI8BN - 1) / kI8BN);
-  qmm_i8_wgmma_kernel<<<std::min(tiles, sms), kGemmThreads, kI8Smem, static_cast<cudaStream_t>(stream)>>>(
-      tx, tw, row_scale, col_scale, static_cast<__nv_bfloat16*>(out), M, N, K);
+  const int grid = std::min(tiles, sms);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (out_f32)
+    qmm_i8_wgmma_kernel<float><<<grid, kGemmThreads, kI8Smem, st>>>(tx, tw, row_scale, col_scale,
+                                                                     static_cast<float*>(out), M, N, K);
+  else
+    qmm_i8_wgmma_kernel<__nv_bfloat16><<<grid, kGemmThreads, kI8Smem, st>>>(
+        tx, tw, row_scale, col_scale, static_cast<__nv_bfloat16*>(out), M, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -600,24 +623,32 @@ int magi_rowquant(const void* x, const float* ln_w, const float* ln_b, void* q, 
 }
 
 // x: [M, K] bf16; w_q: the weight [K, N] int8 stored k-major, [N, K] in
-// memory; col_scale: [N] f32; out: [M, N] bf16.  K and N multiples of 16,
-// every pointer 16-byte aligned.
-int magi_qmm_deq(const void* x, const void* wq, const float* col_scale, void* out, int M, int N, int K,
+// memory; col_scale: [N] f32; out: [M, N] bf16, or f32 when out_f32.  K
+// and N multiples of 16, every pointer 16-byte aligned.
+int magi_qmm_deq(const void* x, const void* wq, const float* col_scale, void* out, int M, int N, int K, int out_f32,
                  void* stream) {
   if (M == 0 || N == 0) return 0;
   if (K % 16 || N % 16) return (int)cudaErrorInvalidValue;
-  static int sm_count[64];
+  static int sm_bf16[64], sm_f32[64];
   int sms = 0;
   CUtensorMap tx, tw;
   cudaError_t err = tensor_map(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, kDqBM, kDqBK,
                                CU_TENSOR_MAP_SWIZZLE_128B);
   if (err == cudaSuccess)
     err = tensor_map(&tw, wq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K, kDqBN, kDqBK, CU_TENSOR_MAP_SWIZZLE_64B);
-  if (err == cudaSuccess) err = prepare(qmm_deq_wgmma_kernel, kDqSmem, sm_count, &sms);
+  if (err == cudaSuccess)
+    err = out_f32 ? prepare(qmm_deq_wgmma_kernel<float>, kDqSmem, sm_f32, &sms)
+                  : prepare(qmm_deq_wgmma_kernel<__nv_bfloat16>, kDqSmem, sm_bf16, &sms);
   if (err != cudaSuccess) return (int)err;
   const int tiles = ((M + kDqBM - 1) / kDqBM) * ((N + kDqBN - 1) / kDqBN);
-  qmm_deq_wgmma_kernel<<<std::min(tiles, sms), kGemmThreads, kDqSmem, static_cast<cudaStream_t>(stream)>>>(
-      tx, tw, col_scale, static_cast<__nv_bfloat16*>(out), M, N, K);
+  const int grid = std::min(tiles, sms);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (out_f32)
+    qmm_deq_wgmma_kernel<float><<<grid, kGemmThreads, kDqSmem, st>>>(tx, tw, col_scale, static_cast<float*>(out),
+                                                                      M, N, K);
+  else
+    qmm_deq_wgmma_kernel<__nv_bfloat16><<<grid, kGemmThreads, kDqSmem, st>>>(
+        tx, tw, col_scale, static_cast<__nv_bfloat16*>(out), M, N, K);
   return (int)cudaGetLastError();
 }
 

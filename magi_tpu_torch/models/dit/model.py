@@ -35,6 +35,16 @@
 * Attention, the k-side norm+rope+pack and the gated post norms go
   through `magi_tpu_torch.ops` (CUDA kernels on the card, their plain
   versions on the CPU).
+* On a model-parallel mesh (`parallel.mesh`: one process a rank) each rank
+  holds its shard of the token axis between attentions and its head shard
+  inside them (Ulysses: `_reshard_tokens_to_heads`,
+  `_reshard_heads_to_tokens`); column-parallel linears run the dispatch
+  above on their column block, row-parallel ones (linear_proj, fc2) sum
+  f32 partials over tp (`_row_parallel`); the post norms run on the rank's
+  rows (`gate_norm_residual_sharded`); under pp the layers arrive one at a
+  time from their owners (`parallel.mesh.pp_gather_layer`); the final
+  LayerNorm and linear run on the rank's rows, gathered after.  The same
+  kernels run on the local heads and rows with the global ranges.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ import torch.nn.functional as F
 
 from magi_tpu_torch.core.config import MagiConfig, ModelConfig
 from magi_tpu_torch.core.dataclasses import ForwardMeta
+from magi_tpu_torch.core.utils import tree_leaves
 from magi_tpu_torch.models.dit.embedders import (
     ada_modulate_forward,
     final_linear_forward,
@@ -68,8 +79,10 @@ from magi_tpu_torch.ops.attention_q8 import (
     segmented_attention_two_source_q8,
     segmented_attention_two_source_q8_reference,
 )
-from magi_tpu_torch.ops.fused_norm import gate_norm_residual
-from magi_tpu_torch.ops.quant import quantized_matmul, quantized_matmul_i8, unpack_int4
+from magi_tpu_torch.ops.fused_norm import gate_norm_residual, gate_norm_residual_sharded
+from magi_tpu_torch.ops.quant import TreeSink, _scale_of, quantized_matmul, quantized_matmul_i8, unpack_int4
+from magi_tpu_torch.parallel import comm
+from magi_tpu_torch.parallel import mesh as mesh_lib
 
 
 def attn_int8(config: MagiConfig) -> bool:
@@ -109,6 +122,15 @@ def _dot(x, w, high_precision: bool = False):
     return x @ w
 
 
+def _dot_f32(x, w):
+    """x @ w kept in f32: a bf16 product accumulated in f32 and not rounded
+    (cuBLAS writes the f32 sum on the card), as the JAX package's dot with
+    preferred_element_type=f32; fp32 operands as `_dot`'s high precision."""
+    if x.dtype == torch.bfloat16 and x.is_cuda:
+        return torch.mm(x, w, out_dtype=torch.float32)
+    return x.float() @ w.float()
+
+
 def _apply_pre(x, pre, eps):
     """The unfused producer of a linear group's input: None, ("ln", params)
     a shared pre-LayerNorm, or ("swiglu",) on a gated fc1 output."""
@@ -127,7 +149,8 @@ def _smooth_divide(x, smooth):
     return torch.mul(x, 1.0 / smooth.float(), out=torch.empty(x.shape, dtype=x.dtype, device=x.device))
 
 
-def _linears_shared(x, plist, act_ok: bool, high_precision: bool = False, pre=None, eps: float = 1e-6):
+def _linears_shared(x, plist, act_ok: bool, high_precision: bool = False, pre=None, eps: float = 1e-6,
+                    kind: str = "col"):
     """Several linears on one shared input, the single dispatch of every
     DiT linear (the JAX package's single-device branches): bf16 `weight`,
     int8 `weight_q` + per-channel `weight_scale`, or packed int4
@@ -141,10 +164,19 @@ def _linears_shared(x, plist, act_ok: bool, high_precision: bool = False, pre=No
     linear (`act_smooth` s, its weight quantized s·W) runs `pre` unfused,
     divides its input by s (`_smooth_divide`), then K8 `plain` + K6 or K7:
     a smoothed gated fc2 launches no K8s.  The kernels run on CUDA tensors,
-    their plain versions on CPU tensors."""
+    their plain versions on CPU tensors.
+
+    `kind` is the linear's tensor-parallel role.  Column-parallel linears
+    ("col": q, qx, k, v, linear_kv_xattn, fc1) hold a block of output
+    columns and run the dispatch above on it unchanged; row-parallel ones
+    ("row": linear_proj, fc2) at tp > 1 take `_row_parallel`."""
     if "weight_q4" in plist[0]:
         plist = [{**{k: v for k, v in pp.items() if k != "weight_q4"}, "weight_q": unpack_int4(pp["weight_q4"])}
                  for pp in plist]
+    if kind == "row":
+        mesh = mesh_lib.get_mesh()
+        if mesh is not None and mesh.shape[mesh_lib.AXIS_TP] > 1:
+            return _row_parallel(x, plist, act_ok, high_precision, pre, eps, mesh.group("tp"))
     if "weight_q" not in plist[0]:
         x = _apply_pre(x, pre, eps)
         return tuple(_dot(x, pp["weight"], high_precision) for pp in plist)
@@ -168,6 +200,37 @@ def _linears_shared(x, plist, act_ok: bool, high_precision: bool = False, pre=No
     return tuple(quantized_matmul_i8(xq, rs, pp["weight_q"], pp["weight_scale"], out_dtype=x.dtype) for pp in plist)
 
 
+def _row_parallel(x, plist, act_ok: bool, high_precision: bool, pre, eps: float, group):
+    """Row-parallel linears at tp > 1 (the JAX package's `inner_row`): x holds
+    the rank's block of input features (its producer, SwiGLU for a gated
+    fc2, runs on it unfused, and a smooth-quant input divides by its slice
+    of `act_smooth`), the weight the matching rows.  The f32 partial
+    products (never rounded to bf16: cuBLAS, K6 or K7 write f32) are summed
+    over the tp group, then cast.  The int8 branch quantizes x per row
+    against the row's global maximum (an all-reduce max over tp) in plain
+    ops."""
+    x = _apply_pre(x, pre, eps)
+    if "weight_q" not in plist[0]:
+        parts = [_dot_f32(x, pp["weight"]) for pp in plist]
+        dt = torch.float32 if high_precision else x.dtype
+    else:
+        if "act_smooth" in plist[0]:
+            if len(plist) != 1:
+                raise ValueError("smooth-quant linears are groups of one")
+            x = _smooth_divide(x, plist[0]["act_smooth"])
+        dt = x.dtype
+        if not act_ok:
+            parts = [quantized_matmul(x, pp["weight_q"], pp["weight_scale"], out_dtype=torch.float32) for pp in plist]
+        else:
+            xf = x.float()
+            amax = comm.all_reduce(xf.abs().amax(dim=1), group, "max")
+            scale = _scale_of(amax)
+            xq = torch.round(xf / scale[:, None]).clamp(-127, 127).to(torch.int8)
+            parts = [quantized_matmul_i8(xq, scale, pp["weight_q"], pp["weight_scale"], out_dtype=torch.float32)
+                     for pp in plist]
+    return tuple(comm.all_reduce(p, group, "sum").to(dt) for p in parts)
+
+
 def _merge_edge(blk: dict, edge: dict) -> dict:
     """A quantized layer tree with each {weight_q, weight_scale} node
     replaced by the bf16 {weight} of the `blocks_edge` side tree; a
@@ -185,8 +248,16 @@ def _merge_edge(blk: dict, edge: dict) -> dict:
     return out
 
 
-def _bias_modulate_add(x, residual, gate, post_norm_params, eps, zero_centered, n_seg):
-    """fp32(gate[seg] * x) -> post norm -> + residual, in one kernel pass."""
+def _bias_modulate_add(x, residual, gate, post_norm_params, eps, zero_centered, n_seg, seg_len=None):
+    """fp32(gate[seg] * x) -> post norm -> + residual, in one kernel pass; on
+    a model-parallel mesh over the rank's rows of the token axis (K4 with
+    the gate rows of the segments they touch, `gate_norm_residual_sharded`)."""
+    if not mesh_lib.model_parallel_trivial():
+        sh = mesh_lib.token_shard(n_seg * seg_len)
+        return gate_norm_residual_sharded(
+            x, residual, gate.contiguous(), post_norm_params["weight"], post_norm_params["bias"], eps=eps,
+            zero_centered=zero_centered, n_seg=n_seg, seg_len=seg_len, row_start=sh.start,
+        )
     return gate_norm_residual(
         x, residual, gate.contiguous(), post_norm_params["weight"], post_norm_params["bias"],
         eps=eps, zero_centered=zero_centered, n_seg=n_seg,
@@ -209,10 +280,94 @@ def _q8_attention(q, kv1, kv2, r1s, r1e, r2s, r2e, *, seg_len, q_pro):
     )
 
 
+def _head_layout(mesh):
+    """Per member of the head group (group order): its head shard, token
+    shard and tp index."""
+    g = mesh.group("head")
+    tp_of = [mesh.coords(r)[mesh_lib.AXIS_TP] for r in g.ranks]
+    return g, [mesh.head_index(r) for r in g.ranks], [mesh.seq_index(r) for r in g.ranks], tp_of
+
+
+def _exchange(group, pieces, out_sizes, like):
+    """One all-to-all over `group`: pieces[i] (a tensor, or None) goes to its
+    member i, and out_sizes[i] elements (of `like`'s dtype) come from
+    member i.  Returns what came from each member, flat (None where nothing
+    did)."""
+    send = [p.reshape(-1) for p in pieces if p is not None]
+    x = torch.cat(send) if send else like.new_empty(0)
+    recv = comm.all_to_all(x, group, [0 if p is None else p.numel() for p in pieces], out_sizes)
+    parts = iter(recv.split([n for n in out_sizes if n]))
+    return [next(parts) if n else None for n in out_sizes]
+
+
+def _reshard_tokens_to_heads(ts, mesh, S: int):
+    """Ulysses' tokens -> heads all-to-all, several tensors in one: each of
+    `ts` [rows, H_i/tp, d] (the rank's token shard of its tp block of heads:
+    the column-parallel projection's output) becomes [S, H_i/N, d], every
+    token of the rank's head shard (N = cp*pp*tp shards, the rank's shard
+    s*tp + tp_idx, the padding rows dropped).  Head shard k lies in tp block
+    k // n (n = cp*pp), so a rank sends to the n shards of its block their
+    heads of its rows, and receives its shard's heads from the n ranks of
+    the block that holds it, one per token shard."""
+    g, heads_of, seq_of, tp_of = _head_layout(mesh)
+    n = mesh_lib.seq_shards(mesh)
+    t, k_me = mesh.coords()[mesh_lib.AXIS_TP], mesh.head_index()
+    rows, d = ts[0].shape[0], ts[0].shape[2]
+    hs = [x.shape[1] // n for x in ts]
+    pieces = [torch.cat([x[:, (k - t * n) * h:(k - t * n + 1) * h] for x, h in zip(ts, hs)], dim=1)
+              if k // n == t else None for k in heads_of]
+    per = rows * sum(hs) * d
+    got = _exchange(g, pieces, [per if tt == k_me // n else 0 for tt in tp_of], ts[0])
+    by_seq = {sq: c for sq, c in zip(seq_of, got) if c is not None}
+    full = torch.cat([by_seq[i].view(rows, sum(hs), d) for i in range(n)])[:S]
+    return [y.contiguous() for y in full.split(hs, dim=1)]
+
+
+def _reshard_heads_to_tokens(ts, mesh, sh):
+    """The back transform (the port of `_reshard_heads_to_tokens`): each of
+    `ts` [S, H_i/N, d] (attention outputs of the rank's head shard) becomes
+    [rows, H_i/tp, d], the rank's token shard (`sh`, padded) of its tp
+    block of heads, in head order."""
+    g, heads_of, seq_of, tp_of = _head_layout(mesh)
+    n = mesh_lib.seq_shards(mesh)
+    t, k_me = mesh.coords()[mesh_lib.AXIS_TP], mesh.head_index()
+    hs = [x.shape[1] for x in ts]
+    d = ts[0].shape[2]
+    x = torch.cat(ts, dim=1)
+    if sh.padded > sh.S:
+        x = torch.cat([x, x.new_zeros((sh.padded - sh.S,) + tuple(x.shape[1:]))])
+    pieces = [x[sq * sh.rows:(sq + 1) * sh.rows] if tt == k_me // n else None for sq, tt in zip(seq_of, tp_of)]
+    per = sh.rows * sum(hs) * d
+    got = _exchange(g, pieces, [per if k // n == t else 0 for k in heads_of], x)
+    chunks = [c.view(sh.rows, sum(hs), d) for _, c in sorted((k, c) for k, c in zip(heads_of, got) if c is not None)]
+    offs = [sum(hs[:i]) for i in range(len(hs) + 1)]
+    return [torch.cat([c[:, a:b] for c in chunks], dim=1) for a, b in zip(offs[:-1], offs[1:])]
+
+
+def _head_shard_of_block(x, mesh):
+    """[T, H/tp, e] (the rank's tp block of heads, every token: the caption
+    kv from the column-parallel linear_kv_xattn) -> [T, H/N, e], the rank's
+    head shard.  Where that shard lies in another tp rank's block, the tp
+    group exchanges it."""
+    n, tp = mesh_lib.seq_shards(mesh), mesh.shape[mesh_lib.AXIS_TP]
+    t, sq, k_me = mesh.coords()[mesh_lib.AXIS_TP], mesh.seq_index(), mesh.head_index()
+    hs = x.shape[1] // n
+    if all((sq * tp + tt) // n == tt for tt in range(tp)):  # every shard of the tp group in its own block
+        j = k_me - t * n
+        return x[:, j * hs:(j + 1) * hs].contiguous()
+    g = mesh.group("tp")
+    tp_of = [mesh.coords(r)[mesh_lib.AXIS_TP] for r in g.ranks]
+    pieces = [x[:, (k - t * n) * hs:(k - t * n + 1) * hs] if k // n == t else None
+              for k in (sq * tp + tt for tt in tp_of)]
+    per = x.shape[0] * hs * x.shape[2]
+    got = _exchange(g, pieces, [per if tt == k_me // n else 0 for tt in tp_of], x)
+    return next(c for c in got if c is not None).view(x.shape[0], hs, x.shape[2])
+
+
 def attention_forward(
     p: dict,
     cfg: ModelConfig,
-    x: torch.Tensor,  # [S, D]
+    x: torch.Tensor,  # [S, D] (on a model-parallel mesh the rank's token shard)
     y_xattn: torch.Tensor,  # [n_seg, L, xattn_hidden] fp32
     sin: torch.Tensor,
     cos: torch.Tensor,
@@ -225,8 +380,16 @@ def attention_forward(
     """Self-attention (cache + current window) and caption cross-attention.
     Returns (core_attn_out [S, hq*hd], xattn_out [S, hq*hd]).  `int8_attn`
     runs both through int8 attention; `int8_store` (the cache is the int8
-    dict) packs the current kv to int8 with K3q on the card."""
-    S, D = x.shape
+    dict) packs the current kv to int8 with K3q on the card.
+
+    On a model-parallel mesh x holds the rank's token shard and the
+    projections its tp block of heads; Ulysses' all-to-all
+    (`_reshard_tokens_to_heads`) gives the attention every token of the
+    rank's head shard (kv heads replicated first when the shards outnumber
+    them, `kv_replication`), the kernels run on those heads with the global
+    ranges, the cache holds that shard, and the outputs go back to the
+    rank's tokens (`_reshard_heads_to_tokens`): ([rows, hq*hd/tp] each)."""
+    S = meta.n_segments * meta.seg_len
     hd = cfg.kv_channels
     hq = cfg.num_attention_heads
     hk = cfg.num_query_groups
@@ -234,22 +397,33 @@ def attention_forward(
     one = 1.0 if cfg.apply_layernorm_1p else 0.0
     n_seg, ctn = meta.n_segments, meta.seg_len
     on_card = x.device.type == "cuda"
+    mesh = mesh_lib.get_mesh()
+    mp = not mesh_lib.model_parallel_trivial(mesh)
 
     # q/qx/k/v share the pre-LN output: one row quantization covers all four
     lq = p["linear_qkv"]
     q, qx, k, v = _linears_shared(
         x, [lq["q"], lq["qx"], lq["k"], lq["v"]], act_quant_ok, pre=("ln", lq["layer_norm"]), eps=eps
     )
+    rep = 1
+    if mp:
+        rep = mesh_lib.kv_replication(hq, hk, mesh)
+        rows = x.shape[0]
+        k, v = k.reshape(rows, -1, hd), v.reshape(rows, -1, hd)
+        if rep > 1:
+            k, v = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+        q, qx, k, v = _reshard_tokens_to_heads(
+            [q.reshape(rows, -1, hd), qx.reshape(rows, -1, hd), k, v], mesh, S)
 
     # q-side fp32 QK-norm + rope run in the attention kernel's prologue
     q_pro = (p["q_layernorm"]["weight"].float() + one, p["q_layernorm"]["bias"].float(), sin, cos, eps)
-    q = q.reshape(S, hq, hd)
+    q = q.reshape(S, -1, hd)
 
     # k side: fp32 norm + rope + cast, packed into the cache layout (on the
     # card with an int8-stored cache, quantized per token in the same pass)
     kw = (p["k_layernorm"]["weight"].float() + one).contiguous()
     kb = p["k_layernorm"]["bias"].float().contiguous()
-    k, v = k.reshape(S, hk, hd), v.reshape(S, hk, hd)
+    k, v = k.reshape(S, -1, hd), v.reshape(S, -1, hd)
     if on_card and int8_store:
         kv8, sc = kv_norm_rope_pack(k, v, kw, kb, sin, cos, eps=eps, quantize=True)
         kv = {"kv": kv8, "scale": sc}
@@ -300,17 +474,21 @@ def attention_forward(
             core = _q8_attention(q, empty, kv, z, z, gs, ge, seg_len=ctn, q_pro=q_pro)
         else:
             core = segmented_attention_two_source(q, empty, kv, z, z, gs, ge, seg_len=ctn, q_prologue=q_pro)
-    core = core.reshape(S, hq * hd)
 
     # caption cross-attention: norm-only q prologue, no rope
     qx_pro = (
         p["q_layernorm_xattn"]["weight"].float() + one, p["q_layernorm_xattn"]["bias"].float(), None, None, eps
     )
-    qx = qx.reshape(S, hq, hd)
+    qx = qx.reshape(S, -1, hd)
     L = y_xattn.shape[1]
     y_flat = y_xattn.reshape(n_seg * L, -1).to(x.dtype)
     (kv_x,) = _linears_shared(y_flat, [p["linear_kv_xattn"]], act_quant_ok)
-    kv_x = kv_x.reshape(n_seg * L, hk, 2 * hd)
+    kv_x = kv_x.reshape(n_seg * L, -1, 2 * hd)
+    if mp:
+        # every caption token on every rank: the rank keeps its head shard
+        if rep > 1:
+            kv_x = kv_x.repeat_interleave(rep, dim=1)
+        kv_x = _head_shard_of_block(kv_x, mesh)
     k_x = layer_norm(kv_x[..., :hd], p["k_layernorm_xattn"], eps, cfg.apply_layernorm_1p).contiguous()
     v_x = kv_x[..., hd:]  # a view: the caption kernel loads it with TMA
     x_starts = torch.arange(n_seg, dtype=torch.int32, device=x.device) * L
@@ -325,7 +503,11 @@ def attention_forward(
         xattn = _q8_attention(qx, {"kv": kv8, "scale": sc}, empty, x_starts, x_ends, z, z, seg_len=ctn, q_pro=qx_pro)
     else:
         xattn = segmented_attention_v2(qx, k_x, v_x, x_starts, x_ends, seg_len=ctn, q_prologue=qx_pro)
-    return core, xattn.reshape(S, hq * hd)
+    if mp:
+        core, xattn = _reshard_heads_to_tokens([core, xattn], mesh, mesh_lib.token_shard(S, mesh))
+        rows = x.shape[0]
+        return core.reshape(rows, -1), xattn.reshape(rows, -1)
+    return core.reshape(S, -1), xattn.reshape(S, -1)
 
 
 def layer_forward(
@@ -352,23 +534,24 @@ def layer_forward(
     )
     attn_out = torch.cat([core, xattn], dim=-1)  # [S, 2*hq*hd]
     (attn_out,) = _linears_shared(
-        attn_out, [p["self_attention"]["linear_proj"]], act_quant_ok, high_precision=high_precision
+        attn_out, [p["self_attention"]["linear_proj"]], act_quant_ok, high_precision=high_precision, kind="row"
     )
     attn_out = attn_out.to(x.dtype)
 
     gate = softcap(ada_modulate_forward(p["ada_modulate_layer"], condition), 1.0)
     gate_msa, gate_mlp = gate.chunk(2, dim=-1)
-    x = _bias_modulate_add(attn_out, residual, gate_msa, p["self_attn_post_norm"], eps, zc, meta.n_segments)
+    x = _bias_modulate_add(attn_out, residual, gate_msa, p["self_attn_post_norm"], eps, zc, meta.n_segments,
+                           meta.seg_len)
 
     residual = x
     # the LayerNorm (and SwiGLU) ride into their consumer linears as `pre`
     (h,) = _linears_shared(x, [p["mlp"]["linear_fc1"]], act_quant_ok, pre=("ln", p["mlp"]["layer_norm"]), eps=eps)
     if cfg.gated_linear_unit:
-        (h,) = _linears_shared(h, [p["mlp"]["linear_fc2"]], act_quant_ok, pre=("swiglu",), eps=eps)
+        (h,) = _linears_shared(h, [p["mlp"]["linear_fc2"]], act_quant_ok, pre=("swiglu",), eps=eps, kind="row")
     else:
         h = F.gelu(h, approximate="none")
-        (h,) = _linears_shared(h, [p["mlp"]["linear_fc2"]], act_quant_ok)
-    return _bias_modulate_add(h, residual, gate_mlp, p["mlp_post_norm"], eps, zc, meta.n_segments)
+        (h,) = _linears_shared(h, [p["mlp"]["linear_fc2"]], act_quant_ok, kind="row")
+    return _bias_modulate_add(h, residual, gate_mlp, p["mlp_post_norm"], eps, zc, meta.n_segments, meta.seg_len)
 
 
 def patchify(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -417,14 +600,24 @@ def dit_prologue(params: dict, config: MagiConfig, x, t, y, caption_dropout, met
     return tokens.to(mc.params_dtype), condition, y_xattn, sin, cos
 
 
-def dit_epilogue(params: dict, config: MagiConfig, h, Tp: int, Hp: int, Wp: int):
-    """Final LayerNorm + fp32 final linear + unpatchify."""
+def _final_tokens(params: dict, config: MagiConfig, h):
+    """Final LayerNorm + fp32 final linear: [S, D] -> [S, tp*p*p*C_out]."""
     mc = config.model_config
     h = layer_norm(h.float(), params["final_layernorm"], mc.layernorm_epsilon, mc.apply_layernorm_1p)
-    out = unpatchify(final_linear_forward(params["final_linear"], h), mc, Tp, Hp, Wp)
+    return final_linear_forward(params["final_linear"], h)
+
+
+def _unpatchify_out(config: MagiConfig, tokens, Tp: int, Hp: int, Wp: int):
+    mc = config.model_config
+    out = unpatchify(tokens, mc, Tp, Hp, Wp)
     if mc.half_channel_vae:
         out = out[: mc.out_channels // 2]
     return out / mc.x_rescale_factor
+
+
+def dit_epilogue(params: dict, config: MagiConfig, h, Tp: int, Hp: int, Wp: int):
+    """Final LayerNorm + fp32 final linear + unpatchify."""
+    return _unpatchify_out(config, _final_tokens(params, config, h), Tp, Hp, Wp)
 
 
 def layer_params(blocks: dict, idx: int) -> dict:
@@ -462,7 +655,8 @@ def dit_forward(
 ):
     """Full DiT forward.  Returns (velocity [C_out, T, H, W], kv_cache); a
     forward with `meta.update_kv_cache` has written its slice of the cache
-    in place."""
+    in place.  On a model-parallel mesh `params` and `kv_cache` are the
+    rank's shards and the velocity comes back whole on every rank."""
     mc = config.model_config
     C, T, H, W = x.shape
     Hp, Wp = H // mc.patch_size, W // mc.patch_size
@@ -474,6 +668,22 @@ def dit_forward(
         raise ValueError("a forward that reads the KV cache needs one")
     if meta.use_kv_cache and isinstance(kv_cache, dict) != attn_int8_store(config):
         raise ValueError("the KV cache's form (int8 dict or bf16 tensor) does not match the int8 attention switches")
+    mesh = mesh_lib.get_mesh()
+    mp = not mesh_lib.model_parallel_trivial(mesh)
+    if mp:
+        # between attentions each rank holds its shard of the token axis
+        sh = mesh_lib.token_shard(h.shape[0], mesh)
+        if sh.padded > sh.S:
+            h = torch.cat([h, h.new_zeros((sh.padded - sh.S, h.shape[1]))])
+        h = h[sh.start:sh.start + sh.rows]
+    L = mc.num_layers
+
+    def gather(i):
+        # an edge layer of a tree with blocks_edge needs none of its quantized weights
+        return mesh_lib.pp_gather_layer(params["blocks"], i, L, mesh, edge="blocks_edge" in params and i in (0, L - 1))
+
+    pp = mesh_lib.pp_num_shards()
+    nxt = gather(0) if pp > 1 else None
     for idx in range(mc.num_layers):
         if not meta.use_kv_cache:
             cache_l = None
@@ -481,20 +691,33 @@ def dit_forward(
             cache_l = {"kv": kv_cache["kv"][idx], "scale": kv_cache["scale"][idx]}
         else:
             cache_l = kv_cache[idx]
-        h = dit_layer_step(params, config, idx, h, cache_l, condition, y_xattn, sin, cos, meta)
+        blk = None
+        if pp > 1:
+            # layer-FSDP: layer idx arrives from its owner while layer idx + 1's gather is issued
+            blk = nxt.wait()
+            if idx + 1 < L:
+                nxt = gather(idx + 1)
+        h = dit_layer_step(params, config, idx, h, cache_l, condition, y_xattn, sin, cos, meta, blk=blk)
+    if mp:
+        out = _final_tokens(params, config, h)
+        parts = comm.all_gather(out, mesh.group("seq"))
+        order = [mesh.seq_index(r) for r in mesh.group("seq").ranks]
+        out = torch.cat([parts[order.index(i)] for i in range(len(parts))])[: sh.S]
+        return _unpatchify_out(config, out, Tp, Hp, Wp), kv_cache
     return dit_epilogue(params, config, h, Tp, Hp, Wp), kv_cache
 
 
 def dit_layer_step(params: dict, config: MagiConfig, idx: int, h: torch.Tensor, cache_l, condition, y_xattn, sin,
-                   cos, meta: ForwardMeta) -> torch.Tensor:
+                   cos, meta: ForwardMeta, blk: Optional[dict] = None) -> torch.Tensor:
     """Layer `idx` of the stacked tree (edge routing included) on `cache_l`,
     that layer's cache slab ([2, hk, tokens, hd], or the int8 {kv, scale}
     dict; any strides the kernels take; None for a forward without the
     cache), which a forward with `meta.update_kv_cache` writes in place.
     The unit of the host-streamed KV cache (`sampling.transport.HostKVCache`),
-    and the body of `dit_forward`'s layer loop."""
+    and the body of `dit_forward`'s layer loop.  `blk` is the layer's tree
+    when the caller has it (a pp-sharded stack's gathered layer)."""
     return _apply_layer_routed(
-        layer_params(params["blocks"], idx), params.get("blocks_edge"), config, idx, h, condition, y_xattn, sin, cos,
+        layer_params(params["blocks"], idx) if blk is None else blk, params.get("blocks_edge"), config, idx, h, condition, y_xattn, sin, cos,
         cache_l, meta, high_precision=config.engine_config.high_precision_matmul, int8_attn=attn_int8(config),
         int8_store=attn_int8_store(config),
     )
@@ -505,11 +728,16 @@ def dit_layer_step(params: dict, config: MagiConfig, idx: int, h: torch.Tensor, 
 # ---------------------------------------------------------------------------
 
 
-def init_dit_params(config: MagiConfig, device=None, generator: Optional[torch.Generator] = None) -> dict:
+def init_dit_params(config: MagiConfig, device=None, generator: Optional[torch.Generator] = None, sink=None) -> dict:
     """Random weights (the SKIP_LOAD_MODEL mode): the JAX package's key tree
     and shapes, drawn on `device` with `generator`.  Matmul weights are
     uniform with std 0.02 in the parameter dtype; norms are identity
-    (zero-centered gammas are 0); biases are 0."""
+    (zero-centered gammas are 0); biases are 0.  Each leaf goes to `sink`
+    (an `ops.quant.TreeSink`, by default one that keeps the bf16 tree) as
+    it is drawn and the sink's tree comes back: quantized as it arrives
+    under `quant_bits`, a rank's shards with a `parallel.mesh.ShardSink`
+    (the slices of the single-device tree from the same generator).  No
+    more than one full stacked leaf is alive at a time."""
     mc = config.model_config
     device = torch.device(device or "cuda")
     if generator is None:
@@ -520,64 +748,59 @@ def init_dit_params(config: MagiConfig, device=None, generator: Optional[torch.G
     L, ffn, dtype = mc.num_layers, mc.ffn_hidden_size, mc.params_dtype
     fc1_out = 2 * ffn if mc.gated_linear_unit else ffn
     bound = 0.02 * 3.0**0.5
+    sink = TreeSink() if sink is None else sink
+    put = sink.leaf
 
     def uniform(shape, dt):
         return torch.empty(shape, dtype=dt, device=device).uniform_(-bound, bound, generator=generator)
 
-    def lin(i, o, bias=False):
-        p = {"weight": uniform((L, i, o), dtype)}
+    def lin(path, i, o, bias=False):
+        sink.linear(path, uniform((L, i, o), dtype))
         if bias:
-            p["bias"] = torch.zeros((L, o), dtype=dtype, device=device)
-        return p
+            put(path + "/bias", torch.zeros((L, o), dtype=dtype, device=device))
 
-    def norm(n, dt, stacked=True):
+    def norm(path, n, dt, stacked=True, plain=False):
         shape = (L, n) if stacked else (n,)
-        w = torch.zeros if mc.apply_layernorm_1p else torch.ones
-        return {"weight": w(shape, dtype=dt, device=device), "bias": torch.zeros(shape, dtype=dt, device=device)}
+        w = torch.zeros if mc.apply_layernorm_1p and not plain else torch.ones
+        put(path + "/weight", w(shape, dtype=dt, device=device))
+        put(path + "/bias", torch.zeros(shape, dtype=dt, device=device))
 
-    def plain_norm(n, dt):
-        return {"weight": torch.ones((L, n), dtype=dt, device=device), "bias": torch.zeros((L, n), dtype=dt, device=device)}
-
-    blocks = {
-        "ada_modulate_layer": {"proj": {"0": lin(ch, 2 * gh, bias=True)}},
-        "self_attention": {
-            "linear_qkv": {
-                "layer_norm": plain_norm(D, dtype),
-                "q": lin(D, hq * hd),
-                "qx": lin(D, hq * hd),
-                "k": lin(D, hk * hd),
-                "v": lin(D, hk * hd),
-            },
-            "q_layernorm": norm(hd, torch.float32),
-            "k_layernorm": norm(hd, torch.float32),
-            "q_layernorm_xattn": norm(hd, dtype),
-            "k_layernorm_xattn": norm(hd, dtype),
-            "linear_kv_xattn": lin(xh, 2 * hk * hd),
-            "linear_proj": lin(2 * hq * hd, D),
-        },
-        "self_attn_post_norm": norm(D, torch.float32),
-        "mlp": {
-            "layer_norm": plain_norm(D, dtype),
-            "linear_fc1": lin(D, fc1_out),
-            "linear_fc2": lin(ffn, D),
-        },
-        "mlp_post_norm": norm(D, torch.float32),
-    }
+    a = "blocks/self_attention/"
+    lin("blocks/ada_modulate_layer/proj/0", ch, 2 * gh, bias=True)
+    norm(a + "linear_qkv/layer_norm", D, dtype, plain=True)
+    lin(a + "linear_qkv/q", D, hq * hd)
+    lin(a + "linear_qkv/qx", D, hq * hd)
+    lin(a + "linear_qkv/k", D, hk * hd)
+    lin(a + "linear_qkv/v", D, hk * hd)
+    norm(a + "q_layernorm", hd, torch.float32)
+    norm(a + "k_layernorm", hd, torch.float32)
+    norm(a + "q_layernorm_xattn", hd, dtype)
+    norm(a + "k_layernorm_xattn", hd, dtype)
+    lin(a + "linear_kv_xattn", xh, 2 * hk * hd)
+    lin(a + "linear_proj", 2 * hq * hd, D)
+    norm("blocks/self_attn_post_norm", D, torch.float32)
+    norm("blocks/mlp/layer_norm", D, dtype, plain=True)
+    lin("blocks/mlp/linear_fc1", D, fc1_out)
+    lin("blocks/mlp/linear_fc2", ffn, D)
+    norm("blocks/mlp_post_norm", D, torch.float32)
     in_feat = mc.in_channels * mc.t_patch_size * mc.patch_size**2
-    params = {
-        "x_embedder": {"weight": uniform((in_feat, D), torch.float32)},
-        "rope": {"bands": default_bands(D // hq, device=device)},
-        "blocks": blocks,
-        "final_layernorm": norm(D, torch.float32, stacked=False),
-    }
-    params.update(init_embedder_params(mc, device, generator))
-    return params
+    put("x_embedder/weight", uniform((in_feat, D), torch.float32))
+    put("rope/bands", default_bands(D // hq, device=device))
+    norm("final_layernorm", D, torch.float32, stacked=False)
+    for path, t in tree_leaves(init_embedder_params(mc, device, generator)):
+        put(path, t)
+    return sink.tree()
 
 
 def kv_cache_shape(config: MagiConfig, max_tokens: int) -> tuple:
-    """[layers, k|v, kv_heads, tokens, head_dim]: the attention kernel's layout."""
+    """[layers, k|v, kv_heads, tokens, head_dim]: the attention kernel's
+    layout, of the rank's head shard on a mesh (kv heads replicated
+    `kv_replication` times first, as the JAX package's cache carries them)."""
     mc = config.model_config
-    return (mc.num_layers, 2, mc.num_query_groups, max_tokens, mc.kv_channels)
+    hq, hk = mc.num_attention_heads, mc.num_query_groups
+    mesh = mesh_lib.get_mesh()
+    heads = hk * mesh_lib.kv_replication(hq, hk, mesh) // mesh_lib.head_shards(mesh)
+    return (mc.num_layers, 2, heads, max_tokens, mc.kv_channels)
 
 
 def init_kv_cache(config: MagiConfig, max_tokens: int, device, dtype=None, int8: Optional[bool] = None):

@@ -309,6 +309,11 @@ class ViTVAE:
     def temporal_downsample_factor(self) -> int:
         return self.cfg.patch_length
 
+    @property
+    def allow_spatial_tiling(self) -> bool:
+        """MAGI's ViT-VAE tiles only in time."""
+        return False
+
     def encode(self, x: torch.Tensor, sample_posterior: bool = False,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """video [B, C, T, H, W] in [-1, 1] -> latent [B, z, T', H', W']: the

@@ -46,6 +46,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from magi_tpu_torch.core.utils import nest, tree_leaves
 from magi_tpu_torch.ops import _lib
 
 QUANTIZABLE_SUFFIXES = (
@@ -139,40 +140,63 @@ def _quantize_stacked(w: torch.Tensor, bits: int, smooth=None) -> Tuple[torch.Te
     return q, s
 
 
-def _leaves(tree: dict, keys: list):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _leaves(v, keys + [k])
-        else:
-            yield keys + [k], v
+class TreeSink:
+    """Collects a DiT tree leaf by leaf (`models.dit.model.init_dit_params`,
+    `checkpoint.loader.convert_dit_state`, `_quantize_params`): the one
+    place of the quantization policy.  With `quant_bits` (8 or 4) each
+    quantizable stacked linear is quantized as it arrives, smooth-folded
+    where it carries `act_smooth` (kept in the tree), and with `keep_edge`
+    its layers 0 and L-1 keep their bf16 weights, unfolded, in
+    `blocks_edge/{first,last}`; every other leaf is kept as it is.  So the
+    full bf16 tree is never alive beside the quantized one.  `_put` keeps a
+    leaf whole; `parallel.mesh.ShardSink` keeps a rank's slice of it."""
 
+    def __init__(self, quant_bits: int = 0, keep_edge: bool = True):
+        self.quant_bits, self.keep_edge = quant_bits, keep_edge
+        self.flat: dict = {}
 
-def _set_path(tree: dict, keys: list, value) -> None:
-    for k in keys[:-1]:
-        tree = tree.setdefault(k, {})
-    tree[keys[-1]] = value
+    def _put(self, path: str, full: torch.Tensor) -> None:
+        self.flat[path] = full
+
+    def leaf(self, path: str, full: torch.Tensor) -> None:
+        """Keep a leaf that is not a stacked linear's weight."""
+        self._put(path, full)
+
+    def linear(self, path: str, weight: torch.Tensor, smooth=None) -> None:
+        """A linear's stacked weight [L, in, out] at `path` (its node, as
+        "blocks/mlp/linear_fc1"), with its `act_smooth` [L, in] if any."""
+        if smooth is not None:
+            self._put(path + "/act_smooth", smooth)
+        if not self.quant_bits or not any((path + "/weight").endswith(sfx) for sfx in QUANTIZABLE_SUFFIXES):
+            self._put(path + "/weight", weight)
+            return
+        q, s = _quantize_stacked(weight, self.quant_bits, smooth)
+        self._put(path + ("/weight_q" if self.quant_bits == 8 else "/weight_q4"), q)
+        self._put(path + "/weight_scale", s)
+        del q, s
+        if self.keep_edge:
+            rel = path.split("/", 1)[1]
+            # copies: a view would keep the whole stacked weight alive
+            self._put(f"blocks_edge/first/{rel}/weight", weight[0].clone())
+            self._put(f"blocks_edge/last/{rel}/weight", weight[-1].clone())
+
+    def tree(self) -> dict:
+        return nest(self.flat)
 
 
 def _quantize_params(params: dict, bits: int, keep_edge_bf16: bool) -> dict:
-    """The quantized tree: each stacked linear's weight becomes `weight_q`
-    (int8) or `weight_q4` (packed int4) plus `weight_scale`, smooth-folded
-    where the linear carries `act_smooth` (kept in the tree), every other
-    leaf is shared with `params`, and with `keep_edge_bf16` layers 0 and
-    L-1 keep their bf16 weights, unfolded and cloned, in
-    `blocks_edge/{first,last}`."""
-    by_path = {"/".join(keys): leaf for keys, leaf in _leaves(params, [])}
-    new_tree: dict = {}
-    for keys, leaf in _leaves(params, []):
-        if not (any("/".join(keys).endswith(sfx) for sfx in QUANTIZABLE_SUFFIXES) and leaf.ndim == 3):
-            _set_path(new_tree, keys, leaf)
-            continue
-        q, s = _quantize_stacked(leaf, bits, by_path.get("/".join(keys[:-1] + ["act_smooth"])))
-        _set_path(new_tree, keys[:-1] + ["weight_q" if bits == 8 else "weight_q4"], q)
-        _set_path(new_tree, keys[:-1] + ["weight_scale"], s)
-        if keep_edge_bf16:
-            _set_path(new_tree, ["blocks_edge", "first"] + keys[1:], leaf[0].clone())
-            _set_path(new_tree, ["blocks_edge", "last"] + keys[1:], leaf[-1].clone())
-    return new_tree
+    """The quantized tree of a full one (`TreeSink`'s policy): every leaf
+    that is not quantized is shared with `params`."""
+    flat = dict(tree_leaves(params))
+    sink = TreeSink(bits, keep_edge_bf16)
+    for path, leaf in flat.items():
+        node, _, name = path.rpartition("/")
+        w = flat.get(node + "/weight")
+        if name == "weight" and leaf.ndim == 3:
+            sink.linear(node, leaf, flat.get(node + "/act_smooth"))
+        elif not (name == "act_smooth" and w is not None and w.ndim == 3):  # else it went with its linear
+            sink.leaf(path, leaf)
+    return sink.tree()
 
 
 def quantize_params_int8(params: dict) -> dict:
@@ -257,16 +281,18 @@ def quantized_matmul_i8(
     *,
     out_dtype=torch.bfloat16,
 ) -> torch.Tensor:
-    """K6: bf16((x_q @ w_q)_int32 * row_scale[m] * col_scale[n]); the CUDA
-    kernel on CUDA tensors (bf16 output, k and n multiples of 16, `w_q`
+    """K6: bf16((x_q @ w_q)_int32 * row_scale[m] * col_scale[n]), or the
+    f32 product with `out_dtype=torch.float32` (the partial sums of a
+    row-parallel linear, summed across tensor-parallel ranks before the
+    cast); the CUDA kernel on CUDA tensors (k and n multiples of 16, `w_q`
     k-major), the plain version on CPU tensors (any strides)."""
     if x_q.device.type == "cpu":
         return quantized_matmul_i8_reference(x_q, row_scale, w_q, col_scale, out_dtype)
     fn = "quantized_matmul_i8"
     m, k = x_q.shape
     n = w_q.shape[1]
-    if out_dtype != torch.bfloat16:
-        raise ValueError(f"{fn}: the kernel writes bf16, got out_dtype {out_dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{fn}: the kernel writes bf16 or f32, got out_dtype {out_dtype}")
     _check_kn(fn, k, n)
     _check_operands(fn, x_q.device, (
         ("x_q", x_q, torch.int8, (m, k)),
@@ -274,55 +300,63 @@ def quantized_matmul_i8(
         ("col_scale", col_scale, torch.float32, (n,)),
     ))
     _check_weight(fn, w_q, x_q.device, k, n)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x_q.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
     if m == 0:
         return out
     err = _lib.lib().magi_qmm_i8(
         x_q.data_ptr(), row_scale.data_ptr(), w_q.data_ptr(), col_scale.data_ptr(), out.data_ptr(), m, n, k,
-        _lib.stream(x_q.device),
+        int(out_dtype == torch.float32), _lib.stream(x_q.device),
     )
     _lib.check(err, fn)
     quantized_matmul_i8.launches += 1
+    quantized_matmul_i8.launches_f32 += out_dtype == torch.float32
     return out
 
 
 quantized_matmul_i8.launches = 0
+quantized_matmul_i8.launches_f32 = 0  # of `launches`, those with the f32 epilogue
 
 
-def quantized_matmul_reference(x, w_q, scale):
+def quantized_matmul_reference(x, w_q, scale, out_dtype=None):
     """Plain version of K7, the JAX package's reference: x @ (w_q * scale)
-    in f32 (the scale applied to the weight, before the sum), cast to x's
-    dtype."""
-    return (x.float() @ (w_q.float() * scale[None, :].float())).to(x.dtype)
+    in f32 (the scale applied to the weight, before the sum), cast to
+    `out_dtype` (x's dtype by default)."""
+    return (x.float() @ (w_q.float() * scale[None, :].float())).to(out_dtype or x.dtype)
 
 
-def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     """K7: bf16(sum_k x[m, k] * w_q[k, n] in f32, times scale[n]), the
     dequant GEMM of layers that run bf16 activations on int8 weights (a
-    quantized tree without `blocks_edge`).  The CUDA kernel on CUDA tensors
-    (bf16 x, k and n multiples of 16, `w_q` k-major), which applies the
-    scale after the sum as the Pallas kernel does; the plain version on CPU
-    tensors (any strides), which applies it before (the two differ by about
-    one bf16 step)."""
+    quantized tree without `blocks_edge`), or the f32 product with
+    `out_dtype=torch.float32` (a row-parallel linear's partial sums, as
+    K6).  The CUDA kernel on CUDA tensors (bf16 x, k and n multiples of 16,
+    `w_q` k-major), which applies the scale after the sum as the Pallas
+    kernel does; the plain version on CPU tensors (any strides), which
+    applies it before (the two differ by about one bf16 step)."""
     if x.device.type == "cpu":
-        return quantized_matmul_reference(x, w_q, scale)
+        return quantized_matmul_reference(x, w_q, scale, out_dtype)
     fn = "quantized_matmul"
     m, k = x.shape
     n = w_q.shape[1]
+    out_dtype = out_dtype or torch.bfloat16
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{fn}: the kernel writes bf16 or f32, got out_dtype {out_dtype}")
     _check_kn(fn, k, n)
     _check_operands(fn, x.device, (
         ("x", x, torch.bfloat16, (m, k)),
         ("scale", scale, torch.float32, (n,)),
     ))
     _check_weight(fn, w_q, x.device, k, n)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
     err = _lib.lib().magi_qmm_deq(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, k,
-                                   _lib.stream(x.device))
+                                   int(out_dtype == torch.float32), _lib.stream(x.device))
     _lib.check(err, fn)
     quantized_matmul.launches += 1
+    quantized_matmul.launches_f32 += out_dtype == torch.float32
     return out
 
 
 quantized_matmul.launches = 0
+quantized_matmul.launches_f32 = 0  # of `launches`, those with the f32 epilogue

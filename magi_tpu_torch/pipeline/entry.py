@@ -17,6 +17,17 @@ extension.  Without SKIP_LOAD_MODEL the DiT, VAE and T5 load from the
 checkpoints the config's `runtime_config` names (`load`, `vae_pretrained`,
 `t5_pretrained`).  Runs on CUDA unless `--device cpu` is given.  With
 MAGI_PROFILE_DIR set, each walk writes a profiler trace there.
+
+A config whose world_size (dp_size * pp_size * cp_size * tp_size) is above
+1 runs under torchrun, one process per rank, with the backend of its
+`engine_config.distributed_backend` (nccl across cards, gloo for several
+ranks on one card):
+
+    SKIP_LOAD_MODEL=1 python -m torch.distributed.run --standalone \
+        --nproc_per_node 8 -m magi_tpu_torch.pipeline.entry \
+        --config_file example/24B/24B_distill_quant_config.json ...
+
+Rank r takes cuda:(LOCAL_RANK % device count); rank 0 writes the videos.
 """
 
 from __future__ import annotations

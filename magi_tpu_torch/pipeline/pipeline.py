@@ -25,8 +25,18 @@ equal model (`get_dit`), and a later walk of an equal config takes the
 earlier walk's workspace and replays its graphs, through this pipeline or a
 new one.  Each request draws its weights (under SKIP_LOAD_MODEL) and its
 noise from the seed again, as the JAX pipeline does from `PRNGKey(seed)`,
-so equal requests give equal videos.  Multi-device parallelism raises
-`NotImplementedError` naming its ROADMAP item.
+so equal requests give equal videos.
+
+Under torchrun (`python -m torch.distributed.run --nproc_per_node N -m
+magi_tpu_torch.pipeline.entry ...`, N the config's world_size = dp*pp*cp*tp)
+each rank runs this pipeline: it joins the mesh (`parallel.mesh.
+initialize_mesh`, backend `engine_config.distributed_backend`), takes
+cuda:(LOCAL_RANK % device count), builds or loads only its shards of the
+DiT (`get_dit`), walks with its shards of the tokens, heads and cache, and
+decodes with the tiles split across its model replica; rank 0 writes the
+files.  A model-parallel mesh walks eagerly (steps with collectives inside
+are not captured: ROADMAP item 17); a dp-only mesh captures as one device
+does, each dp group walking its share of a batch's requests.
 """
 
 from __future__ import annotations
@@ -48,6 +58,8 @@ from magi_tpu_torch.core.logger import print_rank_0
 from magi_tpu_torch.core.profiler import log_memory, maybe_trace
 from magi_tpu_torch.core.timer import event_path_timer
 from magi_tpu_torch.core.utils import env_is_true, resolve_device, set_random_seed
+from magi_tpu_torch.parallel import comm
+from magi_tpu_torch.parallel import mesh as mesh_lib
 from magi_tpu_torch.pipeline.prompt_process import build_inference_input, get_txt_embeddings
 from magi_tpu_torch.pipeline.video_process import (
     post_chunk_process,
@@ -55,7 +67,7 @@ from magi_tpu_torch.pipeline.video_process import (
     process_prefix_video,
     save_video_to_disk,
 )
-from magi_tpu_torch.sampling.batched import DpBatchedSampler
+from magi_tpu_torch.sampling.batched import DpBatchedSampler, _maybe_dp_shard
 from magi_tpu_torch.sampling.transport import ArdfSampler, walk_many
 
 
@@ -110,46 +122,62 @@ def _dit_key(config: MagiConfig, device: torch.device, generator: torch.Generato
         paths = shard_paths(config.runtime_config.load, ec.fp8_quant, ec.distill)
         paths.append(os.path.join(os.path.dirname(paths[0]), "model.safetensors.index.json"))
         source = tuple((p, st.st_size, st.st_mtime_ns) for p in paths if os.path.exists(p) for st in [os.stat(p)])
-    return (str(device), repr((dataclasses.asdict(config.model_config), dataclasses.asdict(ec))),
+    mesh = mesh_lib.get_mesh()
+    return (str(device), None if mesh is None else (tuple(mesh.ranks.shape), mesh.rank),
+            repr((dataclasses.asdict(config.model_config), dataclasses.asdict(ec))),
             tuple(env_is_true(k) for k in ("SKIP_LOAD_MODEL", "MAGI_INT8", "MAGI_INT4")), source)
 
 
-def _build_dit(config: MagiConfig, device: torch.device, generator: torch.Generator) -> dict:
-    from magi_tpu_torch.ops.quant import quantize_params_int4, quantize_params_int8
+def _quant_bits(config: MagiConfig) -> int:
+    """8 or 4 when the DiT is quantized (`fp8_quant`, MAGI_INT8, MAGI_INT4;
+    4 under `quant_bits: 4` or MAGI_INT4), else 0."""
+    if not (config.engine_config.fp8_quant or env_is_true("MAGI_INT8") or env_is_true("MAGI_INT4")):
+        return 0
+    return 4 if config.engine_config.quant_bits == 4 or env_is_true("MAGI_INT4") else 8
 
+
+def _build_dit(config: MagiConfig, device: torch.device, generator: torch.Generator) -> dict:
+    """The DiT tree, drawn or read leaf by leaf and quantized as it arrives
+    (`ops.quant.TreeSink`); on a model-parallel mesh each rank keeps its
+    shards only (`parallel.mesh.ShardSink`)."""
+    from magi_tpu_torch.ops.quant import TreeSink
+
+    bits = _quant_bits(config)
+    if mesh_lib.model_parallel_trivial():
+        sink = TreeSink(bits)
+    else:
+        sink = mesh_lib.ShardSink(mesh_lib.get_mesh(), config.model_config.gated_linear_unit, bits)
     if env_is_true("SKIP_LOAD_MODEL"):
         from magi_tpu_torch.models.dit.model import init_dit_params
 
         print_rank_0("SKIP_LOAD_MODEL set: using random weights")
-        params = init_dit_params(config, device, generator)
+        params = init_dit_params(config, device, generator, sink=sink)
     else:
         from magi_tpu_torch.checkpoint.loader import load_dit_params
 
-        params = load_dit_params(config, device)
+        params = load_dit_params(config, device, sink=sink)
         print_rank_0("Load checkpoint successfully")
-    if config.engine_config.fp8_quant or env_is_true("MAGI_INT8") or env_is_true("MAGI_INT4"):
-        if config.engine_config.quant_bits == 4 or env_is_true("MAGI_INT4"):
-            params = quantize_params_int4(params)
-            print_rank_0("Quantized DiT linears to nibble-packed int4 (w4a8; first and last layers bf16)")
-        else:
-            params = quantize_params_int8(params)
-            print_rank_0("Quantized DiT linears to int8 (first and last layers bf16)")
+    if bits == 4:
+        print_rank_0("Quantized DiT linears to nibble-packed int4 (w4a8; first and last layers bf16)")
+    elif bits:
+        print_rank_0("Quantized DiT linears to int8 (first and last layers bf16)")
     return params
-
-
-def _check_supported(config: MagiConfig) -> None:
-    """Engine settings the model would otherwise ignore (the sampler, the
-    model and get_dit refuse the rest)."""
-    if config.engine_config.world_size > 1:
-        raise NotImplementedError("multi-GPU parallelism is ROADMAP queue 1 item 14")
 
 
 class MagiPipeline:
     def __init__(self, config_path: str, device=None, capture: bool = True):
         self.config = MagiConfig.from_json(config_path)
-        _check_supported(self.config)
-        self.device = resolve_device(device)
-        self.capture = capture  # the samplers' (`ArdfSampler`): CUDA graphs on the card
+        self.device = mesh_lib.rank_device(resolve_device(device))
+        if self.config.engine_config.world_size > 1 and mesh_lib.get_mesh() is None:
+            # torchrun's ranks join the mesh once a process
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            mesh_lib.initialize_mesh(self.config, device=self.device)
+        mp = not mesh_lib.model_parallel_trivial()
+        self.capture = capture and not mp  # the samplers' (`ArdfSampler`): CUDA graphs on the card
+        if capture and mp and self.device.type == "cuda":
+            print_rank_0("model-parallel mesh: the denoise steps run eagerly (graphs of steps with collectives "
+                         "inside are ROADMAP item 17)")
         self.generator = set_random_seed(self.config.runtime_config.seed, self.device)
         print_rank_0(self.config)
 
@@ -178,15 +206,19 @@ class MagiPipeline:
         request does."""
         self.generator.manual_seed(self.config.runtime_config.seed)
 
-    def _prepare_requests(self, prompts: Sequence[str], output_paths: Sequence[str]):
+    def _prepare_requests(self, prompts: Sequence[str], output_paths: Sequence[str], indices=None):
+        """The DiT and the inputs and generators of the requests `indices`
+        (every one by default) of `prompts`."""
         if not prompts or len(prompts) != len(output_paths):
             raise ValueError(f"{len(prompts)} prompts need as many output paths, got {len(output_paths)}")
+        indices = range(len(prompts)) if indices is None else indices
         self._reseed()
         params = get_dit(self.config, self.device, self.generator)
         null_caption = params["y_embedder"]["null_caption_embedding"].float().cpu().numpy()
-        inps = [build_inference_input(self.config, null_caption, *get_txt_embeddings(p, self.config, self.device),
-                                      self.device) for p in prompts]
-        return params, inps, [self._request_generator(i) for i in range(len(prompts))]
+        inps = [build_inference_input(self.config, null_caption, *get_txt_embeddings(prompts[i], self.config,
+                                                                                       self.device), self.device)
+                for i in indices]
+        return params, inps, [self._request_generator(i) for i in indices]
 
     def run_text_to_video_batch(self, prompts: Sequence[str], output_paths: Sequence[str]) -> List[dict]:
         """Generate a video for each prompt, the requests denoised in
@@ -196,13 +228,14 @@ class MagiPipeline:
         instead.  Returns one stats dict per request, as `_run`'s, with the
         run's wall seconds and its mode."""
         t0 = time.perf_counter()
-        params, inps, gens = self._prepare_requests(prompts, output_paths)
+        share = _maybe_dp_shard(len(prompts))
+        params, inps, gens = self._prepare_requests(prompts, output_paths, share)
         why = next(filter(None, (DpBatchedSampler.check_lockstep(inps[0], inp) for inp in inps[1:])), None)
         if why is not None:
             print_rank_0(f"lockstep batch impossible ({why}); falling back to interleaved mode")
-            return self._walk_many(params, inps, gens, output_paths, t0)
+            return self._walk_many(params, inps, gens, output_paths, t0, share)
         sampler = DpBatchedSampler(self.config, params, inps, gens, device=self.device, capture=self.capture)
-        R = len(prompts)
+        R = len(inps)
         segments, decode_seconds, finite = [[] for _ in range(R)], [[] for _ in range(R)], [True] * R
         with maybe_trace("walk_batch", self.device):
             for chunk_idx, chunks in sampler.walk():  # [R, C, <=cw, H, W]
@@ -214,8 +247,8 @@ class MagiPipeline:
                 print_rank_0(f"chunk {chunk_idx + 1}/{inps[0].chunk_num} done (batch of {R})")
         wall = time.perf_counter() - t0
         log_memory("after batched walk", self.device)
-        return [dict(self._write(segments[r], output_paths[r], finite[r], sampler.step_seconds, decode_seconds[r]),
-                     wall_seconds=wall, mode="lockstep") for r in range(R)]
+        return self._write_requests(segments, finite, [sampler.step_seconds] * R, decode_seconds, output_paths, share,
+                                    wall, "lockstep")
 
     def run_text_to_video_many(self, prompts: Sequence[str], output_paths: Sequence[str]) -> List[dict]:
         """Generate a video for each prompt on one engine, the requests'
@@ -225,9 +258,10 @@ class MagiPipeline:
         steps.  Returns one stats dict per request, as `_run`'s, with the
         run's wall seconds and its mode."""
         t0 = time.perf_counter()
-        return self._walk_many(*self._prepare_requests(prompts, output_paths), output_paths, t0)
+        share = _maybe_dp_shard(len(prompts))
+        return self._walk_many(*self._prepare_requests(prompts, output_paths, share), output_paths, t0, share)
 
-    def _walk_many(self, params, inps, gens, output_paths, t0: float) -> List[dict]:
+    def _walk_many(self, params, inps, gens, output_paths, t0: float, share) -> List[dict]:
         samplers = [ArdfSampler(self.config, params, inp, gen, device=self.device, capture=self.capture)
                     for inp, gen in zip(inps, gens)]
         R = len(samplers)
@@ -277,14 +311,48 @@ class MagiPipeline:
                 collect(*pending.popleft())
         wall = time.perf_counter() - t0
         log_memory("after interleaved walk", self.device)
-        return [dict(self._write(segments[r], output_paths[r], finite[r], samplers[r].step_seconds,
-                                 decode_seconds[r]), wall_seconds=wall, mode="interleaved") for r in range(R)]
+        return self._write_requests(segments, finite, [s.step_seconds for s in samplers], decode_seconds, output_paths,
+                                    share, wall, "interleaved")
 
-    def _write(self, segments, output_path: str, finite: bool, step_seconds, decode_seconds) -> dict:
-        """Write the decoded chunks as one video; the request's stats."""
-        video = np.concatenate(segments, axis=0)
-        path = save_video_to_disk(video, output_path, fps=self.config.runtime_config.fps)
-        print_rank_0(f"{video.shape[0]} frames -> {path}")
+    def _write_requests(self, segments, finite, step_seconds, decode_seconds, output_paths, share, wall: float,
+                        mode: str) -> List[dict]:
+        """Write the videos of the requests `share` (this rank's dp share of
+        `output_paths`).  On a mesh with dp > 1 the dp groups' videos are
+        gathered to rank 0, which writes every one; each rank returns the
+        stats of the requests it walked (rank 0: of every request)."""
+        videos = [np.concatenate(seg, axis=0) for seg in segments]
+        mesh = mesh_lib.get_mesh()
+        if mesh is not None and mesh.shape[mesh_lib.AXIS_DP] > 1:
+            if any(v for a, v in mesh.coords().items() if a != mesh_lib.AXIS_DP):
+                return [dict(self._stats(videos[j], None, finite[j], step_seconds[j], decode_seconds[j]),
+                             wall_seconds=wall, mode=mode) for j in range(len(share))]
+            group = mesh.group("dp")  # rank 0's dp group: (pp, cp, tp) = 0 in every replica
+            stack = comm.all_gather(torch.from_numpy(np.stack(videos)).to(self.device), group)
+            flags = comm.all_gather(torch.tensor(finite, dtype=torch.uint8, device=self.device), group)
+            all_videos = [v for part in stack for v in part.cpu().numpy()]
+            all_finite = [bool(f) for part in flags for f in part.cpu().tolist()]
+            local = {i: j for j, i in enumerate(share)}
+            return [dict(self._write_one(all_videos[i], output_paths[i], all_finite[i],
+                                         step_seconds[local[i]] if i in local else [],
+                                         decode_seconds[local[i]] if i in local else []),
+                         wall_seconds=wall, mode=mode) for i in range(len(all_videos))]
+        return [dict(self._write_one(videos[j], output_paths[i], finite[j], step_seconds[j], decode_seconds[j]),
+                     wall_seconds=wall, mode=mode) for j, i in enumerate(share)]
+
+    def _write_one(self, video: np.ndarray, output_path: str, finite: bool, step_seconds, decode_seconds) -> dict:
+        """Write the video (rank 0 only); the request's stats."""
+        path = None
+        if mesh_lib.get_mesh() is None or mesh_lib.get_mesh().rank == 0:
+            path = save_video_to_disk(video, output_path, fps=self.config.runtime_config.fps)
+            print_rank_0(f"{video.shape[0]} frames -> {path}")
+        return self._stats(video, path, finite, step_seconds, decode_seconds)
+
+    @staticmethod
+    def _stats(video: np.ndarray, path, finite: bool, step_seconds, decode_seconds) -> dict:
+        """A request's stats: the video's frames, shape and standard
+        deviation, whether every emitted latent was finite, the path written
+        (None on a rank that writes nothing), and the host seconds of every
+        denoise step and chunk decode."""
         return {
             "frames": int(video.shape[0]),
             "video_shape": tuple(video.shape),
@@ -322,6 +390,7 @@ class MagiPipeline:
                 print_rank_0(f"chunk {chunk_idx + 1}/{inp.chunk_num - sampler.chunk_offset} done")
         event_path_timer().synced_record("end_walk")
         log_memory("after walk", self.device)
-        stats = self._write(segments, output_path, finite, sampler.step_seconds, decode_seconds)
+        stats = self._write_one(np.concatenate(segments, axis=0), output_path, finite, sampler.step_seconds,
+                                decode_seconds)
         print_rank_0(f"Finish MagiPipeline in {time.perf_counter() - t0:.1f}s")
         return stats

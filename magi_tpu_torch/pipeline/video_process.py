@@ -3,8 +3,11 @@
 
 MAGI's ViT-VAE disables spatial tiling and uses no temporal overlap, so a
 tiled encode or decode is fixed-length temporal tiles, the equal ones
-batched through one ViT forward.  The loaders import PIL and cv2 only when
-they run."""
+batched through one ViT forward, split across the ranks of a model replica
+on a mesh (`parallel.tile.pmap_tile_batch`).  A tokenizer that allows
+spatial tiling encodes through the overlap-blended 3D grid
+(`pipeline.tiling.tiled_process_3d`).  The loaders import PIL and cv2 only
+when they run."""
 
 from __future__ import annotations
 
@@ -179,17 +182,27 @@ def _temporal_tiles(T: int, tile: int):
     return [(s, min(s + tile, T)) for s in range(0, T, tile)]
 
 
-def tiled_encode(vae, video: torch.Tensor, tile_frames: int) -> torch.Tensor:
+def tiled_encode(vae, video: torch.Tensor, tile_frames: int, tile_hw: int = 256) -> torch.Tensor:
     """video [N, C, T, H, W] in [-1, 1] -> latent.  Temporal tiles of
-    `tile_frames`, the full ones batched through one forward."""
+    `tile_frames`, the full ones batched through one forward (split across
+    the mesh's model replica); a VAE with `allow_spatial_tiling` and frames
+    wider than `tile_hw` through the overlap-blended 3D tile grid."""
+    from magi_tpu_torch.parallel.tile import pmap_tile_batch
+
     N, C, T, H, W = video.shape
+    if getattr(vae, "allow_spatial_tiling", False) and (H > tile_hw or W > tile_hw):
+        from magi_tpu_torch.pipeline.tiling import tiled_process_3d
+
+        sd, td = vae.spatial_downsample_factor, vae.temporal_downsample_factor
+        return tiled_process_3d(vae.encode, video, tile_t=tile_frames, tile_h=tile_hw, tile_w=tile_hw,
+                                scale_t=td, scale_h=sd, scale_w=sd, overlap_t=0.0, overlap_hw=0.25)
     if T <= tile_frames:
         return vae.encode(video)
     spans = _temporal_tiles(T, tile_frames)
     full = [s for s in spans if s[1] - s[0] == tile_frames]
     outs = {}
     if full:
-        z = vae.encode(torch.cat([video[:, :, a:b] for a, b in full], dim=0))
+        z = pmap_tile_batch(vae.encode, torch.cat([video[:, :, a:b] for a, b in full], dim=0))
         for i, (a, _) in enumerate(full):
             outs[a] = z[i * N : (i + 1) * N]
     for a, b in spans:
@@ -200,7 +213,10 @@ def tiled_encode(vae, video: torch.Tensor, tile_frames: int) -> torch.Tensor:
 
 def tiled_decode(vae, z: torch.Tensor, tile_frames: int) -> torch.Tensor:
     """latent [N, z, T', H', W'] -> video in [-1, 1].  Temporal latent tiles
-    of tile_frames // temporal_downsample_factor, batched when equal length."""
+    of tile_frames // temporal_downsample_factor, batched when equal length
+    (and split across the mesh's model replica)."""
+    from magi_tpu_torch.parallel.tile import pmap_tile_batch
+
     N = z.shape[0]
     tile_lat = max(1, tile_frames // vae.temporal_downsample_factor)
     Tl = z.shape[2]
@@ -210,7 +226,7 @@ def tiled_decode(vae, z: torch.Tensor, tile_frames: int) -> torch.Tensor:
     full = [s for s in spans if s[1] - s[0] == tile_lat]
     outs = {}
     if full:
-        y = vae.decode(torch.cat([z[:, :, a:b] for a, b in full], dim=0))
+        y = pmap_tile_batch(vae.decode, torch.cat([z[:, :, a:b] for a, b in full], dim=0))
         for i, (a, _) in enumerate(full):
             outs[a] = y[i * N : (i + 1) * N]
     for a, b in spans:

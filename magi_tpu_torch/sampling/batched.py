@@ -18,8 +18,13 @@ length (`check_lockstep`); mixed text / no text is fine.  The
 host-streamed cache (`kv_offload` under the default kv ranges) streams one
 request's cache through the device at a time and is refused here, as the
 JAX package's lockstep sampler has no host mode: such requests run
-interleaved (`walk_many`).  The JAX package's dp mesh (`dp_size > 1`) is
-not ported: `pipeline._check_supported` refuses it.
+interleaved (`walk_many`).
+
+On a mesh with dp > 1 each dp group runs its contiguous share of the
+requests (`_maybe_dp_shard`, the JAX package's shard_map over dp) as the
+program above, and `MagiPipeline.run_text_to_video_batch` gathers the
+videos to rank 0, which writes them.  The JAX package's `_map_requests`
+(its lax.map over the requests) is the step's loop over its requests here.
 """
 
 from __future__ import annotations
@@ -32,7 +37,22 @@ import torch
 from magi_tpu_torch.core.config import MagiConfig
 from magi_tpu_torch.core.utils import resolve_device
 from magi_tpu_torch.models.dit.model import init_kv_cache
+from magi_tpu_torch.parallel import mesh as mesh_lib
 from magi_tpu_torch.sampling.transport import ArdfSampler, InferenceInput, _leaf_map
+
+
+def _maybe_dp_shard(n: int) -> range:
+    """The indices of the requests this rank's dp group runs, of `n`: a
+    contiguous share on a mesh with dp > 1 (n must divide over dp), every
+    request otherwise."""
+    mesh = mesh_lib.get_mesh()
+    dp = 1 if mesh is None else mesh.shape[mesh_lib.AXIS_DP]
+    if dp == 1:
+        return range(n)
+    if n % dp:
+        raise ValueError(f"batch size {n} must divide over dp={dp}")
+    per, i = n // dp, mesh.coords()[mesh_lib.AXIS_DP]
+    return range(i * per, (i + 1) * per)
 
 
 class DpBatchedSampler(ArdfSampler):

@@ -32,6 +32,13 @@ whole run as clean (t = 1), and those chunks' KV is written into the
 cache by one warm-up forward before the first step.  `walk_many`
 round-robins several requests step by step; `sampling.batched` walks them
 in lockstep.
+
+On a model-parallel mesh (`parallel.mesh`) each rank walks the same
+schedule from the same noise with its shards of the tree and the cache
+(`kv_cache_shape` gives the rank's head shard), eagerly: `capture` must be
+off on the card there (steps with collectives inside are ROADMAP item 17),
+and `kv_offload` under the default kv ranges is ignored with a log line
+(the cache is already sharded), as the JAX package ignores it.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from magi_tpu_torch.core.config import MagiConfig
 from magi_tpu_torch.core.dataclasses import ForwardMeta, SegmentAttnSpec
 from magi_tpu_torch.core.logger import print_rank_0
 from magi_tpu_torch.core.utils import resolve_device, round_up
+from magi_tpu_torch.parallel import mesh as mesh_lib
 from magi_tpu_torch.models.dit.model import (
     attn_int8_store,
     dit_epilogue,
@@ -269,6 +277,9 @@ class ArdfSampler:
         self.inp = inp
         self.device = device
         self.capture = bool(capture)
+        if self.capture and device.type == "cuda" and not mesh_lib.model_parallel_trivial():
+            raise ValueError("a model-parallel mesh runs its steps eagerly (graphs of steps with collectives inside "
+                             "are ROADMAP item 17): pass capture=False")
         mc, rc, ec = config.model_config, config.runtime_config, config.engine_config
         if rc.cfg_number not in (1, 3):
             raise NotImplementedError(f"cfg_number={rc.cfg_number}")
@@ -294,6 +305,11 @@ class ArdfSampler:
         # memory and streams to the device one layer at a time (host mode)
         offset_chunks = 0 if inp.prefix_video is None else inp.prefix_video.shape[1] // self.cw
         self.host_mode = bool(ec.kv_offload and not rc.noise2clean_kvrange)
+        if self.host_mode and not mesh_lib.model_parallel_trivial():
+            # the cache is sharded 1/(cp*pp*tp) on a mesh: host streaming buys nothing
+            print_rank_0("kv_offload with default kv ranges ignored on a model-parallel mesh (the cache is sharded; "
+                         "host streaming is the single-device fallback)")
+            self.host_mode = False
         if ec.kv_offload and rc.noise2clean_kvrange:
             span = max(rc.noise2clean_kvrange)
             if rc.clean_chunk_kvrange != -1:

@@ -2,7 +2,9 @@
 `magi_tpu.serve.generator`).  Each request runs the port's CLI entry
 (`python -m magi_tpu_torch.pipeline.entry`) in a fresh process for failure
 isolation, with the same flags and conditioning environment as the JAX
-package's.  The entry runs on the card; `device=` passes `--device` on
+package's; a config of world_size > 1 runs it under torchrun, one process
+per rank (the JAX service needs no launcher: its one process drives the
+mesh).  The entry runs on the card; `device=` passes `--device` on
 (the CPU tests give "cpu")."""
 
 from __future__ import annotations
@@ -101,7 +103,17 @@ def _engine_env(root: str) -> dict:
 
 
 def _entry_cmd(config_file: str, mode: str) -> list:
-    return [sys.executable, "-m", "magi_tpu_torch.pipeline.entry", "--config_file", config_file, "--mode", mode]
+    """The engine's command: the CLI entry, under torchrun on a local
+    rendezvous (`--standalone`) with one process per rank when the config's
+    world_size (dp*pp*cp*tp) is above 1.  A config file that is not there
+    is the entry's to report, as it is on one rank."""
+    from magi_tpu_torch.core.config import MagiConfig
+
+    entry = ["-m", "magi_tpu_torch.pipeline.entry", "--config_file", config_file, "--mode", mode]
+    world = MagiConfig.from_json(config_file).engine_config.world_size if os.path.exists(config_file) else 1
+    if world > 1:
+        return [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(world), *entry]
+    return [sys.executable, *entry]
 
 
 def generate_magi_video(

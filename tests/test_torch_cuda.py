@@ -16,8 +16,12 @@ P is rounded to bf16 for the PV product).  A segment of a dozen keys has
 outputs near 1 and takes 2e-2 absolute + relative, one or two bf16 ulps
 there, as `chip_smoke.py` does for its short captions.
 
-The quantized kernels: K6 (int8 GEMM), K8 (row quantization) and K8s
-(SwiGLU + row quantization) are bit-equal to their plain versions.  K6
+The quantized kernels: K6 (int8 GEMM; with bf16 output and with the f32
+output of a row-parallel linear's partial sums), K8 (row quantization)
+and K8s (SwiGLU + row quantization) are bit-equal to their plain
+versions.  K4 on shards of the token axis (a first row inside a segment,
+a shard across a segment boundary, padding rows) gives the rows of one
+launch over the whole axis, bit for bit.  K6
 and K7 take their int8 weights k-major (as `quantize_int8` makes them)
 and refuse a row-major one.  K7
 (the bf16 x int8 dequant GEMM) sums before it scales and its plain
@@ -160,6 +164,27 @@ def test_gate_norm_residual_kernel(dev):
     kw = dict(eps=1e-6, zero_centered=True, n_seg=n_seg)
     _close(FN.gate_norm_residual(x, res, gate, w, b, **kw), FN.gate_norm_residual_reference(x, res, gate, w, b, **kw),
            atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("shard_rows", [150, 128, 300, 77])
+def test_gate_norm_residual_sharded_kernel(dev, shard_rows):
+    """K4 on shards of the token axis (row offsets into a segment, shards
+    that straddle a segment boundary, padding past the last segment) gives
+    the rows of one launch over the whole axis."""
+    g = _gen(dev)
+    n_seg, seg, D = 3, 100, 3072
+    S = n_seg * seg
+    pad = -S % shard_rows
+    x, res = _randn(g, dev, S + pad, D), _randn(g, dev, S + pad, D)
+    gate, w, b = (_randn(g, dev, *s, dtype=torch.float32) for s in ((n_seg, D), (D,), (D,)))
+    kw = dict(eps=1e-6, zero_centered=True, n_seg=n_seg)
+    full = FN.gate_norm_residual(x[:S], res[:S], gate, w, b, **kw)
+    before = FN.gate_norm_residual.launches
+    parts = [FN.gate_norm_residual_sharded(x[r: r + shard_rows], res[r: r + shard_rows], gate, w, b, seg_len=seg,
+                                           row_start=r, **kw) for r in range(0, S + pad, shard_rows)]
+    assert FN.gate_norm_residual.launches == before + len(parts)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts)[:S], full)
 
 
 # Cases of the two-source kernels (K1 and K5 qk8), 3 segments of 130 q
@@ -607,6 +632,22 @@ def test_quantized_matmul_i8_kernel(dev, m, k, n):
     assert torch.equal(out, ref)
 
 
+@pytest.mark.parametrize("m,k,n", [(300, 256, 384), (129, 1536, 3072), (3840, 6144, 3072)])
+def test_quantized_matmul_i8_kernel_f32_out(dev, m, k, n):
+    """K6's f32 epilogue (a row-parallel linear's partial sums) gives its
+    plain version's bits, and the bf16 output is their rounding."""
+    g = _gen(dev)
+    xq, rs = Q.act_quant_rowwise(_randn(g, dev, m, k))
+    wq, ws = Q.quantize_int8(_randn(g, dev, k, n))
+    before = Q.quantized_matmul_i8.launches
+    out = Q.quantized_matmul_i8(xq, rs, wq, ws, out_dtype=torch.float32)
+    assert Q.quantized_matmul_i8.launches == before + 1 and out.dtype == torch.float32
+    ref = Q.quantized_matmul_i8_reference(xq, rs, wq, ws, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert torch.equal(out.bfloat16(), Q.quantized_matmul_i8(xq, rs, wq, ws))
+
+
 @pytest.mark.parametrize("mode,k", [("plain", 6144), ("plain", 260), ("ln", 3072), ("ln", 12288)])
 def test_rowquant_fused_kernel(dev, mode, k):
     g = _gen(dev)
@@ -658,6 +699,43 @@ def test_quantized_matmul_kernel(dev, m, k, n):
     assert Q.quantized_matmul.launches == before + 1
     assert out.dtype == torch.bfloat16 and out.shape == (m, n)
     _close(out, Q.quantized_matmul_reference(x, wq, ws), **K7_TOL)
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 256, 384), (3840, 6144, 3072)])
+def test_quantized_matmul_kernel_f32_out(dev, m, k, n):
+    """K7's f32 epilogue (a row-parallel linear's partial sums): its bf16
+    rounding is the bf16 kernel's output bit for bit, and it is within f32
+    rounding (the sum's order, the scale after it) of its plain version."""
+    g = _gen(dev)
+    x = _randn(g, dev, m, k)
+    wq, ws = Q.quantize_int8(0.02 * _randn(g, dev, k, n, dtype=torch.float32))
+    before = (Q.quantized_matmul.launches, Q.quantized_matmul.launches_f32)
+    out = Q.quantized_matmul(x, wq, ws, out_dtype=torch.float32)
+    assert (Q.quantized_matmul.launches, Q.quantized_matmul.launches_f32) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    assert torch.equal(out.bfloat16(), Q.quantized_matmul(x, wq, ws))
+    ref = Q.quantized_matmul_reference(x, wq, ws, out_dtype=torch.float32)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+def test_dot_f32_keeps_the_bf16_product_unrounded(dev):
+    """A row-parallel bf16 linear's partial sums on the card: the bf16
+    product accumulated and written in f32, as the exact f32 product of the
+    same values (TF32 off) gives it, to f32 rounding."""
+    from magi_tpu_torch.models.dit.model import _dot_f32
+
+    g = _gen(dev)
+    x, w = _randn(g, dev, 300, 1536), _randn(g, dev, 1536, 384)
+    out = _dot_f32(x, w)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = x.float() @ w.float()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-5)
+    assert not torch.equal(out, (x @ w).float())  # the bf16 product would be rounded
 
 
 @pytest.mark.parametrize("f", [1536, 16384])

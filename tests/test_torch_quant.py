@@ -55,6 +55,7 @@ from magi_tpu.models.dit import model as JM
 from magi_tpu.ops import act_quant as JA
 from magi_tpu.ops import quant as JQ
 from magi_tpu_torch.checkpoint.from_jax import dit_params_from_jax
+from magi_tpu_torch.core.utils import tree_leaves
 from magi_tpu_torch.models.dit import model as TM
 from magi_tpu_torch.ops import act_quant as TA
 from magi_tpu_torch.ops import attention_q8 as TA8
@@ -423,10 +424,10 @@ def test_quantized_weights_are_k_major(bits):
     tree = TQ.quantize_params_int8(params) if bits == 8 else TQ.quantize_params_int4(params)
     leaf = "weight_q" if bits == 8 else "weight_q4"
     found = 0
-    for keys, v in TQ._leaves(tree, []):
-        if keys[-1] == leaf:
-            _assert_k_major(v, "/".join(keys))
-            _assert_k_major(v[1], "/".join(keys))  # one layer's [in, out] view
+    for path, v in tree_leaves(tree):
+        if path.rsplit("/", 1)[-1] == leaf:
+            _assert_k_major(v, path)
+            _assert_k_major(v[1], path)  # one layer's [in, out] view
             found += 1
     assert found
 
