@@ -137,10 +137,14 @@ Phases, each printed on its own line; any failure exits non-zero:
      and rank 0 writing both videos.  17b-d are held against the same
      request through the CLI entry in this process (equal launches, but in
      17c the row-parallel linears quantize in plain ops, so K8 loses one
-     launch for each f32 K6 launch; 17d half of the lockstep's).  Each run prints its backend, ranks, wall,
-     seconds a step, the bytes each rank handed to collectives a step, its
-     difference to the single process and whether its steps were captured
-     (model-parallel meshes walk eagerly: ROADMAP item 17).
+     launch for each f32 K6 launch; 17d half of the lockstep's).  Every
+     walk's steps are captured, on a model-parallel mesh in pieces cut at
+     its collectives (each rank must capture graphs); 17b also walks
+     eagerly (`--eager`) in the same ranks and 17c walks a second time
+     captured (0 graphs: the first walk's workspace) and then eagerly: the
+     captured chunks bit-equal to the eager ones, launches equal kernel by
+     kernel.  Each walk prints, per rank, its seconds a step, graphs and
+     capture seconds, and the bytes handed to collectives a step.
 Phases 3-14 run as a user runs the port on the card: every denoise step
 and every VAE encode and decode replayed from a CUDA graph (`core.graphs`,
 captured before the walk; the capture's own launches are not counted).
@@ -2556,9 +2560,11 @@ class Recorder:
 
 def mesh_worker(spec_path: str) -> int:
     """One rank of a phase-17 run (started by torchrun from `run_mesh`): the
-    CLI entry with the spec's arguments, every launch count set to 0 just
-    before; writes the rank's launches, collective traffic, step seconds,
-    and the chunks (rank 0: also the videos) it emitted."""
+    CLI entry with each of the spec's argument lists in turn (its walks:
+    captured, a second captured one, eager), every launch count and the
+    collective traffic set to 0 just before each; writes, per walk, the
+    rank's launches, collective traffic, step seconds, graphs captured and
+    capture seconds, and the chunks (rank 0: also the videos) it emitted."""
     import numpy as np
     import torch
 
@@ -2574,26 +2580,33 @@ def mesh_worker(spec_path: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     os.environ["SKIP_LOAD_MODEL"] = "1"
     wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
-    Q.quantized_matmul_i8.launches_f32 = 0
-    comm.reset_traffic()
-    t0 = time.perf_counter()
-    with Recorder() as rec:
-        stats = entry.main(spec["argv"])
-    wall = time.perf_counter() - t0
+    runs, arrays = [], {}
+    for i, argv in enumerate(spec["argvs"]):
+        for w in wrappers.values():
+            w.launches = 0
+        Q.quantized_matmul_i8.launches_f32 = 0
+        comm.reset_traffic()
+        captured = G.captures("walk")
+        t0 = time.perf_counter()
+        with Recorder() as rec:
+            stats = entry.main(argv)
+        wall = time.perf_counter() - t0
+        stats = stats if isinstance(stats, list) else [stats]
+        steps = [x for st in stats for x in st["step_seconds"]]
+        runs.append(dict(wall=wall, launches={n: w.launches for n, w in wrappers.items()},
+                         launches_f32=Q.quantized_matmul_i8.launches_f32, traffic=dict(comm.traffic),
+                         steps=max(len(st["step_seconds"]) for st in stats),
+                         mean_step=sum(steps) / max(len(steps), 1), graphs=G.captures("walk") - captured,
+                         capture_seconds=stats[0].get("capture_seconds", 0.0)))
+        arrays[f"chunks_{i}"] = np.stack([c.numpy() for c in rec.chunks])
+        if rec.videos:
+            arrays[f"videos_{i}"] = np.stack(rec.videos)
     import torch.distributed as dist
 
     rank = dist.get_rank()
-    stats = stats if isinstance(stats, list) else [stats]
-    steps = [x for st in stats for x in st["step_seconds"]]
-    out = dict(rank=rank, world=dist.get_world_size(), backend=dist.get_backend(), wall=wall,
-               launches={n: w.launches for n, w in wrappers.items()}, launches_f32=Q.quantized_matmul_i8.launches_f32,
-               traffic=dict(comm.traffic), steps=max(len(st["step_seconds"]) for st in stats),
-               mean_step=sum(steps) / max(len(steps), 1), captured=G.captures("walk") > 0,
+    out = dict(rank=rank, world=dist.get_world_size(), backend=dist.get_backend(), runs=runs,
                device=str(torch.cuda.current_device()), peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    np.savez(f"{spec['out']}.rank{rank}.npz", chunks=np.stack([c.numpy() for c in rec.chunks]),
-             **({"videos": np.stack(rec.videos)} if rec.videos else {}))
+    np.savez(f"{spec['out']}.rank{rank}.npz", **arrays)
     with open(f"{spec['out']}.rank{rank}.json", "w") as f:
         json.dump(out, f)
     return 0
@@ -2607,18 +2620,24 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_mesh(name: str, ranks: int, config: dict, stem: str, extra_args: list) -> list:
+MESH_WALKS = {"captured": [], "again": [], "eager": ["--eager"]}  # a phase-17 walk's extra CLI arguments
+
+
+def run_mesh(name: str, ranks: int, config: dict, stem: str, extra_args: list, walks=("captured",)) -> list:
     """`config` (gloo, `ranks` ranks on cuda:0) through the CLI entry under
-    torchrun on a free port, this script's `--mesh-worker` in each rank;
-    fails unless every rank exits 0.  Returns each rank's record and
-    arrays."""
+    torchrun on a free port, this script's `--mesh-worker` in each rank,
+    walking `walks` in turn in the same processes (`MESH_WALKS`: the steps
+    captured, a second captured walk that takes the first's workspace,
+    eager); fails unless every rank exits 0.  Returns each rank's records
+    and arrays: a list by walk, in order."""
     import numpy as np
 
     config = json.loads(json.dumps(config))
     config["engine_config"]["distributed_backend"] = "gloo"
     with open(stem + ".json", "w") as f:
         json.dump(config, f)
-    spec = dict(argv=["--config_file", stem + ".json", "--mode", "t2v", *extra_args], out=stem)
+    argv = ["--config_file", stem + ".json", "--mode", "t2v", *extra_args]
+    spec = dict(argvs=[argv + MESH_WALKS[w] for w in walks], out=stem)
     with open(stem + ".spec.json", "w") as f:
         json.dump(spec, f)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(ranks), "--master_addr",
@@ -2635,18 +2654,22 @@ def run_mesh(name: str, ranks: int, config: dict, stem: str, extra_args: list) -
     recs = []
     for r in range(ranks):
         with open(f"{stem}.rank{r}.json") as f:
-            rec = json.load(f)
+            rank = json.load(f)
         arrs = np.load(f"{stem}.rank{r}.npz")
-        rec.update(chunks=arrs["chunks"], videos=arrs["videos"] if "videos" in arrs else None)
-        recs.append(rec)
-    print(f"  {name}: backend {recs[0]['backend']}, {ranks} ranks on cuda:{recs[0]['device']}, torchrun wall "
-          f"{wall:.1f} s (entry {max(r['wall'] for r in recs):.1f} s), {recs[0]['mean_step']:.4f} s a step over "
-          f"{recs[0]['steps']} steps, peak {max(r['peak_gib'] for r in recs):.2f} GiB a rank, "
-          f"\"captured\": {json.dumps(recs[0]['captured'])}")
-    for r in recs:
-        moved = {k[:-6]: round(v / r["steps"]) for k, v in r["traffic"].items() if k.endswith("_bytes")}
-        print(f"    rank {r['rank']}: bytes handed to collectives a step {json.dumps(moved)} "
-              f"({sum(moved.values()) / 2**20:.1f} MiB)")
+        recs.append([dict(run, walk=w, rank=rank["rank"], backend=rank["backend"], device=rank["device"],
+                          peak_gib=rank["peak_gib"], chunks=arrs[f"chunks_{i}"],
+                          videos=arrs[f"videos_{i}"] if f"videos_{i}" in arrs else None)
+                     for i, (w, run) in enumerate(zip(walks, rank["runs"]))])
+    first = recs[0][0]
+    print(f"  {name}: backend {first['backend']}, {ranks} ranks on cuda:{first['device']}, torchrun wall "
+          f"{wall:.1f} s, walks {', '.join(walks)}, peak {max(r[0]['peak_gib'] for r in recs):.2f} GiB a rank")
+    for i, w in enumerate(walks):
+        for rank in recs:
+            r = rank[i]
+            moved = {k[:-6]: round(v / r["steps"]) for k, v in r["traffic"].items() if k.endswith("_bytes")}
+            print(f"    {w} rank {r['rank']}: entry {r['wall']:.1f} s, {r['mean_step']:.4f} s a step over "
+                  f"{r['steps']} steps, graphs {r['graphs']} ({r['capture_seconds']:.2f} s capturing), bytes "
+                  f"handed to collectives a step {json.dumps(moved)} ({sum(moved.values()) / 2**20:.1f} MiB)")
     return recs
 
 
@@ -2675,20 +2698,47 @@ def _check_launches(name: str, got: dict, want: dict, scale: int = 1) -> None:
         fail(f"{name}: launches differ from the single process (got, want): {bad}")
 
 
+def _check_walk_pair(name: str, recs: list, i: int, j: int) -> None:
+    """Walk i of every rank of a phase-17 run against its walk j in the same
+    ranks (captured against eager): chunks bit-equal, launches (and the f32
+    K6 launches) equal kernel by kernel."""
+    for rank in recs:
+        a, b = rank[i], rank[j]
+        _check_chunks(f"{name} rank {a['rank']}: {a['walk']} against {b['walk']}", list(a["chunks"]),
+                      list(b["chunks"]), None)
+        if a["launches"] != b["launches"] or a["launches_f32"] != b["launches_f32"]:
+            fail(f"{name} rank {a['rank']}: launches of the {a['walk']} walk differ from the {b['walk']} one's: "
+                 f"{a['launches']} ({a['launches_f32']} f32) against {b['launches']} ({b['launches_f32']} f32)")
+    print(f"    {name}: every rank's {recs[0][i]['walk']} walk bit-equal to its {recs[0][j]['walk']} walk, launches "
+          f"equal kernel by kernel")
+
+
+def _check_captured(name: str, recs: list, i: int = 0) -> None:
+    """Walk i of every rank captured its steps (graphs > 0)."""
+    bad = [rank[i]["rank"] for rank in recs if rank[i]["graphs"] <= 0]
+    if bad:
+        fail(f"{name}: ranks {bad} captured no step graph in the {recs[0][i]['walk']} walk")
+
+
 def run_mesh_phase(dev, out_dir: str, launches5: dict, rec5) -> dict:
     """Phase 17: meshes of several ranks on this one card, each rank a
     process on cuda:0 and the collectives on gloo (NCCL refuses two ranks
-    on one device): a, phase 5's request on cp 2 (full width and depth),
-    every rank's launches equal to phase 5's and rank 0's video and chunks
-    against phase 5's; b, the 4.5B base config (3-branch CFG, bf16) cut to
-    4 layers on cp 2 x tp 2; c, the distill + int8 config cut to 4 layers
-    on pp 2 x tp 2 (layer broadcasts, the row-parallel K6 with f32 out and
-    the all-reduced row maximum); d, two prompts on the 17c tree with dp 2,
-    each rank walking its request as one device does.  b-d are held against
-    the same request through the CLI entry in this process (d: its two
+    on one device), every model-parallel walk's steps captured in pieces
+    cut at its collectives: a, phase 5's request on cp 2 (full width and
+    depth), every rank's launches equal to phase 5's and rank 0's video and
+    chunks against phase 5's; b, the 4.5B base config (3-branch CFG, bf16)
+    cut to 4 layers on cp 2 x tp 2, captured then eager in the same ranks;
+    c, the distill + int8 config cut to 4 layers on pp 2 x tp 2 (layer
+    broadcasts, the row-parallel K6 with f32 out and the all-reduced row
+    maximum), captured, captured again (no capture: the first walk's
+    workspace) and eager; d, two prompts on the 17c tree with dp 2, each
+    rank walking its request as one device does.  b-d are held against the
+    same request through the CLI entry in this process (d: its two
     requests in lockstep), chunk by chunk, with launches equal (c: K8's
-    launches of the row-parallel linears are K6's f32 launches; d: half).
-    Returns each run's launch counts (rank 0's) by path name."""
+    launches of the row-parallel linears are K6's f32 launches; d: half),
+    and b and c's captured walks against their eager ones bit for bit.
+    Returns each run's launch counts (rank 0's captured walk) by path
+    name."""
     import numpy as np
 
     fresh_card()
@@ -2704,20 +2754,21 @@ def run_mesh_phase(dev, out_dir: str, launches5: dict, rec5) -> dict:
     recs = run_mesh("17a 4.5B distill + int8, cp 2 (34 layers, 256x256, 96 frames)", 2, a,
                     os.path.join(out_dir, "mesh_17a"),
                     ["--prompt", "a red cube on a table", "--output_path", os.path.join(out_dir, "mesh_17a.mp4")])
-    for r in recs:
-        _check_launches(f"17a rank {r['rank']}", r["launches"], launches5)
-    print(f"    17a: every rank's launches equal phase 5's, kernel by kernel: {json.dumps(recs[0]['launches'])}")
-    err = _check_chunks("17a rank 0", list(recs[0]["chunks"]), [c.numpy() for c in rec5.chunks],
-                        MESH_CHUNK_TOL["17a"])
-    v, w = recs[0]["videos"][0].astype(np.float32), rec5.videos[0].astype(np.float32)
+    _check_captured("17a", recs)
+    for rank in recs:
+        _check_launches(f"17a rank {rank[0]['rank']}", rank[0]["launches"], launches5)
+    r0 = recs[0][0]
+    print(f"    17a: every rank's launches equal phase 5's, kernel by kernel: {json.dumps(r0['launches'])}")
+    err = _check_chunks("17a rank 0", list(r0["chunks"]), [c.numpy() for c in rec5.chunks], MESH_CHUNK_TOL["17a"])
+    v, w = r0["videos"][0].astype(np.float32), rec5.videos[0].astype(np.float32)
     mad = float(np.abs(v - w).mean())
     print(f"    17a rank 0's video {tuple(v.shape)} against phase 5's: mean |difference| {mad:.3f} of 255 "
           f"(limit {MESH_FRAME_TOL}), max {float(np.abs(v - w).max()):.0f}; chunks' largest relative L2 {err:.3e}")
     if v.shape != w.shape or mad > MESH_FRAME_TOL:
         fail("17a: rank 0's video differs from phase 5's beyond the limit")
-    if recs[1]["videos"] is not None:
+    if recs[1][0]["videos"] is not None:
         fail("17a: a rank other than 0 wrote a video")
-    out["mesh_cp2_distill_int8"] = recs[0]["launches"]
+    out["mesh_cp2_distill_int8"] = r0["launches"]
 
     def reference(cfg: dict, stem: str, args: list):
         fresh_card()
@@ -2734,7 +2785,7 @@ def run_mesh_phase(dev, out_dir: str, launches5: dict, rec5) -> dict:
         G.release_workspaces()
         return rec, {n: wr.launches for n, wr in wrappers.items()}
 
-    # 17b: the base config, 4 layers, cp 2 x tp 2
+    # 17b: the base config, 4 layers, cp 2 x tp 2; captured, then eager
     with open(CONFIG) as f:
         b = json.load(f)
     b["model_config"]["num_layers"] = 4
@@ -2745,13 +2796,17 @@ def run_mesh_phase(dev, out_dir: str, launches5: dict, rec5) -> dict:
     bm = json.loads(json.dumps(b))
     bm["engine_config"].update(cp_size=2, tp_size=2)
     recs = run_mesh("17b 4.5B base bf16 3-CFG, cp 2 x tp 2 (4 of 34 layers, 256x256, 48 frames)", 4, bm,
-                    os.path.join(out_dir, "mesh_17b"), args + ["--output_path", os.path.join(out_dir, "mesh_17b.mp4")])
-    for r in recs:
-        _check_launches(f"17b rank {r['rank']}", r["launches"], ref_l)
-    _check_chunks("17b rank 0", list(recs[0]["chunks"]), [c.numpy() for c in ref.chunks], MESH_CHUNK_TOL["17b"])
-    out["mesh_cp2_tp2_base"] = recs[0]["launches"]
+                    os.path.join(out_dir, "mesh_17b"), args + ["--output_path", os.path.join(out_dir, "mesh_17b.mp4")],
+                    walks=("captured", "eager"))
+    _check_captured("17b", recs)
+    for rank in recs:
+        _check_launches(f"17b rank {rank[0]['rank']}", rank[0]["launches"], ref_l)
+    _check_chunks("17b rank 0", list(recs[0][0]["chunks"]), [c.numpy() for c in ref.chunks], MESH_CHUNK_TOL["17b"])
+    _check_walk_pair("17b", recs, 0, 1)
+    out["mesh_cp2_tp2_base"] = recs[0][0]["launches"]
 
-    # 17c: the distill + int8 config, 4 layers, pp 2 x tp 2
+    # 17c: the distill + int8 config, 4 layers, pp 2 x tp 2; captured,
+    # captured again, eager
     c = json.loads(json.dumps(q))
     c["model_config"]["num_layers"] = 4
     c["runtime_config"]["num_frames"] = 48
@@ -2760,8 +2815,11 @@ def run_mesh_phase(dev, out_dir: str, launches5: dict, rec5) -> dict:
     cm = json.loads(json.dumps(c))
     cm["engine_config"].update(pp_size=2, tp_size=2)
     recs = run_mesh("17c 4.5B distill + int8, pp 2 x tp 2 (4 of 34 layers, 256x256, 48 frames)", 4, cm,
-                    os.path.join(out_dir, "mesh_17c"), args + ["--output_path", os.path.join(out_dir, "mesh_17c.mp4")])
-    for r in recs:
+                    os.path.join(out_dir, "mesh_17c"), args + ["--output_path", os.path.join(out_dir, "mesh_17c.mp4")],
+                    walks=("captured", "again", "eager"))
+    _check_captured("17c", recs)
+    for rank in recs:
+        r = rank[0]
         # a row-parallel linear at tp 2 quantizes its input against the
         # all-reduced row maximum in plain ops, not K8, and its K6 writes
         # f32: one K8 launch of the single process becomes one f32 K6 launch
@@ -2769,11 +2827,16 @@ def run_mesh_phase(dev, out_dir: str, launches5: dict, rec5) -> dict:
             fail(f"17c rank {r['rank']}: no K6 launch with the f32 epilogue (row-parallel linears)")
         _check_launches(f"17c rank {r['rank']}",
                         dict(r["launches"], rowquant_fused=r["launches"]["rowquant_fused"] + r["launches_f32"]), ref_l)
-    print(f"    17c: K6 launches with the f32 epilogue a rank: {[r['launches_f32'] for r in recs]} "
-          f"of {recs[0]['launches']['quantized_matmul_i8']}")
-    _check_chunks("17c rank 0", list(recs[0]["chunks"]), [ch.numpy() for ch in ref.chunks], MESH_CHUNK_TOL["17c"])
-    out["mesh_pp2_tp2_distill_int8"] = recs[0]["launches"]
-    out["mesh_pp2_tp2_distill_int8_f32"] = recs[0]["launches_f32"]
+        if rank[1]["graphs"] != 0:
+            fail(f"17c rank {r['rank']}: the second walk captured {rank[1]['graphs']} graphs (its workspace should "
+                 f"be the first walk's)")
+    print(f"    17c: K6 launches with the f32 epilogue a rank: {[rank[0]['launches_f32'] for rank in recs]} "
+          f"of {recs[0][0]['launches']['quantized_matmul_i8']}; the second walk captured 0 graphs on every rank")
+    _check_chunks("17c rank 0", list(recs[0][0]["chunks"]), [ch.numpy() for ch in ref.chunks], MESH_CHUNK_TOL["17c"])
+    _check_walk_pair("17c", recs, 1, 0)
+    _check_walk_pair("17c", recs, 0, 2)
+    out["mesh_pp2_tp2_distill_int8"] = recs[0][0]["launches"]
+    out["mesh_pp2_tp2_distill_int8_f32"] = recs[0][0]["launches_f32"]
 
     # 17d: two prompts on the 17c tree, dp 2
     two = ["--prompts", *MESH_PROMPTS]
@@ -2782,9 +2845,10 @@ def run_mesh_phase(dev, out_dir: str, launches5: dict, rec5) -> dict:
                                                       for i in range(2))])
     dm = json.loads(json.dumps(c))
     dm["engine_config"]["dp_size"] = 2
-    recs = run_mesh("17d 4.5B distill + int8, dp 2, two prompts (4 of 34 layers, 256x256, 48 frames)", 2, dm,
-                    os.path.join(out_dir, "mesh_17d"),
-                    two + ["--output_paths", *(os.path.join(out_dir, f"mesh_17d_{i}.mp4") for i in range(2))])
+    recs = [rank[0] for rank in run_mesh(
+        "17d 4.5B distill + int8, dp 2, two prompts (4 of 34 layers, 256x256, 48 frames)", 2, dm,
+        os.path.join(out_dir, "mesh_17d"),
+        two + ["--output_paths", *(os.path.join(out_dir, f"mesh_17d_{i}.mp4") for i in range(2))])]
     for r in recs:
         _check_launches(f"17d rank {r['rank']}", r["launches"], ref_l, scale=2)
         _check_chunks(f"17d request {r['rank']} (rank {r['rank']})", list(r["chunks"]),

@@ -38,6 +38,14 @@ step's kernels from the device with the host out of the loop.
   that ran, eager or replayed.
 * No fallback: a capture or a replay that fails raises a `RuntimeError`
   naming the graph.
+* A step of a model-parallel mesh runs its collectives between pieces,
+  never inside one (`in_piece()` is True while a piece's function runs, and
+  every `parallel.comm` collective raises there).  What a collective writes
+  and a later piece reads lives in a `slot` of the step's arena, the same
+  buffer at every call; while the step is captured (`copies_live` False)
+  the collectives are skipped, as the host-streamed copies are, and the
+  slots are returned as they are.  Every rank captures the same variants
+  in the same order, so the skips stay in lockstep.
 * Graphs outlive the walk that captured them, as the JAX package's
   compiled steps outlive a request (`_JIT_CACHE`): a `Workspace` holds a
   walk's fixed buffers and the step callables captured against them, and
@@ -50,13 +58,17 @@ step's kernels from the device with the host out of the loop.
   graphs bake, goes there).  `captures(role)` counts the graphs the
   process captured.
 
-On the CPU nothing is captured: `PLAIN` runs every piece as a call.
+On the CPU nothing is captured: `PLAIN` runs every piece as a call, and
+`StandIn` (when `CPU_STAND_IN` is set, as the tests set it) records and
+replays pieces as a graph would, to show on the CPU what a graph bakes.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
+import math
 import threading
 import time
 import weakref
@@ -70,6 +82,28 @@ _pools = weakref.WeakValueDictionary()  # (device index, role) -> the live graph
 _capture_streams: Dict[tuple, torch.cuda.Stream] = {}
 _warmed: set = set()  # (device index, warm key) of the graphs whose first call ran eagerly
 _captured: Counter = Counter()  # role -> graphs captured in the process
+_tls = threading.local()  # .depth: pieces whose function runs on this thread
+CPU_STAND_IN = False  # step callables on the CPU are `StandIn`s (tests set it)
+
+
+def in_piece() -> bool:
+    """True while a piece's function runs on this thread (eagerly, warming
+    up or being captured): no collective may run there."""
+    return getattr(_tls, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def _inside() -> Iterator[None]:
+    _tls.depth = getattr(_tls, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _tls.depth -= 1
+
+
+def captures_on(device: torch.device) -> bool:
+    """Whether step callables on `device` capture (a card, or the CPU stand-in)."""
+    return device.type == "cuda" or CPU_STAND_IN
 
 
 def captures(role: Optional[str] = None) -> int:
@@ -79,24 +113,28 @@ def captures(role: Optional[str] = None) -> int:
     return _captured[role] if role is not None else sum(_captured.values())
 
 
-def launch_counters() -> Tuple[Callable, ...]:
-    """The kernel wrappers that count their launches (`.launches`)."""
+def launch_counters() -> Tuple[Tuple[Callable, str], ...]:
+    """The kernel wrappers' launch counts, as (wrapper, attribute):
+    `.launches`, and the GEMMs' `.launches_f32` (those of them with the f32
+    epilogue)."""
     from magi_tpu_torch.ops import act_quant, attention, attention_q8, fused_norm, quant
 
-    return (attention.segmented_attention_two_source, attention.segmented_attention, attention.segmented_attention_v2,
-            attention.kv_norm_rope_pack, attention.kv_norm_rope_pack_q8, attention_q8.segmented_attention_two_source_q8,
-            attention_q8.segmented_attention_two_source_q8_sage, attention_q8.segmented_attention_two_source_q8_dq,
-            quant.quantized_matmul_i8, quant.quantized_matmul, act_quant.rowquant_fused, act_quant.rowquant_swiglu,
-            fused_norm.gate_norm_residual)
+    wrappers = (attention.segmented_attention_two_source, attention.segmented_attention,
+                attention.segmented_attention_v2, attention.kv_norm_rope_pack, attention.kv_norm_rope_pack_q8,
+                attention_q8.segmented_attention_two_source_q8, attention_q8.segmented_attention_two_source_q8_sage,
+                attention_q8.segmented_attention_two_source_q8_dq, quant.quantized_matmul_i8, quant.quantized_matmul,
+                act_quant.rowquant_fused, act_quant.rowquant_swiglu, fused_norm.gate_norm_residual)
+    return tuple((w, "launches") for w in wrappers) + ((quant.quantized_matmul_i8, "launches_f32"),
+                                                      (quant.quantized_matmul, "launches_f32"))
 
 
 def launch_counts() -> List[int]:
-    return [w.launches for w in launch_counters()]
+    return [getattr(w, a) for w, a in launch_counters()]
 
 
 def set_launch_counts(counts: List[int]) -> None:
-    for w, n in zip(launch_counters(), counts):
-        w.launches = n
+    for (w, a), n in zip(launch_counters(), counts):
+        setattr(w, a, n)
 
 
 @contextlib.contextmanager
@@ -111,6 +149,8 @@ def uncounted() -> Iterator[None]:
 
 
 def _index(device: torch.device) -> int:
+    if device.type != "cuda":
+        return -1
     return device.index if device.index is not None else torch.cuda.current_device()
 
 
@@ -157,15 +197,22 @@ class Arena:
         self._all: List[torch.Tensor] = []
 
     def put(self, slot: tuple, t: torch.Tensor) -> torch.Tensor:
-        key = slot + (t.dtype,)
-        buf = self._bufs.get(key)
-        if buf is None or buf.numel() < t.numel():
-            buf = torch.empty(t.numel(), dtype=t.dtype, device=self.device)
-            self._bufs[key] = buf
-            self._all.append(buf)
-        out = buf[: t.numel()].view(t.shape)
+        out = self.slot(slot, tuple(t.shape), t.dtype)
         out.copy_(t)
         return out
+
+    def slot(self, name, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+        """The buffer of `name` and `dtype` as an (uninitialized) tensor of
+        `shape`: `put`'s for a piece's output, and the one a collective
+        writes between pieces."""
+        n = math.prod(shape)
+        key = (name, dtype)
+        buf = self._bufs.get(key)
+        if buf is None or buf.numel() < n:
+            buf = torch.empty(n, dtype=dtype, device=self.device)
+            self._bufs[key] = buf
+            self._all.append(buf)
+        return buf[:n].view(shape)
 
     @property
     def nbytes(self) -> int:
@@ -173,13 +220,19 @@ class Arena:
 
 
 class _Plain:
-    """Runs every piece as a call: the CPU, and the eager walk."""
+    """Runs every piece as a call: the CPU, and the eager walk.  Its slots
+    are new buffers at every call."""
 
     copies_live = True
 
     @staticmethod
     def piece(name: str, fn: Callable, *args):
-        return fn(*args)
+        with _inside():
+            return fn(*args)
+
+    @staticmethod
+    def slot(name, shape: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype, device=device)
 
 
 PLAIN = _Plain()
@@ -208,17 +261,20 @@ class StepGraph:
     def __init__(self, name: str, body: Callable, device: torch.device, role: str, arena: Arena,
                  warm_key: Optional[tuple] = None, pool: Optional["torch.cuda.MemPool"] = None):
         self._pieces: List[tuple] = []  # (name, graph, launch deltas, outputs); goes before `pool` does
+        self._slots: List[torch.Tensor] = []  # the slots the body asked for at capture, in order
         self.name = name
         self.body = body
         self.device = device
         self.role = role
-        self.pool = graph_pool(device, role) if pool is None else pool
-        self._stream = _capture_stream(device, role)
+        on_card = device.type == "cuda"
+        self.pool = pool if pool is not None or not on_card else graph_pool(device, role)
+        self._stream = _capture_stream(device, role) if on_card else None
         self.arena = arena
         self.warm_key = warm_key
         self._mode = "new"
         self._depth = 0
         self._i = 0
+        self._j = 0
         self.capture_seconds = 0.0  # host seconds of the first call: its warm-up (if any) and capture
         self.warm_seconds = 0.0  # of which the eager warm-up run
         self.instantiate_seconds = 0.0  # of which ending the captures (CUDA instantiates the graphs there)
@@ -235,15 +291,19 @@ class StepGraph:
     def graphs(self) -> int:
         return len(self._pieces)
 
+    def _sync(self) -> None:
+        torch.cuda.synchronize(self.device)
+
     def __call__(self, *args):
         if self._mode == "new":
             out, ran = self._first(args)
             if ran:
                 return out
-        self._i = 0
+        self._i = self._j = 0
         out = self.body(self, *args)
-        if self._i != len(self._pieces):
-            raise RuntimeError(f"{self.name}: the replay ran {self._i} pieces of {len(self._pieces)} captured")
+        if self._i != len(self._pieces) or self._j != len(self._slots):
+            raise RuntimeError(f"{self.name}: the replay ran {self._i} pieces of {len(self._pieces)} captured and "
+                               f"asked for {self._j} slots of {len(self._slots)}")
         return out
 
     def build(self, *args) -> None:
@@ -262,7 +322,7 @@ class StepGraph:
         if ran:
             self._mode = "warm"
             out = self.body(self, *args)
-            torch.cuda.synchronize(self.device)
+            self._sync()
             self.warm_seconds = time.perf_counter() - t0
         self._capture(*args)
         with _lock:
@@ -272,8 +332,8 @@ class StepGraph:
 
     def _capture(self, *args) -> None:
         saved = launch_counts()
-        torch.cuda.synchronize(self.device)
-        self._mode, self._i = "capture", 0
+        self._sync()
+        self._mode, self._i, self._slots = "capture", 0, []
         # no garbage collection while capturing: a collected graph's
         # destruction is an API call a capture does not permit
         gc_was_on = gc.isenabled()
@@ -289,6 +349,27 @@ class StepGraph:
             set_launch_counts(saved)
         self._mode = "replay"
 
+    def slot(self, name, shape: tuple, dtype: torch.dtype, device: Optional[torch.device] = None) -> torch.Tensor:
+        """A buffer of `shape` that a collective between two pieces writes
+        and a later piece reads: the arena's slot of `name`, and at a replay
+        the very buffer that the same request of the capture got (the
+        graphs baked its address)."""
+        if self._mode == "replay":
+            if self._j >= len(self._slots):
+                raise RuntimeError(f"{self.name}: slot {name} was not asked for at capture")
+            buf = self._slots[self._j]
+            if tuple(buf.shape) != tuple(shape) or buf.dtype != dtype:
+                raise RuntimeError(f"{self.name}: slot {name} of {tuple(shape)} {dtype} was captured as "
+                                   f"{tuple(buf.shape)} {buf.dtype}")
+            self._j += 1
+            return buf
+        if self._mode == "failed":
+            raise RuntimeError(f"{self.name}: its capture failed; it cannot run")
+        buf = self.arena.slot(name, tuple(shape), dtype)
+        if self._mode == "capture":
+            self._slots.append(buf)
+        return buf
+
     def piece(self, name: str, fn: Callable, *args):
         """`fn(*args)`, captured as one graph (or replayed); nested pieces
         run as calls inside the enclosing one."""
@@ -297,7 +378,8 @@ class StepGraph:
         if self._mode == "warm":
             self._depth += 1
             try:
-                out = fn(*args)
+                with _inside():
+                    out = fn(*args)
             finally:
                 self._depth -= 1
             return _persist(self.arena, name, out)
@@ -305,16 +387,29 @@ class StepGraph:
             return self._capture_piece(name, fn, args)
         if self._mode != "replay":
             raise RuntimeError(f"{self.name}: its capture failed; it cannot run")
-        pname, graph, deltas, out = self._pieces[self._i]
-        if pname != name:
-            raise RuntimeError(f"{self.name}: piece {self._i} is {name}, captured as {pname}")
+        entry = self._pieces[self._i]
+        if entry[0] != name:
+            raise RuntimeError(f"{self.name}: piece {self._i} is {name}, captured as {entry[0]}")
         self._i += 1
+        out = self._replay_piece(entry, args)
+        for w, a, d in entry[2]:
+            setattr(w, a, getattr(w, a) + d)
+        return out
+
+    def _replay_piece(self, entry: tuple, args):
+        name, graph, _, out = entry
         try:
             graph.replay()
         except RuntimeError as e:
             raise RuntimeError(f"replaying piece {name} of {self.name} failed: {e}") from e
-        for w, d in deltas:
-            w.launches += d
+        return out
+
+    def _record(self, name: str, graph, before: List[int], out) -> object:
+        deltas = [(w, a, n - b) for (w, a), n, b in zip(launch_counters(), launch_counts(), before) if n != b]
+        self._pieces.append((name, graph, deltas, out))
+        with _lock:
+            _captured[self.role] += 1
+        self._i += 1
         return out
 
     def _capture_piece(self, name: str, fn: Callable, args) -> object:
@@ -324,7 +419,7 @@ class StepGraph:
         stream.wait_stream(torch.cuda.current_stream(self.device))
         self._depth += 1
         try:
-            with torch.cuda.stream(stream):
+            with torch.cuda.stream(stream), _inside():
                 graph.capture_begin(pool=self.pool.id)
                 try:
                     out = _persist(self.arena, name, fn(*args))
@@ -349,11 +444,73 @@ class StepGraph:
         finally:
             self._depth -= 1
         torch.cuda.current_stream(self.device).wait_stream(stream)
-        deltas = [(w, a - b) for w, a, b in zip(launch_counters(), launch_counts(), before) if a != b]
-        self._pieces.append((name, graph, deltas, out))
-        with _lock:
-            _captured[self.role] += 1
-        self._i += 1
+        return self._record(name, graph, before, out)
+
+
+def _bound(value, seen=None) -> tuple:
+    """What a graph bakes of a piece's argument: each tensor's address,
+    shape, strides and dtype, and each host scalar's value, through
+    tuples, lists, dicts and dataclasses; other objects by identity."""
+    if isinstance(value, torch.Tensor):
+        return ("tensor", value.data_ptr(), tuple(value.shape), value.stride(), value.dtype)
+    if value is None or isinstance(value, (bool, int, float, str, torch.dtype, torch.device)):
+        return (value,)
+    if isinstance(value, (tuple, list)):
+        return tuple(_bound(v) for v in value)
+    if isinstance(value, dict):
+        return tuple((k, _bound(v)) for k, v in value.items())
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return tuple((f.name, _bound(getattr(value, f.name))) for f in dataclasses.fields(value))
+    return ("object", id(value))
+
+
+class StandIn(StepGraph):
+    """The CPU stand-in of a `StepGraph`: what a graph bakes, shown on the
+    CPU.  Its capture records each piece's function and the arguments it
+    was given, and runs it once; a replay calls that function on the
+    recorded arguments, never on those the body passes now, and copies its
+    outputs into the recorded ones in the arena, as a graph reads and
+    writes the addresses it baked.  So a piece handed a new buffer at each
+    call (a collective's output that is not a slot) computes on the stale
+    one.  With `strict` (the default; set on the class) a replay whose
+    arguments are not what the capture recorded (`_bound`: another tensor,
+    shape or strides, or another host value) raises, naming the piece."""
+
+    strict = True
+
+    def __init__(self, name: str, body: Callable, device: torch.device, arena: Arena, warm_key: Optional[tuple] = None):
+        super().__init__(name, body, device, "walk", arena, warm_key)
+
+    def _sync(self) -> None:
+        pass
+
+    def _capture_piece(self, name: str, fn: Callable, args) -> object:
+        before = launch_counts()
+        self._depth += 1
+        try:
+            with _inside():
+                out = _persist(self.arena, name, fn(*args))
+        except Exception as e:
+            self._mode = "failed"
+            raise RuntimeError(f"capturing piece {name} of {self.name} failed: {e}") from e
+        finally:
+            self._depth -= 1
+        return self._record(name, (fn, args, _bound(args)), before, out)
+
+    def _replay_piece(self, entry: tuple, args):
+        name, (fn, recorded, bound), _, out = entry
+        if self.strict and _bound(args) != bound:
+            raise RuntimeError(f"{self.name}: piece {name} was handed other arguments than at its capture "
+                               f"(a graph would read the captured ones)")
+        self._depth += 1
+        try:
+            with _inside():
+                new = fn(*recorded)
+        finally:
+            self._depth -= 1
+        for o, n in zip(out if isinstance(out, tuple) else (out,), new if isinstance(new, tuple) else (new,)):
+            if isinstance(o, torch.Tensor):
+                o.copy_(n)
         return out
 
 
@@ -371,9 +528,12 @@ def capture_breakdown(graphs) -> dict:
 
 def make_callable(name: str, body: Callable, device: torch.device, workspace: "Workspace", warm_key: tuple):
     """`body` as a step callable of `workspace`: a `StepGraph` in its arena
-    and memory pool on a card, else `body` run with `PLAIN`."""
+    and memory pool on a card, a `StandIn` on the CPU under `CPU_STAND_IN`,
+    else `body` run with `PLAIN`."""
     if device.type == "cuda":
         return StepGraph(name, body, device, "walk", workspace.arena, warm_key, workspace.graph_pool())
+    if CPU_STAND_IN:
+        return StandIn(name, body, device, workspace.arena, warm_key)
     return lambda *args: body(PLAIN, *args)
 
 

@@ -19,7 +19,7 @@ weights and KV cache, in the JAX package's layout:
   head shard is s * tp + tp_i, its KV cache that shard of the kv heads
   (`kv_cache_spec`), kv heads replicated first when the head shards
   outnumber them (`kv_replication`).  The seq <-> head reshard is Ulysses'
-  all-to-all (`models.dit.model._reshard_*`);
+  all-to-all (`models.dit.model._Ulysses`);
 * tp shards the big linears Megatron-style (`leaf_spec`, `shard_leaf`: the
   counterpart of the JAX package's `dit_param_specs`): q, qx, k,
   v, linear_kv_xattn and fc1 by output column, linear_proj and fc2 by input
@@ -490,7 +490,11 @@ def pp_layer_owner(layer: int, num_layers: int, mesh: Optional[Mesh] = None) -> 
     return layer // per, layer % per
 
 
-def pp_gather_layer(blocks: dict, idx: int, num_layers: int, mesh: Optional[Mesh] = None, edge: bool = False):
+_SLOT_ALIGN = 256  # bytes: each leaf of a layer slot starts on this boundary (TMA takes 16)
+
+
+def pp_gather_layer(blocks: dict, idx: int, num_layers: int, mesh: Optional[Mesh] = None, edge: bool = False,
+                    run=None):
     """Layer `idx` of the pp-sharded stack (each leaf [L/pp, ...] on a rank),
     broadcast from its owner over the pp group (the per-layer gather of
     layer-FSDP).  Returns a `comm.Pending` whose `wait()` gives the layer's
@@ -501,9 +505,22 @@ def pp_gather_layer(blocks: dict, idx: int, num_layers: int, mesh: Optional[Mesh
     are (a broadcast needs no float round trip).  `edge`: the layer runs on
     the bf16 weights of `blocks_edge`, which every rank holds (layers 0 and
     L-1 of a quantized tree), so the leaves of its quantized linears are
-    not broadcast and come back as None."""
+    not broadcast and come back as None.
+
+    The owner sends views of its stack.  The others receive into `run`'s
+    slot of the layer's parity (`core.graphs`: two buffers, each sized for
+    a whole layer, every leaf at a fixed offset in it), so a captured
+    step's graphs read each layer at a fixed address.  The caller issues
+    the gather of layer idx after the pieces of layer idx - 2, the last
+    readers of its slot, and before those of layer idx - 1: the broadcast
+    first waits for the work queued on the current stream
+    (`comm.broadcast_many`), so it never overwrites the slot under its last
+    reader and still overlaps layer idx - 1.  While `run` captures nothing
+    is broadcast."""
+    from magi_tpu_torch.core.graphs import PLAIN
     from magi_tpu_torch.parallel import comm
 
+    run = PLAIN if run is None else run
     mesh = mesh if mesh is not None else get_mesh()
     if num_layers % mesh.shape[AXIS_PP]:
         raise ValueError(f"num_layers {num_layers} must divide pp={mesh.shape[AXIS_PP]}")
@@ -513,23 +530,28 @@ def pp_gather_layer(blocks: dict, idx: int, num_layers: int, mesh: Optional[Mesh
     mine = coords[AXIS_PP] == owner_pp
     flat = dict(tree_leaves(blocks))
     skipped = [p for p in flat if edge and any(p.rpartition("/")[0] + "/" + w in flat for w in _K_MAJOR)]
-    paths = [(p, leaf) for p, leaf in flat.items() if p not in skipped]
-    layout = []  # per leaf: (the layer's view on the owner, transposed: a k-major weight's memory travels)
-    for _, leaf in paths:
+    layout = []  # per leaf: (the layer's view on the owner (a k-major weight's memory order), transposed, offset)
+    offset = 0
+    for p, leaf in flat.items():
         one = leaf[li]
         kmaj = one.dim() >= 2 and not one.is_contiguous() and one.transpose(-1, -2).is_contiguous()
-        layout.append((one.transpose(-1, -2) if kmaj else one, kmaj))
-
-    def make():
-        if mine:
-            return [v.contiguous() for v, _ in layout]
-        return [torch.empty(v.shape, dtype=v.dtype, device=v.device) for v, _ in layout]
-
-    pending = comm.broadcast_many(make, src, mesh.group("pp"))
+        if p not in skipped:
+            layout.append((p, one.transpose(-1, -2) if kmaj else one, kmaj, offset))
+        offset += -(-one.numel() * one.element_size() // _SLOT_ALIGN) * _SLOT_ALIGN
+    device = next(iter(flat.values())).device
+    if mine:
+        tensors = [v.contiguous() for _, v, _, _ in layout]
+    else:
+        buf = run.slot(("pp_layer", idx % 2), (offset,), torch.uint8, device)
+        tensors = [buf[o:o + v.numel() * v.element_size()].view(v.dtype).view(v.shape) for _, v, _, o in layout]
+    if run.copies_live:
+        pending = comm.broadcast_many(tensors, src, mesh.group("pp"))
+    else:
+        pending = comm.Pending(lambda: tensors)
 
     def finish():
         got = pending.wait()
         return nest([(p, None) for p in skipped] + [(path, buf.transpose(-1, -2) if transposed else buf)
-                                                    for (path, _), buf, (_, transposed) in zip(paths, got, layout)])
+                                                    for (path, _, transposed, _), buf in zip(layout, got)])
 
     return comm.Pending(finish)

@@ -15,8 +15,9 @@ with the decode on a worker thread (`run_text_to_video_many`); the videos go
 to `--output_paths`, by default `output_path` with `_0`, `_1`, ... before its
 extension.  Without SKIP_LOAD_MODEL the DiT, VAE and T5 load from the
 checkpoints the config's `runtime_config` names (`load`, `vae_pretrained`,
-`t5_pretrained`).  Runs on CUDA unless `--device cpu` is given.  With
-MAGI_PROFILE_DIR set, each walk writes a profiler trace there.
+`t5_pretrained`).  Runs on CUDA unless `--device cpu` is given; the
+denoise steps replay from CUDA graphs there unless `--eager` is given.
+With MAGI_PROFILE_DIR set, each walk writes a profiler trace there.
 
 A config whose world_size (dp_size * pp_size * cp_size * tp_size) is above
 1 runs under torchrun, one process per rank, with the backend of its
@@ -52,6 +53,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                         help="with --prompts: round-robin the requests, decode on a worker")
     parser.add_argument("--output_paths", type=str, nargs="+", default=None, help="per-prompt output paths")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--eager", action="store_true",
+                        help="run the denoise steps eagerly, not replayed from CUDA graphs")
     args = parser.parse_args(argv)
     if not (args.prompt or args.prompts):
         parser.error("--prompt or --prompts required")
@@ -68,7 +71,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
-    pipeline = MagiPipeline(args.config_file, device=args.device)
+    pipeline = MagiPipeline(args.config_file, device=args.device, capture=not args.eager)
     if args.prompts:
         outs = args.output_paths
         if outs is None:

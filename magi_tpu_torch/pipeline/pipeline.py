@@ -19,11 +19,11 @@ as `t5_device` says), or are random under SKIP_LOAD_MODEL=1.  With
 MAGI_PROFILE_DIR set, each walk is traced (`core.profiler.maybe_trace`).
 On the card the denoise steps and the VAE run as CUDA graphs (`core.graphs`,
 the counterpart of the JAX package's jit); `MagiPipeline(capture=False)`
-walks eagerly.  The graphs outlive a request, as the JAX package's compiled
-steps do: on the card the DiT tree stays resident for later requests of an
-equal model (`get_dit`), and a later walk of an equal config takes the
-earlier walk's workspace and replays its graphs, through this pipeline or a
-new one.  Each request draws its weights (under SKIP_LOAD_MODEL) and its
+walks eagerly (the CLI's `--eager`).  The graphs outlive a request, as the
+JAX package's compiled steps do: on the card the DiT tree stays resident
+for later requests of an equal model (`get_dit`), and a later walk of an
+equal config takes the earlier walk's workspace and replays its graphs,
+through this pipeline or a new one.  Each request draws its weights (under SKIP_LOAD_MODEL) and its
 noise from the seed again, as the JAX pipeline does from `PRNGKey(seed)`,
 so equal requests give equal videos.
 
@@ -34,9 +34,12 @@ initialize_mesh`, backend `engine_config.distributed_backend`), takes
 cuda:(LOCAL_RANK % device count), builds or loads only its shards of the
 DiT (`get_dit`), walks with its shards of the tokens, heads and cache, and
 decodes with the tiles split across its model replica; rank 0 writes the
-files.  A model-parallel mesh walks eagerly (steps with collectives inside
-are not captured: ROADMAP item 17); a dp-only mesh captures as one device
+files.  Its denoise steps are captured there too: on a model-parallel mesh
+in pieces cut at every collective, which runs between the replays
+(`models.dit.model`'s mesh path); a dp-only mesh captures as one device
 does, each dp group walking its share of a batch's requests.
+`MagiPipeline(capture=False)` (the CLI's `--eager`) walks eagerly on any
+mesh.
 """
 
 from __future__ import annotations
@@ -173,11 +176,7 @@ class MagiPipeline:
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
             mesh_lib.initialize_mesh(self.config, device=self.device)
-        mp = not mesh_lib.model_parallel_trivial()
-        self.capture = capture and not mp  # the samplers' (`ArdfSampler`): CUDA graphs on the card
-        if capture and mp and self.device.type == "cuda":
-            print_rank_0("model-parallel mesh: the denoise steps run eagerly (graphs of steps with collectives "
-                         "inside are ROADMAP item 17)")
+        self.capture = capture  # the samplers' (`ArdfSampler`): CUDA graphs on the card
         self.generator = set_random_seed(self.config.runtime_config.seed, self.device)
         print_rank_0(self.config)
 
@@ -247,8 +246,11 @@ class MagiPipeline:
                 print_rank_0(f"chunk {chunk_idx + 1}/{inps[0].chunk_num} done (batch of {R})")
         wall = time.perf_counter() - t0
         log_memory("after batched walk", self.device)
-        return self._write_requests(segments, finite, [sampler.step_seconds] * R, decode_seconds, output_paths, share,
-                                    wall, "lockstep")
+        out = self._write_requests(segments, finite, [sampler.step_seconds] * R, decode_seconds, output_paths, share,
+                                   wall, "lockstep")
+        for st in out:
+            st.update(graphs=sampler.graphs, capture_seconds=sampler.capture_seconds)
+        return out
 
     def run_text_to_video_many(self, prompts: Sequence[str], output_paths: Sequence[str]) -> List[dict]:
         """Generate a video for each prompt on one engine, the requests'
@@ -369,8 +371,9 @@ class MagiPipeline:
         draw and then the noise from the pipeline's generator, seeded anew.
         Returns what the run measured: the decoded video's shape and
         standard deviation, whether every emitted latent was finite, the
-        path written, and the host seconds of every denoise step and of
-        every chunk decode."""
+        path written, the host seconds of every denoise step and of every
+        chunk decode, and the walk's step graphs and the host seconds it
+        spent capturing them."""
         t0 = time.perf_counter()
         self._reseed()
         caption_embs, emb_masks = get_txt_embeddings(prompt, self.config, self.device)
@@ -392,5 +395,6 @@ class MagiPipeline:
         log_memory("after walk", self.device)
         stats = self._write_one(np.concatenate(segments, axis=0), output_path, finite, sampler.step_seconds,
                                 decode_seconds)
+        stats.update(graphs=sampler.graphs, capture_seconds=sampler.capture_seconds)
         print_rank_0(f"Finish MagiPipeline in {time.perf_counter() - t0:.1f}s")
         return stats

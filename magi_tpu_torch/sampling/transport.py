@@ -35,10 +35,14 @@ in lockstep.
 
 On a model-parallel mesh (`parallel.mesh`) each rank walks the same
 schedule from the same noise with its shards of the tree and the cache
-(`kv_cache_shape` gives the rank's head shard), eagerly: `capture` must be
-off on the card there (steps with collectives inside are ROADMAP item 17),
-and `kv_offload` under the default kv ranges is ignored with a log line
-(the cache is already sharded), as the JAX package ignores it.
+(`kv_cache_shape` gives the rank's head shard), and its steps are captured
+as well, in pieces cut at every collective (`dit_forward`'s mesh path:
+the collectives run between the replays, into slots of the workspace's
+arena), the counterpart of the JAX package's jitted steps with their
+shard_maps inside; `capture=False` walks eagerly there too.  Every rank
+captures the same variants in the same order.  `kv_offload` under the
+default kv ranges is ignored there with a log line (the cache is already
+sharded), as the JAX package ignores it.
 """
 
 from __future__ import annotations
@@ -95,12 +99,21 @@ class InferenceInput:
 STEP_ENV = (("MAGI_ATTN_INT8", "0"), ("MAGI_ATTN_INT8_STORE", "1"), ("MAGI_ATTN_Q8_SCHEME", "qk8"))
 
 
+def _mesh_key() -> Optional[tuple]:
+    """The process's mesh as a captured step depends on it: its shape, this
+    rank and the backend (None without a mesh)."""
+    mesh = mesh_lib.get_mesh()
+    return None if mesh is None else (tuple(mesh.ranks.shape), mesh.rank, mesh.backend)
+
+
 def _config_key(config: MagiConfig) -> str:
-    """Deterministic content key over every config field and `STEP_ENV`
-    (the JAX package's `_config_key`): equal-content configs share it, and
-    a config object whose id is recycled cannot alias another's."""
+    """Deterministic content key over every config field, `STEP_ENV` and
+    the mesh (`_mesh_key`) (the JAX package's `_config_key`): equal-content
+    configs share it, and a config object whose id is recycled cannot alias
+    another's."""
     return repr((dataclasses.asdict(config.model_config), dataclasses.asdict(config.runtime_config),
-                 dataclasses.asdict(config.engine_config), tuple(os.environ.get(k, d) for k, d in STEP_ENV)))
+                 dataclasses.asdict(config.engine_config), tuple(os.environ.get(k, d) for k, d in STEP_ENV),
+                 _mesh_key()))
 
 
 class StepInputs:
@@ -187,15 +200,16 @@ def _meta(n_seg, ctn, HP, WP, slice_point, kv_start, kv_end, y_lens, *, update, 
 
 # A cache-touching DiT forward of one request: (x, t, y, caption_dropout,
 # meta, t_offsets, distill_factor=None, tag=...) -> velocity.  The resident
-# cache's is `dit_forward` on it; the host-streamed cache's is
-# `ArdfSampler._streamed_forward`, whose pieces `tag` names.
+# cache's is `dit_forward` on it (on a model-parallel mesh in `run`'s
+# pieces); the host-streamed cache's is `ArdfSampler._streamed_forward`;
+# `tag` names the forward's output piece.
 Forward = Callable[..., torch.Tensor]
 
 
-def _resident_forward(params, config: MagiConfig, cache) -> Forward:
+def _resident_forward(params, config: MagiConfig, cache, run) -> Forward:
     def forward(x, t, y, caption_dropout, meta, t_offsets, distill_factor=None, tag=""):
         return dit_forward(params, config, x, t, y, caption_dropout, cache, meta, t_offsets,
-                           distill_factor=distill_factor)[0]
+                           distill_factor=distill_factor, run=run, tag=tag)[0]
 
     return forward
 
@@ -277,9 +291,6 @@ class ArdfSampler:
         self.inp = inp
         self.device = device
         self.capture = bool(capture)
-        if self.capture and device.type == "cuda" and not mesh_lib.model_parallel_trivial():
-            raise ValueError("a model-parallel mesh runs its steps eagerly (graphs of steps with collectives inside "
-                             "are ROADMAP item 17): pass capture=False")
         mc, rc, ec = config.model_config, config.runtime_config, config.engine_config
         if rc.cfg_number not in (1, 3):
             raise NotImplementedError(f"cfg_number={rc.cfg_number}")
@@ -331,9 +342,10 @@ class ArdfSampler:
 
     def _workspace_key(self, inps: Sequence[InferenceInput]) -> tuple:
         """What fixes the workspace's buffers and graphs: the config (and the
-        step environment), the requests' count and shapes, the cache mode
-        and size, and the parameter tree (its identity: the graphs read its
-        addresses; the workspace holds it, so the id stays its own)."""
+        step environment and the mesh: its shape, the rank, the backend),
+        the requests' count and shapes, the cache mode and size, and the
+        parameter tree (its identity: the graphs read its addresses; the
+        workspace holds it, so the id stays its own)."""
         inp = inps[0]
         pv = inp.prefix_video
         return (str(self.device), _config_key(self.config), self.R, tuple(inp.latent_size),
@@ -596,8 +608,10 @@ class ArdfSampler:
 
     def _body(self, variant: tuple) -> Callable:
         """The step of `variant` as `body(run, cache_sp)`: with the resident
-        cache, one piece (one graph); with the host-streamed one, the pieces
-        of `_stream_jits` (see `_streamed_forward`).  It finds its sampler
+        cache on one device, one piece (one graph); with the host-streamed
+        one, the pieces of `_stream_jits` (see `_streamed_forward`); on a
+        model-parallel mesh, the pieces between its collectives (the step's
+        own, and `dit_forward`'s of each forward).  It finds its sampler
         through the workspace, which holds the step callables and outlives
         the sampler: the sampler leasing it now, whose state is the
         workspace's buffers."""
@@ -608,7 +622,7 @@ class ArdfSampler:
             for r in range(me.R):
                 me._request_step(run, variant, r, cache_sp)
 
-        if self.host_mode:
+        if self.host_mode or not mesh_lib.model_parallel_trivial():
             return requests
         return lambda run, cache_sp: run.piece("step", requests, run, cache_sp)
 
@@ -624,7 +638,7 @@ class ArdfSampler:
         if self.host_mode:
             forward = functools.partial(self._streamed_forward, run, cache_sp)
         else:
-            forward = _resident_forward(self.params, self.config, cache)
+            forward = _resident_forward(self.params, self.config, cache, run)
         dfac = si.dfac if ec.distill else None
         if variant[0] == "warmup":
             n = variant[1]
@@ -687,8 +701,10 @@ class ArdfSampler:
         values (the first graph of a variant in the process runs once
         eagerly before, as the JAX package's warm-up compiles each); the
         walk's state (latents, cache, host cache and its byte counts) and
-        the launch counts are left as they were found.  Without `capture`
-        nothing is built (returns 0)."""
+        the launch counts are left as they were found.  On a mesh every
+        rank builds the same variants in the same order (a warm-up's
+        collectives pair up across the ranks).  Without `capture` nothing
+        is built (returns 0)."""
         if not self.capture:
             return 0
         variants = self.step_variants()
@@ -702,7 +718,7 @@ class ArdfSampler:
             return len(variants)
         for v in todo:
             self._steps[(key, v)] = self._callable((key, v))
-        if self.device.type != "cuda":
+        if not G.captures_on(self.device):
             return len(variants)
         t0 = time.perf_counter()
         todo.sort(key=lambda v: -self._variant_size(v, plans.get(v)))
@@ -721,7 +737,8 @@ class ArdfSampler:
                     self._steps[(key, v)].build(0)
             finally:
                 restore()
-        torch.cuda.synchronize(self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         self.capture_seconds += time.perf_counter() - t0
         return len(variants)
 
@@ -752,7 +769,8 @@ class ArdfSampler:
 
     @property
     def graphs(self) -> int:
-        """CUDA graphs captured for this walk (0 off the card)."""
+        """CUDA graphs captured for this walk (0 off the card, where a
+        `StandIn` counts its recorded pieces)."""
         return G.graph_count(self._steps.values())
 
     def capture_breakdown(self) -> dict:
@@ -1033,16 +1051,19 @@ def _pack_inputs(x_chunk, t_vec, y_text, y_null, lens_text, lens_null, t_off, ks
             torch.cat([t_off, torch.zeros(n_den, dtype=torch.int32, device=dev)]))
 
 
-def _uncond(config, params, x_chunk, t_vec, y_null, lens_null, si, n_den, ctn, HP, WP):
+def _uncond_inputs(n_den, ctn, device):
+    u_start = torch.arange(n_den, dtype=torch.int32, device=device) * ctn
+    return u_start, u_start + ctn, torch.zeros(n_den, dtype=torch.int32, device=device)
+
+
+def _uncond(run, config, params, x_chunk, t_vec, y_null, lens_null, si, n_den, ctn, HP, WP):
     """Branch 3 of a 3-CFG step: the denoised chunks alone, unconditional
     (self-only ranges, fresh positions, no cache)."""
     dw = n_den * config.runtime_config.chunk_width
-    dev = x_chunk.device
-    u_start = torch.arange(n_den, dtype=torch.int32, device=dev) * ctn
-    meta = _step_meta(si, n_den, ctn, HP, WP, lens_null[:n_den], u_start, u_start + ctn, update=False,
-                      use_cache=False, extra=False)
-    return dit_forward(params, config, x_chunk[:, -dw:], t_vec[-n_den:], y_null[:n_den], True, None, meta,
-                       torch.zeros(n_den, dtype=torch.int32, device=dev))[0]
+    ks, ke, t_off = run.piece("uncond_in", _uncond_inputs, n_den, ctn, x_chunk.device)
+    meta = _step_meta(si, n_den, ctn, HP, WP, lens_null[:n_den], ks, ke, update=False, use_cache=False, extra=False)
+    return dit_forward(params, config, x_chunk[:, -dw:], t_vec[-n_den:], y_null[:n_den], True, None, meta, t_off,
+                       run=run, tag="uncond")[0]
 
 
 def _combine3(xs, si, x_chunk, v1, v2, v3, n_den, extra, cw):
@@ -1066,7 +1087,8 @@ def _cfg3_step(run, config, params, forward: Forward, xs, si, y_lens, caption_em
     (3) unconditional (self-only ranges, fresh positions, no cache),
     (2) null caption + previous chunks, which writes the cache.  `pack`
     runs (1) and (3) as one forward (`_pack_inputs`).  Pieces: pre3,
-    [pack], the forwards, uncond, combine3."""
+    [pack], the forwards, uncond (on a model-parallel mesh uncond_in and
+    its forward's pieces), combine3."""
     cw = config.runtime_config.chunk_width
     n_seg = n_den + int(extra)
     HP, WP, ctn = _geometry(config, xs)
@@ -1086,7 +1108,11 @@ def _cfg3_step(run, config, params, forward: Forward, xs, si, y_lens, caption_em
     else:
         v1 = forward(x_chunk, t_vec, y_text, False, meta(n=n_seg, lens=lens_text, ks=ks, ke=ke, update=False), t_off,
                      tag="text")
-        v3 = run.piece("uncond", _uncond, config, params, x_chunk, t_vec, y_null, lens_null, si, n_den, ctn, HP, WP)
+        uncond = (config, params, x_chunk, t_vec, y_null, lens_null, si, n_den, ctn, HP, WP)
+        if mesh_lib.model_parallel_trivial():
+            v3 = run.piece("uncond", _uncond, G.PLAIN, *uncond)
+        else:  # its collectives run between pieces
+            v3 = _uncond(run, *uncond)
     v2 = forward(x_chunk, t_vec, y_null, True, meta(n=n_seg, lens=lens_null, ks=ks, ke=ke, update=True), t_off,
                  tag="null")
     run.piece("combine3", _combine3, xs, si, x_chunk, v1, v2, v3, n_den, extra, cw)

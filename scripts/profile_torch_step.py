@@ -2,7 +2,9 @@
 """Where a denoise step of the PyTorch/CUDA port spends its time on one GPU.
 
     python3 scripts/profile_torch_step.py [--configs base,distill,distill_smooth,24b,t5,base_packed,distill_offload]
-        [--schemes qk8,sage,dq]
+        [--schemes qk8,sage,dq] [--layers N]
+    python3 -m torch.distributed.run --nproc_per_node 4 scripts/profile_torch_step.py --mesh cp=2,tp=2 \
+        [--configs base,distill] [--layers 4]
 
 Builds the models at full width and depth with random weights: the 4.5B
 base config (example/4.5B/4.5B_base_config.json, bf16, 3-branch CFG), the
@@ -44,6 +46,16 @@ replayed.  The KV cache
 holds zeros: timing does not depend on its values.  `t5` profiles the
 24-layer T5-XXL encode of one prompt at L 800 with its weights resident
 on the card (random bf16 weights at HF's initialisation scales, `chip_smoke.random_t5_tree`).
+`--layers N` cuts every config to N layers (widths full).
+
+`--mesh dp=..,pp=..,cp=..,tp=..` profiles the ranks of a mesh instead,
+run under torchrun with as many processes as the mesh has ranks, every
+rank on the one card (cuda:(LOCAL_RANK % device count)) and the
+collectives on gloo, which moves CUDA tensors through host memory (so the
+idle share is the rank's wait on its collectives, not a scaling number):
+base, base_packed and distill at 256x256 only, each rank drawing its
+shards from the same seed (`parallel.mesh.ShardSink`); rank 0 prints the
+tables, every rank one line of its step wall, busy time and idle share.
 """
 
 from __future__ import annotations
@@ -164,7 +176,7 @@ def attention_flops(sampler, step: int) -> float:
     return (2 * cond + uncond) * mc.num_layers
 
 
-def load_config(name: str) -> dict:
+def load_config(name: str, mesh_sizes: dict = None, layers: int = 0) -> dict:
     file = {"base": "4.5B/4.5B_base_config.json", "distill": "4.5B/4.5B_distill_quant_config.json",
             "24b": "24B/24B_distill_quant_config.json"}[name.split("_")[0]]
     with open(os.path.join(HERE, "example", file)) as f:
@@ -180,10 +192,14 @@ def load_config(name: str) -> dict:
         # the default ranges (every earlier chunk attended), where kv_offload
         # is the host-streamed cache; main() runs each step both ways
         d["runtime_config"].update(noise2clean_kvrange=[], num_frames=OFFLOAD_FRAMES)
+    if layers:
+        d["model_config"]["num_layers"] = layers
+    if mesh_sizes:
+        d["engine_config"].update({f"{k}_size": v for k, v in mesh_sizes.items()}, distributed_backend="gloo")
     return d
 
 
-def build_params(name: str, d: dict, dev, gen, cache: dict) -> dict:
+def build_params(name: str, d: dict, dev, gen, cache: dict, mesh=None) -> dict:
     """Random weights at full width and depth: the 4.5B bf16 tree (shared by
     base and distill, quantized to int8 for distill), or the 24B tree
     packed to int4 (its bf16 tree freed once packed)."""
@@ -191,6 +207,12 @@ def build_params(name: str, d: dict, dev, gen, cache: dict) -> dict:
     from magi_tpu_torch.models.dit.model import init_dit_params
     from magi_tpu_torch.ops.quant import quantize_params_int4, quantize_params_int8
 
+    if mesh is not None:  # the rank's shards, drawn leaf by leaf from the same seed on every rank
+        from magi_tpu_torch.parallel.mesh import ShardSink
+
+        cfg = MagiConfig.from_dict(d)
+        sink = ShardSink(mesh, cfg.model_config.gated_linear_unit, 0 if name.startswith("base") else 8)
+        return init_dit_params(cfg, dev, gen, sink=sink)
     if name == "24b":
         cache.clear()
         torch.cuda.empty_cache()
@@ -278,11 +300,24 @@ def main() -> int:
     ap.add_argument("--configs", default="base,distill,24b",
                     help="comma list of base, distill, distill_smooth, 24b, t5, base_packed, distill_offload")
     ap.add_argument("--schemes", default="qk8", help="comma list of the K5 schemes (qk8, sage, dq) of the int8 configs")
+    ap.add_argument("--layers", type=int, default=0, help="cut every config to this many layers (widths full)")
+    ap.add_argument("--mesh", default="", help="dp=..,pp=..,cp=..,tp=..: profile a mesh's ranks (under torchrun)")
     args = ap.parse_args()
     names, schemes = args.configs.split(","), args.schemes.split(",")
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
+    mesh_sizes = {k: int(v) for k, v in (kv.split("=") for kv in args.mesh.split(",") if kv)}
+    mesh, rank = None, 0
+    if mesh_sizes:
+        from magi_tpu_torch.parallel import mesh as mesh_lib
+
+        if set(names) - {"base", "base_packed", "distill"}:
+            print("FAIL: --mesh profiles base, base_packed and distill", file=sys.stderr)
+            return 1
+        torch.cuda.set_device(mesh_lib.rank_device(torch.device("cuda")))
+        mesh = mesh_lib.initialize_mesh(**mesh_sizes, device=mesh_lib.rank_device(torch.device("cuda")))
+        rank = mesh.rank
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.environ["SKIP_LOAD_MODEL"] = "1"
@@ -293,17 +328,18 @@ def main() -> int:
     from magi_tpu_torch.pipeline.video_process import f32_cthw_to_u8_thwc, get_vae, tiled_decode
     from magi_tpu_torch.sampling.transport import ArdfSampler
 
-    dev = torch.device("cuda", 0)
+    dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cache: dict = {}
     results = {}
+    say = print if rank == 0 else (lambda *a, **k: None)
     for name in names:
         if name == "t5":
             results["t5"] = profile_t5(dev, gen)
             continue
-        base = load_config(name)
-        params = build_params(name, base, dev, gen, cache)
+        base = load_config(name, mesh_sizes, args.layers)
+        params = build_params(name, base, dev, gen, cache, mesh)
         null = params["y_embedder"]["null_caption_embedding"].float().cpu().numpy()
         if name == "24b":
             ums = unpack_ms(params)
@@ -312,7 +348,7 @@ def main() -> int:
                   f"= {ums * layers:.1f} ms per forward")
         modes = [(st, off) for st in OFFLOAD_STAGES for off in (False, True)] if name == "distill_offload" \
             else [(STAGE, None)]
-        runs = [(hw, sch, st, off, cap) for hw in SIZES[name]
+        runs = [(hw, sch, st, off, cap) for hw in SIZES[name][:1 if mesh is not None else None]
                 for sch in (["qk8"] if name.startswith("base") else schemes) for st, off in modes
                 for cap in (False, True)]
         for (size_h, size_w), scheme, stage, offload, capture in runs:
@@ -343,30 +379,30 @@ def main() -> int:
             peak = torch.cuda.max_memory_allocated(dev) / 2**30
             copies_ms = groups.pop(COPIES, 0.0)
             busy = sum(groups.values())
-            flops = attention_flops(sampler, step + 2)
+            flops = attention_flops(sampler, step + 2) / (1 if mesh is None else mesh_lib.head_shards(mesh))
             attn_ms = groups.get(K1 if name.startswith("base") else K5_OF[scheme], 0.0)
             n_fwd = 1 if cfg.runtime_config.cfg_number == 1 else 2 if cfg.engine_config.pack_uncond else 3
             tag = "" if name.startswith("base") else f" K5 {scheme}"
             if offload is not None:
                 tag += f" stage {stage} {'streamed' if offload else 'resident'}"
             tag += " captured" if capture else " eager"
-            print(f"== {name} {size_h}x{size_w}{tag}: stage {stage} step of {cfg.runtime_config.num_steps} "
+            say(f"== {name} {size_h}x{size_w}{tag}: stage {stage} step of {cfg.runtime_config.num_steps} "
                   f"(n_seg {p['n_seg']}{' + the ride-along' if p['distill_nearly'] else ''} over {p['sp']} cached "
                   f"chunks of {inp.chunk_num}, seg_len {sampler.ctn} tokens, {cfg.model_config.num_layers} layers, "
                   f"{n_fwd} forward{'s' if n_fwd > 1 else ''})")
-            print(f"  step wall {step_ms:.1f} ms (host clock, synchronised, no profiler); under the profiler "
+            say(f"  step wall {step_ms:.1f} ms (host clock, synchronised, no profiler); under the profiler "
                   f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}; "
                   f"peak memory {peak:.2f} GiB; the two warm-up steps {warm_s:.2f} s"
                   + (f" ({sampler.graphs} CUDA graphs captured)" if capture else ""))
             for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-                print(f"  {ms:10.2f} ms  {100 * ms / busy:5.1f}%  {counts[g]:6d} launches  {g}")
+                say(f"  {ms:10.2f} ms  {100 * ms / busy:5.1f}%  {counts[g]:6d} launches  {g}")
             if sampler.host_mode:
                 hc = sampler.host_cache
-                print(f"  {copies_ms:10.2f} ms of {counts[COPIES]} host<->device copies on the copy stream (beside "
+                say(f"  {copies_ms:10.2f} ms of {counts[COPIES]} host<->device copies on the copy stream (beside "
                       f"the kernels, not in device busy; {100 * copies_ms / wall:.1f}% of the profiled step); "
                       f"{hc.h2d_bytes / 4e6:.1f} MB up and {hc.d2h_bytes / 4e6:.1f} MB back a step (mean of the "
                       f"four steps)")
-            print(f"  self-attention operations of the step {flops:.3e}; attention kernel device time {attn_ms:.1f} ms "
+            say(f"  self-attention operations of the step {flops:.3e}; attention kernel device time {attn_ms:.1f} ms "
                   f"-> {flops / (attn_ms * 1e-3) / 1e12:.1f} T/s")
             key = f"{name} {size_h}x{size_w}{tag}"
             results[key] = dict(step_ms=step_ms, busy_ms=busy, profiled_ms=wall, peak_gib=peak, groups=groups,
@@ -375,7 +411,11 @@ def main() -> int:
             if sampler.host_mode:
                 results[key].update(h2d_mb=sampler.host_cache.h2d_bytes / 4e6,
                                     d2h_mb=sampler.host_cache.d2h_bytes / 4e6)
-            if name == "base":
+            if mesh is not None:
+                print(f"[rank {rank}] {name} {size_h}x{size_w}{tag}: step wall {step_ms:.1f} ms, under the profiler "
+                      f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}"
+                      + (f", {sampler.graphs} graphs" if capture else ""), flush=True)
+            if name == "base" and mesh is None:
                 # one VAE decode of a chunk (`decode_chunk` with the cached
                 # VAE, replayed, or an eager twin on the same weights)
                 vae = get_vae(cfg.runtime_config.vae_pretrained, dev, z_chans=16)
@@ -406,6 +446,8 @@ def main() -> int:
         del params
     import subprocess
 
+    if rank:
+        return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip())

@@ -51,7 +51,17 @@ packed, distill + int8, host-streamed bf16 and int8, two requests lockstep
 and interleaved) are bit-equal to their eager walks with equal launches
 of every kernel, a second sampler of an equal config gives the same
 chunks, a host read inside a captured step raises naming the variant, and
-the VAE's encode and decode graphs give the eager forwards' bits."""
+the VAE's encode and decode graphs give the eager forwards' bits.
+
+Model-parallel meshes on the one card (gloo, `tests/torch_dist.py`'s world
+with every rank on cuda:0): tiny cp 2 (bf16 3-CFG), tp 2 and pp 2 (int8,
+row-parallel K6 with f32 out, layer broadcasts into fixed slots) walks,
+captured in pieces between their collectives, are bit-equal to their
+eager walks with equal launches, and a second captured walk captures
+nothing; `parallel.comm`'s collectives write into their `out` slots in
+place on a one-rank gloo group; a pp layer broadcast into a slot waits
+for the work queued before it, the slot's last reader (without that wait
+the write overtakes a slow reader)."""
 
 import pytest
 import torch
@@ -1288,3 +1298,134 @@ def test_service_round_trip_on_the_card(dev, tmp_path, monkeypatch):
         with open(got, "rb") as f, open(written, "rb") as g:
             data = f.read()
             assert len(data) > 0 and data == g.read()
+
+
+# ---------------------------------------------------------------------------
+# model-parallel meshes: captured pieces between collectives
+# ---------------------------------------------------------------------------
+
+
+def _mesh_card_dict(name: str, **engine) -> dict:
+    """`_tiny_card_dict` at 8 q / 2 kv heads and 4 layers (a pp 2 split, kv
+    replication on 4 head shards), the backend gloo (the ranks share the
+    card)."""
+    d = _tiny_card_dict(name, distributed_backend="gloo", **engine)
+    d["model_config"].update(num_layers=4, hidden_size=1024, ffn_hidden_size=2048, num_attention_heads=8)
+    return d
+
+
+def test_captured_mesh_walks_are_bit_equal_to_eager_ones(dev, tmp_path):
+    """Two ranks on the card over gloo: cp 2 (bf16, 3-branch CFG), tp 2 and
+    pp 2 (distill int8 with int8 attention): the captured walk's chunks and
+    launches equal the eager walk's; a second captured walk (the first's
+    workspace) captures nothing and gives the same chunks."""
+    import importlib.util
+    import os
+
+    from magi_tpu_torch.ops import _lib
+
+    # by its file: an installed package named `tests` can shadow this directory
+    spec = importlib.util.spec_from_file_location("torch_dist", os.path.join(os.path.dirname(__file__),
+                                                                             "torch_dist.py"))
+    torch_dist = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(torch_dist)
+    _lib.lib()  # built once here, before the ranks load it
+    q = "4.5B_distill_quant_config.json"
+    cases = {
+        "cp2_base": dict(kind="card_walk", mesh=dict(cp=2), config=_mesh_card_dict("4.5B_base_config.json", cp_size=2)),
+        "tp2_int8": dict(kind="card_walk", mesh=dict(tp=2), quant_bits=8,
+                         config=_mesh_card_dict(q, tp_size=2, attn_int8=True)),
+        "pp2_int8": dict(kind="card_walk", mesh=dict(pp=2), quant_bits=8,
+                         config=_mesh_card_dict(q, pp_size=2, attn_int8=True)),
+    }
+    res = torch_dist.start_world(2, cases, tmp_path).results(timeout=900)
+    for rank in res:
+        for name, r in rank.items():
+            eager, cap, again = r["eager"], r["captured"], r["again"]
+            assert len(eager["chunks"]) == 3 and sum(eager["launches"]) > 0, name
+            assert all(torch.equal(a, b) for a, b in zip(eager["chunks"], cap["chunks"])), name
+            assert all(torch.equal(a, b) for a, b in zip(eager["chunks"], again["chunks"])), name
+            assert cap["launches"] == eager["launches"] == again["launches"], name
+            assert eager["graphs"] == 0 and cap["graphs"] > 0 and again["graphs"] == 0, name
+
+
+def test_comm_writes_its_out_slots_on_a_one_rank_gloo_group(dev, tmp_path):
+    """On a one-rank gloo group the collectives write the `out` slot they
+    are given (the buffer a captured piece reads) and return it, and
+    all_reduce works in place."""
+    import socket
+
+    import torch.distributed as dist
+
+    from magi_tpu_torch.parallel import comm
+    from magi_tpu_torch.parallel.mesh import Group
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        group = Group((0,), dist.new_group([0]), "gloo", dev)
+        x = torch.arange(6, dtype=torch.bfloat16, device=dev)
+        out = torch.full((6,), -1.0, dtype=torch.bfloat16, device=dev)
+        assert comm.all_to_all(x, group, [6], [6], out=out) is out and torch.equal(out, x)
+        slot = torch.zeros((1, 6), dtype=torch.bfloat16, device=dev)
+        got = comm.all_gather(x, group, out=slot)
+        assert got[0].data_ptr() == slot.data_ptr() and torch.equal(slot[0], x)
+        y = x.float()
+        assert comm.all_reduce(y, group, "max") is y
+        done = comm.broadcast_many([y], 0, group).wait()
+        assert done[0] is y and torch.equal(y, x.float())
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("ordered", [True, False])
+def test_pp_layer_slot_waits_for_its_last_reader(dev, ordered, monkeypatch):
+    """A non-owner rank receives layers 0 and 2 into the same slot (parity
+    0).  Under NCCL the broadcast runs on a side stream, which first waits
+    for the work queued on the current stream: layer 0's (slow) reader
+    still sees layer 0's bytes.  Without that wait (`ordered` False) layer
+    2's write overtakes the reader: the hazard it guards."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from magi_tpu_torch.core.graphs import Arena
+    from magi_tpu_torch.parallel import comm
+    from magi_tpu_torch.parallel import mesh as PM
+
+    class Work:
+        def wait(self):
+            pass
+
+    def fake_broadcast(t, src, group=None, async_op=False):
+        t.fill_(fake_broadcast.value)  # on the stream the broadcast was issued on
+        return Work()
+
+    monkeypatch.setattr(dist, "broadcast", fake_broadcast)
+    side = comm._side_stream(dev)
+    if not ordered:
+        monkeypatch.setattr(type(side), "wait_stream", lambda self, other: None)
+    arena = Arena(dev)
+
+    class Run:
+        copies_live = True
+
+        def slot(self, name, shape, dtype, device):
+            return arena.slot(name, shape, dtype)
+
+    # pp 2, this rank pp index 1 of 8 layers: layers 0-3 arrive from rank 0
+    mesh = PM.Mesh(np.arange(2).reshape(1, 2, 1, 1), rank=1, backend="nccl", device=dev,
+                   groups={"pp": PM.Group((0, 1), None, "nccl", dev)})
+    blocks = {"w": torch.zeros((4, 256, 256), device=dev)}
+    fake_broadcast.value = 1
+    layer0 = PM.pp_gather_layer(blocks, 0, 8, mesh, run=Run()).wait()["w"]
+    seen = torch.empty_like(layer0)
+    torch.cuda._sleep(200_000_000)  # a slow reader of layer 0's slot
+    seen.copy_(layer0)
+    fake_broadcast.value = 3
+    layer2 = PM.pp_gather_layer(blocks, 2, 8, mesh, run=Run()).wait()["w"]
+    torch.cuda.synchronize()
+    assert layer2.data_ptr() == layer0.data_ptr()  # the same slot
+    assert (layer2.view(torch.uint8) == 3).all()
+    assert (seen.view(torch.uint8) == (1 if ordered else 3)).all()

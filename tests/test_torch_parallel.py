@@ -25,6 +25,15 @@ JAX package's mesh (`magi_tpu.parallel`), on the CPU.
   requests on dp2 x cp2 against JAX's DpBatchedSampler; `pp_gather_layer`
   (every layer exact, f32, int8 and k-major int8); `pmap_tile_batch` of 3
   tiles over a replica of 2 ranks and the tiled VAE encode and decode.
+  The same world walks cp2 x tp2, pp2 x cp2, the int8 pp2 x tp2 and dp2 x
+  cp2 through `core.graphs.StandIn`, the CPU stand-in of captured steps
+  (each piece's function replayed on the arguments it was recorded with,
+  as a CUDA graph replays the addresses it baked): twice, bit-equal to
+  the same rank's eager walk, the second capturing nothing (it takes the
+  first's workspace), both against the JAX walks above; and on cp2 x tp2
+  with the all-to-all handing its pieces a new buffer at each call instead
+  of its slot, where the strict stand-in raises, naming the piece, and the
+  loose one's chunks differ from the eager walk's.
 * The CLI entry under torchrun, a gloo world of 2 on the CPU, writes one
   video, on rank 0; the service's engine command runs under torchrun
   exactly when the config's world_size is above 1.
@@ -363,7 +372,9 @@ def _port_cfg(cfg, **engine):
     return dataclasses.replace(tc, engine_config=dataclasses.replace(tc.engine_config, **engine))
 
 
-def test_gloo_world_matches_jax(tmp_path, monkeypatch, sixteen_devices):
+@pytest.fixture(scope="module")
+def gloo_world(tmp_path_factory, sixteen_devices):
+    """The 4-rank world's results (one dict a rank) and the JAX references."""
     cases, refs = {}, {}
 
     # A: fp32 3-CFG walks on cp2 x tp2 and pp2 x cp2
@@ -412,21 +423,35 @@ def test_gloo_world_matches_jax(tmp_path, monkeypatch, sixteen_devices):
     cases["pp_gather"] = dict(kind="pp_gather", mesh=dict(pp=2, cp=2))
     cases["tile"] = dict(kind="tile", mesh=dict(dp=2, cp=2),
                          video=np.random.default_rng(0).normal(size=(1, 3, 24, 32, 32)).astype(np.float32))
+    # the captured steps' stand-in on four of the walks above
+    for name in GRAPH_WALKS:
+        c = {k: v for k, v in cases[name].items() if k != "kind"}
+        cases[name + "_graphs"] = dict(c, kind="graph_walk", walk=cases[name]["kind"], trap=name == "cp2_tp2")
 
-    world = start_world(4, cases, tmp_path)
+    world = start_world(4, cases, tmp_path_factory.mktemp("gloo_world"))
     # the references, while the ranks run
     refs["A"] = _jax_walk(cfg_a, params_a, jinp_a)[1]
     refs["B"] = _jax_walk(cfg_b, params_b, jinp_b)[1]
-    monkeypatch.setenv("MAGI_ATTN_INT8", "1")
-    jcfg_c = _cfg(CFG_C, cp_size=2, tp_size=2)
-    for name, tree in trees_c.items():
-        refs[name] = _jax_walk(jcfg_c, tree, jinp_c, mesh_devices=sixteen_devices[:4])[1]
-    monkeypatch.delenv("MAGI_ATTN_INT8")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MAGI_ATTN_INT8", "1")
+        jcfg_c = _cfg(CFG_C, cp_size=2, tp_size=2)
+        for name, tree in trees_c.items():
+            refs[name] = _jax_walk(jcfg_c, tree, jinp_c, mesh_devices=sixteen_devices[:4])[1]
     dp_ref = [[], []]
     for _, chunks in jb.walk():
         for r in range(2):
             dp_ref[r].append(np.asarray(chunks[r]))
-    res = world.results()
+    refs["dp"] = dp_ref
+    return world.results(), refs
+
+
+# the walks of the world that also walk through the captured steps' stand-in
+GRAPH_WALKS = ("cp2_tp2", "pp2_cp2", "pp2_tp2_int8", "dp2_cp2")
+
+
+def test_gloo_world_matches_jax(gloo_world):
+    res, refs = gloo_world
+    dp_ref = refs["dp"]
 
     for name in ("cp2_tp2", "pp2_cp2"):
         for rank in res:
@@ -447,7 +472,7 @@ def test_gloo_world_matches_jax(tmp_path, monkeypatch, sixteen_devices):
 
     # pp2 x tp2 against JAX's cp2 x tp2 int8 walk: the same function, the
     # tokens split over pp instead of cp
-    for name, ref in [(n, n) for n in trees_c] + [("pp2_tp2_int8", "int8")]:
+    for name, ref in [(n, n) for n in ("int8", "smooth_int8")] + [("pp2_tp2_int8", "int8")]:
         for rank in res:
             got = rank[name]["chunks"]
             assert len(got) == len(refs[ref]) == 3
@@ -468,6 +493,36 @@ def test_gloo_world_matches_jax(tmp_path, monkeypatch, sixteen_devices):
         t = rank["tile"]
         assert t["pmap_equal"] and t["seen"][0] == 2  # 3 tiles padded to 4, 2 a rank
         assert t["z_err"] < 1e-5 and t["y_err"] < 1e-5
+
+
+def test_gloo_world_replays_mesh_steps(gloo_world):
+    """The stand-in's captured walks equal the eager ones bit for bit and
+    the JAX walks within the tolerances above; a second walk captures
+    nothing; a collective handing its pieces new buffers is caught."""
+    res, refs = gloo_world
+
+    def same(a, b):
+        return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+    wants = {"cp2_tp2": (refs["A"], WALK_TOL), "pp2_cp2": (refs["A"], WALK_TOL),
+             "pp2_tp2_int8": (refs["int8"], INT8_TOL), "dp2_cp2": (None, WALK_TOL)}
+    for r, rank in enumerate(res):
+        for name in GRAPH_WALKS:
+            got = rank[name + "_graphs"]
+            want, tol = wants[name]
+            if name == "dp2_cp2":  # rank r walked request r // 2
+                want = refs["dp"][r // 2]
+                got = dict(got, **{k: got[k][r // 2] for k in ("eager", "captured", "again")})
+            assert got["captured_pieces"] > 0 and got["again_pieces"] == 0, (name, r)
+            assert same(got["captured"], got["eager"]) and same(got["again"], got["eager"]), (name, r)
+            assert len(got["eager"]) == len(want) == 3
+            for g, w in zip(got["captured"], want):
+                np.testing.assert_allclose(g.numpy(), w, **tol)
+                if tol is INT8_TOL:
+                    assert np.linalg.norm(g.numpy() - w) / np.linalg.norm(w) < 5e-3
+        trap = rank["cp2_tp2_graphs"]
+        assert "piece attn was handed other arguments" in trap["trap_error"]
+        assert not same(trap["trap_chunks"], trap["eager"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """A gloo world of the port's ranks on the CPU, for the parallel tests.
 
 `start_world(n, cases, tmp_path)` writes the cases to a file and starts n
-processes of `python -m tests.torch_dist <file>` with torchrun's
+processes of `python tests/torch_dist.py <file>` with torchrun's
 environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT); each
 joins a gloo process group, runs every case in order on one intra-op
 thread and saves what it returns.  `World.results()` waits for the ranks
@@ -12,9 +12,15 @@ computes its JAX references in its own process while they run.
 Case kinds (each a dict with "kind" and its inputs): "walk" (an
 ArdfSampler walk of the given full tree, sharded on the given mesh),
 "dp_walk" (each dp group's share of a DpBatchedSampler batch), "pp_gather"
-(every layer of a pp-sharded stack of f32, int8 and k-major int8 leaves)
-and "tile" (`pmap_tile_batch` and the tiled VAE decode against their
-unsharded results)."""
+(every layer of a pp-sharded stack of f32, int8 and k-major int8 leaves),
+"tile" (`pmap_tile_batch` and the tiled VAE decode against their
+unsharded results), "card_walk" (a tiny config drawn on cuda:0 and walked
+eagerly, captured and captured again; the ranks share the card) and
+"graph_walk" (a "walk" or "dp_walk" case walked
+eagerly, then twice through the CPU stand-in of captured steps,
+`core.graphs.StandIn`; with "trap", a third time with the all-to-all
+handing its pieces a new buffer at each call instead of its slot, once
+strict and once not)."""
 
 from __future__ import annotations
 
@@ -60,7 +66,8 @@ def start_world(n: int, cases: dict, tmp_path) -> World:
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n), LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n),
                    MASTER_ADDR="localhost", MASTER_PORT=str(port), OMP_NUM_THREADS="1",
                    PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-        procs.append(subprocess.Popen([sys.executable, "-m", "tests.torch_dist", path], cwd=REPO, env=env,
+        # run as a file: an installed package named `tests` would shadow this directory
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), path], cwd=REPO, env=env,
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     return World(procs, path)
 
@@ -70,34 +77,34 @@ def start_world(n: int, cases: dict, tmp_path) -> World:
 # ---------------------------------------------------------------------------
 
 
-def _mesh(sizes: dict):
+def _mesh(sizes: dict, device=None):
     from magi_tpu_torch.parallel import mesh as M
 
-    return M.initialize_mesh(**{k: sizes.get(k, 1) for k in ("dp", "pp", "cp", "tp")})
+    return M.initialize_mesh(**{k: sizes.get(k, 1) for k in ("dp", "pp", "cp", "tp")}, device=device)
 
 
-def _walk(c):
+def _walk(c, params=None, capture=True):
     from magi_tpu_torch.parallel import mesh as M
     from magi_tpu_torch.sampling.transport import ArdfSampler
 
-    mesh = _mesh(c["mesh"])
-    params = M.shard_dit_params(c["params"], mesh)
-    s = ArdfSampler(c["config"], params, c["inp"], noise=c["noise"], device="cpu")
+    mesh = _mesh(c["mesh"]) if params is None else M.get_mesh()
+    params = M.shard_dit_params(c["params"], mesh) if params is None else params
+    s = ArdfSampler(c["config"], params, c["inp"], noise=c["noise"], device="cpu", capture=capture)
     chunks = [ch.clone() for _, ch in s.walk()]
     leaf = s.cache["kv"] if isinstance(s.cache, dict) else s.cache
     return {"chunks": chunks, "cache_shape": tuple(leaf.shape), "host_mode": s.host_mode,
             "head": mesh.head_index(), "seq": mesh.seq_index()}
 
 
-def _dp_walk(c):
+def _dp_walk(c, params=None, capture=True):
     from magi_tpu_torch.parallel import mesh as M
     from magi_tpu_torch.sampling.batched import DpBatchedSampler, _maybe_dp_shard
 
-    mesh = _mesh(c["mesh"])
-    params = M.shard_dit_params(c["params"], mesh)
+    mesh = _mesh(c["mesh"]) if params is None else M.get_mesh()
+    params = M.shard_dit_params(c["params"], mesh) if params is None else params
     share = _maybe_dp_shard(len(c["inps"]))
     s = DpBatchedSampler(c["config"], params, [c["inps"][i] for i in share], noises=[c["noises"][i] for i in share],
-                         device="cpu")
+                         device="cpu", capture=capture)
     out = {i: [] for i in share}
     for _, chunks in s.walk():
         for j, i in enumerate(share):
@@ -169,7 +176,92 @@ def _tile(c):
             "z_err": float((z - z_ref).abs().max()), "y_err": float((y - y_ref).abs().max())}
 
 
-KINDS = {"walk": _walk, "dp_walk": _dp_walk, "pp_gather": _pp_gather, "tile": _tile}
+def _graph_walk(c):
+    """The case walked eagerly, then captured through the stand-in twice
+    (the second walk takes the first's workspace: no capture), each walk's
+    chunks and the pieces it captured; with "trap", the all-to-all's
+    fresh-buffer walks: the strict stand-in's error, and the loose one's
+    chunks."""
+    from magi_tpu_torch.core import graphs as G
+    from magi_tpu_torch.parallel import comm
+    from magi_tpu_torch.parallel import mesh as M
+
+    walk = {"walk": _walk, "dp_walk": _dp_walk}[c["walk"]]
+    mesh = _mesh(c["mesh"])
+    params = M.shard_dit_params(c["params"], mesh)
+
+    def chunks(out):
+        return out["chunks"] if c["walk"] == "walk" else out
+
+    out = {"eager": chunks(walk(c, params, capture=False))}
+    G.CPU_STAND_IN = True
+    try:
+        for name in ("captured", "again"):
+            before = G.captures("walk")
+            out[name] = chunks(walk(c, params))
+            out[name + "_pieces"] = G.captures("walk") - before
+        if c.get("trap"):
+            G.release_workspaces()
+            plain = comm.all_to_all
+            comm.all_to_all = lambda x, group, ins, outs, out=None: plain(x, group, ins, outs)
+            try:
+                try:
+                    walk(c, params)
+                    out["trap_error"] = None
+                except RuntimeError as e:
+                    out["trap_error"] = str(e)
+                G.release_workspaces()
+                G.StandIn.strict = False
+                out["trap_chunks"] = chunks(walk(c, params))
+            finally:
+                comm.all_to_all = plain
+                G.StandIn.strict = True
+    finally:
+        G.CPU_STAND_IN = False
+        G.release_workspaces()
+    return out
+
+
+def _card_walk(c):
+    """The config `c["config"]` (a dict) drawn from seed 0 on cuda:0 as the
+    rank's shards (`quant_bits` 0 or 8) and walked eagerly, captured and
+    captured again: each walk's chunks (on the CPU), its launches of every
+    kernel and the step graphs it captured."""
+    from magi_tpu_torch.core import graphs as G
+    from magi_tpu_torch.core.config import MagiConfig
+    from magi_tpu_torch.models.dit.model import init_dit_params
+    from magi_tpu_torch.parallel import mesh as M
+    from magi_tpu_torch.sampling.transport import ArdfSampler, InferenceInput
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = _mesh(c["mesh"], dev)
+    cfg = MagiConfig.from_dict(c["config"])
+    mc = cfg.model_config
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = init_dit_params(cfg, dev, g, sink=M.ShardSink(mesh, mc.gated_linear_unit, c.get("quant_bits", 0)))
+    L, n = mc.caption_max_length, 3
+    inp = InferenceInput(caption_embs=torch.randn((n, L, mc.caption_channels), generator=g, device=dev),
+                         caption_lens=[9, 20, 5], null_emb=torch.randn((L, mc.caption_channels), generator=g,
+                                                                       device=dev),
+                         null_len=5, latent_size=(mc.in_channels, 2 * n, 16, 16), num_steps=8, chunk_num=n,
+                         has_text=True)
+    noise = torch.randn(inp.latent_size, generator=g, device=dev)
+    out = {}
+    for name, capture in (("eager", False), ("captured", True), ("again", True)):
+        launches, graphs = G.launch_counts(), G.captures("walk")
+        chunks = [ch.cpu() for _, ch in ArdfSampler(cfg, params, inp, noise=noise, device=dev,
+                                                    capture=capture).walk()]
+        torch.cuda.synchronize()
+        out[name] = dict(chunks=chunks, launches=[a - b for a, b in zip(G.launch_counts(), launches)],
+                         graphs=G.captures("walk") - graphs)
+    G.release_workspaces()
+    return out
+
+
+KINDS = {"walk": _walk, "dp_walk": _dp_walk, "pp_gather": _pp_gather, "tile": _tile, "graph_walk": _graph_walk,
+         "card_walk": _card_walk}
 
 
 def main(path: str) -> int:
