@@ -145,7 +145,28 @@ Phases, each printed on its own line; any failure exits non-zero:
      captured chunks bit-equal to the eager ones, launches equal kernel by
      kernel.  Each walk prints, per rank, its seconds a step, graphs and
      capture seconds, and the bytes handed to collectives a step.
-Phases 3-14 run as a user runs the port on the card: every denoise step
+ 18. the released configs the earlier phases do not walk as written, each
+     file as released on one card (`cp_size` 1; only the video cut, to
+     256x256 and 96 frames) through the CLI entry with random weights:
+     18a `example/24B/24B_base_config.json` (bf16 tree of 48 layers x
+     6144, 48/8 heads, gated MLP; 3-branch CFG, 32 steps), 18b
+     `24B_distill_config.json` (bf16, single-branch distill, 16 steps),
+     18b' 18b under the default kv ranges (where `kv_offload` is the
+     host-streamed cache: bf16 slabs at the 24B's width; on 18b's resident
+     tree), 18c `24B_distill_quant_config.json` (`fp8_quant`: a w8a8 tree
+     quantized leaf by leaf as it is drawn, bf16 edge layers, bf16
+     attention over a bf16 cache; no smooth factors under SKIP_LOAD_MODEL,
+     so its gated fc2 runs K8s), 18d `example/4.5B/4.5B_distill_config.json`
+     (bf16 distill).  18a-c keep `kv_offload` under their noise2clean kv
+     ranges, a device cache window that the video's 4 chunks never roll.
+     Each walk must launch every kernel of its path (K1, K2, K2g, K3, K4;
+     18c also K6, K8 and K8s) and no other; prints its launches a step
+     against the count the model's structure predicts, its steps (mean,
+     first), graphs, capture seconds, device peak and cache mode, and 18b'
+     the bytes its cache copies a step each way and the link's rate.
+Before the kernels' line, one JSON line of phase 18's walks (steps,
+mean and first step, peak, graphs, cache mode, copies).
+Phases 3-14 and 18 run as a user runs the port on the card: every denoise step
 and every VAE encode and decode replayed from a CUDA graph (`core.graphs`,
 captured before the walk; the capture's own launches are not counted).
 A walk's buffers and graphs outlive it in the process's workspace pool;
@@ -157,11 +178,14 @@ Phases 8-10 check the frame count against the JAX package's for the same
 request (i2v keeps its first chunk whole; v2v drops the prefix frames).
 Phase 2 also checks K7 and K8s at phase 6-7's shapes, K8 at the 24B's
 widths and K5 (each scheme, against the dequant reference too) and K1 at
-its 48/8 heads.  Phase 6 holds a
+its 48/8 heads, and K1 and K3 at phase 18a's stage-3 and stage-4 steps
+(from the sampler's plan; K1 at the cond ranges and the uncond self-only
+ones), K1 and K3 timed at stage 3 beside their bound and library call
+(the `at_24b` entries of their rows).  Phase 6 holds a
 quantization peak of about 57 GiB (the bf16 tree alive while it is
 packed), so each main path starts from an emptied allocator cache.
 Then the card's name and power limit, one JSON line of per-kernel results
-(`launches_by_path` holds each main path's count, phases 4-17 (17: rank
+(`launches_by_path` holds each main path's count, phases 4-18 (17: rank
 0's), read just after its run; `launches` is their sum; K6's row adds its
 f32 epilogue's time at 17c's shapes and launches in 17c; K5's sage and dq rows come after
 every other), and a last line `{"ok": true, "device": {...}}`.
@@ -184,6 +208,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(HERE, "example", "4.5B", "4.5B_base_config.json")
 QUANT_CONFIG = os.path.join(HERE, "example", "4.5B", "4.5B_distill_quant_config.json")
 CONFIG_24B = os.path.join(HERE, "example", "24B", "24B_distill_quant_config.json")
+CONFIG_24B_BASE = os.path.join(HERE, "example", "24B", "24B_base_config.json")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
@@ -369,32 +394,45 @@ def kv_pack_inputs(dev, n: int, hk: int, hd: int, rot: int):
     return k, v, torch.sin(ang), torch.cos(ang)
 
 
-def packed_step_ranges(num_frames: int, stage: int, didx: int):
-    """Forward A's operands of one packed step (`pack_uncond`) of phase 12's
-    request (the 4.5B base config at 256x256, 16 steps) at `num_frames`:
-    (n_seg, n_den, cache_sp, the global kv starts and ends of the window's
-    segments and then of the uncond ones), as `_cfg3_step` builds them from
-    the sampler's own plan (a one-layer sampler on the CPU; no forward)."""
+def step_plan(d: dict, stage: int, didx: int = 0):
+    """(sampler, plan) of step `didx` of ARDF stage `stage` of the request
+    that config dict `d` describes (its video, chunks and steps), as the
+    sampler plans it: a one-layer sampler on the CPU, no weights, no
+    forward."""
     import numpy as np
     import torch
 
     from magi_tpu_torch.core.config import MagiConfig
     from magi_tpu_torch.sampling.transport import ArdfSampler, InferenceInput
 
+    d = json.loads(json.dumps(d))
+    d["model_config"]["num_layers"] = 1
+    cfg = MagiConfig.from_dict(d)
+    mc, rc = cfg.model_config, cfg.runtime_config
+    T = rc.num_frames // rc.temporal_downsample_factor
+    n_chunks = T // rc.chunk_width
+    latent = (mc.in_channels // 2 if mc.half_channel_vae else mc.in_channels, T, rc.video_size_h // 8,
+              rc.video_size_w // 8)
+    inp = InferenceInput(caption_embs=torch.zeros(n_chunks, 1, 1), caption_lens=np.full(n_chunks, 7, np.int32),
+                         null_emb=torch.zeros(1, 1), null_len=50, latent_size=latent, num_steps=rc.num_steps,
+                         chunk_num=n_chunks, has_text=True)
+    s = ArdfSampler(cfg, None, inp, noise=torch.zeros(latent), device="cpu")
+    return s, s._plan(stage * (rc.num_steps // rc.window_size) + didx)
+
+
+def packed_step_ranges(num_frames: int, stage: int, didx: int):
+    """Forward A's operands of one packed step (`pack_uncond`) of phase 12's
+    request (the 4.5B base config at 256x256, 16 steps) at `num_frames`:
+    (n_seg, n_den, cache_sp, the global kv starts and ends of the window's
+    segments and then of the uncond ones), as `_cfg3_step` builds them from
+    the sampler's own plan (`step_plan`)."""
+    import numpy as np
+
     with open(CONFIG) as f:
         d = json.load(f)
-    d["model_config"]["num_layers"] = 1
     d["runtime_config"].update(video_size_h=256, video_size_w=256, num_frames=num_frames, num_steps=STEPS)
     d["engine_config"]["pack_uncond"] = True
-    cfg = MagiConfig.from_dict(d)
-    rc = cfg.runtime_config
-    T = num_frames // rc.temporal_downsample_factor
-    n_chunks = T // rc.chunk_width
-    inp = InferenceInput(caption_embs=torch.zeros(n_chunks, 1, 1), caption_lens=np.full(n_chunks, 7, np.int32),
-                         null_emb=torch.zeros(1, 1), null_len=50, latent_size=(16, T, 32, 32), num_steps=STEPS,
-                         chunk_num=n_chunks, has_text=True)
-    s = ArdfSampler(cfg, None, inp, noise=torch.zeros(inp.latent_size), device="cpu")
-    p = s._plan(stage * (STEPS // rc.window_size) + didx)
+    s, p = step_plan(d, stage, didx)
     n_seg, n_den, cache_sp = p["n_seg"], p["n_den"], p["sp"] - s.cache_base
     u = (cache_sp + n_seg + np.arange(n_den)) * s.ctn
     return (n_seg, n_den, cache_sp, s.cache_tokens, np.concatenate([p["kv_start"], u]),
@@ -1141,6 +1179,113 @@ def w4a8_kernel_checks(dev):
     return results
 
 
+def released_24b_attention_checks(dev):
+    """K1 and K3 at phase 18a's shapes (the 24B base config as released on
+    one device, 256x256, 96 frames: 48 / 8 heads, 6 q heads a kv head,
+    segments of 1536 tokens) from the sampler's own plan: stage 3's first
+    step (4 segments, no cache before the window; the cond forwards' ranges
+    and the uncond forward's self-only ones) and stage 4's second (3
+    segments over one cached chunk: source 1 read), each against its plain version; K1 at
+    stage 3's cond ranges and K3 at its 6144 tokens timed (K3 also replayed
+    in a CUDA graph) beside their bound and library call.  K3's operands
+    depend on the kv heads (8), head_dim and rotary width alone, which the
+    24B shares with the 4.5B: the shape is phase 2's K3 case, here with
+    the 24B's own step's tokens.  Returns the two rows' `at_24b` entries."""
+    import torch
+    import torch.nn.functional as F
+
+    from magi_tpu_torch.ops import attention as A
+
+    with open(CONFIG_24B_BASE) as f:
+        d = json.load(f)
+    d["runtime_config"].update(video_size_h=256, video_size_w=256, num_frames=96)
+    d["engine_config"]["cp_size"] = 1
+    mc = d["model_config"]
+    hq, hk, hd = mc["num_attention_heads"], mc["num_query_groups"], mc["kv_channels"]
+    rot, eps = 48, mc["layernorm_epsilon"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    qw, qb = 1.0 + 0.1 * randn(hd, dtype=torch.float32), 0.1 * randn(hd, dtype=torch.float32)
+    kw, kb = 1.0 + 0.1 * randn(hd, dtype=torch.float32), 0.1 * randn(hd, dtype=torch.float32)
+    out = {}
+    for stage, didx in ((3, 0), (4, 1)):
+        s, p = step_plan(d, stage, didx)
+        ctn, n_seg = s.ctn, p["n_seg"]
+        S, st = n_seg * ctn, (p["sp"] - s.cache_base) * ctn
+        gs, ge = (torch.as_tensor(a, **i32) for a in (p["kv_start"], p["kv_end"]))
+        r1s, r1e = torch.clamp(gs, max=st), torch.clamp(ge, max=st)
+        r2s, r2e = torch.clamp(gs - st, min=0), torch.clamp(ge - st, min=0)
+        k, v = randn(S, hk, hd), randn(S, hk, hd)
+        ang = torch.rand((S, rot), generator=g, device=dev) * 6.28
+        sin, cos = torch.sin(ang), torch.cos(ang)
+        pack = lambda: A.kv_norm_rope_pack(k, v, kw, kb, sin, cos, eps=eps)
+        kv2 = pack()
+        k3_err = check_close(f"kv_norm_rope_pack, 18a's stage {stage} ({S} tokens, {hk} kv heads)", kv2,
+                             A.kv_norm_rope_pack_reference(k, v, kw, kb, sin, cos, eps=eps), 1e-2, 1e-2)
+        cache = torch.zeros((2, hk, s.cache_tokens, hd), dtype=torch.bfloat16, device=dev)
+        cache[:, :, :st] = randn(2, hk, st, hd)
+        q = randn(S, hq, hd)
+        pro = (qw, qb, sin, cos, eps)
+        qn = A.apply_q_prologue(q, pro)
+        call = lambda: A.segmented_attention_two_source(q, cache, kv2, r1s, r1e, r2s, r2e, seg_len=ctn,
+                                                        q_prologue=pro)
+        ref = lambda: A.segmented_attention_two_source_reference(qn, cache, kv2, r1s, r1e, r2s, r2e, seg_len=ctn)
+        k1_err = check_close(f"segmented_attention_two_source at 48 / 8 heads, 18a's stage {stage} (cond forwards: "
+                             f"{n_seg} segments over {st // ctn} cached chunks, spans "
+                             f"{((ge - gs) // ctn).tolist()} chunks)", call(), ref(), *ATTN_TOL)
+        z = torch.zeros(n_seg, **i32)
+        us = torch.arange(n_seg, **i32) * ctn
+        empty = cache[:, :, :0]
+        k1_err = max(k1_err, check_close(
+            f"segmented_attention_two_source at 48 / 8 heads, 18a's stage {stage} (uncond forward: self-only)",
+            A.segmented_attention_two_source(q, empty, kv2, z, z, us, us + ctn, seg_len=ctn, q_prologue=pro),
+            A.segmented_attention_two_source_reference(qn, empty, kv2, z, z, us, us + ctn, seg_len=ctn), *ATTN_TOL))
+        if stage != 3:
+            continue
+        # K1 at the cond forwards' ranges: timed, bound, SDPA
+        L1 = cache.shape[2]
+        kk = torch.cat([cache[0].transpose(0, 1), kv2[0].transpose(0, 1)])
+        vv = torch.cat([cache[1].transpose(0, 1), kv2[1].transpose(0, 1)])
+        col = torch.arange(kk.shape[0], device=dev)[None]
+        valid = (((col >= r1s[:, None]) & (col < r1e[:, None]))
+                 | ((col >= r2s[:, None] + L1) & (col < r2e[:, None] + L1)))
+        attended = int(((r1e - r1s) + (r2e - r2s)).sum())
+        kv_bytes = (span_tokens(r1s, r1e) + span_tokens(r2s, r2e)) * 2 * hk * hd * 2
+        ops = 4 * ctn * attended * hd * hq
+        bms, by = bound(2 * S * hq * hd * 2 + kv_bytes + 2 * S * rot * 4, (ops, PEAK_BF16_FLOPS))
+        ms = cuda_ms(call, 10)
+        print_rate(f"segmented_attention_two_source at 48 / 8 heads, 18a's stage 3 ({n_seg} x {ctn} tokens)", ops,
+                   ms, bms)
+        out["segmented_attention_two_source"] = dict(
+            config="24B base, 256x256, stage 3 cond forward", heads=[hq, hk], tokens=S, ms=ms,
+            plain_ms=cuda_ms(ref, 2), bound_ms=bms, bound_by=by, library_ms=sdpa_ms(qn, kk, vv, valid, ctn),
+            max_abs_err=k1_err)
+        # K3 at the step's tokens: timed, graph, bound, library
+        k3_ms, k3_gms = cuda_ms(pack, SHORT_ITERS), graph_ms(pack, SHORT_ITERS)
+
+        def lib_k3():
+            kn = F.layer_norm(k.float(), (hd,), kw, kb, eps)
+            x1, x2 = kn[..., :rot], kn[..., rot : 2 * rot]
+            s_, c_ = sin[:, None], cos[:, None]
+            kn = torch.cat([x1 * c_ - x2 * s_, x1 * s_ + x2 * c_, kn[..., 2 * rot :]], -1)
+            return torch.stack([kn.bfloat16(), v]).transpose(1, 2).contiguous()
+
+        k3_bms, k3_by = bound(2 * S * hk * hd * 2 + 2 * S * rot * 4 + 2 * hd * 4 + 2 * S * hk * hd * 2,
+                              (10 * S * hk * hd, PEAK_FP32_FLOPS))
+        print(f"  kv_norm_rope_pack, 18a's stage 3 ({S} tokens): a host loop of calls {k3_ms:.4f} ms; calls "
+              f"replayed in a CUDA graph {k3_gms:.4f} ms; bound {k3_bms:.4f} ms by {k3_by}")
+        out["kv_norm_rope_pack"] = dict(
+            config="24B base, 256x256, stage 3", heads=[hq, hk], tokens=S, ms=k3_ms, graph_ms=k3_gms,
+            plain_ms=cuda_ms(lambda: A.kv_norm_rope_pack_reference(k, v, kw, kb, sin, cos, eps=eps), 10),
+            bound_ms=k3_bms, bound_by=k3_by, library_ms=cuda_ms(lib_k3, 10), max_abs_err=k3_err)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: tiny walks on the card against the CPU fp32 walks
 # ---------------------------------------------------------------------------
@@ -1263,19 +1408,23 @@ def fresh_card() -> None:
     torch.cuda.empty_cache()
 
 
-def run_main_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: list) -> dict:
+def run_main_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: list, *, idle=(),
+                  fresh: bool = True) -> dict:
     """Run `config` through the CLI entry (t2v) with every launch count set
-    to 0 just before and read just after; checks the video (96 frames of
-    256x256, finite latents) and that every kernel of the path launched.
-    Returns the launch counts and the run's stats (with its wall seconds and
-    device peak)."""
+    to 0 just before and read just after; checks the video (the config's
+    frames and size, finite latents), that every kernel of the path
+    launched and that none of `idle` did.  `fresh` first frees the earlier
+    walks' workspaces and resident trees (`fresh_card`).  Returns the
+    launch counts and the run's stats (with its wall seconds and device
+    peak)."""
     import torch
 
     from magi_tpu_torch.pipeline import entry
 
     with open(stem + ".json", "w") as f:
         json.dump(config, f)
-    fresh_card()
+    if fresh:
+        fresh_card()
     torch.cuda.reset_peak_memory_stats(dev)
     for w in wrappers.values():
         w.launches = 0
@@ -1295,13 +1444,18 @@ def run_main_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: li
     print(f"  launches per denoise step: "
           f"{json.dumps({n: round(launches[n] / len(steps), 2) for n in path_kernels})}")
     print(f"  video {stats['video_shape']}, std {stats['video_std']:.2f}, latents finite: {stats['latents_finite']}")
-    if stats["video_shape"] != (96, 256, 256, 3) or not os.path.exists(stats["path"]):
-        fail(f"expected 96 frames of 256x256x3 written, got {stats['video_shape']} at {stats['path']}")
+    rc = config["runtime_config"]
+    want = (rc["num_frames"], rc["video_size_h"], rc["video_size_w"], 3)
+    if stats["video_shape"] != want or not os.path.exists(stats["path"]):
+        fail(f"expected {want} written, got {stats['video_shape']} at {stats['path']}")
     if not stats["latents_finite"] or stats["video_std"] == 0:
         fail("the walk emitted non-finite latents or a constant video")
     missing = [n for n in path_kernels if launches[n] == 0]
     if missing:
         fail(f"the main path launched no {missing}")
+    stray = [n for n in idle if launches[n]]
+    if stray:
+        fail(f"the main path launched {stray}, which it does not run")
     return launches, stats
 
 
@@ -2018,17 +2172,10 @@ def run_offload_pair(dev, config: dict, name: str, wrappers: dict, path_kernels:
     same_cache = _same_bits(resident_cache[0], hc._host_kv) and (
         resident_cache[1] is None or _same_bits(resident_cache[1], hc._host_sc))
     slab_bytes = sum(t.nbytes for t in hc._slab_kv + (hc._slab_sc or []))
-    src, dst = hc._host_kv[0], hc._slab_kv[0]
-    h2d_ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), 10)
-    d2h_ms = cuda_ms(lambda: src.copy_(dst, non_blocking=True), 10)
-    h2d_rate, d2h_rate = src.nbytes / h2d_ms / 1e6, src.nbytes / d2h_ms / 1e6
-    per_step_h2d, per_step_d2h = hc.h2d_bytes / len(steps), hc.d2h_bytes / len(steps)
     mean = {m: sum(r["steps"]) / len(r["steps"]) for m, r in runs.items()}
     print(f"  {name}: {len(steps)} steps, {len(st['chunks'])} chunks; latents bit-equal, resident against streamed: "
           f"{same_latents}; cache bit-equal to the host buffer: {same_cache}")
-    print(f"  copies a step: H2D {per_step_h2d / 1e6:.1f} MB, D2H {per_step_d2h / 1e6:.1f} MB; the link, one layer's "
-          f"slab of {src.nbytes / 1e6:.1f} MB: H2D {h2d_rate:.1f} GB/s, D2H {d2h_rate:.1f} GB/s, so "
-          f"{(per_step_h2d / h2d_rate + per_step_d2h / d2h_rate) / 1e9:.4f} s of copies a step")
+    print_copies(hc, len(steps))
     print(f"  seconds per step: resident {mean['resident']:.4f}, streamed {mean['streamed']:.4f}; walk wall "
           f"{res['wall']:.2f} / {st['wall']:.2f} s; device peak resident {res['peak'] / 2**30:.2f} GiB, streamed "
           f"{st['peak'] / 2**30:.2f} GiB (the cache {cache_bytes / 2**30:.2f} GiB, two slabs "
@@ -2045,6 +2192,24 @@ def run_offload_pair(dev, config: dict, name: str, wrappers: dict, path_kernels:
     if not all(bool(torch.isfinite(c).all()) for c in st["chunks"]):
         fail(f"{name}: the streamed walk emitted non-finite latents")
     return st["launches"]
+
+
+def print_copies(hc, steps: int) -> dict:
+    """Print and return the bytes host cache `hc` copied a step each way
+    over `steps` steps, beside the link's rate each way on one layer's slab
+    (CUDA events; the D2H copy overwrites layer 0 of the host buffer, so
+    call it after the buffer is read)."""
+    src, dst = hc._host_kv[0], hc._slab_kv[0]
+    h2d_ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), 10)
+    d2h_ms = cuda_ms(lambda: src.copy_(dst, non_blocking=True), 10)
+    h2d_rate, d2h_rate = src.nbytes / h2d_ms / 1e6, src.nbytes / d2h_ms / 1e6
+    per_step_h2d, per_step_d2h = hc.h2d_bytes / steps, hc.d2h_bytes / steps
+    copy_s = (per_step_h2d / h2d_rate + per_step_d2h / d2h_rate) / 1e9
+    print(f"  copies a step: H2D {per_step_h2d / 1e6:.1f} MB, D2H {per_step_d2h / 1e6:.1f} MB; the link, one layer's "
+          f"slab of {src.nbytes / 1e6:.1f} MB: H2D {h2d_rate:.1f} GB/s, D2H {d2h_rate:.1f} GB/s, so "
+          f"{copy_s:.4f} s of copies a step")
+    return dict(h2d_mb_per_step=per_step_h2d / 1e6, d2h_mb_per_step=per_step_d2h / 1e6, h2d_gb_s=h2d_rate,
+                d2h_gb_s=d2h_rate, copy_s_per_step=copy_s)
 
 
 def run_multi_paths(dev, config: dict, stem: str, wrappers: dict, path_kernels: list, launches5: dict,
@@ -2863,6 +3028,93 @@ def run_mesh_phase(dev, out_dir: str, launches5: dict, rec5) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the released configs as written, on one card
+# ---------------------------------------------------------------------------
+
+# (walk, config file under example/, the `launches_by_path` key); the video
+# is cut to 256x256 and 96 frames, `cp_size` set to 1, nothing else changed
+RELEASED_WALKS = (("a", "24B/24B_base_config.json", "24b_base"),
+                  ("b", "24B/24B_distill_config.json", "24b_distill"),
+                  ("c", "24B/24B_distill_quant_config.json", "24b_w8a8"),
+                  ("d", "4.5B/4.5B_distill_config.json", "4.5b_distill"))
+BF16_KERNELS = ["segmented_attention_two_source", "segmented_attention_v2", "segmented_attention", "kv_norm_rope_pack",
+                "gate_norm_residual"]
+W8A8_KERNELS = BF16_KERNELS + ["quantized_matmul_i8", "rowquant_fused", "rowquant_swiglu"]
+
+
+def predicted_launches(d: dict) -> dict:
+    """Launches a denoise step of config dict `d` as the model is built,
+    kernel by kernel: every forward runs K1, K2 and K3 once a layer and K4
+    twice (3 forwards a 3-CFG step, 1 a distill step); a quantized tree's
+    middle layers run K6 on each of their 8 linears, K8 on 4 (the qkv and
+    fc1 LayerNorms, the caption kv and proj inputs) and K8s on a gated fc2."""
+    mc, ec = d["model_config"], d["engine_config"]
+    layers, forwards = mc["num_layers"], 3 if d["runtime_config"]["cfg_number"] == 3 else 1
+    out = {"segmented_attention_two_source": forwards * layers, "segmented_attention_v2": forwards * layers,
+           "kv_norm_rope_pack": forwards * layers, "gate_norm_residual": 2 * forwards * layers}
+    if ec["fp8_quant"]:
+        middle = forwards * (layers - 2)
+        out.update(quantized_matmul_i8=8 * middle, rowquant_fused=4 * middle,
+                   rowquant_swiglu=middle if mc["gated_linear_unit"] else 0)
+    return out
+
+
+def run_released_walks(dev, out_dir: str, wrappers: dict) -> dict:
+    """Phase 18: each released config of `RELEASED_WALKS` as written, on one
+    card, through the CLI entry (`run_main_path`: random weights, steps
+    captured), then walk b once more under the default kv ranges (b'), where
+    `kv_offload` is the host-streamed cache, on b's resident tree.  Each walk
+    must launch every kernel of its path and no other; prints its launches a
+    step against `predicted_launches`, its steps, peak and cache mode, and
+    for b' the bytes the streamed cache copies a step and the link's rate.
+    Returns the launch counts and stats by `launches_by_path` key."""
+    from magi_tpu_torch.core import graphs as G
+
+    out = {}
+    walks = [(w, f, k, None) for w, f, k in RELEASED_WALKS]
+    walks.insert(2, ("b'", "24B/24B_distill_config.json", "24b_distill_streamed", []))
+    for walk, file, key, kvrange in walks:
+        with open(os.path.join(HERE, "example", file)) as f:
+            d = json.load(f)
+        d["runtime_config"].update(video_size_h=256, video_size_w=256, num_frames=96)
+        d["engine_config"]["cp_size"] = 1
+        if kvrange is not None:
+            d["runtime_config"]["noise2clean_kvrange"] = kvrange
+        kernels = W8A8_KERNELS if d["engine_config"]["fp8_quant"] else BF16_KERNELS
+        s, _ = step_plan(d, 0)
+        mc = d["model_config"]
+        cache_gib = mc["num_layers"] * 2 * mc["num_query_groups"] * s.cache_tokens * mc["kv_channels"] * 2 / 2**30
+        rc, ec = d["runtime_config"], d["engine_config"]
+        print(f"  18{walk}: {file} (cfg_number {rc['cfg_number']}, {rc['num_steps']} steps, distill "
+              f"{ec['distill']}, fp8_quant {ec['fp8_quant']}, noise2clean_kvrange {rc['noise2clean_kvrange']}, "
+              f"kv_offload {ec['kv_offload']}): {s.chunk_num} chunks, "
+              + (f"the host-streamed cache ({cache_gib:.2f} GiB of pinned host memory)" if s.host_mode else
+                 f"a device cache window of {s.cache_chunks} chunks ({cache_gib:.2f} GiB) that "
+                 + ("rolls" if s.cache_chunks < s.chunk_num else "never rolls: nothing crosses the link")))
+        t0 = time.perf_counter()
+        launches, stats = run_main_path(dev, d, os.path.join(out_dir, f"released_{key}_256"), wrappers, kernels,
+                                        idle=[n for n in wrappers if n not in kernels], fresh=walk != "b'")
+        steps = stats["step_seconds"]
+        predicted = predicted_launches(d)
+        got = {n: launches[n] / len(steps) for n in predicted}
+        print(f"  18{walk}: launches a step, predicted {json.dumps(predicted)}; measured "
+              f"{json.dumps({n: round(v, 2) for n, v in got.items()})}: "
+              f"{'as predicted' if all(abs(got[n] - v) < 1e-9 for n, v in predicted.items()) else 'MISSED'}; "
+              f"{stats['graphs']} step graphs captured in {stats['capture_seconds']:.1f} s; the walk "
+              f"{time.perf_counter() - t0:.1f} s")
+        rec = dict(launches=launches, steps=len(steps), mean_step_s=sum(steps) / len(steps), first_step_s=steps[0],
+                   peak_gib=stats["peak_gib"], graphs=stats["graphs"], capture_s=stats["capture_seconds"],
+                   host_mode=s.host_mode, cache_chunks=s.cache_chunks, chunks=s.chunk_num, copies=None)
+        if s.host_mode:
+            hcs = [ws.host_cache for wss in G.WORKSPACES._idle.values() for ws in wss if ws.host_cache is not None]
+            if len(hcs) != 1:
+                fail(f"18{walk}: expected the walk's host cache in the workspace pool, found {len(hcs)}")
+            rec["copies"] = print_copies(hcs[0], len(steps))
+        out[key] = rec
+    return out
+
+
 def kernel_wrappers() -> dict:
     """Every kernel's wrapper, by name (each counts its launches)."""
     from magi_tpu_torch.ops import act_quant as AQ
@@ -2949,6 +3201,10 @@ def main() -> int:
     warm_card(dev)
     int8_results, scheme_results = int8_kernel_checks(dev)
     results = kernel_checks(dev) + int8_results + w4a8_kernel_checks(dev) + scheme_results
+    at_24b = released_24b_attention_checks(dev)
+    for r in results:
+        if r["name"] in at_24b:
+            r["at_24b"] = at_24b[r["name"]]
 
     wrappers = kernel_wrappers()
 
@@ -3120,6 +3376,14 @@ def main() -> int:
           "17c pp 2 x tp 2, 17d dp 2")
     launches17 = run_mesh_phase(dev, out_dir, launches5, rec5)
 
+    phase("phase 18: the released configs never walked before, as written on one card through the CLI entry "
+          "(cp_size 1; 256x256, 96 frames): 18a 24B base bf16 3-CFG, 18b 24B distill bf16, 18b' 18b under the "
+          "default kv ranges (the host-streamed cache), 18c 24B distill_quant w8a8 with bf16 attention, "
+          "18d 4.5B distill bf16")
+    t18 = time.perf_counter()
+    released = run_released_walks(dev, out_dir, wrappers)
+    print(f"  phase 18: {time.perf_counter() - t18:.1f} s")
+
     for r in results:
         if r["name"] == "quantized_matmul_i8":
             r["launches_f32_by_path"] = {"mesh_pp2_tp2_distill_int8": launches17["mesh_pp2_tp2_distill_int8_f32"]}
@@ -3138,7 +3402,8 @@ def main() -> int:
                                  "distill_int8_eager": launches15de[r["name"]],
                                  "distill_int8_captured": launches15dc[r["name"]],
                                  "distill_int8_second": launches15ds[r["name"]],
-                                 "distill_int8_comfyui": launches16[r["name"]]}
+                                 "distill_int8_comfyui": launches16[r["name"]],
+                                 **{k: v["launches"][r["name"]] for k, v in released.items()}}
         r["launches"] = sum(r["launches_by_path"].values())
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3150,7 +3415,10 @@ def main() -> int:
     keys = ["name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"]
     extra = ["graph_ms", "every_caption_tokens", "decode_720", "base_720", "distill_720",  # K2, K2g, K3, K3q
+             "at_24b",  # K1, K3
              "f32_out", "launches_f32_by_path"]  # K6
+    print(json.dumps({"released_walks": {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
+                                         for k, v in released.items()}}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys + [x for x in extra if x in r]} for r in results]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

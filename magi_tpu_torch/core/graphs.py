@@ -154,6 +154,18 @@ def _index(device: torch.device) -> int:
     return device.index if device.index is not None else torch.cuda.current_device()
 
 
+def release_cached(device: torch.device) -> None:
+    """Hand the caching allocator's free blocks on `device` back to the
+    card (`torch.cuda.empty_cache`; nothing on the CPU).  A capture
+    allocates from its graph pool, which cannot take blocks the allocator
+    keeps cached for eager work, so a capture after an eager warm-up of
+    the same step would otherwise need the step's activations twice (the
+    released 24B base step at 576x1024 did not fit on an 80 GB card so)."""
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            torch.cuda.empty_cache()
+
+
 def graph_pool(device: torch.device, role: str) -> "torch.cuda.MemPool":
     """The memory pool that `device`'s live graphs of `role` ("walk" or
     "vae") share.  Every `StepGraph` holds it; once none is left it goes,
@@ -313,21 +325,46 @@ class StepGraph:
         if self._mode == "new":
             self._first(args)
 
-    def _first(self, args) -> tuple:
-        """Warm (the first graph of the key in the process) and capture;
-        returns (the warm-up's result, whether it ran)."""
-        t0 = time.perf_counter()
+    def warm(self, *args) -> None:
+        """The eager warm-up of `build` alone (when this is the process's
+        first graph of its key), its result dropped: a caller that builds
+        several graphs warms them all, hands the allocator's cached blocks
+        back (`release_cached`) and then builds them, so the captures take
+        the memory the warm-ups freed instead of holding it beside theirs."""
+        if self._mode == "new":
+            self._warm(args)
+
+    def _warm(self, args) -> tuple:
+        """Run the body eagerly if the key is not warmed in the process yet;
+        returns (its result, whether it ran)."""
         key = (_index(self.device), self.warm_key)
-        out, ran = None, key not in _warmed
-        if ran:
-            self._mode = "warm"
+        if key in _warmed:
+            return None, False
+        t0 = time.perf_counter()
+        self._mode = "warm"
+        try:
             out = self.body(self, *args)
             self._sync()
-            self.warm_seconds = time.perf_counter() - t0
-        self._capture(*args)
+        finally:
+            self._mode = "new"
         with _lock:
             _warmed.add(key)
-        self.capture_seconds = time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        self.warm_seconds += seconds
+        self.capture_seconds += seconds
+        return out, True
+
+    def _first(self, args) -> tuple:
+        """Warm (the first graph of the key in the process) and capture;
+        returns (the warm-up's result, whether it ran).  Between the two the
+        warm-up's freed blocks go back to the card, where the capture's pool
+        can take them."""
+        out, ran = self._warm(args)
+        t0 = time.perf_counter()
+        if ran:
+            release_cached(self.device)
+        self._capture(*args)
+        self.capture_seconds += time.perf_counter() - t0
         return out, ran
 
     def _capture(self, *args) -> None:

@@ -726,15 +726,25 @@ class ArdfSampler:
         restore = self._save_state(written)
         with G.uncounted():
             try:
-                for v in todo:
-                    if v[0] == "warmup":
-                        self._stage_warmup()
-                    else:
-                        p = plans[v]
-                        ks = np.zeros(p["n_seg"], np.int32)
-                        ke = (np.arange(p["n_seg"], dtype=np.int32) + 1) * self.ctn
-                        self._stage_step(p, 0, 0, ks, ke)
-                    self._steps[(key, v)].build(0)
+                # every variant's eager warm-up, then every capture: the
+                # warm-ups reuse one another's freed memory, which then
+                # goes back to the card for the captures, which reuse one
+                # another's in the workspace's pool
+                for capture in (False, True):
+                    for v in todo:
+                        if v[0] == "warmup":
+                            self._stage_warmup()
+                        else:
+                            p = plans[v]
+                            ks = np.zeros(p["n_seg"], np.int32)
+                            ke = (np.arange(p["n_seg"], dtype=np.int32) + 1) * self.ctn
+                            self._stage_step(p, 0, 0, ks, ke)
+                        if capture:
+                            self._steps[(key, v)].build(0)
+                        else:
+                            self._steps[(key, v)].warm(0)
+                    if not capture:
+                        G.release_cached(self.device)
             finally:
                 restore()
         if self.device.type == "cuda":

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where a denoise step of the PyTorch/CUDA port spends its time on one GPU.
 
-    python3 scripts/profile_torch_step.py [--configs base,distill,distill_smooth,24b,t5,base_packed,distill_offload]
-        [--schemes qk8,sage,dq] [--layers N]
+    python3 scripts/profile_torch_step.py [--configs base,distill,distill_smooth,24b,t5,base_packed,distill_offload,
+        24b_base,24b_distill,24b_w8a8] [--schemes qk8,sage,dq] [--layers N]
     python3 -m torch.distributed.run --nproc_per_node 4 scripts/profile_torch_step.py --mesh cp=2,tp=2 \
         [--configs base,distill] [--layers 4]
 
@@ -17,7 +17,17 @@ config on a smooth-folded int8 tree, as a released fp8 checkpoint loads
 (`chip_smoke.with_smooth`: `act_smooth` in [0.5, 2] on kv_xattn, proj,
 fc1 and fc2, 1 on the edge layers): its step adds the divide of each smoothed linear's input (among
 "other") and runs fc1's LayerNorm unfused.  `base_packed` is the base config
-with `pack_uncond` (two forwards a step) at 256x256 and 720x720.  `distill_offload` is
+with `pack_uncond` (two forwards a step) at 256x256 and 720x720.
+`24b_base`, `24b_distill` and `24b_w8a8` are the three released 24B files
+as written on one device (`cp_size` 1, nothing else changed): bf16 3-CFG
+with 32 steps, bf16 distill, and `fp8_quant` (a w8a8 tree drawn leaf by
+leaf, bf16 edge layers, bf16 attention), each with `kv_offload` under its
+noise2clean kv ranges (a device cache window; the video's 4 chunks never
+roll it, so nothing crosses the link), at 256x256 and at the files' own
+720x1280; base and distill share one bf16 tree.  Where one does not fit
+on the card at a size, the script prints the peak before the failed
+allocation and the tree's size, and walks the next of `FALLBACK_SIZES`
+that is smaller.  `distill_offload` is
 the distill config under the default kv ranges on a video of 8 chunks (192
 frames), at 256x256 and 720x720, at stages 3 (no cache before the window)
 and 7 (the window over 4 cached chunks, which every forward uploads), each
@@ -61,6 +71,7 @@ tables, every rank one line of its step wall, busy time and idle share.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import sys
@@ -76,7 +87,16 @@ import torch  # noqa: E402
 SIZES = {"base": ((256, 256), (720, 720)), "distill": ((256, 256), (720, 720)),
          "distill_smooth": ((256, 256), (720, 720)),
          "24b": ((256, 256), (720, 1280)),  # the smoke's size and each config's own
-         "base_packed": ((256, 256), (720, 720)), "distill_offload": ((256, 256), (720, 720))}
+         "base_packed": ((256, 256), (720, 720)), "distill_offload": ((256, 256), (720, 720)),
+         "24b_base": ((256, 256), (720, 1280)), "24b_distill": ((256, 256), (720, 1280)),
+         "24b_w8a8": ((256, 256), (720, 1280))}
+# the released 24B files as written (cp_size 1), each config's own file
+RELEASED_24B = {"24b_base": "24B/24B_base_config.json", "24b_distill": "24B/24B_distill_config.json",
+                "24b_w8a8": "24B/24B_distill_quant_config.json"}
+# where a released 24B config's own size does not fit on the card, the
+# sizes tried next, largest first (the 720x1280 frame's 9:16, then square;
+# each a multiple of 16: the VAE's 8 times the patch's 2)
+FALLBACK_SIZES = ((640, 1152), (576, 1024), (480, 864), (720, 720), (480, 480))
 STAGE = 3  # ARDF stage of the profiled step: the first with the full window of 4 chunks
 STEPS = 64  # the config's schedule
 # distill_offload: 8 chunks; stage 7's window (chunks 4-7) sits over 4 cached chunks
@@ -177,6 +197,13 @@ def attention_flops(sampler, step: int) -> float:
 
 
 def load_config(name: str, mesh_sizes: dict = None, layers: int = 0) -> dict:
+    if name in RELEASED_24B:
+        with open(os.path.join(HERE, "example", RELEASED_24B[name])) as f:
+            d = json.load(f)
+        d["engine_config"]["cp_size"] = 1  # one device; nothing else changed
+        if layers:
+            d["model_config"]["num_layers"] = layers
+        return d
     file = {"base": "4.5B/4.5B_base_config.json", "distill": "4.5B/4.5B_distill_quant_config.json",
             "24b": "24B/24B_distill_quant_config.json"}[name.split("_")[0]]
     with open(os.path.join(HERE, "example", file)) as f:
@@ -217,6 +244,22 @@ def build_params(name: str, d: dict, dev, gen, cache: dict, mesh=None) -> dict:
         cache.clear()
         torch.cuda.empty_cache()
         return quantize_params_int4(init_dit_params(MagiConfig.from_dict(d), dev, gen))
+    if name in RELEASED_24B:
+        # 24b_base and 24b_distill share one bf16 tree; the w8a8 tree is
+        # quantized leaf by leaf as it is drawn, as `get_dit` builds it
+        from magi_tpu_torch.ops.quant import TreeSink
+
+        bits = 8 if d["engine_config"]["fp8_quant"] else 0
+        if ("24b", bits) not in cache:
+            # the idle workspaces hold the earlier tree and its graphs
+            from magi_tpu_torch.core.graphs import release_workspaces
+
+            cache.clear()
+            release_workspaces()
+            gc.collect()
+            torch.cuda.empty_cache()
+            cache[("24b", bits)] = init_dit_params(MagiConfig.from_dict(d), dev, gen, sink=TreeSink(bits))
+        return cache[("24b", bits)]
     if "bf16" not in cache:
         cache["bf16"] = init_dit_params(MagiConfig.from_dict(d), dev, gen)
     if name.startswith("base"):
@@ -266,6 +309,13 @@ def profile_t5(dev, gen, length: int = 800) -> dict:
     return dict(step_ms=wall_ms, busy_ms=busy, profiled_ms=prof_wall, groups=groups)
 
 
+def tree_gib(params: dict) -> float:
+    """The device bytes of a parameter tree, in GiB."""
+    from magi_tpu_torch.core.utils import tree_leaves
+
+    return sum(t.numel() * t.element_size() for _, t in tree_leaves(params)) / 2**30
+
+
 def unpack_ms(params: dict) -> float:
     """CUDA-event time of `unpack_int4` over one middle layer's linears."""
     from magi_tpu_torch.models.dit.model import layer_params
@@ -298,7 +348,8 @@ def unpack_ms(params: dict) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--configs", default="base,distill,24b",
-                    help="comma list of base, distill, distill_smooth, 24b, t5, base_packed, distill_offload")
+                    help="comma list of base, distill, distill_smooth, 24b, t5, base_packed, distill_offload, "
+                         "24b_base, 24b_distill, 24b_w8a8")
     ap.add_argument("--schemes", default="qk8", help="comma list of the K5 schemes (qk8, sage, dq) of the int8 configs")
     ap.add_argument("--layers", type=int, default=0, help="cut every config to this many layers (widths full)")
     ap.add_argument("--mesh", default="", help="dp=..,pp=..,cp=..,tp=..: profile a mesh's ranks (under torchrun)")
@@ -349,100 +400,141 @@ def main() -> int:
         modes = [(st, off) for st in OFFLOAD_STAGES for off in (False, True)] if name == "distill_offload" \
             else [(STAGE, None)]
         runs = [(hw, sch, st, off, cap) for hw in SIZES[name][:1 if mesh is not None else None]
-                for sch in (["qk8"] if name.startswith("base") else schemes) for st, off in modes
+                for sch in (["qk8"] if name.startswith("base") or name in RELEASED_24B else schemes) for st, off in modes
                 for cap in (False, True)]
-        for (size_h, size_w), scheme, stage, offload, capture in runs:
-            os.environ["MAGI_ATTN_Q8_SCHEME"] = scheme
-            d = json.loads(json.dumps(base))
-            d["runtime_config"].update(video_size_h=size_h, video_size_w=size_w)
-            if offload is not None:
-                d["engine_config"]["kv_offload"] = offload
-            cfg = MagiConfig.from_dict(d)
-            emb, mask = get_txt_embeddings("a red cube on a table", cfg)
-            inp = build_inference_input(cfg, null, emb, mask, dev)
-            sampler = ArdfSampler(cfg, params, inp, gen, device=dev, capture=capture)
-            dpss = cfg.runtime_config.num_steps // cfg.runtime_config.window_size
-            step = stage * dpss
-            torch.cuda.reset_peak_memory_stats(dev)
-            t0 = time.perf_counter()
-            for warm in (step, step + 1):  # warm-up (cuBLAS heuristics, allocator) and the variants' capture
-                sampler.do_step(warm)
-            torch.cuda.synchronize()
-            warm_s = time.perf_counter() - t0
-            step += 1
-            t0 = time.perf_counter()
-            sampler.do_step(step + 1)
-            torch.cuda.synchronize()
-            step_ms = (time.perf_counter() - t0) * 1e3
-            p = sampler._plan(step + 2)
-            groups, counts, wall, _ = profile(lambda: sampler.do_step(step + 2))
-            peak = torch.cuda.max_memory_allocated(dev) / 2**30
-            copies_ms = groups.pop(COPIES, 0.0)
-            busy = sum(groups.values())
-            flops = attention_flops(sampler, step + 2) / (1 if mesh is None else mesh_lib.head_shards(mesh))
-            attn_ms = groups.get(K1 if name.startswith("base") else K5_OF[scheme], 0.0)
-            n_fwd = 1 if cfg.runtime_config.cfg_number == 1 else 2 if cfg.engine_config.pack_uncond else 3
-            tag = "" if name.startswith("base") else f" K5 {scheme}"
-            if offload is not None:
-                tag += f" stage {stage} {'streamed' if offload else 'resident'}"
-            tag += " captured" if capture else " eager"
-            say(f"== {name} {size_h}x{size_w}{tag}: stage {stage} step of {cfg.runtime_config.num_steps} "
-                  f"(n_seg {p['n_seg']}{' + the ride-along' if p['distill_nearly'] else ''} over {p['sp']} cached "
-                  f"chunks of {inp.chunk_num}, seg_len {sampler.ctn} tokens, {cfg.model_config.num_layers} layers, "
-                  f"{n_fwd} forward{'s' if n_fwd > 1 else ''})")
-            say(f"  step wall {step_ms:.1f} ms (host clock, synchronised, no profiler); under the profiler "
-                  f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}; "
-                  f"peak memory {peak:.2f} GiB; the two warm-up steps {warm_s:.2f} s"
-                  + (f" ({sampler.graphs} CUDA graphs captured)" if capture else ""))
-            for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-                say(f"  {ms:10.2f} ms  {100 * ms / busy:5.1f}%  {counts[g]:6d} launches  {g}")
-            if sampler.host_mode:
-                hc = sampler.host_cache
-                say(f"  {copies_ms:10.2f} ms of {counts[COPIES]} host<->device copies on the copy stream (beside "
-                      f"the kernels, not in device busy; {100 * copies_ms / wall:.1f}% of the profiled step); "
-                      f"{hc.h2d_bytes / 4e6:.1f} MB up and {hc.d2h_bytes / 4e6:.1f} MB back a step (mean of the "
-                      f"four steps)")
-            say(f"  self-attention operations of the step {flops:.3e}; attention kernel device time {attn_ms:.1f} ms "
-                  f"-> {flops / (attn_ms * 1e-3) / 1e12:.1f} T/s")
-            key = f"{name} {size_h}x{size_w}{tag}"
-            results[key] = dict(step_ms=step_ms, busy_ms=busy, profiled_ms=wall, peak_gib=peak, groups=groups,
-                                copies_ms=copies_ms, idle=max(0.0, 1 - busy / wall), warm_s=warm_s,
-                                graphs=sampler.graphs)
-            if sampler.host_mode:
-                results[key].update(h2d_mb=sampler.host_cache.h2d_bytes / 4e6,
-                                    d2h_mb=sampler.host_cache.d2h_bytes / 4e6)
-            if mesh is not None:
-                print(f"[rank {rank}] {name} {size_h}x{size_w}{tag}: step wall {step_ms:.1f} ms, under the profiler "
-                      f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}"
-                      + (f", {sampler.graphs} graphs" if capture else ""), flush=True)
-            if name == "base" and mesh is None:
-                # one VAE decode of a chunk (`decode_chunk` with the cached
-                # VAE, replayed, or an eager twin on the same weights)
-                vae = get_vae(cfg.runtime_config.vae_pretrained, dev, z_chans=16)
-                if not capture:
-                    vae = ViTVAE(vae.cfg, vae.params, capture=False)
-                chunk = torch.randn((16, 6, size_h // 8, size_w // 8), generator=gen, device=dev)
-
-                def decode():
-                    z = chunk.to(torch.bfloat16)[None] / cfg.runtime_config.scale_factor
-                    video = tiled_decode(vae, z, tile_frames=cfg.runtime_config.fps // 2)
-                    return f32_cthw_to_u8_thwc(video[0].float().cpu().numpy())
-
-                decode()
-                torch.cuda.synchronize()
+        tried = set()
+        while runs:
+            (size_h, size_w), scheme, stage, offload, capture = runs.pop(0)
+            tried.add((size_h, size_w))
+            try:
+                os.environ["MAGI_ATTN_Q8_SCHEME"] = scheme
+                d = json.loads(json.dumps(base))
+                d["runtime_config"].update(video_size_h=size_h, video_size_w=size_w)
+                if offload is not None:
+                    d["engine_config"]["kv_offload"] = offload
+                cfg = MagiConfig.from_dict(d)
+                emb, mask = get_txt_embeddings("a red cube on a table", cfg)
+                inp = build_inference_input(cfg, null, emb, mask, dev)
+                sampler = ArdfSampler(cfg, params, inp, gen, device=dev, capture=capture)
+                dpss = cfg.runtime_config.num_steps // cfg.runtime_config.window_size
+                step = stage * dpss
+                torch.cuda.reset_peak_memory_stats(dev)
                 t0 = time.perf_counter()
-                decode()
-                dec_ms = (time.perf_counter() - t0) * 1e3
-                vgroups, vcounts, vwall, _ = profile(decode)
-                vbusy = sum(vgroups.values())
-                print(f"  VAE decode of one chunk: {dec_ms:.1f} ms wall (incl. copy to host and uint8 conversion); "
-                      f"device busy {vbusy:.1f} ms of {vwall:.1f} ms profiled"
-                      + (f" ({vae.graphs} CUDA graphs)" if capture else ""))
-                for g, ms in sorted(vgroups.items(), key=lambda kv: -kv[1]):
-                    print(f"  {ms:10.2f} ms  {100 * ms / vbusy:5.1f}%  {vcounts[g]:6d} launches  {g}")
-                results[key].update(decode_ms=dec_ms, decode_busy_ms=vbusy, decode_profiled_ms=vwall)
-            del sampler
-            torch.cuda.empty_cache()
+                for warm in (step, step + 1):  # warm-up (cuBLAS heuristics, allocator) and the variants' capture
+                    sampler.do_step(warm)
+                torch.cuda.synchronize()
+                warm_s = time.perf_counter() - t0
+                step += 1
+                t0 = time.perf_counter()
+                sampler.do_step(step + 1)
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) * 1e3
+                p = sampler._plan(step + 2)
+                groups, counts, wall, _ = profile(lambda: sampler.do_step(step + 2))
+                peak = torch.cuda.max_memory_allocated(dev) / 2**30
+                copies_ms = groups.pop(COPIES, 0.0)
+                busy = sum(groups.values())
+                flops = attention_flops(sampler, step + 2) / (1 if mesh is None else mesh_lib.head_shards(mesh))
+                bf16_attn = name.startswith("base") or name in RELEASED_24B
+                attn_ms = groups.get(K1 if bf16_attn else K5_OF[scheme], 0.0)
+                n_fwd = 1 if cfg.runtime_config.cfg_number == 1 else 2 if cfg.engine_config.pack_uncond else 3
+                tag = "" if bf16_attn else f" K5 {scheme}"
+                if offload is not None:
+                    tag += f" stage {stage} {'streamed' if offload else 'resident'}"
+                tag += " captured" if capture else " eager"
+                say(f"== {name} {size_h}x{size_w}{tag}: stage {stage} step of {cfg.runtime_config.num_steps} "
+                      f"(n_seg {p['n_seg']}{' + the ride-along' if p['distill_nearly'] else ''} over {p['sp']} cached "
+                      f"chunks of {inp.chunk_num}, seg_len {sampler.ctn} tokens, {cfg.model_config.num_layers} layers, "
+                      f"{n_fwd} forward{'s' if n_fwd > 1 else ''})")
+                say(f"  step wall {step_ms:.1f} ms (host clock, synchronised, no profiler); under the profiler "
+                      f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}; "
+                      f"peak memory {peak:.2f} GiB; the two warm-up steps {warm_s:.2f} s"
+                      + (f" ({sampler.graphs} CUDA graphs captured)" if capture else ""))
+                for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+                    say(f"  {ms:10.2f} ms  {100 * ms / busy:5.1f}%  {counts[g]:6d} launches  {g}")
+                if name in RELEASED_24B and not sampler.host_mode:
+                    say(f"  KV cache: a device window of {sampler.cache_chunks} chunks for {inp.chunk_num} "
+                        f"(kv_offload {cfg.engine_config.kv_offload} under noise2clean_kvrange "
+                        f"{cfg.runtime_config.noise2clean_kvrange}): 0 bytes cross the link a step; the tree "
+                        f"{tree_gib(params):.2f} GiB")
+                if sampler.host_mode:
+                    hc = sampler.host_cache
+                    say(f"  {copies_ms:10.2f} ms of {counts[COPIES]} host<->device copies on the copy stream (beside "
+                          f"the kernels, not in device busy; {100 * copies_ms / wall:.1f}% of the profiled step); "
+                          f"{hc.h2d_bytes / 4e6:.1f} MB up and {hc.d2h_bytes / 4e6:.1f} MB back a step (mean of the "
+                          f"four steps)")
+                say(f"  self-attention operations of the step {flops:.3e}; attention kernel device time {attn_ms:.1f} ms "
+                      f"-> {flops / (attn_ms * 1e-3) / 1e12:.1f} T/s")
+                key = f"{name} {size_h}x{size_w}{tag}"
+                results[key] = dict(step_ms=step_ms, busy_ms=busy, profiled_ms=wall, peak_gib=peak, groups=groups,
+                                    copies_ms=copies_ms, idle=max(0.0, 1 - busy / wall), warm_s=warm_s,
+                                    graphs=sampler.graphs)
+                if sampler.host_mode:
+                    results[key].update(h2d_mb=sampler.host_cache.h2d_bytes / 4e6,
+                                        d2h_mb=sampler.host_cache.d2h_bytes / 4e6)
+                if mesh is not None:
+                    print(f"[rank {rank}] {name} {size_h}x{size_w}{tag}: step wall {step_ms:.1f} ms, under the profiler "
+                          f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}"
+                          + (f", {sampler.graphs} graphs" if capture else ""), flush=True)
+                if name == "base" and mesh is None:
+                    # one VAE decode of a chunk (`decode_chunk` with the cached
+                    # VAE, replayed, or an eager twin on the same weights)
+                    vae = get_vae(cfg.runtime_config.vae_pretrained, dev, z_chans=16)
+                    if not capture:
+                        vae = ViTVAE(vae.cfg, vae.params, capture=False)
+                    chunk = torch.randn((16, 6, size_h // 8, size_w // 8), generator=gen, device=dev)
+
+                    def decode():
+                        z = chunk.to(torch.bfloat16)[None] / cfg.runtime_config.scale_factor
+                        video = tiled_decode(vae, z, tile_frames=cfg.runtime_config.fps // 2)
+                        return f32_cthw_to_u8_thwc(video[0].float().cpu().numpy())
+
+                    decode()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    decode()
+                    dec_ms = (time.perf_counter() - t0) * 1e3
+                    vgroups, vcounts, vwall, _ = profile(decode)
+                    vbusy = sum(vgroups.values())
+                    print(f"  VAE decode of one chunk: {dec_ms:.1f} ms wall (incl. copy to host and uint8 conversion); "
+                          f"device busy {vbusy:.1f} ms of {vwall:.1f} ms profiled"
+                          + (f" ({vae.graphs} CUDA graphs)" if capture else ""))
+                    for g, ms in sorted(vgroups.items(), key=lambda kv: -kv[1]):
+                        print(f"  {ms:10.2f} ms  {100 * ms / vbusy:5.1f}%  {vcounts[g]:6d} launches  {g}")
+                    results[key].update(decode_ms=dec_ms, decode_busy_ms=vbusy, decode_profiled_ms=vwall)
+                sampler.release()  # its workspace (the cache) to the next run of the size
+                del sampler
+                if name in RELEASED_24B:
+                    # each run of a 24B config near the card's capacity starts
+                    # from the tree alone: no idle workspace, nothing cached
+                    from magi_tpu_torch.core.graphs import release_workspaces
+
+                    release_workspaces()
+                    gc.collect()
+                torch.cuda.empty_cache()
+            except (torch.cuda.OutOfMemoryError, RuntimeError) as e:
+                # a capture's failure names the allocation that failed in its message
+                if name not in RELEASED_24B or "out of memory" not in str(e):
+                    raise
+                # the config does not fit at this size: say where the memory
+                # went, then walk the next size that might
+                peak, tree = torch.cuda.max_memory_allocated(dev) / 2**30, tree_gib(params)
+                msg = str(e).splitlines()[0]
+                del e
+                sampler = None
+                from magi_tpu_torch.core.graphs import release_workspaces
+
+                release_workspaces()
+                gc.collect()  # the failed step's frames held the sampler and its cache
+                torch.cuda.empty_cache()
+                say(f"== {name} {size_h}x{size_w}{' captured' if capture else ' eager'}: out of device memory "
+                    f"(peak {peak:.2f} GiB before the failed allocation, the tree {tree:.2f} GiB): {msg}")
+                results[f"{name} {size_h}x{size_w} out of memory"] = dict(peak_gib=peak, tree_gib=tree, error=msg)
+                runs = [r for r in runs if r[0] != (size_h, size_w)]
+                smaller = [hw for hw in FALLBACK_SIZES
+                           if hw[0] * hw[1] < size_h * size_w and hw not in tried and hw not in SIZES[name]]
+                if smaller:
+                    runs[:0] = [(smaller[0], scheme, stage, offload, cap) for cap in (False, True)]
         del params
     import subprocess
 

@@ -1011,6 +1011,92 @@ def test_streamed_walk_is_bit_equal_to_the_resident_walk(dev, int8):
         assert host.is_pinned() and torch.equal(host, dense.cpu())
 
 
+# The released 24B base config's stage-3 step at 256x256 (chip_smoke.py
+# phase 18a): 48 / 8 heads, 4 segments of 1536 tokens, every segment's
+# noise2clean span reaching chunk 0, no cache before the window; and stage
+# 4's second step, 3 segments over one cached chunk.
+STEP_24B = {"stage3": (0, [0, 0, 0, 0], [1, 2, 3, 4]), "stage4": (1, [0, 0, 0], [2, 3, 4])}
+
+
+@pytest.mark.parametrize("step", list(STEP_24B))
+def test_kernels_at_the_24b_step(dev, step):
+    """K3 (bf16, 8 kv heads) packs the step's k and v, and K1 (6 q heads a
+    kv head) attends over them and the cache, cond ranges and the uncond
+    forward's self-only ones, against their plain versions."""
+    hq, hk, hd, rot, ctn, eps = 48, 8, 128, 48, 1536, 1e-6
+    cached, starts, ends = STEP_24B[step]
+    g = _gen(dev)
+    n_seg = len(starts)
+    S, st = n_seg * ctn, cached * ctn
+    k, v = _randn(g, dev, S, hk, hd), _randn(g, dev, S, hk, hd)
+    kw, kb = _ln_affine(g, dev, hd)
+    ang = torch.rand((S, rot), generator=g, device=dev) * 6.28
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    kv2 = A.kv_norm_rope_pack(k, v, kw, kb, sin, cos, eps=eps)
+    _close(kv2, A.kv_norm_rope_pack_reference(k, v, kw, kb, sin, cos, eps=eps), 1e-2, 1e-2)
+    cache = torch.zeros((2, hk, 4 * ctn, hd), dtype=torch.bfloat16, device=dev)
+    cache[:, :, :st] = _randn(g, dev, 2, hk, st, hd)
+    i32 = dict(dtype=torch.int32, device=dev)
+    gs, ge = torch.tensor(starts, **i32) * ctn, torch.tensor(ends, **i32) * ctn
+    ranges = (torch.clamp(gs, max=st), torch.clamp(ge, max=st), torch.clamp(gs - st, min=0),
+              torch.clamp(ge - st, min=0))
+    z, us = torch.zeros(n_seg, **i32), torch.arange(n_seg, **i32) * ctn
+    qw, qb = _ln_affine(g, dev, hd)
+    q = _randn(g, dev, S, hq, hd)
+    pro = (qw, qb, sin, cos, eps)
+    qn = A.apply_q_prologue(q, pro)
+    for src1, rr in ((cache, ranges), (cache[:, :, :0], (z, z, us, us + ctn))):
+        out = A.segmented_attention_two_source(q, src1, kv2, *rr, seg_len=ctn, q_prologue=pro)
+        _close(out, A.segmented_attention_two_source_reference(qn, src1, kv2, *rr, seg_len=ctn), **ATTN_TOL)
+
+
+def test_streamed_walk_at_24b_width_is_bit_equal_to_the_resident_walk(dev):
+    """The released 24B distill config (bf16, gated MLP, the half-channel
+    latent) at full width cut to 3 layers, walked under the default kv
+    ranges with the cache resident and then host-streamed (`kv_offload`):
+    the bf16 slabs at 8 kv heads, 6 q heads each, give the resident walk's
+    latents bit for bit and leave its cache's bits in the host buffer."""
+    import json
+    import os
+
+    from magi_tpu_torch.core.config import MagiConfig
+    from magi_tpu_torch.models.dit.model import init_dit_params
+    from magi_tpu_torch.sampling.transport import ArdfSampler, InferenceInput
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "example", "24B", "24B_distill_config.json")) as f:
+        d = json.load(f)
+    d["model_config"]["num_layers"] = 3
+    d["runtime_config"].update(num_steps=8, window_size=2, noise2clean_kvrange=[], video_size_h=128,
+                               video_size_w=128, num_frames=72)
+    d["engine_config"]["cp_size"] = 1
+    cfgs = []
+    for offload in (False, True):
+        d["engine_config"]["kv_offload"] = offload
+        cfgs.append(MagiConfig.from_dict(d))
+    mc = cfgs[0].model_config
+    g = _gen(dev)
+    params = init_dit_params(cfgs[0], dev, g)
+    L, n = mc.caption_max_length, 3
+    inp = InferenceInput(caption_embs=torch.randn((n, L, mc.caption_channels), generator=g, device=dev),
+                         caption_lens=[9, 20, 5], null_emb=torch.randn((L, mc.caption_channels), generator=g,
+                                                                       device=dev),
+                         null_len=50, latent_size=(mc.in_channels // 2, 6 * n, 16, 16), num_steps=8, chunk_num=n,
+                         has_text=True)
+    noise = torch.randn(inp.latent_size, generator=g, device=dev)
+    runs = []
+    for cfg in cfgs:
+        s = ArdfSampler(cfg, params, inp, noise=noise, device=dev)
+        before = A.segmented_attention_two_source.launches
+        chunks = [c.clone() for _, c in s.walk()]
+        torch.cuda.synchronize()
+        runs.append((s, chunks, A.segmented_attention_two_source.launches - before))
+    (res, a, na), (st, b, nb) = runs
+    assert st.host_mode and st.cache is None and not res.host_mode and na == nb > 0
+    assert len(a) == len(b) == n and all(torch.equal(x, y) for x, y in zip(a, b))
+    assert st.host_cache.buf.is_pinned() and torch.equal(st.host_cache.buf, res.cache.cpu())
+
+
 def test_interleaved_decode_on_its_stream_matches_solo_runs(dev, tmp_path, monkeypatch):
     """`run_text_to_video_many` decodes each chunk on a worker thread on its
     own stream while the walk goes on: its frames equal those of solo

@@ -336,3 +336,44 @@ def test_workspace_keys_and_release(empty_pool):
     assert G.WORKSPACES.idle() == 0
     _chunks(d)  # its walk ends after the release: the workspace is not taken back
     assert G.WORKSPACES.idle() == 0 and _ws_sampler(setup, 1, R=2)._ws is not c._ws
+
+
+def test_walk_warms_every_variant_before_capturing_any(monkeypatch, empty_pool):
+    """A variant's first graph in the process runs its step once eagerly,
+    then is captured.  `warm_step_variants` runs every variant's warm-up,
+    hands the allocator's cached blocks back once (`release_cached`), then
+    captures every variant: the captures reuse the memory the warm-ups
+    freed, where warming and capturing each in turn held a warm-up's
+    memory beside the captures' pool (the released 24B base step at
+    576x1024 ran out of memory capturing after its warm-up fit).  Through
+    the CPU stand-in: the JAX package's variants in that order, and the
+    walk bit-equal to the eager one."""
+    monkeypatch.setattr(G, "CPU_STAND_IN", True)
+    # the resident step's piece is handed the host's cache slot, which only
+    # the streamed step's copies read: the loose stand-in replays it
+    monkeypatch.setattr(G.StandIn, "strict", False)
+    monkeypatch.setattr(G, "_warmed", set())
+    log = []
+    real_warm, real_capture = G.StepGraph._warm, G.StepGraph._capture
+
+    def warm(self, args):
+        out = real_warm(self, args)
+        if out[1]:
+            log.append(("warm", self.name))
+        return out
+
+    def capture(self, *args):
+        log.append(("capture", self.name))
+        return real_capture(self, *args)
+
+    monkeypatch.setattr(G.StepGraph, "_warm", warm)
+    monkeypatch.setattr(G.StepGraph, "_capture", capture)
+    monkeypatch.setattr(G, "release_cached", lambda device: log.append(("release", str(device))))
+    a, b = _port_sampler("distill"), _port_sampler("distill", capture=False)
+    n = a.warm_step_variants()
+    assert n == len(_jax_variants("distill"))
+    names = [name for _, name in log[:n]]
+    assert log == [("warm", x) for x in names] + [("release", "cpu")] + [("capture", x) for x in names]
+    got, want = [c for _, c in a.walk()], [c for _, c in b.walk()]
+    assert len(got) == len(want) == 3 and all(torch.equal(x, y) for x, y in zip(got, want))
+    assert len(log) == 2 * n + 1  # the walk captured nothing more
