@@ -16,7 +16,8 @@ memory, streamed a layer at a time.  The weights come from the released
 checkpoints the config names (`load`, the fp8 variant under `fp8_quant`;
 `vae_pretrained`; `t5_pretrained`, on the host or staged onto the device
 as `t5_device` says), or are random under SKIP_LOAD_MODEL=1.  With
-MAGI_PROFILE_DIR set, each walk is traced (`core.profiler.maybe_trace`).
+MAGI_PROFILE_DIR set, each walk is traced (`core.profiler.maybe_trace`), with
+the program's `magi/` spans (`core.profiler.span`) beside the kernels.
 On the card the denoise steps and the VAE run as CUDA graphs (`core.graphs`,
 the counterpart of the JAX package's jit); `MagiPipeline(capture=False)`
 walks eagerly (the CLI's `--eager`).  The graphs outlive a request, as the
@@ -59,7 +60,6 @@ from magi_tpu_torch.core.config import MagiConfig
 from magi_tpu_torch.core.graphs import on_release, release_workspaces, uncounted
 from magi_tpu_torch.core.logger import print_rank_0
 from magi_tpu_torch.core.profiler import log_memory, maybe_trace
-from magi_tpu_torch.core.timer import event_path_timer
 from magi_tpu_torch.core.utils import env_is_true, resolve_device, set_random_seed
 from magi_tpu_torch.parallel import comm
 from magi_tpu_torch.parallel import mesh as mesh_lib
@@ -233,15 +233,15 @@ class MagiPipeline:
         if why is not None:
             print_rank_0(f"lockstep batch impossible ({why}); falling back to interleaved mode")
             return self._walk_many(params, inps, gens, output_paths, t0, share)
-        sampler = DpBatchedSampler(self.config, params, inps, gens, device=self.device, capture=self.capture)
         R = len(inps)
         segments, decode_seconds, finite = [[] for _ in range(R)], [[] for _ in range(R)], [True] * R
         with maybe_trace("walk_batch", self.device):
+            sampler = DpBatchedSampler(self.config, params, inps, gens, device=self.device, capture=self.capture)
             for chunk_idx, chunks in sampler.walk():  # [R, C, <=cw, H, W]
                 for r in range(R):
                     finite[r] = finite[r] and bool(torch.isfinite(chunks[r]).all())
                     td = time.perf_counter()
-                    segments[r].append(post_chunk_process(chunks[r], self.config, self.device))
+                    segments[r].append(post_chunk_process(chunks[r], self.config, self.device, req=sampler.req))
                     decode_seconds[r].append(time.perf_counter() - td)
                 print_rank_0(f"chunk {chunk_idx + 1}/{inps[0].chunk_num} done (batch of {R})")
         wall = time.perf_counter() - t0
@@ -284,7 +284,7 @@ class MagiPipeline:
             with torch.cuda.stream(decode_stream) if on_card else contextlib.nullcontext():
                 if on_card:
                     decode_stream.wait_event(ready)
-                out = post_chunk_process(chunk, self.config, self.device)
+                out = post_chunk_process(chunk, self.config, self.device, req=samplers[ridx].req)
             print_rank_0(f"request {ridx}: chunk {chunk_idx + 1} done")
             return out, time.perf_counter() - td
 
@@ -379,19 +379,16 @@ class MagiPipeline:
         caption_embs, emb_masks = get_txt_embeddings(prompt, self.config, self.device)
         params = get_dit(self.config, self.device, self.generator)
         null_caption = params["y_embedder"]["null_caption_embedding"].float().cpu().numpy()
-        inp = build_inference_input(self.config, null_caption, caption_embs, emb_masks, self.device, prefix_video)
-
-        sampler = ArdfSampler(self.config, params, inp, self.generator, device=self.device, capture=self.capture)
-        event_path_timer().synced_record("begin_walk")
         segments, decode_seconds, finite = [], [], True
         with maybe_trace("walk", self.device):
+            inp = build_inference_input(self.config, null_caption, caption_embs, emb_masks, self.device, prefix_video)
+            sampler = ArdfSampler(self.config, params, inp, self.generator, device=self.device, capture=self.capture)
             for chunk_idx, chunk in sampler.walk():
                 finite = finite and bool(torch.isfinite(chunk).all())
                 td = time.perf_counter()
-                segments.append(post_chunk_process(chunk, self.config, self.device))
+                segments.append(post_chunk_process(chunk, self.config, self.device, req=sampler.req))
                 decode_seconds.append(time.perf_counter() - td)
                 print_rank_0(f"chunk {chunk_idx + 1}/{inp.chunk_num - sampler.chunk_offset} done")
-        event_path_timer().synced_record("end_walk")
         log_memory("after walk", self.device)
         stats = self._write_one(np.concatenate(segments, axis=0), output_path, finite, sampler.step_seconds,
                                 decode_seconds)

@@ -14,6 +14,7 @@ import torch
 
 from magi_tpu_torch.core.config import MagiConfig
 from magi_tpu_torch.core.logger import magi_logger, print_rank_0
+from magi_tpu_torch.core.profiler import span
 from magi_tpu_torch.core.utils import env_is_true
 from magi_tpu_torch.sampling.transport import InferenceInput
 
@@ -157,7 +158,8 @@ def build_inference_input(
     """Per-chunk captions (special tokens applied), the null slab and the
     latent size of a request.  With a prefix video the whole chunks it
     covers come first, clean, with the null caption and 0 valid tokens,
-    and the chunks to denoise cover the video's frames after the prefix."""
+    and the chunks to denoise cover the video's frames after the prefix.
+    Span `magi/request/inputs` with the chunks and the caption's tokens."""
     mc, rc = config.model_config, config.runtime_config
     max_len = mc.caption_max_length
     latent_frames = rc.num_frames // rc.temporal_downsample_factor
@@ -169,33 +171,34 @@ def build_inference_input(
         chunk_num = math.ceil(latent_frames / rc.chunk_width)
     n_denoise = chunk_num - clean_chunk_num
 
-    cap = np.repeat(caption_embs.astype(np.float32), n_denoise, axis=0)  # [n_den, L0, C]
-    if cap.shape[1] < max_len:
-        cap = np.pad(cap, ((0, 0), (0, max_len - cap.shape[1]), (0, 0)))
-    cap = cap[:, :max_len]
-    lens = np.full(n_denoise, int(emb_masks.sum()), np.int64)
-    cap, lens = pad_special_token(get_special_token_keys(), cap, lens, max_len)
-    print_rank_0(f"special_token = {get_special_token_keys()}")
-    if clean_chunk_num:
-        null_row = null_caption_embedding.astype(np.float32)[None]
-        cap = np.concatenate([np.repeat(null_row, clean_chunk_num, axis=0), cap], axis=0)
-        lens = np.concatenate([np.zeros(clean_chunk_num, np.int64), lens])
+    with span("magi/request/inputs", chunks=chunk_num, caption_tokens=int(emb_masks.sum())):
+        cap = np.repeat(caption_embs.astype(np.float32), n_denoise, axis=0)  # [n_den, L0, C]
+        if cap.shape[1] < max_len:
+            cap = np.pad(cap, ((0, 0), (0, max_len - cap.shape[1]), (0, 0)))
+        cap = cap[:, :max_len]
+        lens = np.full(n_denoise, int(emb_masks.sum()), np.int64)
+        cap, lens = pad_special_token(get_special_token_keys(), cap, lens, max_len)
+        print_rank_0(f"special_token = {get_special_token_keys()}")
+        if clean_chunk_num:
+            null_row = null_caption_embedding.astype(np.float32)[None]
+            cap = np.concatenate([np.repeat(null_row, clean_chunk_num, axis=0), cap], axis=0)
+            lens = np.concatenate([np.zeros(clean_chunk_num, np.int64), lens])
 
-    null_emb = null_caption_embedding.astype(np.float32)
-    neg_keys = get_negative_special_token_keys()
-    if neg_keys:
-        null_emb = pad_special_token(neg_keys, null_emb[None], None, max_len)[0][0]
+        null_emb = null_caption_embedding.astype(np.float32)
+        neg_keys = get_negative_special_token_keys()
+        if neg_keys:
+            null_emb = pad_special_token(neg_keys, null_emb[None], None, max_len)[0][0]
 
-    in_channels = 16 if mc.half_channel_vae else mc.in_channels
-    return InferenceInput(
-        caption_embs=torch.as_tensor(np.ascontiguousarray(cap), device=device),
-        caption_lens=lens.astype(np.int32),
-        null_emb=torch.as_tensor(np.ascontiguousarray(null_emb), device=device),
-        null_len=NULL_TOKEN_LENGTH,
-        latent_size=(in_channels, chunk_num * rc.chunk_width, rc.video_size_h // 8, rc.video_size_w // 8),
-        num_steps=rc.num_steps,
-        chunk_num=chunk_num,
-        has_text=bool(emb_masks.sum() != 0),
-        prefix_video=None if prefix_video is None else torch.as_tensor(prefix_video, device=device),
-        prev_chunks_scale=float(os.getenv("prev_chunks_scale", 0.7)),
-    )
+        in_channels = 16 if mc.half_channel_vae else mc.in_channels
+        return InferenceInput(
+            caption_embs=torch.as_tensor(np.ascontiguousarray(cap), device=device),
+            caption_lens=lens.astype(np.int32),
+            null_emb=torch.as_tensor(np.ascontiguousarray(null_emb), device=device),
+            null_len=NULL_TOKEN_LENGTH,
+            latent_size=(in_channels, chunk_num * rc.chunk_width, rc.video_size_h // 8, rc.video_size_w // 8),
+            num_steps=rc.num_steps,
+            chunk_num=chunk_num,
+            has_text=bool(emb_masks.sum() != 0),
+            prefix_video=None if prefix_video is None else torch.as_tensor(prefix_video, device=device),
+            prev_chunks_scale=float(os.getenv("prev_chunks_scale", 0.7)),
+        )

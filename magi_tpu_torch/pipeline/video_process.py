@@ -22,6 +22,7 @@ import torch
 
 from magi_tpu_torch.core.config import MagiConfig
 from magi_tpu_torch.core.logger import magi_logger
+from magi_tpu_torch.core.profiler import span
 from magi_tpu_torch.core.utils import env_is_true
 
 
@@ -235,17 +236,32 @@ def tiled_decode(vae, z: torch.Tensor, tile_frames: int) -> torch.Tensor:
     return torch.cat([outs[a] for a, _ in spans], dim=2)
 
 
-def decode_chunk(chunk: torch.Tensor, config: MagiConfig, device: torch.device) -> np.ndarray:
-    """latent [C, T', H', W'] -> uint8 [T, H, W, 3]."""
+def decode_chunk(chunk: torch.Tensor, config: MagiConfig, device: torch.device,
+                 req: Optional[int] = None) -> np.ndarray:
+    """latent [C, T', H', W'] -> uint8 [T, H, W, 3].  Span `magi/decode`
+    with the frames and bytes it makes (and the request id `req` when
+    given), over its parts `magi/decode/vae` (the decode and the f32 cast
+    on the device), `magi/decode/to_host` (the copy to host memory) and
+    `magi/decode/to_uint8` (the frames' conversion on the host)."""
     rc, mc = config.runtime_config, config.model_config
     vae = get_vae(rc.vae_pretrained, device, z_chans=mc.out_channels // (2 if mc.half_channel_vae else 1))
-    z = chunk.to(device=device, dtype=torch.bfloat16)[None] / rc.scale_factor
-    video = tiled_decode(vae, z, tile_frames=rc.fps // 2)
-    return f32_cthw_to_u8_thwc(video[0].float().cpu().numpy())
+    C, T, H, W = chunk.shape
+    frames, sd = T * vae.temporal_downsample_factor, vae.spatial_downsample_factor
+    with span("magi/decode", frames=frames, bytes=frames * H * sd * W * sd * 3, req=req):
+        with span("magi/decode/vae"):
+            z = chunk.to(device=device, dtype=torch.bfloat16)[None] / rc.scale_factor
+            video = tiled_decode(vae, z, tile_frames=rc.fps // 2)[0].float()
+        with span("magi/decode/to_host", bytes=video.numel() * video.element_size()):
+            video = video.cpu().numpy()
+        with span("magi/decode/to_uint8"):
+            return f32_cthw_to_u8_thwc(video)
 
 
-def post_chunk_process(chunk: torch.Tensor, config: MagiConfig, device: torch.device) -> np.ndarray:
-    return decode_chunk(chunk, config, device)
+def post_chunk_process(chunk: torch.Tensor, config: MagiConfig, device: torch.device,
+                       req: Optional[int] = None) -> np.ndarray:
+    """`decode_chunk`: a finished chunk's frames; `req` names its request in
+    the decode's spans."""
+    return decode_chunk(chunk, config, device, req)
 
 
 def encode_prefix_video(prefix_video: Optional[np.ndarray], fps: int, vae_ckpt: str, scale_factor: float,

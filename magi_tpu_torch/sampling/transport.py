@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import os
 import time
 import weakref
@@ -62,6 +63,7 @@ from magi_tpu_torch.core import graphs as G
 from magi_tpu_torch.core.config import MagiConfig
 from magi_tpu_torch.core.dataclasses import ForwardMeta, SegmentAttnSpec
 from magi_tpu_torch.core.logger import print_rank_0
+from magi_tpu_torch.core.profiler import span
 from magi_tpu_torch.core.utils import resolve_device, round_up
 from magi_tpu_torch.parallel import mesh as mesh_lib
 from magi_tpu_torch.models.dit.model import (
@@ -97,6 +99,10 @@ class InferenceInput:
 # attention switches and K5's scheme), with its default: part of the key
 # of a captured step, so flipping one never replays a stale graph.
 STEP_ENV = (("MAGI_ATTN_INT8", "0"), ("MAGI_ATTN_INT8_STORE", "1"), ("MAGI_ATTN_Q8_SCHEME", "qk8"))
+
+# the request id (`req`) each sampler takes at construction: it ties a
+# request's spans together across threads
+_REQUESTS = itertools.count()
 
 
 def _mesh_key() -> Optional[tuple]:
@@ -283,9 +289,11 @@ class ArdfSampler:
 
     def _setup(self, config: MagiConfig, params, inps: Sequence[InferenceInput], noises: Sequence[torch.Tensor],
                device: torch.device, capture: bool) -> None:
-        """The walk's geometry and schedule from the first request, then its
-        state in a workspace, the requests' loaded into it."""
+        """The walk's geometry and schedule from the first request, then
+        (span `magi/request/sampler`) every step's plan and its state in a
+        workspace, the requests' loaded into it."""
         inp = inps[0]
+        self.req = next(_REQUESTS)
         self.config = config
         self.params = params
         self.inp = inp
@@ -322,10 +330,10 @@ class ArdfSampler:
                          "host streaming is the single-device fallback)")
             self.host_mode = False
         if ec.kv_offload and rc.noise2clean_kvrange:
-            span = max(rc.noise2clean_kvrange)
+            reach = max(rc.noise2clean_kvrange)
             if rc.clean_chunk_kvrange != -1:
-                span = max(span, rc.clean_chunk_kvrange)
-            self.cache_chunks = min(self.chunk_num, max(span + self.window + 1, offset_chunks))
+                reach = max(reach, rc.clean_chunk_kvrange)
+            self.cache_chunks = min(self.chunk_num, max(reach + self.window + 1, offset_chunks))
         else:
             self.cache_chunks = self.chunk_num
         self.cache_base = 0  # chunk index of cache slot 0
@@ -336,7 +344,13 @@ class ArdfSampler:
         self._warmed = False
         self.step_seconds: list = []  # host wall time of each denoise step, device work included
         self.capture_seconds = 0.0  # host seconds `warm_step_variants` spent warming and capturing
-        self._take_workspace(inps, noises)
+        self._plans: dict = {}  # step -> `_plan(step)` (`_planned`)
+        key = self._workspace_key(inps)
+        ws = G.WORKSPACES.take(key)
+        with span("magi/request/sampler", req=self.req, leased=ws is not None):
+            for step in range(self.total_forward_steps()):
+                self._planned(step)
+            self._take_workspace(key, ws, inps, noises)
 
     # ----- the workspace ------------------------------------------------
 
@@ -353,11 +367,11 @@ class ArdfSampler:
                 str(inp.null_emb.dtype), None if pv is None else tuple(pv.shape), self.host_mode, self.cache_tokens,
                 id(self.params), _signature(self.params))
 
-    def _take_workspace(self, inps: Sequence[InferenceInput], noises: Sequence[torch.Tensor]) -> None:
-        """Lease an idle workspace of this walk's key and copy the requests
-        into it, or build one from them."""
-        key = self._workspace_key(inps)
-        ws = G.WORKSPACES.take(key)
+    def _take_workspace(self, key: tuple, ws: Optional[G.Workspace], inps: Sequence[InferenceInput],
+                        noises: Sequence[torch.Tensor]) -> None:
+        """Lease `ws` (an idle workspace of this walk's `key`, taken from the
+        pool) and copy the requests into it, or, when it is None, build one
+        from them."""
         state = self._request_tensors(inps, noises)
         if ws is None:
             ws = G.Workspace(key, self.params, self.device)
@@ -459,23 +473,42 @@ class ArdfSampler:
 
     def timed_step(self, step: int) -> Optional[Tuple[int, torch.Tensor]]:
         """`do_step`, then wait for the current stream's work (other streams,
-        such as a decode worker's, run on) and log the host seconds."""
+        such as a decode worker's, run on) and log the host seconds.  Span
+        `magi/step`, with the step's variant, its denoised chunks, whether
+        a clean chunk leads its window, and the query and key tokens of the
+        self-attention of its window's forward (`_plan`'s `q_tokens`,
+        `kv_tokens`)."""
         t0 = time.perf_counter()
-        emitted = self.do_step(step)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        p = self._planned(step)
+        with span("magi/step", req=self.req, step=step, variant=self._variant(p), n_den=p["n_den"],
+                  extra=p["extra"], q_tokens=p["q_tokens"], kv_tokens=p["kv_tokens"]):
+            emitted = self.do_step(step)
+            with span("magi/step/sync"):
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
         self.step_seconds.append(time.perf_counter() - t0)
         return emitted
 
     def prepare(self) -> None:
         """Write the prefix chunks' KV into the cache, once."""
-        if self.chunk_offset > 0 and not self._warmed:
-            self._stage_warmup()
-            self._run(("warmup", self.chunk_offset), 0)
-            self._warmed = True
+        with span("magi/request/prepare", req=self.req):
+            if self.chunk_offset > 0 and not self._warmed:
+                self._stage_warmup()
+                self._run(("warmup", self.chunk_offset), 0)
+                self._warmed = True
+
+    def _planned(self, step: int) -> dict:
+        """`_plan(step)`, worked out once."""
+        p = self._plans.get(step)
+        if p is None:
+            p = self._plans[step] = self._plan(step)
+        return p
 
     def _plan(self, step: int) -> dict:
-        """Pure host arithmetic for one step: schedule, ranges, flags."""
+        """Pure host arithmetic for one step: schedule, ranges, flags, and
+        the tokens of its window's forward: its queries (`q_tokens`, the
+        ride-along chunk's included) and the keys its self-attention reads
+        over every segment's kv range (`kv_tokens`)."""
         rc, ec = self.config.runtime_config, self.config.engine_config
         dpss, didx, c_start, c_end, t_start, t_end = self._status(step)
         n_den = c_end - c_start
@@ -506,6 +539,8 @@ class ArdfSampler:
             didx=didx, c_start=c_start, c_end=c_end, n_den=n_den, extra=extra, sp=sp, n_seg=n_seg,
             tvec=tvec, tvec_padded=tvec_padded, kv_start=kv_start, kv_end=kv_end, dt=dt,
             use_prefix=use_prefix, distill_nearly=distill_nearly,
+            q_tokens=(n_seg + int(distill_nearly)) * self.ctn,
+            kv_tokens=int(np.sum(kv_end - kv_start)) + int(distill_nearly) * self.ctn,
         )
 
     def _variant(self, p: dict) -> tuple:
@@ -524,34 +559,38 @@ class ArdfSampler:
         the functions the JAX package compiles for it."""
         out = [("warmup", self.chunk_offset)] if self.chunk_offset > 0 else []
         for step in range(self.total_forward_steps()):
-            v = self._variant(self._plan(step))
+            v = self._variant(self._planned(step))
             if v not in out:
                 out.append(v)
         return out
 
     def do_step(self, step: int) -> Optional[Tuple[int, torch.Tensor]]:
-        """Run one denoise step; returns (chunk_idx, latent) if a chunk finished."""
-        p = self._plan(step)
-        c_start, c_end, sp, n_seg = p["c_start"], p["c_end"], p["sp"], p["n_seg"]
+        """Run one denoise step; returns (chunk_idx, latent) if a chunk
+        finished.  Spans `magi/step/plan` (the plan, the cache window's
+        slide, the staged inputs) and `magi/step/replay` (the step)."""
+        with span("magi/step/plan"):
+            p = self._planned(step)
+            c_start, c_end, sp, n_seg = p["c_start"], p["c_end"], p["sp"], p["n_seg"]
 
-        # slide the cache window forward if this step would overflow it
-        new_base = max(0, sp + n_seg - self.cache_chunks)
-        if new_base > self.cache_base:
-            shift = (new_base - self.cache_base) * self.ctn
-            _leaf_map(self.cache, lambda c: _roll_left(c, shift, self._token_axis))
-            self.cache_base = new_base
-        kv_start_r = p["kv_start"] - self.cache_base * self.ctn
-        kv_end_r = p["kv_end"] - self.cache_base * self.ctn
-        if kv_start_r.min() < 0:
-            raise RuntimeError(
-                f"kv range {p['kv_start'].min()} fell behind the sliding cache window (base {self.cache_base})"
-            )
-        cache_sp = sp - self.cache_base
-        if (cache_sp + n_seg) * self.ctn > self.cache_tokens:
-            raise ValueError(f"cache write [{cache_sp * self.ctn}, {(cache_sp + n_seg) * self.ctn}) overflows "
-                             f"{self.cache_tokens} tokens")
-        self._stage_step(p, sp, cache_sp, kv_start_r, kv_end_r)
-        self._run(self._variant(p), cache_sp)
+            # slide the cache window forward if this step would overflow it
+            new_base = max(0, sp + n_seg - self.cache_chunks)
+            if new_base > self.cache_base:
+                shift = (new_base - self.cache_base) * self.ctn
+                _leaf_map(self.cache, lambda c: _roll_left(c, shift, self._token_axis))
+                self.cache_base = new_base
+            kv_start_r = p["kv_start"] - self.cache_base * self.ctn
+            kv_end_r = p["kv_end"] - self.cache_base * self.ctn
+            if kv_start_r.min() < 0:
+                raise RuntimeError(
+                    f"kv range {p['kv_start'].min()} fell behind the sliding cache window (base {self.cache_base})"
+                )
+            cache_sp = sp - self.cache_base
+            if (cache_sp + n_seg) * self.ctn > self.cache_tokens:
+                raise ValueError(f"cache write [{cache_sp * self.ctn}, {(cache_sp + n_seg) * self.ctn}) overflows "
+                                 f"{self.cache_tokens} tokens")
+            self._stage_step(p, sp, cache_sp, kv_start_r, kv_end_r)
+        with span("magi/step/replay"):
+            self._run(self._variant(p), cache_sp)
 
         for ci in range(c_start, c_end):
             self.counts[ci] += 1
@@ -704,24 +743,31 @@ class ArdfSampler:
         the launch counts are left as they were found.  On a mesh every
         rank builds the same variants in the same order (a warm-up's
         collectives pair up across the ranks).  Without `capture` nothing
-        is built (returns 0)."""
+        is built (returns 0).  Span `magi/request/capture` with the walk's
+        variants and the graphs captured now (a variant's step callable
+        each), and a `magi/request/capture/warm` and `.../graph` span for
+        each variant it warms and captures."""
         if not self.capture:
             return 0
         variants = self.step_variants()
         key = _config_key(self.config)
+        todo = [v for v in variants if (key, v) not in self._steps]
+        capturing = bool(todo) and G.captures_on(self.device)
+        with span("magi/request/capture", req=self.req, variants=len(variants), graphs=len(todo) if capturing else 0):
+            for v in todo:
+                self._steps[(key, v)] = self._callable((key, v))
+            if capturing:
+                self._capture(key, todo)
+        return len(variants)
+
+    def _capture(self, key: str, todo: list) -> None:
+        """Warm and capture the step callables of the variants `todo`."""
         plans = {}
         for step in range(self.total_forward_steps()):
-            p = self._plan(step)
+            p = self._planned(step)
             plans.setdefault(self._variant(p), p)
-        todo = [v for v in variants if (key, v) not in self._steps]
-        if not todo:
-            return len(variants)
-        for v in todo:
-            self._steps[(key, v)] = self._callable((key, v))
-        if not G.captures_on(self.device):
-            return len(variants)
         t0 = time.perf_counter()
-        todo.sort(key=lambda v: -self._variant_size(v, plans.get(v)))
+        todo = sorted(todo, key=lambda v: -self._variant_size(v, plans.get(v)))
         written = max(self._variant_size(v, plans.get(v)) for v in todo) * self.ctn
         restore = self._save_state(written)
         with G.uncounted():
@@ -732,17 +778,19 @@ class ArdfSampler:
                 # another's in the workspace's pool
                 for capture in (False, True):
                     for v in todo:
-                        if v[0] == "warmup":
-                            self._stage_warmup()
-                        else:
-                            p = plans[v]
-                            ks = np.zeros(p["n_seg"], np.int32)
-                            ke = (np.arange(p["n_seg"], dtype=np.int32) + 1) * self.ctn
-                            self._stage_step(p, 0, 0, ks, ke)
-                        if capture:
-                            self._steps[(key, v)].build(0)
-                        else:
-                            self._steps[(key, v)].warm(0)
+                        with span("magi/request/capture/graph" if capture else "magi/request/capture/warm",
+                                  variant=v):
+                            if v[0] == "warmup":
+                                self._stage_warmup()
+                            else:
+                                p = plans[v]
+                                ks = np.zeros(p["n_seg"], np.int32)
+                                ke = (np.arange(p["n_seg"], dtype=np.int32) + 1) * self.ctn
+                                self._stage_step(p, 0, 0, ks, ke)
+                            if capture:
+                                self._steps[(key, v)].build(0)
+                            else:
+                                self._steps[(key, v)].warm(0)
                     if not capture:
                         G.release_cached(self.device)
             finally:
@@ -750,7 +798,6 @@ class ArdfSampler:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.capture_seconds += time.perf_counter() - t0
-        return len(variants)
 
     def _save_state(self, tokens: int) -> Callable[[], None]:
         """What the warm-up steps write (they run at `sp` 0: the latent state

@@ -51,7 +51,10 @@ packed, distill + int8, host-streamed bf16 and int8, two requests lockstep
 and interleaved) are bit-equal to their eager walks with equal launches
 of every kernel, a second sampler of an equal config gives the same
 chunks, a host read inside a captured step raises naming the variant, and
-the VAE's encode and decode graphs give the eager forwards' bits.
+the VAE's encode and decode graphs give the eager forwards' bits.  In a
+traced captured walk the program's step spans and the kernels share one
+clock: each step's kernels start inside its replay span and end by the end
+of its sync span.
 
 Model-parallel meshes on the one card (gloo, `tests/torch_dist.py`'s world
 with every rank on cuda:0): tiny cp 2 (bf16 3-CFG), tp 2 and pp 2 (int8,
@@ -1224,6 +1227,51 @@ def test_captured_requests_are_bit_equal_to_eager_ones(dev):
     (b0, nb0, m0, nm0), (b1, nb1, m1, nm1) = runs[False], runs[True]
     assert all(torch.equal(x, y) for x, y in zip(b0, b1)) and nb0 == nb1
     assert all(torch.equal(x, y) for x, y in zip(m0, m1)) and nm0 == nm1 and len(m1) == 6
+
+
+def test_step_spans_share_the_kernels_clock(dev, tmp_path):
+    """The program's step spans and the card's kernels lie on one clock in a
+    traced captured walk: no kernel of a step starts before the step's
+    `magi/step/replay` span starts, and its `magi/step/sync` span ends no
+    earlier than the step's last kernel, within 50 us.  A device operation
+    belongs to the step whose `magi/step` span holds the host call that
+    issued it (the trace's correlation ids)."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from magi_tpu_torch.sampling.transport import ArdfSampler
+
+    cfg, params, inp, noise = _capture_setup(dev, "base")
+    s = ArdfSampler(cfg, params, inp, noise=noise, device=dev)
+    s.warm_step_variants()
+    s.prepare()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for step in range(s.total_forward_steps()):
+            s.timed_step(step)
+    s.release()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())["traceEvents"] if e.get("ph") == "X"]
+
+    def spans(path):
+        return sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                      if e.get("cat") == "user_annotation" and e["name"].split(" ")[0] == path)
+
+    steps, replays, syncs = spans("magi/step"), spans("magi/step/replay"), spans("magi/step/sync")
+    assert len(steps) == len(replays) == len(syncs) == s.total_forward_steps()
+    issued = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    kernels = [[] for _ in steps]
+    for e in events:
+        at = issued.get(e.get("args", {}).get("correlation"))
+        if e.get("cat") == "kernel" and at is not None:
+            i = next((i for i, (a, b) in enumerate(steps) if a <= at <= b), None)
+            if i is not None:
+                kernels[i].append((e["ts"], e["ts"] + e["dur"]))
+    for i, ((a, b), replay, sync) in enumerate(zip(steps, replays, syncs)):
+        assert a <= replay[0] and sync[1] <= b and kernels[i], i
+        assert min(k[0] for k in kernels[i]) >= replay[0], i
+        assert sync[1] >= max(k[1] for k in kernels[i]) - 50, i
 
 
 def test_host_sync_in_a_captured_step_raises(dev, monkeypatch):
