@@ -25,8 +25,9 @@ Phases, each printed on its own line; any failure exits non-zero:
      same walk of a gated int4 tree without blocks_edge (K7 and K8s), the
      int8 walk on a smooth-folded tree (`act_smooth` in [0.5, 2] on the
      four smooth-quant linears, as an fp8 checkpoint loads) and the gated
-     int4 walk without blocks_edge with its fc2 smoothed (the divide before
-     K8 plain on K6 and K7, no K8s), and walks after a prefix video (v2v):
+     int4 walk without blocks_edge with its fc2 smoothed (the divide inside
+     K8 and K8s before K6, before K7 in the edge layers; both must launch
+     K8 and K8s with s), and walks after a prefix video (v2v):
      the 3-branch walk, and the distill int8 walk under the K5 schemes sage
      and dq; the packed 3-branch walk (`pack_uncond`), and under the
      default kv ranges the host-streamed (`kv_offload`) 3-branch bf16 walk
@@ -75,10 +76,10 @@ Phases, each printed on its own line; any failure exits non-zero:
      `transformers`).  Checks a middle layer's dequant on the card against
      the CPU's bit for bit, the T5 encode against the CPU's f32 encode,
      the video, and the launch counts against phase 5's (equal: the
-     smooth-quant divide is a plain op before K8 plain); prints load
-     seconds and GB/s, the step time against phase 5's, the divide's ms a
-     step, the T5-XXL encode at L 800 resident and staged, and the peak
-     memory;
+     smooth-quant divide runs inside K8, which must launch with s); prints
+     load seconds and GB/s, the step time against phase 5's, K8's launches
+     with s a step, the T5-XXL encode at L 800 resident and staged, and
+     the peak memory;
  12. phase 4's request with `pack_uncond` (the uncond segments packed into
      the text forward: two DiT forwards a step) through the CLI entry with
      MAGI_PROFILE_DIR set: K1, K2, K3 launch 68 times a step and K4 136 (2/3
@@ -177,8 +178,12 @@ GB/s of each).
 Phases 8-10 check the frame count against the JAX package's for the same
 request (i2v keeps its first chunk whole; v2v drops the prefix frames).
 Phase 2 also checks K7 and K8s at phase 6-7's shapes, K8 at the 24B's
-widths and K5 (each scheme, against the dequant reference too) and K1 at
-its 48/8 heads, and K1 and K3 at phase 18a's stage-3 and stage-4 steps
+widths, K8 and K8s with a smooth-quant vector at the 24B's smoothed
+linears' widths (fc1 `ln`, proj `plain`, fc2 `swiglu`: bit-equal to the
+plain versions and, but for `ln`, to the unfused chain, each timed beside
+that chain and beside the kernel without s: the `smooth` entries of the
+K8 and K8s rows) and K5 (each scheme, against the dequant reference too)
+and K1 at its 48/8 heads, and K1 and K3 at phase 18a's stage-3 and stage-4 steps
 (from the sampler's plan; K1 at the cond ranges and the uncond self-only
 ones), K1 and K3 timed at stage 3 beside their bound and library call
 (the `at_24b` entries of their rows).  Phase 6 holds a
@@ -1125,6 +1130,54 @@ def w4a8_kernel_checks(dev):
         print(f"  rowquant_fused {mode} [{m}x{width}] ({width * 4} bytes of shared memory a row): bit-equal, "
               f"{cuda_ms(lambda: AQ.rowquant_fused(x, mode, w, b), SHORT_ITERS):.4f} ms")
 
+    # ---- K8 / K8s with a smooth-quant vector: the 24B's smoothed linears --
+    # fc1 (`ln`, 6144), proj (`plain`, 12288), a gated fc2 (`swiglu`, 2 x
+    # 16384), each against its plain version, against the unfused chain the
+    # model ran before (the producer, the divide by s, K8 `plain`; bit for
+    # bit for `plain` and `swiglu`), and timed beside it and beside the
+    # kernel without s
+    from magi_tpu_torch.models.dit import model as TM
+
+    eps = 1e-6
+    smooth_rows = {"rowquant_fused": [], "rowquant_swiglu": []}
+    for mode, width in (("ln", D), ("plain", 2 * hq * hd), ("swiglu", ffn)):
+        cols = 2 * width if mode == "swiglu" else width
+        x = (3 * torch.randn((S, cols), generator=g, device=dev)).to(torch.bfloat16)
+        x[7] = 0  # a zero row: scale 1, values 0 (LN: its bias)
+        s_ = 0.5 + 1.5 * torch.rand((width,), generator=g, device=dev)
+        w, b = (1.0 + 0.1 * randn(width, dtype=torch.float32), 0.1 * randn(width, dtype=torch.float32))
+        if mode != "ln":
+            w = b = None
+        pre = {"ln": ("ln", {"weight": w, "bias": b}), "plain": None, "swiglu": ("swiglu",)}[mode]
+        name = f"rowquant_fused {mode} with s [{S}x{x.shape[1]}]"
+        call = lambda: AQ.rowquant_fused(x, mode, w, b, eps=eps, smooth=s_)
+        unfused = lambda: AQ.rowquant_fused(AQ.smooth_divide(TM._apply_pre(x, pre, eps), s_), "plain")
+        before = (AQ.rowquant_fused.launches_smooth, AQ.rowquant_swiglu.launches_smooth)
+        q8, sc = call()
+        if (AQ.rowquant_fused.launches_smooth, AQ.rowquant_swiglu.launches_smooth) == before:
+            fail(f"{name} launched no kernel with s")
+        ref8, ref_sc = AQ.rowquant_fused_reference(x, mode, w, b, eps=eps, smooth=s_)
+        torch.cuda.synchronize()
+        if not (torch.equal(q8, ref8) and torch.equal(sc, ref_sc)):
+            fail(f"{name} is not bit-equal to its plain version")
+        if mode != "ln":
+            old8, old_sc = unfused()
+            torch.cuda.synchronize()
+            if not (torch.equal(q8, old8) and torch.equal(sc, old_sc)):
+                fail(f"{name} is not bit-equal to the unfused chain (producer, divide, K8 plain)")
+        t, t_old = cuda_ms(call, 50), cuda_ms(unfused, 20)
+        t_bare = cuda_ms(lambda: AQ.rowquant_fused(x, mode, w, b, eps=eps), 50)
+        nbytes = S * x.shape[1] * 2 + S * width + 4 * S + 4 * width + (8 * width if mode == "ln" else 0)
+        bms = nbytes / PEAK_BYTES * 1e3
+        print(f"  {name}: bit-equal{'' if mode == 'ln' else ' (and to the unfused chain)'}; {t:.4f} ms "
+              f"({bms / t:.0%} of the bound {bms:.4f} ms by bytes), without s {t_bare:.4f} ms, the unfused chain "
+              f"{t_old:.4f} ms ({t_old / t:.2f}x)")
+        smooth_rows["rowquant_swiglu" if mode == "swiglu" else "rowquant_fused"].append(
+            dict(mode=mode, shape=list(x.shape), ms=t, ms_without_s=t_bare, unfused_ms=t_old, bound_ms=bms,
+                 bound_by="bytes"))
+        del x, q8, sc, ref8, ref_sc
+    next(r for r in results if r["name"] == "rowquant_swiglu")["smooth"] = smooth_rows["rowquant_swiglu"]
+
     # ---- K5 at the 24B's 48 / 8 heads (6 q heads per kv head) --------------
     q = randn(S, hq, hd)
     L1 = 4 * ctn
@@ -1176,7 +1229,7 @@ def w4a8_kernel_checks(dev):
     for r in results:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
               f"bound {r['bound_ms']:.4f} by {r['bound_by']})")
-    return results
+    return results, smooth_rows["rowquant_fused"]
 
 
 def released_24b_attention_checks(dev):
@@ -1296,7 +1349,7 @@ TINY_RUNTIME = dict(num_steps=8, window_size=2, chunk_width=2, noise2clean_kvran
 
 
 def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quantize=None, wrappers=(), kernels=(),
-                    prefix_frames=0, scheme=None, idle=(), runtime=None):
+                    prefix_frames=0, scheme=None, runtime=None):
     """A model at head_dim 128 (so every kernel runs) walks 3 chunks on the
     card in bf16 and on the CPU in fp32 with the same weights and noise;
     the emitted latents must agree to `tol` relative L2 error.  `quantize`
@@ -1307,7 +1360,7 @@ def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quanti
     `MAGI_ATTN_Q8_SCHEME` for the card's walk (the CPU's takes the dequant
     reference).  `runtime` overrides the tiny runtime config (the default
     kv ranges of a host-offloaded walk).  Each of `kernels` (names in
-    `wrappers`) must launch in the card's walk, and none of `idle`."""
+    `wrappers`) must launch in the card's walk."""
     import numpy as np
     import torch
 
@@ -1349,7 +1402,7 @@ def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quanti
             prefix_video=None if prefix is None else prefix.to(device))
         return torch.cat([c.cpu() for _, c in ArdfSampler(cfg, params, inp, noise=noise, device=device).walk()], 1)
 
-    before = {n: wrappers[n].launches for n in list(kernels) + list(idle)}
+    before = {n: wrappers[n].launches for n in kernels}
     old_scheme = os.environ.get("MAGI_ATTN_Q8_SCHEME")
     if scheme:
         os.environ["MAGI_ATTN_Q8_SCHEME"] = scheme
@@ -1360,9 +1413,6 @@ def tiny_walk_check(dev, name, config_path, tol, model=None, engine=None, quanti
     missing = [n for n in kernels if wrappers[n].launches == before[n]]
     if missing:
         fail(f"{name}: the card's walk launched no {missing}")
-    stray = [n for n in idle if wrappers[n].launches != before[n]]
-    if stray:
-        fail(f"{name}: the card's walk launched {stray}")
     b = walk(cfg_cpu, p_cpu, "cpu")
     rel = float((a - b).norm() / b.norm())
     ok = bool(torch.isfinite(a).all()) and a.shape == b.shape and rel < tol
@@ -1872,11 +1922,10 @@ def run_loaded_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
     middle layer's dequant on the card against the CPU's bit for bit, the
     2-layer T5 encode on the card against the CPU's f32 encode, the video
     (via `run_main_path`), and the launch counts against phase 5's (the
-    same request on the same config: the smooth-quant divide replaces no
-    kernel, fc1's K8 runs `plain` instead of `ln`).  Prints load seconds
-    and GB/s, the step time against phase 5's, the divide's ms per step, the
-    T5-XXL encode times and the peak memory.  Returns the launch counts."""
-    import collections
+    same request on the same config: the smooth-quant divide runs inside
+    K8, which must launch with s).  Prints load seconds and GB/s, the step
+    time against phase 5's, K8's launches with s a step, the T5-XXL encode
+    times and the peak memory.  Returns the launch counts."""
     import resource
     import shutil
 
@@ -1885,8 +1934,8 @@ def run_loaded_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
     from magi_tpu_torch import runtime_native
     from magi_tpu_torch.checkpoint import loader, vae_loader
     from magi_tpu_torch.core.config import MagiConfig
-    from magi_tpu_torch.models.dit import model as TM
     from magi_tpu_torch.models.t5.model import T5Embedder
+    from magi_tpu_torch.ops import act_quant as AQ
     from magi_tpu_torch.ops import quant as Q
     from magi_tpu_torch.pipeline import prompt_process
 
@@ -1897,7 +1946,6 @@ def run_loaded_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
               t5_pretrained=os.path.join(root, "t5"), t5_device="auto")
     cfg = MagiConfig.from_dict(config)
     old_skip = os.environ.pop("SKIP_LOAD_MODEL", None)
-    plain_divide = TM._smooth_divide
     patched = {}
     try:
         t0 = time.perf_counter()
@@ -1944,8 +1992,8 @@ def run_loaded_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
               f"GB/s with the copy)")
         prompt_process._t5_cache = t5
 
-        # the run: loads timed where the pipeline calls them, the divides recorded
-        timings, divides = {}, collections.Counter()
+        # the run: loads timed where the pipeline calls them
+        timings = {}
         # the quantization runs inside the load, one stacked linear at a time
         # as it arrives (ops.quant.TreeSink): its calls are summed
         for mod, name in ((loader, "load_dit_params"), (vae_loader, "load_vae"), (Q, "_quantize_stacked")):
@@ -1961,12 +2009,9 @@ def run_loaded_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
 
             setattr(mod, name, wrapper)
 
-        def recording_divide(x, s):
-            divides[(tuple(x.shape), x.dtype)] += 1
-            return plain_divide(x, s)
-
-        TM._smooth_divide = recording_divide
+        smooth0 = AQ.rowquant_fused.launches_smooth
         launches, stats = run_main_path(dev, config, stem, wrappers, path_kernels)
+        smoothed = AQ.rowquant_fused.launches_smooth - smooth0
         route = dict(loader.last_read)
         # the same load through each reader, timed alone: the native runtime
         # (threaded reads into host memory, where it builds) against the
@@ -1989,7 +2034,6 @@ def run_loaded_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
         del trees
         fresh_card()
     finally:
-        TM._smooth_divide = plain_divide
         for (mod, name), fn in patched.items():
             setattr(mod, name, fn)
         prompt_process._t5_cache = None
@@ -2012,17 +2056,9 @@ def run_loaded_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
     steps, steps5 = stats["step_seconds"], stats5["step_seconds"]
     print(f"  seconds per step: mean {sum(steps) / len(steps):.4f} against phase 5's {sum(steps5) / len(steps5):.4f} "
           f"({len(steps)} and {len(steps5)} steps)")
-    divide_ms, widest = 0.0, None
-    for (shape, dtype), count in sorted(divides.items()):
-        x = torch.randn(shape, device=dev).to(dtype)
-        s_ = 0.5 + torch.rand(shape[-1], device=dev)
-        ms = cuda_ms(lambda: plain_divide(x, s_), 20)
-        divide_ms += count * ms
-        widest = max(widest or (0, shape, ms), (shape[0] * shape[1], shape, ms))
-    step_s = sum(steps) / len(steps)
-    print(f"  smooth divides: {sum(divides.values())} in the run at {len(divides)} shapes (each timed alone, CUDA "
-          f"events), {divide_ms / len(steps):.3f} ms per step, {divide_ms / len(steps) / 1e3 / step_s:.1%} of the "
-          f"step; the largest, {widest[1]}, {widest[2]:.4f} ms")
+    print(f"  K8 launches with s (the smoothed linears' divide inside the row quantization): {smoothed} in the "
+          f"run, {smoothed / len(steps):.2f} a step, of {launches['rowquant_fused'] / len(steps):.2f} K8 launches "
+          f"a step")
     print(f"  peak memory: device {stats['peak_gib']:.2f} GiB (the run's), host "
           f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB (the process's largest resident set)")
     per_step = {n: (round(launches[n] / len(steps), 2), round(launches5[n] / len(steps5), 2)) for n in wrappers
@@ -2030,8 +2066,8 @@ def run_loaded_path(dev, config: dict, stem: str, wrappers: dict, path_kernels: 
     print(f"  launches per step, this run against phase 5's: {json.dumps(per_step)}")
     if len(steps) != len(steps5) or any(launches[n] != launches5[n] for n in wrappers):
         fail("the loaded path's launch counts differ from phase 5's")
-    if not divides:
-        fail("the loaded path ran no smooth-quant divide")
+    if not smoothed:
+        fail("the loaded path launched no K8 with s")
     return launches
 
 
@@ -3200,7 +3236,9 @@ def main() -> int:
     phase("phase 2: kernels against their plain versions (CUDA events)")
     warm_card(dev)
     int8_results, scheme_results = int8_kernel_checks(dev)
-    results = kernel_checks(dev) + int8_results + w4a8_kernel_checks(dev) + scheme_results
+    w4a8_results, k8_smooth = w4a8_kernel_checks(dev)
+    results = kernel_checks(dev) + int8_results + w4a8_results + scheme_results
+    next(r for r in results if r["name"] == "rowquant_fused")["smooth"] = k8_smooth
     at_24b = released_24b_attention_checks(dev)
     for r in results:
         if r["name"] in at_24b:
@@ -3216,8 +3254,10 @@ def main() -> int:
                     TINY_QUANT_TOL, model=dict(num_layers=3, gated_linear_unit=True), engine=dict(attn_int8=True),
                     quantize=lambda p: Q.quantize_params_int4(p, keep_edge_bf16=False), wrappers=wrappers,
                     kernels=["quantized_matmul", "rowquant_swiglu", "quantized_matmul_i8", "rowquant_fused"])
-    # smooth-quant trees, as an fp8 checkpoint loads: the divide before K8
-    # plain on K6, and on K7 in the gated int4 tree (its fc2 without K8s)
+    # smooth-quant trees, as an fp8 checkpoint loads: the divide inside K8
+    # (and K8s for the gated fc2) before K6, and before K7 in the gated
+    # int4 tree's edge layers
+    smooth0 = (AQ.rowquant_fused.launches_smooth, AQ.rowquant_swiglu.launches_smooth)
     tiny_walk_check(dev, "tiny distill int8 1-CFG walk on a smooth-folded tree, int8 attention", QUANT_CONFIG,
                     TINY_QUANT_TOL, model=dict(num_layers=3), engine=dict(attn_int8=True),
                     quantize=lambda p: Q.quantize_params_int8(with_smooth(p, SMOOTH_LINEARS)), wrappers=wrappers,
@@ -3226,8 +3266,10 @@ def main() -> int:
                     QUANT_CONFIG, TINY_QUANT_TOL, model=dict(num_layers=3, gated_linear_unit=True),
                     engine=dict(attn_int8=True),
                     quantize=lambda p: Q.quantize_params_int4(with_smooth(p, ["mlp/linear_fc2"]), keep_edge_bf16=False),
-                    wrappers=wrappers, kernels=["quantized_matmul", "quantized_matmul_i8", "rowquant_fused"],
-                    idle=["rowquant_swiglu"])
+                    wrappers=wrappers,
+                    kernels=["quantized_matmul", "quantized_matmul_i8", "rowquant_fused", "rowquant_swiglu"])
+    if AQ.rowquant_fused.launches_smooth == smooth0[0] or AQ.rowquant_swiglu.launches_smooth == smooth0[1]:
+        fail("the smooth-folded walks launched no K8 or no K8s with s")
     # v2v walks: a prefix of 3 latent frames (the warm-up forward writes
     # chunk 0, chunk 1 is half pasted), one chunk more
     tiny_walk_check(dev, "tiny 3-CFG v2v walk", CONFIG, 2e-2, prefix_frames=3, wrappers=wrappers,

@@ -32,6 +32,13 @@
 //   p = bf16(bf16(silu(gate)) * up) of a row [gate | up] of 2F bf16, with
 //   silu(g) = g / (1 + expf(-g)) in f32 (IEEE division, no fast math: what
 //   F.silu computes on CUDA), so the kernel gives its plain version's bits.
+// Both take an optional smooth-quant vector as its reciprocal r = 1 / s
+//   (a linear whose weight was quantized s·W; the wrapper takes the IEEE
+//   reciprocal once a launch): the producer's bf16 value y becomes
+//   bf16(y * r[c]) before the row's |max| is taken, one f32 product rounded
+//   once, as the plain version (and the JAX package's f32(x) * (1 / s))
+//   divides.  A reciprocal per element would make them issue-bound.
+//   Without r the kernels are unchanged.
 //
 // What bounds them on the H100.  K6 at the DiT's shapes (M = 1536 to 9216
 // tokens, K and N 1024 to 32768) does 2*M*N*K int8 operations on
@@ -446,12 +453,24 @@ struct FMax {
   __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
 };
 
-// one block per row of K (K % 4 == 0); LN: x -> bf16(LN(x) * w + b) first
-template <bool LN>
+// bf16(y * r), r = 1 / s: a smooth-quant linear's input divided by its s
+__device__ __forceinline__ float smooth_bf16(float y, float r) {
+  return __bfloat162float(__float2bfloat16_rn(__fmul_rn(y, r)));
+}
+
+__device__ __forceinline__ float4 smooth_bf16(float4 y, float4 r) {
+  return make_float4(smooth_bf16(y.x, r.x), smooth_bf16(y.y, r.y), smooth_bf16(y.z, r.z), smooth_bf16(y.w, r.w));
+}
+
+// one block per row of K (K % 4 == 0); LN: x -> bf16(LN(x) * w + b) first;
+// SMOOTH: then -> bf16(y * inv_smooth[c])
+template <bool LN, bool SMOOTH>
 __global__ void __launch_bounds__(kRowThreads) rowquant_kernel(const __nv_bfloat16* __restrict__ x,
                                                                const float* __restrict__ w,
-                                                               const float* __restrict__ b, int8_t* __restrict__ q,
-                                                               float* __restrict__ scale, int K, float eps) {
+                                                               const float* __restrict__ b,
+                                                               const float* __restrict__ inv_smooth,
+                                                               int8_t* __restrict__ q, float* __restrict__ scale,
+                                                               int K, float eps) {
   extern __shared__ float4 row4[];  // [K / 4] the row in f32 (LN: its bf16-rounded output)
   __shared__ double redd[32];
   __shared__ float redf[32];
@@ -465,7 +484,8 @@ __global__ void __launch_bounds__(kRowThreads) rowquant_kernel(const __nv_bfloat
     const uint2 raw = xr[i];
     const __nv_bfloat162 a0 = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
     const __nv_bfloat162 a1 = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-    const float4 t = make_float4(__low2float(a0), __high2float(a0), __low2float(a1), __high2float(a1));
+    float4 t = make_float4(__low2float(a0), __high2float(a0), __low2float(a1), __high2float(a1));
+    if (SMOOTH && !LN) t = smooth_bf16(t, reinterpret_cast<const float4*>(inv_smooth)[i]);
     row4[i] = t;
     if (LN) {
       sum = __dadd_rn(__dadd_rn(sum, (double)t.x), __dadd_rn((double)t.y, __dadd_rn((double)t.z, (double)t.w)));
@@ -494,7 +514,8 @@ __global__ void __launch_bounds__(kRowThreads) rowquant_kernel(const __nv_bfloat
         const float y = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mean), rstd), wv), bv);
         return __bfloat162float(__float2bfloat16_rn(y));
       };
-      const float4 y = make_float4(ln(t.x, ww.x, bb.x), ln(t.y, ww.y, bb.y), ln(t.z, ww.z, bb.z), ln(t.w, ww.w, bb.w));
+      float4 y = make_float4(ln(t.x, ww.x, bb.x), ln(t.y, ww.y, bb.y), ln(t.z, ww.z, bb.z), ln(t.w, ww.w, bb.w));
+      if (SMOOTH) y = smooth_bf16(y, reinterpret_cast<const float4*>(inv_smooth)[i]);
       row4[i] = y;
       amax = fmaxf(amax, fmaxf(fmaxf(fabsf(y.x), fabsf(y.y)), fmaxf(fabsf(y.z), fabsf(y.w))));
     }
@@ -518,8 +539,11 @@ __device__ __forceinline__ float silu_bf16(float g) {
   return __bfloat162float(__float2bfloat16_rn(__fdiv_rn(g, __fadd_rn(1.f, expf(-g)))));
 }
 
-// one block per row of [gate | up], 2 * F bf16 (F % 8 == 0) -> F int8
+// one block per row of [gate | up], 2 * F bf16 (F % 8 == 0) -> F int8;
+// SMOOTH: the product p -> bf16(p * inv_smooth[c])
+template <bool SMOOTH>
 __global__ void __launch_bounds__(kRowThreads) swiglu_rowquant_kernel(const __nv_bfloat16* __restrict__ x,
+                                                                      const float* __restrict__ inv_smooth,
                                                                       int8_t* __restrict__ q,
                                                                       float* __restrict__ scale, int F) {
   extern __shared__ uint4 prow[];  // [F / 8] the bf16 product, eight to a chunk
@@ -536,12 +560,23 @@ __global__ void __launch_bounds__(kRowThreads) swiglu_rowquant_kernel(const __nv
     const __nv_bfloat162* uu = reinterpret_cast<const __nv_bfloat162*>(&uraw);
     uint4 praw;
     __nv_bfloat162* pp = reinterpret_cast<__nv_bfloat162*>(&praw);
+    float4 sv[2];
+    if (SMOOTH) {
+      sv[0] = reinterpret_cast<const float4*>(inv_smooth)[2 * i];
+      sv[1] = reinterpret_cast<const float4*>(inv_smooth)[2 * i + 1];
+    }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float2 gf = __bfloat1622float2(gg[j]);
       const float2 uf = __bfloat1622float2(uu[j]);
       // the product of two bf16 values is exact in f32: one rounding, to bf16
       pp[j] = __floats2bfloat162_rn(__fmul_rn(silu_bf16(gf.x), uf.x), __fmul_rn(silu_bf16(gf.y), uf.y));
+      if (SMOOTH) {
+        const float4 s4 = sv[j >> 1];
+        const float2 pf = __bfloat1622float2(pp[j]);
+        pp[j] = __floats2bfloat162_rn(smooth_bf16(pf.x, j & 1 ? s4.z : s4.x),
+                                      smooth_bf16(pf.y, j & 1 ? s4.w : s4.y));
+      }
       const float2 pf = __bfloat1622float2(pp[j]);
       amax = fmaxf(amax, fmaxf(fabsf(pf.x), fabsf(pf.y)));
     }
@@ -563,6 +598,28 @@ __global__ void __launch_bounds__(kRowThreads) swiglu_rowquant_kernel(const __nv
     qr[i] = make_uint2(w[0], w[1]);
   }
   if (threadIdx.x == 0) scale[r] = s;
+}
+
+template <bool LN, bool SMOOTH>
+cudaError_t launch_rowquant(const __nv_bfloat16* x, const float* ln_w, const float* ln_b, const float* inv_smooth,
+                            int8_t* q, float* scale, long long S, int K, float eps, cudaStream_t st) {
+  const size_t smem = (size_t)K * sizeof(float);
+  cudaError_t err =
+      cudaFuncSetAttribute(rowquant_kernel<LN, SMOOTH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  rowquant_kernel<LN, SMOOTH><<<(unsigned)S, kRowThreads, smem, st>>>(x, ln_w, ln_b, inv_smooth, q, scale, K, eps);
+  return cudaGetLastError();
+}
+
+template <bool SMOOTH>
+cudaError_t launch_swiglu(const __nv_bfloat16* x, const float* inv_smooth, int8_t* q, float* scale, long long S,
+                          int F, cudaStream_t st) {
+  const size_t smem = (size_t)F * sizeof(__nv_bfloat16);
+  cudaError_t err =
+      cudaFuncSetAttribute(swiglu_rowquant_kernel<SMOOTH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  swiglu_rowquant_kernel<SMOOTH><<<(unsigned)S, kRowThreads, smem, st>>>(x, inv_smooth, q, scale, F);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -600,26 +657,23 @@ int magi_qmm_i8(const void* xq, const float* row_scale, const void* wq, const fl
 }
 
 // x: [S, K] bf16; ln_w, ln_b: [K] f32 (ln mode) or null (plain mode);
-// q: [S, K] int8; scale: [S] f32.  K a multiple of 4.
-int magi_rowquant(const void* x, const float* ln_w, const float* ln_b, void* q, float* scale, long long S, int K,
-                  float eps, void* stream) {
+// inv_smooth: [K] f32, 1 / s, or null; q: [S, K] int8; scale: [S] f32.  K a
+// multiple of 4.
+int magi_rowquant(const void* x, const float* ln_w, const float* ln_b, const float* inv_smooth, void* q,
+                  float* scale, long long S, int K, float eps, void* stream) {
   if (S == 0) return 0;
   if (K % 4) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)K * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* xx = static_cast<const __nv_bfloat16*>(x);
   auto* qq = static_cast<int8_t*>(q);
   cudaError_t err;
-  if (ln_w) {
-    err = cudaFuncSetAttribute(rowquant_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    rowquant_kernel<true><<<(unsigned)S, kRowThreads, smem, st>>>(xx, ln_w, ln_b, qq, scale, K, eps);
-  } else {
-    err = cudaFuncSetAttribute(rowquant_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    rowquant_kernel<false><<<(unsigned)S, kRowThreads, smem, st>>>(xx, nullptr, nullptr, qq, scale, K, eps);
-  }
-  return (int)cudaGetLastError();
+  if (ln_w)
+    err = inv_smooth ? launch_rowquant<true, true>(xx, ln_w, ln_b, inv_smooth, qq, scale, S, K, eps, st)
+                     : launch_rowquant<true, false>(xx, ln_w, ln_b, nullptr, qq, scale, S, K, eps, st);
+  else
+    err = inv_smooth ? launch_rowquant<false, true>(xx, nullptr, nullptr, inv_smooth, qq, scale, S, K, eps, st)
+                     : launch_rowquant<false, false>(xx, nullptr, nullptr, nullptr, qq, scale, S, K, eps, st);
+  return (int)err;
 }
 
 // x: [M, K] bf16; w_q: the weight [K, N] int8 stored k-major, [N, K] in
@@ -652,18 +706,17 @@ int magi_qmm_deq(const void* x, const void* wq, const float* col_scale, void* ou
   return (int)cudaGetLastError();
 }
 
-// x: [S, 2F] bf16 (gate | up); q: [S, F] int8; scale: [S] f32.  F a
-// multiple of 8.
-int magi_rowquant_swiglu(const void* x, void* q, float* scale, long long S, int F, void* stream) {
+// x: [S, 2F] bf16 (gate | up); inv_smooth: [F] f32, 1 / s, or null; q:
+// [S, F] int8; scale: [S] f32.  F a multiple of 8.
+int magi_rowquant_swiglu(const void* x, const float* inv_smooth, void* q, float* scale, long long S, int F,
+                         void* stream) {
   if (S == 0) return 0;
   if (F % 8) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)F * sizeof(__nv_bfloat16);
-  cudaError_t err =
-      cudaFuncSetAttribute(swiglu_rowquant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  swiglu_rowquant_kernel<<<(unsigned)S, kRowThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q), scale, F);
-  return (int)cudaGetLastError();
+  const auto* xx = static_cast<const __nv_bfloat16*>(x);
+  auto* qq = static_cast<int8_t*>(q);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(inv_smooth ? launch_swiglu<true>(xx, inv_smooth, qq, scale, S, F, st)
+                          : launch_swiglu<false>(xx, nullptr, qq, scale, S, F, st));
 }
 
 }  // extern "C"

@@ -22,7 +22,8 @@
   between its Pallas kernels and XLA (`MAGI_QMM_IMPL`,
   `MAGI_FUSED_ACT_QUANT`) are not read here.  A tree from a released fp8
   checkpoint also carries `act_smooth` on its four smooth-quant linears:
-  their inputs are divided by it (a plain op) before the row quantization.
+  their inputs are divided by it inside K8 / K8s, after the producer and
+  before the row quantization (a plain op before K7, or at tp > 1).
 * The KV cache is one [num_layers, 2, hk, tokens, hd] buffer in the
   attention kernel's layout, updated in place: a forward that writes the
   cache writes the slice of its current chunks and reads only earlier
@@ -71,7 +72,7 @@ from magi_tpu_torch.models.dit.embedders import (
     y_embedder_forward,
 )
 from magi_tpu_torch.models.dit.rope import default_bands, rope_3d_segments
-from magi_tpu_torch.ops.act_quant import rowquant_fused
+from magi_tpu_torch.ops.act_quant import rowquant_fused, smooth_divide
 from magi_tpu_torch.ops.attention import (
     apply_q_prologue,
     kv_norm_rope_pack,
@@ -146,13 +147,6 @@ def _apply_pre(x, pre, eps):
     return F.silu(x[..., :d].float()).to(x.dtype) * x[..., d:]
 
 
-def _smooth_divide(x, smooth):
-    """x / s per input channel, the JAX package's f32(x) * (1 / s) cast back
-    to x's dtype: a plain PyTorch op, one elementwise pass (the product is
-    taken in f32 and rounded once as it is written in x's dtype)."""
-    return torch.mul(x, 1.0 / smooth.float(), out=torch.empty(x.shape, dtype=x.dtype, device=x.device))
-
-
 def _unpacked(plist):
     """The linears with packed int4 `weight_q4` unpacked to int8 `weight_q`."""
     if "weight_q4" not in plist[0]:
@@ -172,10 +166,12 @@ def _linears_shared(x, plist, act_ok: bool, high_precision: bool = False, pre=No
     int8 dequant GEMM (K7).  `pre` is the group input's producer (see
     `_apply_pre`); the int8 branch runs it fused with the row quantization
     (K8, or K8s for SwiGLU), the dequant branch unfused.  A smooth-quant
-    linear (`act_smooth` s, its weight quantized s·W) runs `pre` unfused,
-    divides its input by s (`_smooth_divide`), then K8 `plain` + K6 or K7:
-    a smoothed gated fc2 launches no K8s.  The kernels run on CUDA tensors,
-    their plain versions on CPU tensors.
+    linear (`act_smooth` s, its weight quantized s·W) divides its input by
+    s after the producer: in the int8 branch inside the same K8 or K8s
+    launch (`smooth=`), so a smoothed fc1 takes K8 `ln` and a smoothed
+    gated fc2 K8s; in the dequant branch as a plain op (`smooth_divide`)
+    before K7.  The kernels run on CUDA tensors, their plain versions on
+    CPU tensors.
 
     On a model-parallel mesh the column-parallel linears (q, qx, k, v,
     linear_kv_xattn, fc1) hold a block of output columns and run this
@@ -186,22 +182,21 @@ def _linears_shared(x, plist, act_ok: bool, high_precision: bool = False, pre=No
     if "weight_q" not in plist[0]:
         x = _apply_pre(x, pre, eps)
         return tuple(_dot(x, pp["weight"], high_precision) for pp in plist)
-    if "act_smooth" in plist[0]:
-        # smooth-quant (fp8 checkpoints): the weight is quantized s·W, so the
-        # input divides by s, after its producer and before the row
-        # quantization, in both branches
-        if len(plist) != 1:
-            raise ValueError("smooth-quant linears are groups of one")
-        x = _smooth_divide(_apply_pre(x, pre, eps), plist[0]["act_smooth"])
-        pre = None
+    # smooth-quant (fp8 checkpoints): the weight is quantized s·W, so the
+    # input divides by s, after its producer and before the row quantization
+    smooth = plist[0].get("act_smooth")
+    if smooth is not None and len(plist) != 1:
+        raise ValueError("smooth-quant linears are groups of one")
     if not act_ok:
         x = _apply_pre(x, pre, eps)
+        if smooth is not None:
+            x = smooth_divide(x, smooth)
         return tuple(quantized_matmul(x, pp["weight_q"], pp["weight_scale"]).to(x.dtype) for pp in plist)
 
     mode = "plain" if pre is None else pre[0]
     lnp = pre[1] if mode == "ln" else None
     xq, rs = rowquant_fused(
-        x, mode, None if lnp is None else lnp["weight"], None if lnp is None else lnp["bias"], eps=eps
+        x, mode, None if lnp is None else lnp["weight"], None if lnp is None else lnp["bias"], eps=eps, smooth=smooth
     )
     return tuple(quantized_matmul_i8(xq, rs, pp["weight_q"], pp["weight_scale"], out_dtype=x.dtype) for pp in plist)
 
@@ -226,7 +221,7 @@ def _row_first(x, p: dict, act_ok: bool, pre, eps: float) -> tuple:
     if "weight_q" not in p:
         return (_dot_f32(x, p["weight"]),)
     if "act_smooth" in p:
-        x = _smooth_divide(x, p["act_smooth"])
+        x = smooth_divide(x, p["act_smooth"])
     if not act_ok:
         return (quantized_matmul(x, p["weight_q"], p["weight_scale"], out_dtype=torch.float32),)
     xf = x.float()

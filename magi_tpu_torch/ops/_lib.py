@@ -48,8 +48,8 @@ _SIGNATURES = {
     "magi_kv_norm_rope_pack_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
     "magi_qmm_i8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "magi_qmm_deq": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "magi_rowquant": [_P, _P, _P, _P, _P, _LL, _I, _F, _P],
-    "magi_rowquant_swiglu": [_P, _P, _P, _LL, _I, _P],
+    "magi_rowquant": [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _P],
+    "magi_rowquant_swiglu": [_P, _P, _P, _P, _LL, _I, _P],
     "magi_gate_norm_residual": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _I, _P],
 }
 

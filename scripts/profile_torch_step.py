@@ -15,8 +15,9 @@ device with quant_bits 4 and int8 attention: int4 weights unpacked to
 int8 per layer, bf16 edge layers).  `distill_smooth` is the distill
 config on a smooth-folded int8 tree, as a released fp8 checkpoint loads
 (`chip_smoke.with_smooth`: `act_smooth` in [0.5, 2] on kv_xattn, proj,
-fc1 and fc2, 1 on the edge layers): its step adds the divide of each smoothed linear's input (among
-"other") and runs fc1's LayerNorm unfused.  `base_packed` is the base config
+fc1 and fc2, 1 on the edge layers): each smoothed linear's divide runs
+inside its K8 or K8s launch, so its step runs the distill step's kernels
+and nothing among "other" beside them.  `base_packed` is the base config
 with `pack_uncond` (two forwards a step) at 256x256 and 720x720.
 `24b_base`, `24b_distill` and `24b_w8a8` are the three released 24B files
 as written on one device (`cp_size` 1, nothing else changed): bf16 3-CFG

@@ -18,8 +18,10 @@ there, as `chip_smoke.py` does for its short captions.
 
 The quantized kernels: K6 (int8 GEMM; with bf16 output and with the f32
 output of a row-parallel linear's partial sums), K8 (row quantization)
-and K8s (SwiGLU + row quantization) are bit-equal to their plain
-versions.  K4 on shards of the token axis (a first row inside a segment,
+and K8s (SwiGLU + row quantization), with and without a smooth-quant
+vector, are bit-equal to their plain versions; a smoothed linear runs
+its divide inside K8 / K8s, with the unfused chain's bits.  K4 on
+shards of the token axis (a first row inside a segment,
 a shard across a segment boundary, padding rows) gives the rows of one
 launch over the whole axis, bit for bit.  K6
 and K7 take their int8 weights k-major (as `quantize_int8` makes them)
@@ -661,16 +663,27 @@ def test_quantized_matmul_i8_kernel_f32_out(dev, m, k, n):
     assert torch.equal(out.bfloat16(), Q.quantized_matmul_i8(xq, rs, wq, ws))
 
 
-@pytest.mark.parametrize("mode,k", [("plain", 6144), ("plain", 260), ("ln", 3072), ("ln", 12288)])
-def test_rowquant_fused_kernel(dev, mode, k):
+def _smooth(g, dev, k):
+    """A smooth-quant vector of a released checkpoint's range."""
+    return 0.5 + 1.5 * torch.rand((k,), generator=g, device=dev)
+
+
+# the 24B's widths: fc1's LayerNorm 6144, proj's input 12288
+@pytest.mark.parametrize("smooth", [False, True])
+@pytest.mark.parametrize("mode,k", [("plain", 6144), ("plain", 260), ("plain", 12288), ("ln", 3072), ("ln", 6144),
+                                    ("ln", 12288)])
+def test_rowquant_fused_kernel(dev, mode, k, smooth):
+    """K8 bit-equal to its plain version, with and without a smooth-quant
+    vector (its own launch count: `launches_smooth`)."""
     g = _gen(dev)
     x = (3 * torch.randn((300, k), generator=g, device=dev)).to(torch.bfloat16)
     x[7] = 0  # a zero row: scale 1, values 0
     w, b = (_ln_affine(g, dev, k) if mode == "ln" else (None, None))
-    before = AQ.rowquant_fused.launches
-    q8, sc = AQ.rowquant_fused(x, mode, w, b, eps=1e-6)
-    assert AQ.rowquant_fused.launches == before + 1
-    ref8, ref_sc = AQ.rowquant_fused_reference(x, mode, w, b, eps=1e-6)
+    s = _smooth(g, dev, k) if smooth else None
+    before = (AQ.rowquant_fused.launches, AQ.rowquant_fused.launches_smooth)
+    q8, sc = AQ.rowquant_fused(x, mode, w, b, eps=1e-6, smooth=s)
+    assert (AQ.rowquant_fused.launches, AQ.rowquant_fused.launches_smooth) == (before[0] + 1, before[1] + smooth)
+    ref8, ref_sc = AQ.rowquant_fused_reference(x, mode, w, b, eps=1e-6, smooth=s)
     torch.cuda.synchronize()
     assert torch.equal(q8, ref8) and torch.equal(sc, ref_sc)
     if mode == "plain":
@@ -751,16 +764,20 @@ def test_dot_f32_keeps_the_bf16_product_unrounded(dev):
     assert not torch.equal(out, (x @ w).float())  # the bf16 product would be rounded
 
 
+@pytest.mark.parametrize("smooth", [False, True])
 @pytest.mark.parametrize("f", [1536, 16384])
-def test_rowquant_fused_swiglu_kernel(dev, f):
+def test_rowquant_fused_swiglu_kernel(dev, f, smooth):
+    """K8s bit-equal to its plain version, with and without a smooth-quant
+    vector, at the 24B's fc2 width (2 x 16384) among others."""
     g = _gen(dev)
     x = (3 * torch.randn((300, 2 * f), generator=g, device=dev)).to(torch.bfloat16)
     x[7] = 0  # a zero row: scale 1, values 0
     x[9, :f] = -100.0  # silu of a large negative gate: -0
-    before = AQ.rowquant_swiglu.launches
-    q8, sc = AQ.rowquant_fused(x, "swiglu")
-    assert AQ.rowquant_swiglu.launches == before + 1
-    ref8, ref_sc = AQ.rowquant_fused_reference(x, "swiglu")
+    s = _smooth(g, dev, f) if smooth else None
+    before = (AQ.rowquant_swiglu.launches, AQ.rowquant_swiglu.launches_smooth)
+    q8, sc = AQ.rowquant_fused(x, "swiglu", smooth=s)
+    assert (AQ.rowquant_swiglu.launches, AQ.rowquant_swiglu.launches_smooth) == (before[0] + 1, before[1] + smooth)
+    ref8, ref_sc = AQ.rowquant_fused_reference(x, "swiglu", smooth=s)
     torch.cuda.synchronize()
     assert q8.shape == (300, f) and torch.equal(q8, ref8) and torch.equal(sc, ref_sc)
     assert float(sc[7]) == 1.0 and int(q8[7].abs().max()) == 0 and float(sc[9]) == 1.0
@@ -811,14 +828,34 @@ def test_quantized_matmuls_refuse_row_major_weights(dev):
     assert (Q.quantized_matmul_i8.launches, Q.quantized_matmul.launches) == before
 
 
+def _kernels_launched(fn, tmp_path):
+    """fn's result and the names of the device kernels it launched (a
+    profiler trace of the call)."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "kernels.json"))
+    events = json.loads((tmp_path / "kernels.json").read_text())["traceEvents"]
+    return out, [e["name"] for e in sorted(events, key=lambda e: e.get("ts", 0))
+                 if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+
 @pytest.mark.parametrize("act_ok", [True, False])
 @pytest.mark.parametrize("pre", ["ln", None, "swiglu"])
-def test_linears_shared_smooth_runs_the_kernels(dev, pre, act_ok):
+def test_linears_shared_smooth_runs_the_kernels(dev, pre, act_ok, tmp_path):
     """A smooth-quant linear (`act_smooth` s, weight quantized s·W, k-major)
-    on the card: its producer unfused, the divide by s (the same bits as
-    on the CPU), then one K8 `plain` and one K6 (bit-equal to their plain
-    versions), or one K7 without act_ok; never K8s, a smoothed gated fc2
-    included."""
+    on the card.  With act_ok: the reciprocal of s (one pass over its
+    channels), one K8 (`ln` or `plain`) or, on a gated fc2, one K8s, each
+    with s (`launches_smooth`), then one K6, and no other kernel (no
+    elementwise pass over the activations), bit-equal to the plain
+    versions (`rowquant_fused_reference(..., smooth=s)`, then K6's), and for
+    `plain` and `swiglu` to the unfused chain the model ran before (the
+    producer, the divide by s, K8 `plain`).  Without act_ok: the producer
+    unfused, the divide (the same bits as on the CPU), one K7."""
     g = _gen(dev)
     k, n = 256, 128
     x = _randn(g, dev, 200, 2 * k if pre == "swiglu" else k)
@@ -826,21 +863,31 @@ def test_linears_shared_smooth_runs_the_kernels(dev, pre, act_ok):
     wq, ws = Q._quantize_stacked(0.02 * _randn(g, dev, 1, k, n), 8, s)
     assert wq.stride()[1] == 1
     w, b = _ln_affine(g, dev, k)
-    lnp = {"weight": w.to(torch.bfloat16), "bias": b.to(torch.bfloat16)}
+    lnp = {"weight": w, "bias": b}  # f32: K8 reads them as they are, with no cast
     prod = {"ln": ("ln", lnp), None: None, "swiglu": ("swiglu",)}[pre]
     pp = {"weight_q": wq[0], "weight_scale": ws[0], "act_smooth": s[0]}
-    counts = lambda: (AQ.rowquant_fused.launches, Q.quantized_matmul_i8.launches, Q.quantized_matmul.launches,
-                      AQ.rowquant_swiglu.launches)
+    counts = lambda: (AQ.rowquant_fused.launches, AQ.rowquant_fused.launches_smooth, AQ.rowquant_swiglu.launches,
+                      AQ.rowquant_swiglu.launches_smooth, Q.quantized_matmul_i8.launches, Q.quantized_matmul.launches)
+    M._linears_shared(x, [pp], act_ok, pre=prod, eps=1e-6)  # the first call builds the library
     before = counts()
-    (out,) = M._linears_shared(x, [pp], act_ok, pre=prod, eps=1e-6)
-    assert tuple(a - c for a, c in zip(counts(), before)) == ((1, 1, 0, 0) if act_ok else (0, 0, 1, 0))
-    xs = M._smooth_divide(M._apply_pre(x, prod, 1e-6), s[0])
-    assert torch.equal(xs.cpu(), M._smooth_divide(M._apply_pre(x, prod, 1e-6).cpu(), s[0].cpu()))
-    if act_ok:
-        xq, rs = AQ.rowquant_fused_reference(xs, "plain")
-        assert torch.equal(out, Q.quantized_matmul_i8_reference(xq, rs, pp["weight_q"], pp["weight_scale"]))
-    else:
+    (out,), kernels = _kernels_launched(lambda: M._linears_shared(x, [pp], act_ok, pre=prod, eps=1e-6), tmp_path)
+    launched = tuple(a - c for a, c in zip(counts(), before))
+    if not act_ok:
+        assert launched == (0, 0, 0, 0, 0, 1)
+        xs = AQ.smooth_divide(M._apply_pre(x, prod, 1e-6), s[0])
+        assert torch.equal(xs.cpu(), AQ.smooth_divide(M._apply_pre(x, prod, 1e-6).cpu(), s[0].cpu()))
         _close(out, Q.quantized_matmul_reference(xs, pp["weight_q"], pp["weight_scale"]), **K7_TOL)
+        return
+    assert launched == ((0, 0, 1, 1, 1, 0) if pre == "swiglu" else (1, 1, 0, 0, 1, 0))
+    fused = "swiglu_rowquant_kernel" if pre == "swiglu" else "rowquant_kernel"
+    assert len(kernels) == 3 and "reciprocal" in kernels[0], kernels
+    assert fused in kernels[1] and "qmm_i8_wgmma_kernel" in kernels[2], kernels
+    mode = pre or "plain"
+    xq, rs = AQ.rowquant_fused_reference(x, mode, lnp["weight"], lnp["bias"], eps=1e-6, smooth=s[0])
+    assert torch.equal(out, Q.quantized_matmul_i8_reference(xq, rs, pp["weight_q"], pp["weight_scale"]))
+    if pre != "ln":
+        xq0, rs0 = Q.act_quant_rowwise(AQ.smooth_divide(M._apply_pre(x, prod, 1e-6), s[0]))
+        assert torch.equal(xq, xq0) and torch.equal(rs, rs0)
 
 
 def test_fp8_dequant_on_the_card_matches_the_cpu(dev, tmp_path):

@@ -41,9 +41,12 @@ across a bf16 rounding edge.
 The smooth-quant fold (s·W quantized per layer, `act_smooth` from an fp8
 checkpoint) is bit-equal to the JAX package's jitted
 `_quantize_stacked_smooth` / `_quantize_stacked4_smooth`, k-major;
-`_linears_shared` with `act_smooth` (producer unfused, the divide, then
-the int8 or the dequant branch) matches within 1e-5, as the other int8
-groups."""
+`_linears_shared` with `act_smooth` (the divide by s after the producer,
+inside the row quantization of the int8 branch or before the dequant
+branch) matches within 1e-5, as the other int8 groups.  The row
+quantization's plain version with s is its documented chain bit for bit
+(the producer rounded to bf16, then f32(y) * (1 / s) rounded to bf16, then
+q8), and for "plain" and "swiglu" the JAX package's chain too."""
 
 import jax
 import jax.numpy as jnp
@@ -279,6 +282,51 @@ def test_linears_shared_smooth_matches(pre, act_ok):
     (want,) = JM._linears_shared(jnp.asarray(x), [jax.tree.map(jnp.asarray, pp)], act_ok, pre=jpre, eps=1e-6)
     (got,) = TM._linears_shared(_t(x), [dit_params_from_jax(pp)], act_ok, pre=tpre, eps=1e-6)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["plain", "ln", "swiglu"])
+def test_rowquant_fused_smooth_is_the_chain(mode):
+    """K8 / K8s's plain version with a smooth-quant vector s: the producer
+    rounded to bf16, divided by s as `smooth_divide` does, then q8, bit for
+    bit; for "plain" and "swiglu" also the model's old unfused chain
+    (`_apply_pre`, the divide, K8 "plain") and the JAX package's (its
+    reference producer, f32(y) * (1 / s) cast to bf16, its row
+    quantization)."""
+    rng = np.random.default_rng(21)
+    S, K = 300, 256
+    x = rng.normal(size=(S, 2 * K if mode == "swiglu" else K)) * 3
+    x[7] = 0.0  # a zero row: scale 1, values 0
+    xt = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    s = torch.from_numpy(rng.uniform(0.5, 2.0, size=(K,)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(K,)) * 0.2 + 1.0).astype(np.float32))
+    b = torch.from_numpy((rng.normal(size=(K,)) * 0.1).astype(np.float32))
+    lw, lb = (w, b) if mode == "ln" else (None, None)
+    if mode == "swiglu":
+        y = (torch.nn.functional.silu(xt[:, :K].float()).bfloat16() * xt[:, K:]).bfloat16()
+    elif mode == "ln":
+        y = TA._layer_norm_f64_stats(xt, w, b, 1e-6).bfloat16()
+    else:
+        y = xt
+    ys = (y.float() * (1.0 / s)).bfloat16()
+    want = TQ.act_quant_rowwise(ys)
+    for q, sc in (TA.rowquant_fused_reference(xt, mode, lw, lb, eps=1e-6, smooth=s),
+                  TA.rowquant_fused(xt, mode, lw, lb, eps=1e-6, smooth=s)):
+        assert q.dtype == torch.int8 and tuple(q.shape) == (S, K)
+        assert torch.equal(q, want[0]) and torch.equal(sc, want[1])
+    if mode == "ln":
+        return
+    assert float(want[1][7]) == 1.0 and not want[0][7].any()
+    pre = ("swiglu",) if mode == "swiglu" else None
+    old = TA.rowquant_fused_reference(TA.smooth_divide(TM._apply_pre(xt, pre, 1e-6), s), "plain")
+    assert torch.equal(old[0], want[0]) and torch.equal(old[1], want[1])
+    xj = jnp.asarray(np.asarray(xt.float()), jnp.bfloat16)
+    yj = xj
+    if mode == "swiglu":
+        yj = (jax.nn.silu(xj[:, :K].astype(jnp.float32)).astype(jnp.bfloat16) * xj[:, K:]).astype(jnp.bfloat16)
+    ysj = (yj.astype(jnp.float32) * (1.0 / jnp.asarray(s.numpy()))).astype(jnp.bfloat16)
+    jq, jsc = JA.rowquant_fused_reference(ysj, "plain")
+    np.testing.assert_array_equal(want[0].numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(want[1].numpy(), np.asarray(jsc))
 
 
 def test_int4_pack_unpack_matches():
