@@ -11,7 +11,10 @@ quantizes a quantized config's linears leaf by leaf), installs the VAE
 where `video_process.get_vae` keeps it, and warms and captures the walk's
 step variants and the decode on a first sampler, which it then releases:
 the window's request takes that idle workspace and captures nothing, as a
-resident engine's second request does.
+resident engine's second request does.  The window opens at the request's
+start, or, where the traffic names a lead-in (`lead_in_steps`), after the
+steps it names, so that the window holds the walk's steady state; the
+request's first chunk is timed from its start in both.
 
 After the window the run reads the peak memory, frees the program's state
 and holds what the window produced against the plain reference
@@ -85,19 +88,41 @@ def checked_steps(seed: int, rc: dict, ec: dict, chunk_num: int, total: int) -> 
     noise) and, drawn from the seed among the first two stages that have
     each, a step with the window full and nothing cached, a step that
     writes a clean chunk's keys and values into the cache, and a step that
-    reads them from it."""
+    reads them from it.  Under three-branch CFG, where none of these has
+    denoised chunks under different guidance scales, one more step that
+    has, drawn alike, so that a wrong scale lookup shows."""
     rng = np.random.default_rng(W.sub_seed(seed, "checks"))
     dpss = rc["num_steps"] // rc["window_size"]
     plans = [schedule.plan(rc, ec, chunk_num, i) for i in range(total)]
     kinds = [lambda p: p.n_den == rc["window_size"] and not p.extra and not p.cached,
              lambda p: p.extra, lambda p: bool(p.cached)]
     out = {0}
-    for kind in kinds:
+
+    def draw(kind):
         stages = sorted({p.index // dpss for p in plans if kind(p)})[:2]
         pool = [p.index for p in plans if kind(p) and p.index // dpss in stages]
         if pool:
             out.add(int(rng.choice(pool)))
+
+    for kind in kinds:
+        draw(kind)
+    mixed = lambda p: len(set(p.scales)) > 1  # noqa: E731
+    if rc["cfg_number"] == 3 and not any(mixed(plans[i]) for i in out):
+        draw(mixed)
     return sorted(out)
+
+
+def lead_in_steps(traffic: dict, rc: dict, ec: dict, chunk_num: int, total: int) -> int:
+    """The steps the request runs before the window opens, by the traffic's
+    `lead_in`: none (absent or "none"), or "ramp", the walk's first stages
+    up to the step that writes the first clean chunk's keys and values into
+    the cache, so that the window holds the steady state."""
+    lead_in = traffic.get("lead_in", "none")
+    if lead_in == "none":
+        return 0
+    if lead_in == "ramp":
+        return next(i for i in range(total) if schedule.plan(rc, ec, chunk_num, i).extra)
+    raise ValueError(f"lead_in {lead_in!r}: the harness knows 'none' and 'ramp'")
 
 
 def _span(on: bool, name: str):
@@ -166,7 +191,10 @@ def pool_bytes(device) -> Dict[str, int]:
 def run(cell: cells.Cell, seed: int, seconds: float, trace: bool, device: str, t_start: float,
         control: Optional[str] = None, trace_path: Optional[str] = None) -> dict:
     """One run; returns the result line's object (and its checks).  `control`
-    names one of the configuration's controls to run in the program's place."""
+    names one of the configuration's controls to run in the program's place:
+    a lower-precision path of the program, or, where the control names
+    `reference` sections, the plain reference at those settings, put in
+    place of the program's denoise steps on the same inputs."""
     from magi_tpu_torch.core import graphs as G
     from magi_tpu_torch.core.config import MagiConfig
     from magi_tpu_torch.pipeline import video_process
@@ -208,20 +236,26 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool, device: str, t
     captures0 = G.captures("walk")
     log(f"set-up: {variants} step variants, {graphs} graphs captured in {capture_s:.3f} s; {total} steps in the "
         f"walk of {chunk_num} chunks; caption {tokens} tokens; checked steps {checks}")
+    lead = lead_in_steps(cell.traffic, rc, ec, chunk_num, total)
     if on_card:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     prof = None
-    if trace:
-        from torch.profiler import ProfilerActivity, profile
 
-        prof = profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else []))
-        prof.__enter__()
+    def start_trace():
+        nonlocal prof
+        if trace:
+            from torch.profiler import ProfilerActivity, profile
 
-    # ----- the window: one request from its start -----
+            prof = profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else []))
+            prof.__enter__()
+
+    if not lead:
+        start_trace()
+
+    # ----- one request from its start; the window opens with it, or after the traffic's lead-in -----
     t0 = time.perf_counter()
     setup_s = t0 - t_start
-    deadline = t0 + seconds
     steps: List[tuple] = []
     chunk_steps, step = 0, 0
     decode_seconds: List[float] = []
@@ -254,15 +288,32 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool, device: str, t
                 first = (time.perf_counter() - t0, frames, emitted[1].cpu())
         step += 1
 
-    with _span(trace, "bench/window"):
+    def request():
         with _span(trace, "bench/request"):
             inp = build_inference_input(config, null_caption, embs, mask, dev)
             sampler = ArdfSampler(config, params, inp, noise=noise, device=dev, capture=True)
             sampler.warm_step_variants()
             sampler.prepare()
+        return sampler, inp
+
+    def window(sampler, deadline):
         while step < total and time.perf_counter() < deadline:
             one_step(sampler, True)
-        window_s = time.perf_counter() - t0
+
+    if lead:
+        sampler, inp = request()
+        while step < lead:
+            one_step(sampler, False)
+        start_trace()
+        w0 = time.perf_counter()
+        with _span(trace, "bench/window"):
+            window(sampler, w0 + seconds)
+    else:
+        w0 = t0
+        with _span(trace, "bench/window"):
+            sampler, inp = request()
+            window(sampler, w0 + seconds)
+    window_s = time.perf_counter() - w0
     # allocated, and the graph pools' unallocated bytes: a captured step's
     # activations live there, reserved for the replays and never allocated
     peak_reserved = torch.cuda.max_memory_reserved(dev) if on_card else 0
@@ -281,7 +332,7 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool, device: str, t
         one_step(sampler, False)
     if on_card:
         torch.cuda.synchronize(dev)
-    log(f"window: {len(steps)} steps ({chunk_steps} chunk-steps) and {len(decode_seconds)} decodes in "
+    log(f"window: after {lead} lead-in steps, {len(steps)} steps ({chunk_steps} chunk-steps) and {len(decode_seconds)} decodes in "
         f"{window_s:.3f} s; {captured} graphs captured in it; first chunk at "
         f"{'none' if first is None else f'{first[0]:.3f} s'}; peak {peak} bytes ({peak_allocated} allocated + "
         f"{pools['graph_pools_free']} unallocated in graph pools of {pools['graph_pools']}); reserved {peak_reserved}, "
@@ -305,7 +356,8 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool, device: str, t
     limits = cell.limits or {}
     taus = {k: lim["tau"] for k, lim in limits.items() if "tau" in lim}
     values = check(ref_cfg, cell.config, seed, dev, plans, snaps, noise, first, caption=embs[0], tokens=tokens,
-                   smooth=smooth, control=control is not None, taus=taus, cache_kv=(kv_step, cache_kv))
+                   smooth=smooth, control=control is not None, taus=taus, cache_kv=(kv_step, cache_kv),
+                   ref_control=cell.config["controls"][control].get("reference") if control else None)
     del noise
     log("readings: " + json.dumps(values))
     if limits:
@@ -386,35 +438,57 @@ def _decode_off(frames: np.ndarray, ref: np.ndarray) -> float:
     return float((np.abs(frames.astype(np.int16) - ref.astype(np.int16)) >= 2).mean())
 
 
-def reference_forward(rc: dict, p: schedule.Step, x_in: torch.Tensor, device) -> ref_dit.Forward:
-    """The reference's forward of step `p` on its frames `x_in` (chunks p.lo
-    to p.c_end): the cached chunks stand in for the KV cache the step reads,
-    their keys and values worked out again from their clean frames."""
+def reference_forwards(rc: dict, p: schedule.Step, x_in: torch.Tensor, device) -> List[ref_dit.Forward]:
+    """The reference's forwards of step `p` on its frames `x_in` (chunks p.lo
+    to p.c_end), one for each of the step's (`schedule.Step.forwards`).  In
+    a forward that reads the cache, the cached chunks stand in for the KV
+    cache, their keys and values worked out again from their clean frames
+    as the forward that wrote them did (with its caption dropout).  The
+    uncond forward holds the denoised chunks alone, in slots from 0."""
     cw = rc["chunk_width"]
-    segs = [schedule.Segment(src=c, pos=c, t=float(rc["clean_t"]), text=False, kv=(c, c + 1))
-            for c in p.cached] + list(p.segments)
-    x = torch.cat([x_in[:, (s.src - p.lo) * cw : (s.src - p.lo + 1) * cw] for s in segs], dim=1)
-    return ref_dit.Forward(x=x.to(device), pos=[s.pos for s in segs], t=[s.t for s in segs],
-                           text=[s.text for s in segs], kv=[s.kv for s in segs])
+    writer_drop = next(drop for _, drop, writes in p.forwards if writes)
+    out = []
+    for k, (segments, drop, _) in enumerate(p.forwards):
+        if p.scales and k == 2:
+            segs, pos, rope = list(segments), list(range(len(segments))), [s.pos for s in segments]
+            drops = [drop] * len(segs)
+        else:
+            segs = [schedule.Segment(src=c, pos=c, t=float(rc["clean_t"]), text=False, kv=(c, c + 1))
+                    for c in p.cached] + list(segments)
+            pos, rope = [s.pos for s in segs], None
+            drops = [writer_drop] * len(p.cached) + [drop] * len(segments)
+        x = torch.cat([x_in[:, (s.src - p.lo) * cw : (s.src - p.lo + 1) * cw] for s in segs], dim=1)
+        out.append(ref_dit.Forward(x=x.to(device), pos=pos, t=[s.t for s in segs], text=[s.text for s in segs],
+                                   kv=[s.kv for s in segs], drop=drops, rope=rope))
+    return out
 
 
-def reference_update(rc: dict, p: schedule.Step, vel: torch.Tensor) -> torch.Tensor:
+def reference_update(rc: dict, p: schedule.Step, vels: List[torch.Tensor]) -> torch.Tensor:
     """The reference's change to the latents step `p` denoises, from the
-    velocity of its forward: v * dt per chunk."""
+    velocities of its forwards (`reference_forwards`): v * dt per chunk.
+    Under three-branch CFG v = (1 - p) u + (p - s) c2 + s c1 per chunk, from
+    the text (c1), null-caption (c2) and uncond (u) forwards, in f32."""
     cw = rc["chunk_width"]
-    v = vel[:, len(p.cached) * cw :].float().cpu()  # the window's segments and the ride-along
+    v = vels[0][:, len(p.cached) * cw :].float().cpu()  # the window's segments and the ride-along
     n_win = len(p.segments) - int(p.nearly)
     if p.nearly:
         ss = int(p.extra)
         v[:, ss * cw : (ss + 1) * cw] = v[:, ss * cw : (ss + 1) * cw] * 0.7 + v[:, -cw:] * 0.3
     v = v[:, (n_win - p.n_den) * cw : n_win * cw]
+    if p.scales:
+        c1 = v
+        c2 = vels[1][:, (len(p.cached) + n_win - p.n_den) * cw :].float().cpu()
+        u = vels[2].float().cpu()
+        ps, ts = (torch.tensor(x, dtype=torch.float32).repeat_interleave(cw)[None, :, None, None]
+                  for x in zip(*p.scales))
+        v = (1 - ps) * u + (ps - ts) * c2 + ts * c1
     dt = torch.tensor(p.dt, dtype=torch.float32).repeat_interleave(cw)[None, :, None, None]
     return v * dt
 
 
 def check(cfg: dict, conf: dict, seed: int, device, plans: Dict[int, schedule.Step], snaps: dict,
           noise: torch.Tensor, first, *, caption: np.ndarray, tokens: int, smooth, control: bool,
-          taus: Dict[str, float], cache_kv: tuple = (None, None)) -> dict:
+          taus: Dict[str, float], cache_kv: tuple = (None, None), ref_control: Optional[dict] = None) -> dict:
     """The numbers a run is judged by; its cell's limits file says which, and
     gives the tau of each tail in `taus` (name -> tau).
 
@@ -430,7 +504,10 @@ def check(cfg: dict, conf: dict, seed: int, device, plans: Dict[int, schedule.St
     is the relative L2 gap of the keys and values of layer 0 (a layer of
     bf16 linears in every configuration) that the step `cache_kv[0]` wrote
     into the KV cache for its clean chunk, `cache_kv[1]`, against the
-    reference's."""
+    reference's.  With `ref_control` (section overrides of `cfg`), the
+    updates and keys and values judged are the reference's own under those
+    overrides, on the program's inputs: a control the program has no path
+    for."""
     rc = cfg["runtime_config"]
     cw = rc["chunk_width"]
     all_taus = sorted(set(TAILS) | set(taus.values()))
@@ -438,17 +515,28 @@ def check(cfg: dict, conf: dict, seed: int, device, plans: Dict[int, schedule.St
     for i, p in sorted(plans.items()):
         before, after = snaps[i]
         x_in = noise[:, p.lo * cw : p.c_end * cw].cpu() if i == 0 else before
-        fwds.append(reference_forward(rc, p, x_in, device))
+        step_fwds = reference_forwards(rc, p, x_in, device)
         if i == cache_kv[0]:
             tp, pp = cfg["model_config"]["t_patch_size"], cfg["model_config"]["patch_size"]
             ctn = cw // tp * (x_in.shape[2] // pp) * (x_in.shape[3] // pp)
-            fwds[-1].kv_rows = (len(p.cached) * ctn, (len(p.cached) + 1) * ctn)
-        meta.append((i, p, x_in, after))
+            writer = next(f for f, (_, _, writes) in zip(step_fwds, p.forwards) if writes)
+            writer.kv_rows = (len(p.cached) * ctn, (len(p.cached) + 1) * ctn)
+        meta.append((i, p, x_in, after, len(fwds), len(step_fwds)))
+        fwds += step_fwds
     outs = ref_dit.velocities(cfg, seed, device, fwds, torch.from_numpy(caption), tokens, smooth)
+    if ref_control is not None:
+        cfg_c = {k: dict(v, **ref_control.get(k, {})) for k, v in cfg.items()}
+        fwds_c = [dataclasses.replace(f, kv0=None) for f in fwds]
+        outs_c = ref_dit.velocities(cfg_c, seed, device, fwds_c, torch.from_numpy(caption), tokens, smooth)
+        kv0_c = next((f.kv0 for f in fwds_c if f.kv0 is not None), None)
+        cache_kv = (cache_kv[0], kv0_c)
     steps = []
-    for vel, (i, p, x_in, after) in zip(outs, meta):
-        x_before = x_in[:, (p.c_start - p.lo) * cw : (p.c_end - p.lo) * cw].float()
-        steps.append(step_numbers(after.float() - x_before, reference_update(rc, p, vel), p.n_den, all_taus))
+    for i, p, x_in, after, k, n in meta:
+        if ref_control is not None:
+            d_prog = reference_update(rc, p, outs_c[k : k + n])
+        else:
+            d_prog = after.float() - x_in[:, (p.c_start - p.lo) * cw : (p.c_end - p.lo) * cw].float()
+        steps.append(step_numbers(d_prog, reference_update(rc, p, outs[k : k + n]), p.n_den, all_taus))
         log(f"check: step {i} (chunks {p.c_start}-{p.c_end - 1}, extra {p.extra}, nearly {p.nearly}, cached "
             f"{list(p.cached)}): " + ", ".join(f"{k} {v:.6g}" for k, v in steps[-1].items()))
     out = {k: max(st[k] for st in steps) for k in steps[0]}

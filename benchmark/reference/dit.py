@@ -15,7 +15,10 @@ Several forwards run together, layer by layer, so each layer's weights are
 drawn (and quantized) once: `velocities(cfg, seed, device, forwards)`.  A
 forward is a run of segments (`schedule.Segment`) at consecutive chunk
 positions; each segment attends the chunk range its `kv` gives, which may
-start at segments that only stand in for the KV cache.
+start at segments that only stand in for the KV cache.  Each segment takes
+the request's caption or the null one for its cross-attention, and a
+caption-dropout flag that picks the null table's row feeding adaLN (the
+null-caption and uncond forwards of three-branch CFG set it).
 """
 
 from __future__ import annotations
@@ -36,9 +39,12 @@ NULL_TOKENS = 50  # valid tokens of the null caption
 class Forward:
     """One DiT forward: latents [C, n * cw, H, W] (f32) of the segments at
     chunk positions `pos` (consecutive), their timesteps, caption choice and
-    kv chunk ranges.  With `kv_rows` [a, b), `velocities` keeps layer 0's
-    keys (normed and roped) and values of those token rows in `kv0`, f32
-    [2, hk, b - a, hd] on the host, as a KV cache holds them."""
+    kv chunk ranges; `drop` each segment's caption dropout (all False when
+    None), and `rope` the chunk positions the rotary embedding takes where
+    they differ from `pos` (the uncond forward's are all 0).  With `kv_rows`
+    [a, b), `velocities` keeps layer 0's keys (normed and roped) and values
+    of those token rows in `kv0`, f32 [2, hk, b - a, hd] on the host, as a
+    KV cache holds them."""
 
     x: torch.Tensor
     pos: List[int]
@@ -47,6 +53,8 @@ class Forward:
     kv: List[Tuple[int, int]]
     kv_rows: Optional[Tuple[int, int]] = None
     kv0: Optional[torch.Tensor] = None
+    drop: Optional[List[bool]] = None
+    rope: Optional[List[int]] = None
 
 
 def layer_norm(x, w, b, eps, zero_centered=False):
@@ -202,8 +210,10 @@ def velocities(cfg: dict, seed: int, device, forwards: List[Forward], caption: t
     tp, p = mc["t_patch_size"], mc["patch_size"]
     cw = cfg["runtime_config"]["chunk_width"]
     null = top["y_embedder/null_caption_embedding"].float()
-    # caption_dropout False: adaLN takes the null table's second-to-last row
-    y_adaln = _lin32(top, "y_embedder/y_proj_adaln/0", null[-2])
+    # adaLN takes the null table's last row under caption dropout, its
+    # second-to-last otherwise
+    y_adaln = {False: _lin32(top, "y_embedder/y_proj_adaln/0", null[-2]),
+               True: _lin32(top, "y_embedder/y_proj_adaln/0", null[-1])}
     caps = {True: (caption.float().to(device)[:caption_len], caption_len), False: (null[:NULL_TOKENS], NULL_TOKENS)}
     y_rows = {k: F.silu(_lin32(top, "y_embedder/y_proj_xattn/0", v[0])) for k, v in caps.items()}
     states = []
@@ -215,13 +225,15 @@ def velocities(cfg: dict, seed: int, device, forwards: List[Forward], caption: t
         Hp, Wp = H // p, Wd // p
         ctn = (cw // tp) * Hp * Wp
         h = (patchify(x, tp, p) @ top["x_embedder/weight"].float()).to(dt)
-        sin, cos = rope(top["rope/bands"].float(), fwd.pos, cw // tp, Hp, Wp, device)
+        sin, cos = rope(top["rope/bands"].float(), fwd.pos if fwd.rope is None else fwd.rope, cw // tp, Hp, Wp,
+                        device)
         t = torch.tensor(fwd.t, dtype=torch.float32, device=device)
         t_emb = t_embed(top, t)
         if ec.get("distill"):
             dfac = schedule.distill_dt_factor(cfg["runtime_config"]["num_steps"])
             t_emb = t_emb + t_embed(top, torch.full_like(t, dfac))
-        states.append(_State(fwd, h, t_emb + y_adaln[None], y_rows, sin, cos, ctn))
+        drop = fwd.drop or [False] * len(fwd.pos)
+        states.append(_State(fwd, h, t_emb + torch.stack([y_adaln[d] for d in drop]), y_rows, sin, cos, ctn))
     for idx in range(L):
         blk = W.layer_tree(leaves, seed, device, idx, L)
         quant = w8a8 and 0 < idx < L - 1

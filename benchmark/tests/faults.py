@@ -1,8 +1,9 @@
 """Faults planted under a run, for the tests that see `correct` come out
 false: each wraps the program's `transport._integrate_and_store` (a step's
-Euler update written into the latent state) or `post_chunk_process` (the
-decode), and uses device ops alone, so a step captured as a CUDA graph
-captures the fault."""
+Euler update written into the latent state), `transport._combine3` (the
+three-branch CFG combination) or `post_chunk_process` (the decode), and
+uses device ops alone, so a step captured as a CUDA graph captures the
+fault."""
 
 import torch
 
@@ -55,3 +56,12 @@ def altered_frames(orig):
         frames[0] = 255 - frames[0]
         return frames
     return decode
+
+
+def dropped_text(orig):
+    """A three-branch step that drops its text branch: the null-caption
+    branch's output in place of the text one's in the combination
+    (`transport._combine3`)."""
+    def combine(xs, si, x_chunk, v1, v2, v3, n_den, extra, cw):
+        orig(xs, si, x_chunk, v2, v2, v3, n_den, extra, cw)
+    return combine

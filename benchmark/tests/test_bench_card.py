@@ -1,6 +1,8 @@
 """On the card, at each cell's own size: each of the cell's controls (a
-lower-precision path of the program) and a step that leaves out one
-chunk's update come out not correct, each failing a check of the denoise
+lower-precision path of the program, or the reference at that precision in
+the program's place), a step that leaves out one chunk's update and, in a
+three-branch CFG cell, a step that drops its text branch come out not
+correct, each failing a check of the denoise
 steps or the KV cache by itself (not only the decode's, which every
 control also fails); and the reference, against itself on inputs one bf16 step apart,
 spreads as the sound runs do.  Run there with
@@ -60,6 +62,20 @@ def test_dropped_chunk_is_not_correct_at_the_cells_size(card, workload, monkeypa
     torch.cuda.empty_cache()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("workload", [w for w in CELLS
+                                      if cells.load(w, REPO).config["runtime_config"]["cfg_number"] == 3])
+def test_dropped_text_branch_is_not_correct_at_the_cells_size(card, workload, monkeypatch):
+    from magi_tpu_torch.sampling import transport
+
+    monkeypatch.setattr(transport, "_combine3", faults.dropped_text(transport._combine3))
+    cell = cells.load(workload, REPO)
+    out = harness.run(cell, SEED + 3, 5.0, False, card, time.perf_counter())
+    assert not out["correct"], out["checks"]
+    assert _dit_checks_failed(out), out["checks"]
+    torch.cuda.empty_cache()
+
+
 def reference_spread(cell: cells.Cell, seed: int, device) -> dict:
     """The reference against itself: each checked step's update on the
     benchmark's noise, and on the same noise with every value moved by one
@@ -80,13 +96,16 @@ def reference_spread(cell: cells.Cell, seed: int, device) -> dict:
     moved = noise * (1 + sign * 2.0**-8)
     tokens = int(cell.traffic["caption_tokens"])
     embs, _ = W.caption(seed, mc["caption_max_length"], mc["caption_channels"], tokens)
-    fwds = [harness.reference_forward(rc, p, x[:, p.lo * cw : p.c_end * cw], device) for p in plans
+    fwds = [harness.reference_forwards(rc, p, x[:, p.lo * cw : p.c_end * cw], device) for p in plans
             for x in (noise, moved)]
-    outs = ref_dit.velocities(cfg, seed, device, fwds, torch.from_numpy(embs[0]), tokens,
+    outs = ref_dit.velocities(cfg, seed, device, [f for fs in fwds for f in fs], torch.from_numpy(embs[0]), tokens,
                               tuple(cell.config.get("smooth_linears", ())))
+    at = [0]
+    for fs in fwds:
+        at.append(at[-1] + len(fs))
     steps = []
     for k, p in enumerate(plans):
-        d0, d1 = (harness.reference_update(rc, p, v) for v in outs[2 * k : 2 * k + 2])
+        d0, d1 = (harness.reference_update(rc, p, outs[at[j] : at[j + 1]]) for j in (2 * k, 2 * k + 1))
         steps.append(harness.step_numbers(d1, d0, p.n_den, taus))
         harness.log(f"spread: {cell.name} step {p.index}: " + ", ".join(f"{k} {v:.6g}" for k, v in steps[-1].items()))
     return {k: max(st[k] for st in steps) for k in steps[0]}

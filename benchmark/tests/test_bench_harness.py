@@ -144,3 +144,75 @@ def test_without_the_program_a_run_fails(tmp_path):
     assert out.returncode != 0 and "correct" not in out.stdout
     assert "magi_tpu_torch" in out.stderr
     shutil.rmtree(root)
+
+
+@pytest.fixture(scope="module")
+def root3(tmp_path_factory):
+    """The tiny cell on the 4.5B base: three-branch CFG, 64 steps, its window
+    after the ramp, as the base cell's.  Its step check at tau 1e-2: the
+    program's update is read back as the difference of its f32 latent state
+    before and after a step, which at the 64-step grid's smallest dt (8e-5)
+    rounds some 1e-3 of the update away."""
+    return tiny.make_root(str(tmp_path_factory.mktemp("checkout3")), base="magi-4.5B-base", tau=1e-2,
+                          lead_in="ramp")
+
+
+def test_three_branch_cell_runs_correct_on_the_cpu(root3):
+    """A three-branch CFG cell added with new files alone: the program walks
+    its text, null-caption and uncond forwards, and the reference's three
+    forwards and their combination meet it."""
+    assert cells.load("tiny.t2v", root3).program_config()["runtime_config"]["cfg_number"] == 3
+    out = _run(root3)
+    assert out["correct"], out["checks"]
+    assert out["attempted"] > 0 and "first_chunk_s" in out["metrics"]
+    traced = _run(root3, trace=True)
+    assert traced["correct"] and {"tiny_steps", "step_mfu", "idle_share"} <= set(traced["metrics"])
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in _bench()["workloads"]])
+def test_lead_in_opens_the_window_in_the_steady_state(workload):
+    """A traffic with the `ramp` lead-in opens the window at the step that
+    writes the first clean chunk into the cache, after every step of the
+    ramp and before the first that reads the cache; one without it, at the
+    request's start."""
+    cell = cells.load(workload, REPO)
+    rc, ec = (cell.program_config()[k] for k in ("runtime_config", "engine_config"))
+    chunk_num = rc["num_frames"] // (rc["temporal_downsample_factor"] * rc["chunk_width"])
+    total = harness.schedule.total_steps(chunk_num, rc["num_steps"], rc["window_size"])
+    lead = harness.lead_in_steps(cell.traffic, rc, ec, chunk_num, total)
+    if cell.traffic.get("lead_in", "none") == "none":
+        assert lead == 0
+        return
+    plans = [harness.schedule.plan(rc, ec, chunk_num, i) for i in range(lead + 2)]
+    assert lead == rc["num_steps"] and plans[lead].extra and plans[lead + 1].cached
+    assert not any(p.extra or p.cached for p in plans[:lead])
+    with pytest.raises(ValueError):
+        harness.lead_in_steps({"lead_in": "half"}, rc, ec, chunk_num, total)
+
+
+@pytest.mark.parametrize("control", ["fp8_quant", "attn_int8"])
+def test_three_branch_control_is_not_correct(root3, control):
+    """The reference at w8a8 in the program's place (the program has no w8a8
+    path under three-branch CFG), and the program's int8 attention."""
+    sound, low = _run(root3), _run(root3, control=control)
+    assert not low["correct"]
+    assert low["checks"]["chunk_tail"]["value"] > 0.3 > 100 * sound["checks"]["chunk_tail"]["value"]
+
+
+@pytest.mark.parametrize("fault", ["dropped_text", "unchanged", "half", "one_chunk", "velocity"])
+def test_three_branch_faults_are_not_correct(root3, monkeypatch, fault):
+    """The text branch dropped from the combination (the null-caption
+    branch's output in its place), and the step faults of the single-branch
+    cell."""
+    from magi_tpu_torch.sampling import transport
+
+    if fault == "dropped_text":
+        monkeypatch.setattr(transport, "_combine3", faults.dropped_text(transport._combine3))
+    else:
+        orig = transport._integrate_and_store
+        fake = {"unchanged": faults.unchanged, "half": faults.half(orig), "one_chunk": faults.one_chunk(orig),
+                "velocity": faults.altered_velocity(orig)}[fault]
+        monkeypatch.setattr(transport, "_integrate_and_store", fake)
+    out = _run(root3)
+    assert not out["correct"]
+    assert out["checks"]["chunk_tail"]["value"] > out["checks"]["chunk_tail"]["limit"]

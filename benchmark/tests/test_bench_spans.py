@@ -107,11 +107,17 @@ def test_readers_find_nothing_without_a_trace_or_the_programs_spans(tmp_path, me
 
 
 def test_each_reader_is_a_per_layer_metric_of_both_cells():
+    """The step reader applies to every cell; the decode readers to the
+    cells whose window holds a decode, those of `decode_ms`; the request
+    reader to the cells whose window opens with the request (no lead-in)."""
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
         bench = json.load(f)
     entries = {m["name"]: m for m in bench["per_layer"]}
     cell_names = [w["name"] for w in bench["workloads"]]
+    from_start = [w for w in cell_names if cells.load(w, REPO).traffic.get("lead_in", "none") == "none"]
     for m in METRICS:
         assert entries[m]["source"] == "program_span" and entries[m]["unit"] == "ms"
-        assert entries[m]["workloads"] == cell_names
+        want = {"decode": entries["decode_ms"]["workloads"], "request": from_start}.get(m.split("_")[0], cell_names)
+        assert entries[m]["workloads"] == want
+    assert set(cell_names[:2]) <= set(entries["decode_ms"]["workloads"]) and set(cell_names[:2]) <= set(from_start)
     assert entries["request_idle_ms"]["moves"] == "first_chunk_s"

@@ -1,6 +1,7 @@
 """The frozen schedule against the program's plan, and the work and byte
 counts against hand counts at tiny shapes."""
 
+import dataclasses
 import json
 import os
 
@@ -42,6 +43,49 @@ def test_plan_matches_the_program(chunks):
             zip(p["kv_start"].tolist(), p["kv_end"].tolist()))
         np.testing.assert_array_equal(np.asarray(q.dt, np.float32), p["dt"])
         assert len(q.segments) == n_seg + int(q.nearly)
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 5])
+def test_three_branch_plan_matches_the_program(chunks):
+    """Every step of a three-branch walk (the released 4.5B base): the same
+    windows, timesteps, kv ranges and dt as `ArdfSampler._plan`, no
+    ride-along, each denoised chunk's scales as `ArdfSampler._cfg_scales`,
+    the null-caption forward over the text forward's segments, and the
+    uncond forward over the denoised chunks alone, self-only, at rope
+    position 0."""
+    from magi_tpu_torch.core.config import MagiConfig
+    from magi_tpu_torch.sampling.transport import ArdfSampler
+
+    conf = _released("magi-4.5B-base")
+    cfg = {k: conf[k] for k in ("model_config", "runtime_config", "engine_config")}
+    sampler = ArdfSampler.__new__(ArdfSampler)
+    sampler.config = MagiConfig.from_dict(cfg)
+    sampler.chunk_num, sampler.window, sampler.num_steps = chunks, 4, 64
+    sampler.chunk_offset, sampler.prefix_len, sampler.ctn = 0, 0, 7
+    sampler.t_total = schedule.init_t(64)
+    rc, ec = cfg["runtime_config"], cfg["engine_config"]
+    assert schedule.total_steps(chunks, 64, 4) == 16 * (chunks + 3)
+    seen = set()
+    for i in range(schedule.total_steps(chunks, 64, 4)):
+        p, q = ArdfSampler._plan(sampler, i), schedule.plan(rc, ec, chunks, i)
+        assert (q.c_start, q.c_end, q.sp, q.extra, q.nearly) == (p["c_start"], p["c_end"], p["sp"], p["extra"], False)
+        assert not p["distill_nearly"] and len(q.segments) == p["n_seg"]
+        assert [s.t for s in q.segments] == list(p["tvec"])
+        assert [(a * 7, b * 7) for a, b in (s.kv for s in q.segments)] == list(
+            zip(p["kv_start"].tolist(), p["kv_end"].tolist()))
+        np.testing.assert_array_equal(np.asarray(q.dt, np.float32), p["dt"])
+        ps, ts = ArdfSampler._cfg_scales(sampler, p["tvec_padded"][-p["n_den"]:])
+        assert q.scales == tuple(zip(ps.tolist(), ts.tolist()))
+        seen |= set(q.scales)
+        null, uncond = q.forwards[1][0], q.forwards[2][0]
+        assert [(s.src, s.pos, s.t, s.kv) for s in null] == [(s.src, s.pos, s.t, s.kv) for s in q.segments]
+        assert not any(s.text for s in null)
+        den = q.segments[int(q.extra):]
+        assert [(s.src, s.t) for s in uncond] == [(s.src, s.t) for s in den]
+        assert [(s.pos, s.kv, s.text) for s in uncond] == [(0, (j, j + 1), False) for j in range(q.n_den)]
+        assert [fw[1:] for fw in q.forwards] == [(False, False), (True, True), (True, False)]
+    # the released table's two pairs both occur
+    assert seen == {(1.5, 7.5), (1.0, 0.0)}
 
 
 def test_sd3_schedule():
@@ -110,3 +154,59 @@ def test_checked_steps_cover_each_kind():
         assert steps[0] == 0 and len(steps) == 4 and max(steps) < 24
         assert any(p.extra for p in plans) and any(p.cached for p in plans)
         assert any(p.n_den == 4 and not p.extra and not p.cached for p in plans)
+
+
+def _base_cfg(pack_uncond=False):
+    conf = _released("magi-4.5B-base")
+    cfg = {k: json.loads(json.dumps(conf[k])) for k in ("model_config", "runtime_config", "engine_config")}
+    cfg["runtime_config"].update(video_size_h=352, video_size_w=640, num_frames=960)
+    cfg["engine_config"]["pack_uncond"] = pack_uncond
+    return cfg
+
+
+def test_three_branch_work_is_the_same_with_pack_uncond():
+    """The count follows the three forwards the arithmetic needs, whether
+    the program packs the uncond segments into the text forward or not."""
+    runs = [work.window_ops(_base_cfg(pack), 64, list(range(0, 150, 7)), 40) for pack in (False, True)]
+    assert [dataclasses.asdict(o) for o in runs[0]] == [dataclasses.asdict(o) for o in runs[1]]
+
+
+def test_three_branch_step_counts_its_three_forwards_by_hand():
+    """A full-window step with a cached chunk: the text and null-caption
+    forwards over the window (their caption tokens the request's and the
+    null one's), and the uncond forward over the denoised chunks alone,
+    each attending itself; a single-branch count of each forward's
+    segments adds up to the step's."""
+    rc = _released("magi-4.5B-base")["runtime_config"]
+    ec = _released("magi-4.5B-base")["engine_config"]
+    step = next(p for p in (schedule.plan(rc, ec, 8, i) for i in range(200)) if p.cached and p.n_den == 4)
+    geo = _geo()
+    ops = {(o.kind, o.precision): o for o in work.step_ops(geo, step)}
+    one = [{(o.kind, o.precision): o for o in work.step_ops(geo, dataclasses.replace(
+        step, segments=segs, scales=()))} for segs, _, _ in step.forwards]
+    for key, op in ops.items():
+        assert op.ops == pytest.approx(sum(o[key].ops for o in one))
+        assert op.nbytes == pytest.approx(sum(o[key].nbytes for o in one))
+    n_win, L, ctn = len(step.segments), 3, geo.ctn
+    pairs = 2 * sum(b - a for a, b in (s.kv for s in step.segments)) + step.n_den
+    assert ops[("self_attention", "bf16")].ops == 4 * 2 * 2 * pairs * ctn * ctn * L
+    cap = sum(2 if s.text else 1 for s in step.segments) + n_win * 1 + step.n_den * 1
+    assert ops[("cross_attention", "bf16")].ops == 4 * 2 * 2 * ctn * cap * L
+    tokens = (2 * n_win + step.n_den) * ctn
+    per_token = 2 * (8 * (4 + 4 + 2 + 2) + 8 * 8 + 8 * 16 + 16 * 8)
+    cap_rows = (2 * n_win + step.n_den) * 4
+    assert ops[("linear", "bf16")].ops == (tokens * per_token + cap_rows * 2 * 8 * 4) * L
+
+
+def test_checked_steps_hold_both_scales_under_three_branch_cfg():
+    """The four kinds of checked step, and under three-branch CFG a step
+    whose denoised chunks take both of the released scale pairs."""
+    conf = _released("magi-4.5B-base")
+    rc, ec = conf["runtime_config"], conf["engine_config"]
+    for seed in (1, 2**31 + 5, 12345, 77):
+        steps = harness.checked_steps(seed, rc, ec, 40, schedule.total_steps(40, 64, 4))
+        plans = [schedule.plan(rc, ec, 40, i) for i in steps]
+        assert steps[0] == 0 and max(steps) < 6 * 16
+        assert any(p.extra for p in plans) and any(p.cached for p in plans)
+        assert any(p.n_den == 4 and not p.extra and not p.cached for p in plans)
+        assert any({(1.5, 7.5), (1.0, 0.0)} <= set(p.scales) for p in plans)

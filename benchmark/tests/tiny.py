@@ -26,10 +26,11 @@ def read(r):
 '''
 
 
-def make_root(tmp: str, base: str = "magi-4.5B-distill", dtype: str = "torch.float32", tau: float = 1e-3) -> str:
+def make_root(tmp: str, base: str = "magi-4.5B-distill", dtype: str = "torch.float32", tau: float = 1e-3,
+              lead_in: str = "none") -> str:
     """A checkout holding BENCHMARK.json and the benchmark's folder, with the
-    tiny cell `tiny.t2v` (configuration `tiny`, its step check at `tau`)
-    added; returns its root."""
+    tiny cell `tiny.t2v` (configuration `tiny`, its step check at `tau`, its
+    traffic's `lead_in`) added; returns its root."""
     shutil.copytree(os.path.join(REPO, "benchmark"), os.path.join(tmp, "benchmark"),
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
@@ -41,7 +42,7 @@ def make_root(tmp: str, base: str = "magi-4.5B-distill", dtype: str = "torch.flo
     conf["vae"].update(TINY_VAE)
     files = {"configs/tiny.json": conf,
              "traffic/tiny.json": {"kind": "t2v", "loop": "closed", "clients": 1, "video_size_h": 32,
-                                   "video_size_w": 48, "num_frames": 96, "caption_tokens": 8},
+                                   "video_size_w": 48, "num_frames": 96, "caption_tokens": 8, "lead_in": lead_in},
              "limits/tiny.t2v.json": {**LIMITS, "chunk_tail": {**LIMITS["chunk_tail"], "tau": tau}}}
     for name, content in files.items():
         with open(os.path.join(tmp, "benchmark", name), "w") as f:

@@ -78,22 +78,15 @@ def _linear_group(rows: int, k: int, outs: List[int], precision: str, calls: int
 
 
 def step_ops(geo: Geometry, step: schedule.Step) -> List[Op]:
-    """The step's work by kind and precision (its one forward over the plan's
-    segments, every layer)."""
+    """The step's work by kind and precision: each of its forwards (one, or
+    three under three-branch CFG) over its segments, every layer.  The
+    count follows the forwards the step's arithmetic needs, not how the
+    program batches them (packing the uncond segments into the text forward
+    counts the same)."""
     mc = geo.mc
     D, hd, hq, hk = mc["hidden_size"], mc["kv_channels"], mc["num_attention_heads"], mc["num_query_groups"]
     L, ffn = mc["num_layers"], mc["ffn_hidden_size"]
     fc1 = 2 * ffn if mc["gated_linear_unit"] else ffn
-    n = len(step.segments)
-    tokens = n * geo.ctn
-    cap_rows = n * geo.caption_rows
-    groups = [  # (rows, k, outs): q/qx/k/v share the pre-LN input
-        (tokens, D, [hq * hd, hq * hd, hk * hd, hk * hd]),
-        (cap_rows, D, [2 * hk * hd]),
-        (tokens, 2 * hq * hd, [D]),
-        (tokens, D, [fc1]),
-        (tokens, ffn, [D]),
-    ]
     mid = L - 2 if geo.w8a8 else 0
     acc = {}
 
@@ -101,30 +94,41 @@ def step_ops(geo: Geometry, step: schedule.Step) -> List[Op]:
         o, nb, bs = acc.get((kind, prec), (0.0, 0.0, 0.0))
         acc[(kind, prec)] = (o + ops, nb + nbytes, bs + b)
 
-    for rows, k, outs in groups:
-        if mid:
-            add("linear", "int8", *_linear_group(rows, k, outs, "int8", mid))
-        add("linear", "bf16", *_linear_group(rows, k, outs, "bf16", L - mid))
-    # self-attention: QK^T and PV, 2 operations a multiply-add, over each
-    # segment's range; keys and values read once over the union of ranges
-    pairs = sum((b - a) for a, b in (s.kv for s in step.segments)) * geo.ctn * geo.ctn
-    ops = 4.0 * hq * hd * pairs
-    lo = min(s.kv[0] for s in step.segments)
-    hi = max(s.kv[1] for s in step.segments)
-    kv_tokens = (hi - lo) * geo.ctn
-    nbytes = 2 * (2 * tokens * hq * hd + 2 * kv_tokens * hk * hd)  # bf16 q and out, k and v
-    add("self_attention", "bf16", ops * L, nbytes * L, bound(ops, nbytes, "bf16") * L)
-    # caption cross-attention over each segment's valid caption tokens
-    cap = sum(geo.caption_tokens if s.text else geo.null_tokens for s in step.segments)
-    ops = 4.0 * hq * hd * geo.ctn * cap
-    nbytes = 2 * (2 * tokens * hq * hd + 2 * cap * hk * hd)
-    add("cross_attention", "bf16", ops * L, nbytes * L, bound(ops, nbytes, "bf16") * L)
-    # the fp32 patch embedding, caption projection and final linear
-    in_feat = mc["in_channels"] * mc["t_patch_size"] * mc["patch_size"] ** 2
-    out_feat = mc["out_channels"] * mc["t_patch_size"] * mc["patch_size"] ** 2
-    ops = 2.0 * tokens * (in_feat + out_feat) * D + 2.0 * cap_rows * mc["caption_channels"] * D
-    nbytes = 4 * (tokens * (in_feat + out_feat + 2 * D) + cap_rows * (mc["caption_channels"] + D))
-    add("embed", "fp32", ops, nbytes, bound(ops, nbytes, "fp32"))
+    for segments, _, _ in step.forwards:
+        n = len(segments)
+        tokens = n * geo.ctn
+        cap_rows = n * geo.caption_rows
+        groups = [  # (rows, k, outs): q/qx/k/v share the pre-LN input
+            (tokens, D, [hq * hd, hq * hd, hk * hd, hk * hd]),
+            (cap_rows, D, [2 * hk * hd]),
+            (tokens, 2 * hq * hd, [D]),
+            (tokens, D, [fc1]),
+            (tokens, ffn, [D]),
+        ]
+        for rows, k, outs in groups:
+            if mid:
+                add("linear", "int8", *_linear_group(rows, k, outs, "int8", mid))
+            add("linear", "bf16", *_linear_group(rows, k, outs, "bf16", L - mid))
+        # self-attention: QK^T and PV, 2 operations a multiply-add, over each
+        # segment's range; keys and values read once over the union of ranges
+        pairs = sum((b - a) for a, b in (s.kv for s in segments)) * geo.ctn * geo.ctn
+        ops = 4.0 * hq * hd * pairs
+        lo = min(s.kv[0] for s in segments)
+        hi = max(s.kv[1] for s in segments)
+        kv_tokens = (hi - lo) * geo.ctn
+        nbytes = 2 * (2 * tokens * hq * hd + 2 * kv_tokens * hk * hd)  # bf16 q and out, k and v
+        add("self_attention", "bf16", ops * L, nbytes * L, bound(ops, nbytes, "bf16") * L)
+        # caption cross-attention over each segment's valid caption tokens
+        cap = sum(geo.caption_tokens if s.text else geo.null_tokens for s in segments)
+        ops = 4.0 * hq * hd * geo.ctn * cap
+        nbytes = 2 * (2 * tokens * hq * hd + 2 * cap * hk * hd)
+        add("cross_attention", "bf16", ops * L, nbytes * L, bound(ops, nbytes, "bf16") * L)
+        # the fp32 patch embedding, caption projection and final linear
+        in_feat = mc["in_channels"] * mc["t_patch_size"] * mc["patch_size"] ** 2
+        out_feat = mc["out_channels"] * mc["t_patch_size"] * mc["patch_size"] ** 2
+        ops = 2.0 * tokens * (in_feat + out_feat) * D + 2.0 * cap_rows * mc["caption_channels"] * D
+        nbytes = 4 * (tokens * (in_feat + out_feat + 2 * D) + cap_rows * (mc["caption_channels"] + D))
+        add("embed", "fp32", ops, nbytes, bound(ops, nbytes, "fp32"))
     return [Op(kind, prec, *v) for (kind, prec), v in acc.items()]
 
 
