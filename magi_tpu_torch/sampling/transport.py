@@ -475,13 +475,16 @@ class ArdfSampler:
         """`do_step`, then wait for the current stream's work (other streams,
         such as a decode worker's, run on) and log the host seconds.  Span
         `magi/step`, with the step's variant, its denoised chunks, whether
-        a clean chunk leads its window, and the query and key tokens of the
+        a clean chunk leads its window, the query and key tokens of the
         self-attention of its window's forward (`_plan`'s `q_tokens`,
-        `kv_tokens`)."""
+        `kv_tokens`), the DiT forwards it runs (`forwards`) and the
+        self-attention's query-key token pairs over them all
+        (`attn_pairs`)."""
         t0 = time.perf_counter()
         p = self._planned(step)
-        with span("magi/step", req=self.req, step=step, variant=self._variant(p), n_den=p["n_den"],
-                  extra=p["extra"], q_tokens=p["q_tokens"], kv_tokens=p["kv_tokens"]):
+        with span("magi/step", req=self.req, step=step, variant=p["variant"], n_den=p["n_den"],
+                  extra=p["extra"], q_tokens=p["q_tokens"], kv_tokens=p["kv_tokens"], forwards=p["forwards"],
+                  attn_pairs=p["attn_pairs"]):
             emitted = self.do_step(step)
             with span("magi/step/sync"):
                 if self.device.type == "cuda":
@@ -498,17 +501,26 @@ class ArdfSampler:
                 self._warmed = True
 
     def _planned(self, step: int) -> dict:
-        """`_plan(step)`, worked out once."""
+        """`_plan(step)`, worked out once, with the step's variant and the
+        DiT forwards it runs (`forwards`: 3 under 3-branch CFG, 2 when the
+        uncond segments are packed into the text forward, 1 under
+        single-branch CFG)."""
         p = self._plans.get(step)
         if p is None:
             p = self._plans[step] = self._plan(step)
+            p["variant"] = v = self._variant(p)
+            p["forwards"] = 1 if v[0] == "cfg1" else 3 - int(v[4])
         return p
 
     def _plan(self, step: int) -> dict:
         """Pure host arithmetic for one step: schedule, ranges, flags, and
         the tokens of its window's forward: its queries (`q_tokens`, the
         ride-along chunk's included) and the keys its self-attention reads
-        over every segment's kv range (`kv_tokens`)."""
+        over every segment's kv range (`kv_tokens`); and the query-key token
+        pairs of the step's self-attention over all its forwards
+        (`attn_pairs`: each segment's queries times its kv range; under
+        3-branch CFG the text and null-caption forwards over the window's
+        ranges and each uncond chunk over itself)."""
         rc, ec = self.config.runtime_config, self.config.engine_config
         dpss, didx, c_start, c_end, t_start, t_end = self._status(step)
         n_den = c_end - c_start
@@ -535,12 +547,14 @@ class ArdfSampler:
         # rides along as a text-only copy
         distill_nearly = (rc.cfg_number == 1
                           and float(tvec_padded[int(extra)]) > ec.distill_nearly_clean_chunk_threshold)
+        kv_tokens = int(np.sum(kv_end - kv_start)) + int(distill_nearly) * self.ctn
+        self_only = n_den if rc.cfg_number == 3 else 0  # the uncond forward's chunks, each over itself
         return dict(
             didx=didx, c_start=c_start, c_end=c_end, n_den=n_den, extra=extra, sp=sp, n_seg=n_seg,
             tvec=tvec, tvec_padded=tvec_padded, kv_start=kv_start, kv_end=kv_end, dt=dt,
             use_prefix=use_prefix, distill_nearly=distill_nearly,
-            q_tokens=(n_seg + int(distill_nearly)) * self.ctn,
-            kv_tokens=int(np.sum(kv_end - kv_start)) + int(distill_nearly) * self.ctn,
+            q_tokens=(n_seg + int(distill_nearly)) * self.ctn, kv_tokens=kv_tokens,
+            attn_pairs=(kv_tokens * (2 if rc.cfg_number == 3 else 1) + self_only * self.ctn) * self.ctn,
         )
 
     def _variant(self, p: dict) -> tuple:
@@ -559,7 +573,7 @@ class ArdfSampler:
         the functions the JAX package compiles for it."""
         out = [("warmup", self.chunk_offset)] if self.chunk_offset > 0 else []
         for step in range(self.total_forward_steps()):
-            v = self._variant(self._planned(step))
+            v = self._planned(step)["variant"]
             if v not in out:
                 out.append(v)
         return out
@@ -590,7 +604,7 @@ class ArdfSampler:
                                  f"{self.cache_tokens} tokens")
             self._stage_step(p, sp, cache_sp, kv_start_r, kv_end_r)
         with span("magi/step/replay"):
-            self._run(self._variant(p), cache_sp)
+            self._run(p["variant"], cache_sp)
 
         for ci in range(c_start, c_end):
             self.counts[ci] += 1
@@ -765,7 +779,7 @@ class ArdfSampler:
         plans = {}
         for step in range(self.total_forward_steps()):
             p = self._planned(step)
-            plans.setdefault(self._variant(p), p)
+            plans.setdefault(p["variant"], p)
         t0 = time.perf_counter()
         todo = sorted(todo, key=lambda v: -self._variant_size(v, plans.get(v)))
         written = max(self._variant_size(v, plans.get(v)) for v in todo) * self.ctn

@@ -150,6 +150,11 @@ def test_walk_spans_nest_and_carry_the_frozen_schedules_counts(case, stand_in, t
         assert (int(s[1]["n_den"]), int(s[1]["extra"])) == (q.n_den, int(q.extra))
         assert int(s[1]["q_tokens"]) == len(q.segments) * ctn
         assert int(s[1]["kv_tokens"]) == sum(b - a for a, b in (g.kv for g in q.segments)) * ctn
+        # every forward of the step, as the benchmark's schedule has them (the uncond one apart)
+        fwds = schedule.plan(dataclasses.asdict(cfg.runtime_config), dataclasses.asdict(cfg.engine_config), chunks,
+                             i).forwards
+        assert int(s[1]["forwards"]) == len(fwds) == (1 if case == "distill_cfg1" else 3)
+        assert int(s[1]["attn_pairs"]) == sum(b - a for f, _, _ in fwds for a, b in (g.kv for g in f)) * ctn * ctn
     assert len(_of(spans, "magi/step/replay")) == total
     if case == "distill_cfg1":  # the ride-along segment counted on some steps, not all
         nearly = [_frozen_plan(cfg, chunks, i).nearly for i in range(total)]
